@@ -8,17 +8,27 @@ Phases, each printing its lines:
 1. build the kernels of ``qublas_tpu_torch/csrc`` (nvcc) and print the
    build time, the compiler's register/spill report and the card;
 2. hold each kernel against its plain-torch version on the card, bit for
-   bit (max |difference| 0), at the main path's shapes, ragged shapes and
-   every rounding x overflow mode of the fused epilogue;
-3. drive the main path through the public entry points: the quantized GEMM
-   pipeline (``QuantPipeline``: GEMM -> sqrt ROM -> cast -> GEMM) at 4096^3
-   and the canonical order-sensitive ``qgemul`` at 2048^3, from seeded
-   random raws; check that K1 launched twice and K2 once, that the results
-   equal the plain versions, and that 16x16 corners equal the exact host
-   golden model;
+   bit (max |difference| 0), at the main paths' shapes, ragged shapes and
+   every rounding x overflow mode: K1 (fused int8 GEMM), K2 (tree GEMM),
+   K2′ (tree GEMM, one-pass schedule) and K3 (tree reduce: any n, odd
+   tails, int8/int16/int32 lanes, an out-of-range raw at the odd tail);
+3. drive the main paths through the public entry points, each with the
+   launch counts set to 0 just before it and read just after:
+   a. the quantized GEMM pipeline (``QuantPipeline``: GEMM -> sqrt ROM ->
+      cast -> GEMM) at 4096^3 and the canonical order-sensitive ``qgemul``
+      at 2048^3: K1 twice, K2 once;
+   b. ``qreduce`` of BASELINE config 2 at [4096, 1024], and the layered
+      canonical GEMM at 512^3 (``qcast(qreduce(qmul(a[:, :, None],
+      b[None]), (), axis=1))``) beside ``tree_gemm_stream`` and ``qgemul``
+      on the same operands: K3 twice, K2′ once, K2 once; the three GEMMs
+      must agree bit for bit;
+   c. the elementwise ops at 4096x4096 on the card against the same ops on
+      CPU copies (plain torch ops, no kernel);
+   every result is checked against the plain versions, and 16x16 corners
+   against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
-   after warm-up), with torch._int_mm at 4096^3 as the raw int8 reference,
-   and the two main-path calls end to end.
+   after warm-up) beside its bound and, where one exists, the PyTorch call
+   computing the same function, and the main-path calls end to end.
 
 The second-to-last line is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -34,8 +44,19 @@ import time
 # main-path sizes
 PIPE_N = 4096                     # x, W1, W2: PIPE_N x PIPE_N
 TREE_N = 2048                     # canonical qgemul: TREE_N^3
+REDUCE_SHAPE = (4096, 1024)       # BASELINE config 2, reduced over axis 1
+REDUCE_BIG_ROWS = 131072          # K3 timed at [REDUCE_BIG_ROWS, 1024]
+LAYERED_N = 512                   # layered canonical GEMM: LAYERED_N^3
+EW_N = 4096                       # elementwise ops: EW_N x EW_N
 CORNER = 16                       # corner checked against the host model
 TIMED_RUNS = 10
+
+# peak rates of one H100 SXM at its 700 W limit: HBM bytes/s and int8
+# tensor-core ops/s (NVIDIA's data sheet), and int32 ALU ops/s: 132 SMs x
+# 64 INT32 lanes (Hopper white paper) x 1.98 GHz boost clock
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12
+INT32_OPS_S = 132 * 64 * 1.98e9
 
 
 def card_line() -> str:
@@ -66,9 +87,11 @@ def timeit(fn, runs=TIMED_RUNS, warmup=2):
 
 
 def rand_raws(rng, fmt, shape, dtype):
-    import numpy as np
-
     return rng.randint(fmt.raw_min, fmt.raw_max + 1, size=shape).astype(dtype)
+
+
+def check_launches(what, got, want):
+    assert got == want, f"{what}: launches {got}, expected {want}"
 
 
 class Checker:
@@ -92,6 +115,18 @@ class Checker:
         print(f"  {kernel} == plain: {what}")
 
 
+def formats():
+    """The formats of the main paths."""
+    import qublas_tpu_torch as qt
+
+    f88z = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
+    f44 = qt.qformat(4, 4)
+    config2 = (qt.qformat(5, 3, round_mode=qt.RoundMode.RND_CONV,
+                          overflow_mode=qt.OverflowMode.SAT_ZERO),
+               qt.qformat(6, 2))
+    return f88z, f44, config2
+
+
 def phase_kernels(dev, chk):
     """Phase 2: each kernel against its plain version on the card."""
     import numpy as np
@@ -99,7 +134,11 @@ def phase_kernels(dev, chk):
 
     import qublas_tpu_torch as qt
     from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm_plain
-    from qublas_tpu_torch.ops.tree_gemm import plan_tree, tree_gemm_plain
+    from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
+                                             qreduce_plain)
+    from qublas_tpu_torch.ops.tree_gemm import (plan_tree, tree_gemm_plain,
+                                                tree_gemm_stream,
+                                                tree_gemm_stream_plain)
 
     rng = np.random.RandomState(7)
     fa, wide, mid = qt.pipeline_formats()
@@ -130,7 +169,9 @@ def phase_kernels(dev, chk):
     k1_case("left-shift epilogue 70x96x50 -> Qu<8,10>", fa, wide,
             qt.qformat(8, 10), 70, 96, 50, np.int8)
 
-    f88z = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
+    f88z, f44, config2 = formats()
+    layered = (qt.qformat(9, 6, round_mode=qt.RoundMode.RND_CONV),
+               qt.qformat(10, 4))
 
     def k2_case(what, m, k, n, layers=()):
         a = qt.from_raw(rand_raws(rng, f88z, (m, k), np.int32), f88z, dev)
@@ -140,19 +181,62 @@ def phase_kernels(dev, chk):
         got = qt.qgemul(a, b, f88z, add_formats=layers)
         ref = qt.QTensor(tree_gemm_plain(a.data, b.data, plan, f88z), f88z)
         chk.same("tree_gemm", what, got, ref)
+        got = tree_gemm_stream(a.data, b.data, plan, f88z)
+        ref = tree_gemm_stream_plain(a.data, b.data, plan, f88z)
+        chk.same("tree_gemm_stream", what, got, ref)
 
-    k2_case("canonical Qu<8,8,SAT::ZERO> 512^3", 512, 512, 512)
+    k2_case(f"canonical Qu<8,8,SAT::ZERO> {LAYERED_N}^3", LAYERED_N,
+            LAYERED_N, LAYERED_N)
     k2_case("k=1000 (drain converts and adds) 200x1000x300", 200, 1000, 300)
     k2_case("ragged m, n 77x96x45", 77, 96, 45)
     k2_case("odd k 33x13x17", 33, 13, 17)
-    k2_case("layered formats 128x128x128", 128, 128, 128,
-            (qt.qformat(9, 6, round_mode=qt.RoundMode.RND_CONV),
-             qt.qformat(10, 4)))
+    k2_case("layered formats 128x128x128", 128, 128, 128, layered)
+
+    def k3_case(what, fmt, layers, shape, axis, dtype, tail=None):
+        x = rand_raws(rng, fmt, shape, np.int64)
+        if tail is not None:
+            x[..., -1] = tail          # the odd tail of every row
+        x = torch.from_numpy(x.astype(dtype)).to(dev)
+        plan = plan_reduce(fmt, layers, shape[axis])
+        assert plan is not None, what
+        got = qreduce_kernel(x, axis, plan)
+        ref = qreduce_plain(x, axis, plan)
+        chk.same("qreduce_kernel", what, got, ref)
+
+    r0, r1 = REDUCE_SHAPE
+    k3_case(f"config 2 [{r0}, {r1}] axis 1", f44, config2, REDUCE_SHAPE, 1,
+            np.int8)
+    k3_case(f"config 2 [{r0}, {r1}] axis 0", f44, config2, REDUCE_SHAPE, 0,
+            np.int8)
+    for n3 in (3, 13, 1000):
+        k3_case(f"config 2 n={n3} rows [300, {n3}]", f44, config2,
+                (300, n3), 1, np.int8)
+        k3_case(f"config 2 n={n3} columns [4, {n3}, 45]", f44, config2,
+                (4, n3, 45), 1, np.int8)
+    k3_case("batch 77 (not a multiple of 32) n=1000", f44, config2,
+            (77, 1000), 1, np.int8)
+    k3_case("int16 lanes Qu<7,4> [300, 24]", qt.qformat(7, 4), config2,
+            (300, 24), 1, np.int16)
+    k3_case("int32 lanes Qu<20,8> -> Qu<26,2> [5, 1000, 3]",
+            qt.qformat(20, 8), (qt.qformat(26, 2),), (5, 1000, 3), 1,
+            np.int32)
+    k3_case("no layer formats [300, 13]", f44, (), (300, 13), 1, np.int8)
+    smgn = qt.qformat(3, 4, overflow_mode=qt.OverflowMode.SAT_SMGN)
+    k3_case("SAT::SMGN, raw -128 at the odd tail [64, 13]", smgn, (),
+            (64, 13), 1, np.int8, tail=smgn.raw_min)
+    k3_case("Qu<3,4>, raw 300 (int16 lane) at the odd tail [64, 13]",
+            qt.qformat(3, 4), (), (64, 13), 1, np.int16, tail=300)
+    for rm in qt.RoundMode:
+        for om in qt.OverflowMode:
+            for signed in (True, False):
+                lf = qt.qformat(5, 2, signed, rm, om)
+                k3_case(f"[100, 13] -> {lf}", f44, (lf,), (100, 13), 1,
+                        np.int8)
     torch.cuda.synchronize()
 
 
 def phase_main_path(dev, chk):
-    """Phase 3: the main path through the public entry points."""
+    """Phase 3a: the GEMM path through the public entry points."""
     import numpy as np
     import torch
 
@@ -170,7 +254,7 @@ def phase_main_path(dev, chk):
     w2_np = rand_raws(rng, fa, (n, n), np.int8)
     pipe = qt.QuantPipeline.from_numpy(w1_np, w2_np, dev)
     x = torch.from_numpy(x_np).to(dev)
-    f88z = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
+    f88z = formats()[0]
     rng = np.random.RandomState(1)
     a2 = qt.from_raw(rand_raws(rng, f88z, (TREE_N, TREE_N), np.int32), f88z,
                      dev)
@@ -187,9 +271,10 @@ def phase_main_path(dev, chk):
     wall = time.perf_counter() - t0
     launches = {"fused_int8_gemm": fused_int8_gemm.launches,
                 "tree_gemm": tree_gemm.launches}
-    print(f"main path: pipeline {n}^3 + canonical qgemul {TREE_N}^3 in "
+    print(f"main path a: pipeline {n}^3 + canonical qgemul {TREE_N}^3 in "
           f"{wall * 1e3:.3f} ms wall (first call), launches {launches}")
-    assert launches == {"fused_int8_gemm": 2, "tree_gemm": 1}, launches
+    check_launches("main path a", launches,
+                   {"fused_int8_gemm": 2, "tree_gemm": 1})
 
     assert y.shape == (n, n) and y.dtype == torch.int8, (y.shape, y.dtype)
     assert int(y.min()) >= mid.raw_min and int(y.max()) <= mid.raw_max
@@ -221,24 +306,232 @@ def phase_main_path(dev, chk):
         "GEMM 2 corner vs host"
     host = qt.host_qgemul(a2[:cn], b2[:, :cn], f88z)
     assert np.array_equal(c.raw()[:cn, :cn], host), "tree corner vs host"
-    print(f"main path: {cn}x{cn} corners of both pipeline GEMMs and the "
+    print(f"main path a: {cn}x{cn} corners of both pipeline GEMMs and the "
           "canonical tree equal hostops.qgemul")
     return launches, (x, pipe, plan1, mid, a2, b2, tplan, f88z)
 
 
-def phase_times(card, state):
-    """Phase 4: kernel, plain, torch._int_mm and main-path times."""
+def phase_reduce_path(dev, chk):
+    """Phase 3b: Qreduce and the layered canonical GEMM through the public
+    entry points."""
+    import numpy as np
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import hostops
+    from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
+    from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
+                                             qreduce_plain)
+    from qublas_tpu_torch.ops.tree_gemm import (plan_tree, tree_gemm,
+                                                tree_gemm_stream)
+
+    f88z, f44, config2 = formats()
+    rng = np.random.RandomState(2)
+    # int8 lanes, as bench.py:bench_reduce feeds config 2
+    x_np = rand_raws(rng, f44, REDUCE_SHAPE, np.int8)
+    x = qt.QTensor(torch.from_numpy(x_np).to(dev), f44)
+    ln = LAYERED_N
+    a3 = qt.from_raw(rand_raws(rng, f88z, (ln, ln), np.int32), f88z, dev)
+    b3 = qt.from_raw(rand_raws(rng, f88z, (ln, ln), np.int32), f88z, dev)
+    splan = plan_tree(f88z, f88z, qt.mul_merge(f88z, f88z), (), ln, f88z)
+    torch.cuda.synchronize()
+
+    counters = (fused_int8_gemm, tree_gemm, tree_gemm_stream, qreduce_kernel)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    r = qt.qreduce(x, config2, axis=1)
+    prod = qt.qmul(qt.QTensor(a3.data[:, :, None], f88z),
+                   qt.QTensor(b3.data[None], f88z))
+    layered = qt.qcast(qt.qreduce(prod, (), axis=1), f88z)
+    stream = tree_gemm_stream(a3.data, b3.data, splan, f88z)
+    c3 = qt.qgemul(a3, b3, f88z)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"main path b: qreduce {list(REDUCE_SHAPE)} + layered GEMM, "
+          f"tree_gemm_stream and qgemul at {ln}^3 in {wall * 1e3:.3f} ms "
+          f"wall (first call), launches {launches}")
+    check_launches("main path b", launches,
+                   {"fused_int8_gemm": 0, "tree_gemm": 1,
+                    "tree_gemm_stream": 1, "qreduce_kernel": 2})
+
+    assert r.shape == (REDUCE_SHAPE[0],) and r.fmt == config2[1]
+    assert r.data.dtype == torch.int16
+    r_plan = plan_reduce(f44, config2, REDUCE_SHAPE[1])
+    chk.same("qreduce_kernel", f"qreduce config 2 {list(REDUCE_SHAPE)}",
+             r.data, qreduce_plain(x.data, 1, r_plan))
+    plan = plan_reduce(f88z, (), ln)
+    chk.same("qreduce_kernel", f"layered GEMM's reduce [{ln}]*3 axis 1",
+             qt.qreduce(prod, (), axis=1).data,
+             qreduce_plain(prod.data, 1, plan))
+    chk.same("tree_gemm_stream", f"tree_gemm_stream == qgemul {ln}^3",
+             stream, c3.data)
+    chk.same("qreduce_kernel", f"layered GEMM == qgemul {ln}^3", layered,
+             c3)
+    print(f"main path b: layered GEMM, tree_gemm_stream and qgemul agree "
+          f"bit for bit at {ln}^3")
+
+    cn = CORNER
+    for i in range(cn):
+        raw, fmt = hostops.qreduce_list([(int(v), f44) for v in x_np[i]],
+                                        config2)
+        assert fmt == r.fmt and raw == int(r.data[i]), ("qreduce row", i)
+    host = qt.host_qgemul(a3[:cn], b3[:, :cn], f88z)
+    assert np.array_equal(layered.raw()[:cn, :cn], host), "layered vs host"
+    print(f"main path b: {cn} rows of qreduce equal hostops.qreduce_list, "
+          f"the {cn}x{cn} corner of the layered GEMM hostops.qgemul")
+    return launches, (x, r_plan, prod, plan, a3, b3, splan, f88z)
+
+
+def phase_elementwise(dev):
+    """Phase 3c: the elementwise ops on the card against CPU copies and the
+    host golden model."""
+    import numpy as np
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import hostops
+
+    f88z = formats()[0]
+    fb = qt.qformat(4, 6, round_mode=qt.RoundMode.RND_CONV)
+    rng = np.random.RandomState(3)
+    b_np = rand_raws(rng, fb, (EW_N, EW_N), np.int16)
+    b_np[::7, ::3] = 0                       # divide by zero -> 0
+    a = qt.from_raw(rand_raws(rng, f88z, (EW_N, EW_N), np.int32), f88z, dev)
+    b = qt.from_raw(b_np, fb, dev)
+    ac, bc = a.to("cpu"), b.to("cpu")
+    cases = [
+        ("qmul (i32 route)", qt.qmul, hostops.qmul, True),
+        ("qmul (split route)", lambda x, y: qt.qmul(x, x),
+         lambda u, v: hostops.qmul(u, u), True),
+        ("qadd", qt.qadd, hostops.qadd, True),
+        ("qsub", qt.qsub, hostops.qsub, True),
+        ("qdiv", qt.qdiv, hostops.qdiv, True),
+        ("qabs", lambda x, y: qt.qabs(y), lambda u, v: hostops.qabs(v), True),
+        ("qneg", lambda x, y: qt.qneg(x), lambda u, v: hostops.qneg(u),
+         True),
+        ("qcmp", qt.qcmp, hostops.qcmp, False),
+        ("qeq", qt.qeq, hostops.qeq, False),
+        ("qcast", lambda x, y: qt.qcast(x, fb),
+         lambda u, v: hostops.convert(u, fb), True),
+    ]
+    cn = CORNER
+    ar, br = a.raw()[:cn, :cn], b.raw()[:cn, :cn]
+    for what, op, host_op, is_q in cases:
+        got, ref = op(a, b), op(ac, bc)
+        gd, rd = (got.data, ref.data) if is_q else (got, ref)
+        assert gd.device == a.device and gd.dtype == rd.dtype, what
+        assert torch.equal(gd.cpu(), rd), f"{what}: card != CPU"
+        corner = gd[:cn, :cn].cpu().numpy()
+        for i in range(cn):
+            for j in range(cn):
+                h = host_op((int(ar[i, j]), a.fmt), (int(br[i, j]), b.fmt))
+                if is_q:
+                    assert h[1] == got.fmt and h[0] == int(corner[i, j]), \
+                        (what, i, j)
+                else:
+                    assert int(h) == int(corner[i, j]), (what, i, j)
+    torch.cuda.synchronize()
+    print(f"main path c: {len(cases)} elementwise ops at {EW_N}x{EW_N} on "
+          f"the card equal the CPU, their {cn}x{cn} corners hostops")
+
+
+def rq_ops(from_frac, fmt):
+    """int32 operations of one requantize from ``from_frac`` into ``fmt``
+    on the path csrc/requant.cuh takes for it: the rounding stage, then
+    the overflow stage."""
+    import qublas_tpu_torch as qt
+
+    rm, om = fmt.round_mode, fmt.overflow_mode
+    d = from_frac - fmt.frac_bits
+    if d <= 0 or rm == qt.RoundMode.TRN_TCPL:
+        ops = 1                      # shift
+    elif rm == qt.RoundMode.TRN_SMGN:
+        ops = 3                      # bias select, add, shift
+    else:
+        ops = 7                      # shift, mask, compares, carry, add
+    if om == qt.OverflowMode.SAT_ZERO:
+        ops += 3                     # subtract, unsigned compare, select
+    elif om in (qt.OverflowMode.SAT_TCPL, qt.OverflowMode.SAT_SMGN):
+        ops += 2                     # min, max
+    elif om == qt.OverflowMode.WRP_TCPL:
+        ops += 4 if fmt.signed else 1
+    return ops
+
+
+def tree_ops(n, rqs, convert_ops):
+    """int32 operations of one tree over n values: per layer, one add and
+    one requantize per pair, ``convert_ops(layer)`` for an odd tail."""
+    ops, m, layer = 0, n, 0
+    while m > 1:
+        ops += (m // 2) * (1 + rqs[layer]) + (m % 2) * convert_ops(layer)
+        m = (m + 1) // 2
+        layer += 1
+    return ops
+
+
+def bound_ms(nbytes, ops, rate):
+    """The least time for the work: bytes at the HBM rate or operations at
+    the peak rate of their type, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else \
+        "operations"
+
+
+def k2_bound(plan, out_fmt, m, n, k):
+    """Bound of the tree GEMM: operands and output once, and per output
+    element k products and the tree of merges (drain converts included)
+    plus the final requantize."""
+    rqs = [rq_ops(plan.level_fmts[l].frac_bits, plan.merge_fmts[l])
+           for l in range(plan.levels)]
+    prod = rq_ops(plan.prod_frac, plan.mul_fmt) + \
+        (5 if plan.prod_route == "split" else 1)
+    per_out = k * prod + tree_ops(k, rqs, lambda l: rqs[l]) + \
+        rq_ops(plan.final_fmt.frac_bits, out_fmt)
+    return bound_ms(4 * (m * k + k * n + m * n), m * n * per_out,
+                    INT32_OPS_S)
+
+
+def k3_bound(plan, outputs, in_bytes, out_bytes):
+    """Bound of the tree reduce: the input once, the output once, and per
+    output the tree's adds and requantizes (a tail convert only where its
+    formats differ)."""
+    rqs = [rq_ops(cur.frac_bits, lf) for cur, lf, _ in plan.sched]
+    per_out = tree_ops(plan.n, rqs, lambda l: rqs[l]
+                       if plan.sched[l][0] != plan.sched[l][1] else 0)
+    return bound_ms(outputs * (plan.n * in_bytes + out_bytes),
+                    outputs * per_out, INT32_OPS_S)
+
+
+def phase_times(card, state_a, state_b):
+    """Phase 4: kernel, plain, library and main-path times."""
     import torch
 
     import qublas_tpu_torch as qt
     from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm,
                                                  fused_int8_gemm_plain)
-    from qublas_tpu_torch.ops.tree_gemm import tree_gemm, tree_gemm_plain
+    from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
+                                             qreduce_plain)
+    from qublas_tpu_torch.ops.tree_gemm import (tree_gemm, tree_gemm_plain,
+                                                tree_gemm_stream,
+                                                tree_gemm_stream_plain)
 
-    x, pipe, plan1, mid, a2, b2, tplan, f88z = state
-    n, tn = PIPE_N, TREE_N
+    x, pipe, plan1, mid, a2, b2, tplan, f88z = state_a
+    xr, r_plan, prod, p_plan, a3, b3, splan, _ = state_b
+    f44, config2 = formats()[1:]
+    n, tn, ln = PIPE_N, TREE_N, LAYERED_N
     w1 = pipe.w1
     w1_cm = w1.t().contiguous().t()   # the same B, column-major
+    gen = torch.Generator(device=x.device).manual_seed(4)
+    # every int8 raw is a Qu<4,4> raw: config 2's int8 lanes
+    big = torch.randint(-128, 128, (REDUCE_BIG_ROWS, REDUCE_SHAPE[1]),
+                        generator=gen, device=x.device, dtype=torch.int8)
+    big_plan = plan_reduce(f44, config2, REDUCE_SHAPE[1])
+    chk_big = torch.equal(qreduce_kernel(big, 1, big_plan),
+                          qreduce_plain(big, 1, big_plan))
+    assert chk_big, f"K3 != plain at [{REDUCE_BIG_ROWS}, {REDUCE_SHAPE[1]}]"
+    xd = xr.data
     t = {
         "k1": timeit(lambda: fused_int8_gemm(x, w1, plan1.prod_frac, mid)),
         "k1_plain": timeit(lambda: fused_int8_gemm_plain(
@@ -248,11 +541,28 @@ def phase_times(card, state):
         "k2": timeit(lambda: tree_gemm(a2.data, b2.data, tplan, f88z)),
         "k2_plain": timeit(lambda: tree_gemm_plain(a2.data, b2.data, tplan,
                                                    f88z), warmup=1),
+        "k2s_big": timeit(lambda: tree_gemm_stream(a2.data, b2.data, tplan,
+                                                   f88z)),
+        "k2s": timeit(lambda: tree_gemm_stream(a3.data, b3.data, splan,
+                                               f88z)),
+        "k2s_plain": timeit(lambda: tree_gemm_stream_plain(
+            a3.data, b3.data, splan, f88z), warmup=1),
+        "k3": timeit(lambda: qreduce_kernel(xd, 1, r_plan)),
+        "k3_plain": timeit(lambda: qreduce_plain(xd, 1, r_plan)),
+        "k3_sum": timeit(lambda: torch.sum(xd.to(torch.int32), 1)),
+        "k3_big": timeit(lambda: qreduce_kernel(big, 1, big_plan)),
+        "k3_big_plain": timeit(lambda: qreduce_plain(big, 1, big_plan),
+                               warmup=1),
+        "k3_big_sum": timeit(lambda: torch.sum(big.to(torch.int32), 1)),
+        "k3_layered": timeit(lambda: qreduce_kernel(prod.data, 1, p_plan)),
         "pipeline": timeit(lambda: pipe(x)),
         "canonical": timeit(lambda: qt.qgemul(a2, b2, f88z)),
+        "layered": timeit(lambda: qt.qcast(qt.qreduce(qt.qmul(
+            qt.QTensor(a3.data[:, :, None], f88z),
+            qt.QTensor(b3.data[None], f88z)), (), axis=1), f88z)),
+        "qgemul_small": timeit(lambda: qt.qgemul(a3, b3, f88z)),
     }
     ops = 2 * n ** 3
-    prods = tn ** 3
     for key, label in (
             ("k1", "fused_int8_gemm"),
             ("k1_plain", "fused_int8_gemm plain (float64)"),
@@ -261,13 +571,50 @@ def phase_times(card, state):
                           "reference)")):
         print(f"time {label} {n}^3: {t[key]:.4f} ms, "
               f"{ops / t[key] / 1e9:.2f} TOP/s [{card}]")
-    for key, label in (("k2", "tree_gemm"), ("k2_plain", "tree_gemm plain")):
-        print(f"time {label} {tn}^3: {t[key]:.4f} ms, "
-              f"{prods / t[key] / 1e6:.2f} Gprod/s [{card}]")
+    for key, label, size in (
+            ("k2", "tree_gemm", tn), ("k2_plain", "tree_gemm plain", tn),
+            ("k2s_big", "tree_gemm_stream", tn),
+            ("k2s", "tree_gemm_stream", ln),
+            ("k2s_plain", "tree_gemm_stream plain", ln)):
+        print(f"time {label} {size}^3: {t[key]:.4f} ms, "
+              f"{size ** 3 / t[key] / 1e6:.2f} Gprod/s [{card}]")
+    for key, label, shape in (
+            ("k3", "qreduce_kernel", REDUCE_SHAPE),
+            ("k3_plain", "qreduce plain", REDUCE_SHAPE),
+            ("k3_sum", "torch.sum(x.to(int32), 1) (context: another "
+                       "function)", REDUCE_SHAPE),
+            ("k3_big", "qreduce_kernel", (REDUCE_BIG_ROWS, REDUCE_SHAPE[1])),
+            ("k3_big_plain", "qreduce plain",
+             (REDUCE_BIG_ROWS, REDUCE_SHAPE[1])),
+            ("k3_big_sum", "torch.sum(x.to(int32), 1) (context: another "
+                           "function)", (REDUCE_BIG_ROWS, REDUCE_SHAPE[1])),
+            ("k3_layered", "qreduce_kernel (layered GEMM's, axis 1)",
+             (ln, ln, ln))):
+        elems = 1
+        for d in shape:
+            elems *= d
+        print(f"time {label} {list(shape)}: {t[key]:.4f} ms, "
+              f"{elems / t[key] / 1e6:.2f} Gelem/s [{card}]")
     print(f"time main path: QuantPipeline forward {n}^3 {t['pipeline']:.4f}"
           f" ms ({2 * ops / t['pipeline'] / 1e9:.2f} TOP/s over its two "
-          f"GEMMs), canonical qgemul {tn}^3 {t['canonical']:.4f} ms [{card}]")
-    return t
+          f"GEMMs), canonical qgemul {tn}^3 {t['canonical']:.4f} ms, "
+          f"layered GEMM {ln}^3 {t['layered']:.4f} ms against qgemul "
+          f"{ln}^3 {t['qgemul_small']:.4f} ms [{card}]")
+
+    rows, cols = REDUCE_SHAPE
+    bounds = {
+        "k1": bound_ms(3 * n * n, ops, INT8_OPS_S),
+        "k2": k2_bound(tplan, f88z, tn, tn, tn),
+        "k2s": k2_bound(splan, f88z, ln, ln, ln),
+        "k2s_big": k2_bound(tplan, f88z, tn, tn, tn),
+        "k3": k3_bound(r_plan, rows, 1, 2),
+        "k3_big": k3_bound(big_plan, REDUCE_BIG_ROWS, 1, 2),
+        "k3_layered": k3_bound(p_plan, ln * ln, 4, 4),
+    }
+    for key, (ms, by) in bounds.items():
+        print(f"bound {key}: {ms:.4f} ms ({by}); measured {t[key]:.4f} ms, "
+              f"{ms / t[key] * 100:.1f}% of the bound [{card}]")
+    return t, bounds
 
 
 def main() -> int:
@@ -297,23 +644,35 @@ def main() -> int:
 
     chk = Checker()
     phase_kernels(dev, chk)
-    launches, state = phase_main_path(dev, chk)
-    t = phase_times(card, state)
-    assert "jax" not in sys.modules, "the port imported JAX"
+    launches_a, state_a = phase_main_path(dev, chk)
+    launches_b, state_b = phase_reduce_path(dev, chk)
+    phase_elementwise(dev)
+    t, bounds = phase_times(card, state_a, state_b)
+    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+           or m == "qublas_tpu" or m.startswith("qublas_tpu.")]
+    assert not bad, f"the port imported {bad}"
+
+    def row(name, source, replaces, launches, key, plain_key, library_key):
+        ms, by = bounds[key]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": chk.max_err[name], "ms": t[key],
+                "plain_ms": t[plain_key], "bound_ms": ms, "bound_by": by,
+                "library_ms": t[library_key] if library_key else None}
 
     kernels = [
-        {"name": "fused_int8_gemm", "route": "cuda",
-         "source": "qublas_tpu_torch/csrc/fused_gemm.cu",
-         "replaces": "qublas_tpu/ops/pallas_gemm.py:83",
-         "launches": launches["fused_int8_gemm"],
-         "max_abs_err": chk.max_err["fused_int8_gemm"],
-         "ms": t["k1"], "plain_ms": t["k1_plain"]},
-        {"name": "tree_gemm", "route": "cuda",
-         "source": "qublas_tpu_torch/csrc/tree_gemm.cu",
-         "replaces": "qublas_tpu/ops/tree_gemm.py:362",
-         "launches": launches["tree_gemm"],
-         "max_abs_err": chk.max_err["tree_gemm"],
-         "ms": t["k2"], "plain_ms": t["k2_plain"]},
+        row("fused_int8_gemm", "qublas_tpu_torch/csrc/fused_gemm.cu",
+            "qublas_tpu/ops/pallas_gemm.py:83",
+            launches_a["fused_int8_gemm"], "k1", "k1_plain", "int_mm"),
+        row("tree_gemm", "qublas_tpu_torch/csrc/tree_gemm.cu",
+            "qublas_tpu/ops/tree_gemm.py:362", launches_a["tree_gemm"],
+            "k2", "k2_plain", None),
+        row("tree_gemm_stream", "qublas_tpu_torch/csrc/tree_gemm.cu",
+            "qublas_tpu/ops/tree_gemm.py:457",
+            launches_b["tree_gemm_stream"], "k2s", "k2s_plain", None),
+        row("qreduce_kernel", "qublas_tpu_torch/csrc/qreduce.cu",
+            "qublas_tpu/ops/reduce.py:192", launches_b["qreduce_kernel"],
+            "k3", "k3_plain", None),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,18 +1,31 @@
 """qublas_tpu_torch — the PyTorch/CUDA port of qublas_tpu.
 
-Bit-exact QuBLAS fixed-point semantics on torch tensors, with the
-quantized-GEMM main path's kernels written by hand for NVIDIA Hopper
-(``csrc/``): K1, the lossless int8 GEMM with a fused requantize epilogue,
-and K2, the order-sensitive tree GEMM.  The JAX package ``qublas_tpu`` is
-the reference each piece is tested against; this package shares only its
-JAX-free modules (``qformat``, ``hostint``, ``hostops`` and the interval
-proofs of ``ops.widths``) and never imports JAX.
+Bit-exact QuBLAS fixed-point semantics on torch tensors, with the kernels of
+the ported paths written by hand for NVIDIA Hopper (``csrc/``): K1, the
+lossless int8 GEMM with a fused requantize epilogue; K2 and K2′, the
+order-sensitive tree GEMM on its blocked and one-pass schedules; and K3, the
+layered tree reduce (Qreduce).  The elementwise ops are plain torch ops.
+
+The package stands alone: it imports torch and numpy, never JAX and nothing
+of the JAX package ``qublas_tpu``.  It keeps its own copies of the JAX
+package's pure-Python modules (``qformat``, ``hostint``, ``hostops`` and
+the width proofs of ``ops.widths``), pinned to the originals by
+``tests/test_torch_copies.py``.  :func:`port_format` and :func:`from_jax`
+carry formats and tensors of another package across by duck typing.
 
 Kernels build at first use (``nvcc``); a CPU tensor takes each kernel's
-plain-torch version instead.
+plain-torch version instead.  Constructors place tensors on the card unless
+the caller names another device.
 """
 
-from qublas_tpu.qformat import (
+from .anus import QTable, build_table, reciprocal_func, rsqrt_func, sqrt_func
+from .convert import from_jax, port_format
+from .ops.elementwise import (qabs, qadd, qcast, qcmp, qdiv, qeq, qmul, qneg,
+                              qsub)
+from .ops.gemm import exact_plan, host_qgemul, qgemul
+from .ops.reduce import qreduce, qreduce_args
+from .pipeline import QuantPipeline, pipeline_formats
+from .qformat import (
     OverflowMode,
     QFormat,
     RoundMode,
@@ -20,16 +33,15 @@ from qublas_tpu.qformat import (
     mul_merge,
     qformat,
 )
-
-from .anus import QTable, build_table, reciprocal_func, rsqrt_func, sqrt_func
-from .ops.elementwise import qcast
-from .ops.gemm import exact_plan, host_qgemul, qgemul
-from .pipeline import QuantPipeline, pipeline_formats
-from .qtensor import QTensor, from_raw
+from .qtensor import (QTensor, from_double, from_float, from_raw, random_fill,
+                      scalar, zeros)
 
 __all__ = [
     "OverflowMode", "QFormat", "RoundMode", "add_merge", "mul_merge",
     "qformat", "QTable", "build_table", "reciprocal_func", "rsqrt_func",
-    "sqrt_func", "qcast", "exact_plan", "host_qgemul", "qgemul",
-    "QuantPipeline", "pipeline_formats", "QTensor", "from_raw",
+    "sqrt_func", "qcast", "qmul", "qadd", "qsub", "qdiv", "qabs", "qneg",
+    "qcmp", "qeq", "exact_plan", "host_qgemul", "qgemul", "qreduce",
+    "qreduce_args", "QuantPipeline", "pipeline_formats", "QTensor",
+    "from_raw", "from_float", "from_double", "scalar", "zeros",
+    "random_fill", "from_jax", "port_format",
 ]

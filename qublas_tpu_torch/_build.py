@@ -22,7 +22,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
-from qublas_tpu.qformat import QFormat
+from .qformat import QFormat
 
 __all__ = ["lib", "check", "rq_args", "library_path"]
 
@@ -34,8 +34,10 @@ COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # nvcc wall seconds; None if cached
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
+    # device, x, out, outer, n, inner, in_bytes, out_bytes, params, stream
+    "qk_qreduce": (_I, _P, _P, _L, _L, _L, _I, _I, _P, _P),
     # device, a, b, c, m, n, k, out_bytes, d, round, ovf, w, sgn, stream
     "qk_fused_gemm_s8": (_I, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _P),

@@ -18,10 +18,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from qublas_tpu import hostint
-from qublas_tpu.qformat import QFormat
-
+from . import hostint
 from .ops.widths import torch_dtype_for
+from .qformat import QFormat
 from .qtensor import QTensor
 
 __all__ = ["QTable", "build_table", "rsqrt_func", "reciprocal_func",

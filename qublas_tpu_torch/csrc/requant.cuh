@@ -1,7 +1,7 @@
 // Bit-exact requantize of int32 values: the device copy of
 // qublas_tpu_torch/ops/wideint.py, itself the port of
 // qublas_tpu/ops/wideint.py:335-465 (_carry_mode, _overflow_i32,
-// requantize_i32, requantize_split_mul).  Shared by both kernels.
+// requantize_i32, requantize_split_mul).  Shared by all the kernels.
 //
 // Shifts and wrapping arithmetic go through uint32_t: in C++17 a left shift
 // of a negative int, or a signed overflow, is undefined; the JAX lanes and
@@ -142,6 +142,14 @@ __device__ __forceinline__ int32_t requant_split_mul(int32_t a, int32_t b,
     }
   }
   return overflow_i32(y, p);
+}
+
+// Load an int8/int16/int32 input lane, sign-extended to int32.
+__device__ __forceinline__ int32_t load_lane(const void* in, size_t idx,
+                                             int in_bytes) {
+  if (in_bytes == 1) return __ldg(static_cast<const int8_t*>(in) + idx);
+  if (in_bytes == 2) return __ldg(static_cast<const int16_t*>(in) + idx);
+  return __ldg(static_cast<const int32_t*>(in) + idx);
 }
 
 // Store an int32 result into the output lane (int8/int16/int32), wrapping

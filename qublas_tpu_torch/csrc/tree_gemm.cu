@@ -1,48 +1,40 @@
-// K2: the order-sensitive quantized tree GEMM, for qgemul's general tier
-// (e.g. the canonical Qu<8,8,TRN::TCPL,SAT::ZERO> config).
+// K2 and K2': the order-sensitive quantized tree GEMM, for qgemul's general
+// tier (e.g. the canonical Qu<8,8,TRN::TCPL,SAT::ZERO> config).
 //
-// Replaces qublas_tpu/ops/tree_gemm.py:tree_gemm_blocked (a Pallas kernel
-// that folds each 32-product k-block in VMEM, then a separate jnp phase 2
-// over the per-block values in HBM) and tree_gemm_pallas (one pass over k
-// with a binary-carry slot stack in VMEM scratch).  Here one thread owns one
-// output element and runs tree_gemm_scan's schedule, which is proven for
-// any k (qublas_tpu/ops/tree_gemm.py:252-337):
-//   * blocks of blk = the largest power of two dividing k, capped at 16;
-//   * per block, blk requantized products (route "i32" or "split") folded
-//     through the first log2(blk) tree layers in registers;
-//   * the block value pushed onto a binary-carry slot stack (one partial
-//     per tree level above the block), merging once per trailing one-bit
-//     of the block index;
-//   * the plan's drain ops (seed/convert/add) over the ragged right edge,
-//     then the final requantize into the output format.
-// The slot stack is an array with a compile-time size and only static
-// indices (unrolled loops, select-by-compare), so it stays in registers; no
-// block value ever goes to device memory, so there is no phase-2 pass.
+// One kernel, two schedules, chosen by LOG_BLK:
+//   * LOG_BLK = log2 of the largest power of two dividing k, capped at 4,
+//     is K2, which replaces qublas_tpu/ops/tree_gemm.py:tree_gemm_blocked (a
+//     Pallas kernel that folds each 32-product k-block in VMEM, then a
+//     separate jnp phase 2 over the per-block values in HBM);
+//   * LOG_BLK = 0 is K2', which replaces tree_gemm_pallas (one pass over k,
+//     each product pushed through a binary-carry slot stack in VMEM
+//     scratch).
+// Here one thread owns one output element and runs tree_fold.cuh's
+// schedule: per block, 2^LOG_BLK requantized products (route "i32" or
+// "split") folded in registers, pushed onto the slot stack, then the
+// drain and the final requantize into the output format.  No block value
+// goes to device memory, so there is no phase-2 pass.
 //
 // What bounds it: int32 ALU work, about 14 operations per product (split
 // multiply, rounding carry, saturation, an amortised tree merge), against
 // two 4-byte operand loads that the L1 cache serves (a warp shares its A
-// element and reads 32 neighbouring B elements).  Compute-bound.
+// element and reads 32 neighbouring B elements).  Compute-bound.  K2'
+// spends more of it on the stack: every product takes the push's
+// trailing-ones branch, where K2 takes it once per block.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "requant.cuh"
+#include "tree_fold.cuh"
 
 namespace {
-
-constexpr int MAXL = 32;  // tree levels: k < 2^31
-
-enum Op : int { SEED = 0, CONVERT = 1, ADD = 2 };
 
 struct TreeParams {
   int split;             // product route: 0 = "i32", 1 = "split"
   qk::Rq prod;           // product requantize into the mul format
-  qk::Rq merge[MAXL];    // layer l: level_fmts[l] -> merge_fmts[l]
-  int ndrain;
-  int drain_op[2 * MAXL];
-  int drain_lvl[2 * MAXL];
+  qk::Fold fold;         // tree layers and drain
   qk::Rq fin;            // final_fmt -> out_fmt
 };
 
@@ -50,16 +42,6 @@ __device__ __forceinline__ int32_t product(const TreeParams& p, int32_t a,
                                            int32_t b) {
   return p.split ? qk::requant_split_mul(a, b, p.prod)
                  : qk::requant(qk::wmul(a, b), p.prod);
-}
-
-template <int TOP>
-__device__ __forceinline__ int32_t pick(const int32_t (&s)[TOP], int idx) {
-  int32_t r = s[0];
-#pragma unroll
-  for (int q = 1; q < TOP; ++q) {
-    if (q == idx) r = s[q];
-  }
-  return r;
 }
 
 // A [M, K], B [K, N] int32; K is a multiple of 2^LOG_BLK and
@@ -88,43 +70,11 @@ tree_gemm_kernel(const int32_t* __restrict__ A, const int32_t* __restrict__ B,
       const size_t kk = ((size_t)t << LOG_BLK) + q;
       v[q] = product(p, __ldg(arow + kk), __ldg(bcol + kk * N));
     }
-    // in-block tree layers 0 .. LOG_BLK-1 (left operand first)
-#pragma unroll
-    for (int l = 0; l < LOG_BLK; ++l) {
-#pragma unroll
-      for (int q = 0; q < (BLK >> (l + 1)); ++q) {
-        v[q] = qk::requant(qk::wadd(v[2 * q], v[2 * q + 1]), p.merge[l]);
-      }
-    }
-    // push: merge with the slot of each trailing one-bit of t, then store
-    int32_t val = v[0];
-    const int cnt = __ffs(~t) - 1;
-#pragma unroll
-    for (int l = 0; l < TOP; ++l) {
-      if (LOG_BLK + l < MAXL && l < cnt) {
-        val = qk::requant(qk::wadd(slot[l], val), p.merge[LOG_BLK + l]);
-      }
-    }
-#pragma unroll
-    for (int l = 0; l < TOP; ++l) {
-      if (l == cnt) slot[l] = val;
-    }
+    qk::push<LOG_BLK, TOP>(slot, t, qk::fold_block<LOG_BLK>(v, p.fold),
+                           p.fold);
   }
-
-  // drain the binary-carry ragged edge (tree_gemm.py:_drain)
-  int32_t carry = 0;
-  for (int s = 0; s < p.ndrain; ++s) {
-    const int l = p.drain_lvl[s];
-    if (p.drain_op[s] == CONVERT) {
-      carry = qk::requant(carry, p.merge[l]);
-      continue;
-    }
-    const int32_t sv = pick(slot, l > LOG_BLK ? l - LOG_BLK : 0);
-    carry = p.drain_op[s] == SEED
-                ? sv
-                : qk::requant(qk::wadd(sv, carry), p.merge[l]);
-  }
-  qk::store_lane(C, (size_t)i * N + j, qk::requant(carry, p.fin), out_bytes);
+  const int32_t value = qk::drain<LOG_BLK, TOP>(slot, p.fold);
+  qk::store_lane(C, (size_t)i * N + j, qk::requant(value, p.fin), out_bytes);
 }
 
 template <int LOG_BLK, int TOP>
@@ -145,11 +95,9 @@ void launch_top(int top, const int32_t* a, const int32_t* b, void* c, int m,
   } else if (top <= 16) {
     launch<LOG_BLK, 16>(a, b, c, m, n, k, out_bytes, p, stream);
   } else {
-    launch<LOG_BLK, MAXL>(a, b, c, m, n, k, out_bytes, p, stream);
+    launch<LOG_BLK, qk::MAXL>(a, b, c, m, n, k, out_bytes, p, stream);
   }
 }
-
-qk::Rq read_rq(const int* q) { return qk::Rq{q[0], q[1], q[2], q[3], q[4]}; }
 
 }  // namespace
 
@@ -165,18 +113,10 @@ extern "C" int qk_tree_gemm(int device, const void* a, const void* b, void* c,
   const int* q = params;
   p.split = *q++;
   const int log_blk = *q++;
-  p.prod = read_rq(q);
-  q += 5;
-  const int levels = *q++;
-  if (levels < 1 || levels > MAXL || log_blk < 0 || log_blk > 4) return -1;
-  for (int l = 0; l < levels; ++l, q += 5) p.merge[l] = read_rq(q);
-  p.ndrain = *q++;
-  if (p.ndrain < 0 || p.ndrain > 2 * MAXL) return -1;
-  for (int s = 0; s < p.ndrain; ++s) {
-    p.drain_op[s] = *q++;
-    p.drain_lvl[s] = *q++;
-  }
-  p.fin = read_rq(q);
+  p.prod = qk::read_rq(q);
+  q = qk::read_fold(q + 5, &p.fold);
+  if (q == nullptr || log_blk < 0 || log_blk > 4) return -1;
+  p.fin = qk::read_rq(q);
 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

@@ -15,9 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from qublas_tpu.qformat import QFormat
-
 from .. import _build
+from ..qformat import QFormat
 from .wideint import requantize_i32
 from .widths import LANE_DTYPES, torch_dtype_for
 

@@ -32,15 +32,13 @@ from typing import Optional
 
 import numpy as np
 
-from qublas_tpu import hostops
-from qublas_tpu.ops.widths import Interval, fmt_interval, route_requant
-from qublas_tpu.qformat import OverflowMode, QFormat, add_merge, mul_merge
-
+from .. import hostops
+from ..qformat import OverflowMode, QFormat, add_merge, mul_merge
 from ..qtensor import QTensor
 from .fused_gemm import fused_int8_gemm
 from .reduce import layer_format
 from .tree_gemm import plan_tree, tree_gemm
-from .widths import torch_dtype_for
+from .widths import Interval, fmt_interval, route_requant, torch_dtype_for
 
 __all__ = ["qgemul", "exact_plan", "ExactPlan", "host_qgemul"]
 

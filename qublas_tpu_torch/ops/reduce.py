@@ -1,10 +1,53 @@
-"""Per-layer formats of the Qreduce tree (port of
-``qublas_tpu.ops.reduce.layer_format``; the reduce op itself is still to be
-ported, ROADMAP item 8)."""
+"""Tree reduction with per-layer requantization (Qreduce) on torch.
+
+Port of ``qublas_tpu/ops/reduce.py`` (reference ``Reducer``,
+QuBLAS.h:4899-5018).  Semantics:
+
+* per layer, elements (2i, 2i+1) combine by ``Qadd`` into the layer's format
+  ``TypeAt<min(layer, len-1)>``; with no formats each layer keeps the
+  element format (default AddMerger inference);
+* an odd tail element is copied into the next layer: a converting
+  assignment (``qcast``), which leaves the raws unchanged when the formats
+  are equal;
+* ``axis=None`` reduces the row-major flattening; an integer ``axis``
+  reduces that axis only.
+
+Dispatch, per configuration and before any data is touched:
+
+1. n = 1 returns the input as it is.
+2. A configuration that :func:`_plan_reduce_lanes` proves on int32 lanes
+   goes to :func:`qreduce_kernel`: kernel K3 (``csrc/qreduce.cu``) for a
+   CUDA tensor, its plain version :func:`qreduce_plain` for a CPU tensor.
+3. Any other runs the layered slice/add program of the elementwise ops; a
+   layer those cannot keep on int32 lanes resumes on the host golden model
+   from that layer on, as the JAX package's path does.
+"""
 
 from __future__ import annotations
 
-__all__ = ["layer_format"]
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from .. import _build, hostops
+from ..qformat import QFormat, add_merge
+from ..qtensor import QTensor, from_raw
+from .wideint import requantize_i32
+from .widths import (
+    LANE_DTYPES,
+    Interval,
+    fmt_interval,
+    requant_out_interval,
+    route_addsub,
+    route_requant,
+    storage_kind,
+    torch_dtype_for,
+)
+
+__all__ = ["qreduce", "qreduce_args", "layer_format", "qreduce_kernel",
+           "qreduce_plain", "ReducePlan"]
 
 
 def layer_format(layer_formats, layer: int):
@@ -13,3 +56,259 @@ def layer_format(layer_formats, layer: int):
     if not layer_formats:
         return None
     return layer_formats[min(layer, len(layer_formats) - 1)]
+
+
+def _normalize(layer_formats):
+    if layer_formats is None:
+        return ()
+    if isinstance(layer_formats, QFormat):
+        return (layer_formats,)
+    return tuple(layer_formats)
+
+
+def qreduce_args(values, layer_formats=()) -> QTensor:
+    """Variadic-entry tree reduction over scalar QTensors (reference
+    ``Qreduce(q1, q2, ...)``, QuBLAS.h:4924-4957): for odd counts the
+    leftover element is added to the *final* result with the current
+    layer's format (QuBLAS.h:4943-4949).  An init-time convenience,
+    evaluated on the host golden model; the result lies on the first
+    value's device."""
+    pairs = []
+    for v in values:
+        if v.size != 1:
+            raise ValueError("qreduce_args takes scalar QTensors")
+        pairs.append((int(v.raw().reshape(())), v.fmt))
+    raw, fmt = hostops.qreduce_args(pairs, _normalize(layer_formats))
+    return from_raw(np.array(raw, dtype=np.int64), fmt, values[0].device)
+
+
+# ---------------------------------------------------------------------------
+# The lane proof (copy of qublas_tpu/ops/reduce.py:148-189)
+# ---------------------------------------------------------------------------
+
+def _plan_reduce_lanes(fmt: QFormat, layer_formats, n: int):
+    """Prove the whole tree's adds, requantizes and odd-tail converting
+    assignments fit int32 lanes (exact interval walk, seeded with the input
+    format's storage interval).  Returns the per-layer ``(cur_fmt,
+    merge_fmt, m)`` schedule and the final format, or None."""
+    if storage_kind(fmt) != "lane":
+        return None
+    iv = fmt_interval(fmt)
+    cur = fmt
+    sched = []
+    m = n
+    layer = 0
+    while m > 1:
+        lf = layer_format(layer_formats, layer)
+        if lf is None:
+            lf = add_merge(cur, cur)
+        s = iv + iv
+        if not s.fits32:
+            return None
+        if route_requant(s, cur.frac_bits, lf) != "i32":
+            return None
+        pair_iv, _ = requant_out_interval(s, cur.frac_bits, lf)
+        lo, hi = pair_iv.lo, pair_iv.hi
+        if m % 2:
+            if route_requant(iv, cur.frac_bits, lf) != "i32":
+                return None
+            tail_iv, _ = requant_out_interval(iv, cur.frac_bits, lf)
+            lo, hi = min(lo, tail_iv.lo), max(hi, tail_iv.hi)
+        iv = Interval(lo, hi)
+        sched.append((cur, lf, m))
+        cur = lf
+        m = (m + 1) // 2
+        layer += 1
+    if torch_dtype_for(cur) is None:
+        return None
+    return sched, cur
+
+
+# ---------------------------------------------------------------------------
+# K3 and its plain version
+# ---------------------------------------------------------------------------
+
+class ReducePlan:
+    """A proven lane reduction of ``n`` elements: the layer schedule of
+    :func:`_plan_reduce_lanes`, and the same tree as K3 runs it, a
+    binary-carry slot stack over blocks of ``blk`` elements with the tree
+    GEMM's level formats and drain."""
+
+    def __init__(self, fmt: QFormat, layer_formats, n: int, sched,
+                 final_fmt: QFormat):
+        from .tree_gemm import _block_size, drain_ops, level_formats
+
+        self.n = n
+        self.sched = tuple(sched)
+        self.final_fmt = final_fmt
+        self.levels = max(n.bit_length(), 1)
+        self.level_fmts, self.merge_fmts = level_formats(fmt, layer_formats,
+                                                         n)
+        self.blk = _block_size(n)
+        # a tail convert between equal formats is qcast's no-op: drop it
+        self.drain = tuple(
+            (op, l) for op, l in drain_ops(n, self.levels)
+            if not (op == "convert"
+                    and self.level_fmts[l] == self.merge_fmts[l]))
+
+    def kernel_params(self):
+        """The plan as ``csrc/qreduce.cu:qk_qreduce``'s int32 parameters."""
+        from .tree_gemm import _OPS
+
+        p = [self.blk.bit_length() - 1, self.levels]
+        for l in range(self.levels):
+            p += _build.rq_args(self.level_fmts[l].frac_bits,
+                                self.merge_fmts[l])
+        p.append(len(self.drain))
+        for op, l in self.drain:
+            p += [_OPS[op], l]
+        return (ctypes.c_int * len(p))(*p)
+
+
+def plan_reduce(fmt: QFormat, layer_formats, n: int):
+    """The :class:`ReducePlan` of a lane-proven configuration with n >= 2,
+    else None."""
+    layer_formats = _normalize(layer_formats)
+    planned = _plan_reduce_lanes(fmt, layer_formats, n) if n >= 2 else None
+    if planned is None:
+        return None
+    return ReducePlan(fmt, layer_formats, n, *planned)
+
+
+def qreduce_plain(x: torch.Tensor, axis: int, plan: ReducePlan):
+    """Plain-torch K3: the layered slice/add loop of
+    ``qublas_tpu/ops/reduce.py:125-145`` on int32 lanes, one requantize per
+    layer pair and a ``qcast`` of each odd tail."""
+    cur = torch.movedim(x, axis, 0)
+    for cur_fmt, lf, m in plan.sched:
+        v = cur.to(torch.int32)
+        s = requantize_i32(v[0:m - 1:2] + v[1:m:2], cur_fmt.frac_bits, lf)
+        if m % 2:
+            tail = v[m - 1:m]
+            if cur_fmt != lf:
+                tail = requantize_i32(tail, cur_fmt.frac_bits, lf)
+            s = torch.cat([s, tail])
+        cur = s
+    return cur[0].to(torch_dtype_for(plan.final_fmt))
+
+
+def qreduce_kernel(x: torch.Tensor, axis: int, plan: ReducePlan):
+    """Reduce the lane tensor ``x`` along ``axis`` under ``plan``, stored in
+    ``torch_dtype_for(plan.final_fmt)``.
+
+    CPU tensors take the plain version; CUDA tensors launch K3.
+    ``qreduce_kernel.launches`` counts kernel launches.
+    """
+    if x.dtype not in LANE_DTYPES:
+        raise TypeError(f"qreduce_kernel takes int8/int16/int32 lanes, got "
+                        f"{x.dtype}")
+    if not 0 <= axis < x.ndim or x.shape[axis] != plan.n:
+        raise ValueError(f"axis {axis} of {tuple(x.shape)} is not the "
+                         f"plan's n = {plan.n}")
+    if x.device.type == "cpu":
+        return qreduce_plain(x, axis, plan)
+    if x.device.type != "cuda":
+        raise ValueError(f"qreduce_kernel runs on CUDA or CPU, not "
+                         f"{x.device}")
+    shape = tuple(x.shape)
+    out = torch.empty(shape[:axis] + shape[axis + 1:],
+                      dtype=torch_dtype_for(plan.final_fmt), device=x.device)
+    if out.numel() == 0:
+        return out
+    outer = math.prod(shape[:axis])
+    inner = math.prod(shape[axis + 1:])
+    x = x.contiguous()  # read in place as [outer, n, inner]
+    err = _build.lib().qk_qreduce(
+        x.device.index, x.data_ptr(), out.data_ptr(), outer, plan.n, inner,
+        x.element_size(), out.element_size(), plan.kernel_params(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "qreduce_kernel")
+    qreduce_kernel.launches += 1
+    return out
+
+
+qreduce_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Public entry point
+# ---------------------------------------------------------------------------
+
+def qreduce(x: QTensor, layer_formats=(), axis=None) -> QTensor:
+    """Tree-reduce a QTensor with per-layer requantization.
+
+    ``axis=None`` reduces the row-major flattening to a scalar (the
+    reference entry point, QuBLAS.h:4992-5001); an integer ``axis`` reduces
+    that axis only (the batched form the GEMM's dot products use).
+    """
+    layer_formats = _normalize(layer_formats)
+    if axis is None:
+        x = QTensor(x.data.reshape(-1), x.fmt)
+        axis = 0
+    axis = axis % max(x.ndim, 1)
+    n = x.shape[axis]
+    if n == 0:
+        raise ValueError("qreduce of empty axis")
+    if n == 1:
+        return QTensor(x.data.select(axis, 0), x.fmt)
+    plan = plan_reduce(x.fmt, layer_formats, n)
+    if plan is not None:
+        return QTensor(qreduce_kernel(x.data, axis, plan), plan.final_fmt)
+    return _qreduce_layered(x, layer_formats, axis)
+
+
+def _layer_on_lanes(cur_fmt: QFormat, fmt, m: int) -> bool:
+    """Layer ``Qadd`` of two ``cur_fmt`` values into ``fmt`` (and, for odd
+    m, the tail's cast) stays on the int32 lanes of the elementwise ops."""
+    out = add_merge(cur_fmt, cur_fmt, fmt)
+    if route_addsub(cur_fmt, cur_fmt, out, False)[0] != "i32":
+        return False
+    return m % 2 == 0 or out == cur_fmt or \
+        route_requant(fmt_interval(cur_fmt), cur_fmt.frac_bits, out) == "i32"
+
+
+def _qreduce_layered(x: QTensor, layer_formats, axis: int) -> QTensor:
+    """The layered slice/add program of the elementwise ops (the JAX
+    package's default path, ``qublas_tpu/ops/reduce.py:125-145``)."""
+    from . import elementwise as ew
+
+    cur = QTensor(torch.movedim(x.data, axis, 0), x.fmt)
+    layer = 0
+    while cur.shape[0] > 1:
+        m = cur.shape[0]
+        fmt = layer_format(layer_formats, layer)
+        if not _layer_on_lanes(cur.fmt, fmt, m):
+            return _qreduce_host(cur, layer_formats, first_layer=layer)
+        s = ew.qadd(cur[0:m - 1:2], cur[1:m:2], to=fmt)
+        if m % 2:
+            # an unchanged tail may hold raws in a wider lane: promote, as
+            # the JAX package's concatenate does
+            tail = ew.qcast(cur[m - 1:m], s.fmt)
+            dt = torch.promote_types(s.data.dtype, tail.data.dtype)
+            s = QTensor(torch.cat([s.data.to(dt), tail.data.to(dt)]), s.fmt)
+        cur = s
+        layer += 1
+    return QTensor(cur.data[0], cur.fmt)
+
+
+def _qreduce_host(x: QTensor, layer_formats, first_layer: int) -> QTensor:
+    """Exact host path: per-lane golden-model reduction of ``x`` along its
+    first axis, resuming the tree at layer ``first_layer`` (TypeAt indexes
+    the original layer number, so consumed formats stay consumed)."""
+    if first_layer and layer_formats:
+        layer_formats = tuple(
+            layer_format(layer_formats, first_layer + i)
+            for i in range(max(len(layer_formats) - first_layer, 1)))
+    arr = np.moveaxis(x.raw(), 0, -1)
+    batch_shape = arr.shape[:-1]
+    out_raws, out_fmt = [], None
+    for lane in arr.reshape(-1, arr.shape[-1]):
+        r, out_fmt = hostops.qreduce_list([(int(v), x.fmt) for v in lane],
+                                          layer_formats)
+        out_raws.append(r)
+    if storage_kind(out_fmt) != "lane":
+        raise NotImplementedError(
+            f"qreduce into {out_fmt}: pair and limb storage are not yet "
+            "ported (ROADMAP items 10-11)")
+    return from_raw(np.array(out_raws, dtype=np.int64).reshape(batch_shape),
+                    out_fmt, x.device)

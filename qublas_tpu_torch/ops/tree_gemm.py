@@ -1,4 +1,4 @@
-"""K2: the order-sensitive quantized tree GEMM on torch.
+"""K2 and K2′: the order-sensitive quantized tree GEMM on torch.
 
 When products or tree layers round or saturate, the result depends on the
 association order, so the reference's balanced-tree pairing (QuBLAS.h:
@@ -7,13 +7,18 @@ exactly.  The planners (``TreePlan``, ``level_formats``, ``drain_ops``,
 ``plan_tree``) are copies of ``qublas_tpu/ops/tree_gemm.py:73-245``, pinned
 to the originals by the CPU tests: the machine with the card has no JAX.
 
-:func:`tree_gemm` is the Hopper counterpart of the Pallas kernels
-``tree_gemm_blocked`` and ``tree_gemm_pallas``; its CUDA source is
-``csrc/tree_gemm.cu``.  :func:`tree_gemm_plain` is ``tree_gemm_scan``'s
-schedule as a Python loop over k-blocks on torch tensors: products of one
-block, the in-block tree layers, a binary-carry slot stack over blocks, the
-drain, the final requantize.  The kernel runs the same schedule per output
-element.
+Both kernels are ``csrc/tree_gemm.cu``, one thread per output element, on
+two schedules of the same function:
+
+* :func:`tree_gemm` (K2, counterpart of the Pallas kernel
+  ``tree_gemm_blocked``): ``tree_gemm_scan``'s schedule, blocks of up to 16
+  products folded in registers, then a binary-carry slot stack over blocks;
+* :func:`tree_gemm_stream` (K2′, counterpart of ``tree_gemm_pallas``): one
+  product at a time through the slot stack, no fold inside a block.
+
+Their plain versions run the same schedules as Python loops on torch
+tensors: products of one block, the in-block tree layers, the slot stack,
+the drain, the final requantize.
 """
 
 from __future__ import annotations
@@ -24,21 +29,22 @@ from typing import Optional, Tuple
 
 import torch
 
-from qublas_tpu.ops.widths import (
+from .. import _build
+from ..qformat import QFormat, add_merge
+from .reduce import layer_format
+from .wideint import requantize_i32, requantize_split_mul
+from .widths import (
+    LANE_DTYPES,
     Interval,
     requant_out_interval,
     route_mul,
     route_requant,
+    torch_dtype_for,
 )
-from qublas_tpu.qformat import QFormat, add_merge
-
-from .. import _build
-from .reduce import layer_format
-from .wideint import requantize_i32, requantize_split_mul
-from .widths import LANE_DTYPES, torch_dtype_for
 
 __all__ = ["TreePlan", "plan_tree", "level_formats", "drain_ops",
-           "tree_gemm", "tree_gemm_plain"]
+           "tree_gemm", "tree_gemm_plain", "tree_gemm_stream",
+           "tree_gemm_stream_plain"]
 
 
 @dataclass(frozen=True)
@@ -201,14 +207,13 @@ def _block_size(k: int) -> int:
     return min(k & (-k), 16)
 
 
-def tree_gemm_plain(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
-                    out_fmt: QFormat) -> torch.Tensor:
-    """Plain-torch K2: ``tree_gemm_scan``'s schedule as a Python loop over
-    k-blocks, each block materialising its [blk, M, N] products."""
+def _slot_stack_plain(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
+                      out_fmt: QFormat, blk: int) -> torch.Tensor:
+    """The slot-stack schedule as a Python loop over k-blocks of ``blk``
+    products, each block materialising its [blk, M, N] products."""
     a32 = a.to(torch.int32)
     b32 = b.to(torch.int32)
     k = a32.shape[1]
-    blk = _block_size(k)
     inblk = blk.bit_length() - 1          # tree layers folded in a block
     slots = {}
     for t in range(k // blk):
@@ -228,13 +233,27 @@ def tree_gemm_plain(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
     return raw.to(torch_dtype_for(out_fmt))
 
 
+def tree_gemm_plain(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
+                    out_fmt: QFormat) -> torch.Tensor:
+    """Plain-torch K2: ``tree_gemm_scan``'s schedule, blocks of
+    ``_block_size(k)`` products."""
+    return _slot_stack_plain(a, b, plan, out_fmt, _block_size(a.shape[1]))
+
+
+def tree_gemm_stream_plain(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
+                           out_fmt: QFormat) -> torch.Tensor:
+    """Plain-torch K2′: ``tree_gemm_pallas``'s schedule, one product per
+    step pushed through the slot stack."""
+    return _slot_stack_plain(a, b, plan, out_fmt, 1)
+
+
 _OPS = {"seed": 0, "convert": 1, "add": 2}
 
 
-def _kernel_params(plan: TreePlan, out_fmt: QFormat):
-    """The plan as ``csrc/tree_gemm.cu:qk_tree_gemm``'s int32 parameters."""
-    p = [int(plan.prod_route == "split"),
-         _block_size(plan.k).bit_length() - 1,
+def _kernel_params(plan: TreePlan, out_fmt: QFormat, log_blk: int):
+    """The plan as ``csrc/tree_gemm.cu:qk_tree_gemm``'s int32 parameters,
+    with 2^log_blk products folded per block."""
+    p = [int(plan.prod_route == "split"), log_blk,
          *_build.rq_args(plan.prod_frac, plan.mul_fmt),
          plan.levels]
     for l in range(plan.levels):
@@ -246,14 +265,10 @@ def _kernel_params(plan: TreePlan, out_fmt: QFormat):
     return (ctypes.c_int * len(p))(*p)
 
 
-def tree_gemm(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
-              out_fmt: QFormat) -> torch.Tensor:
-    """The tree GEMM ``a`` [M, K] @ ``b`` [K, N] of lane tensors under
-    ``plan``, stored in ``torch_dtype_for(out_fmt)``.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    ``tree_gemm.launches`` counts kernel launches.
-    """
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
+            out_fmt: QFormat, log_blk: int):
+    """Check the operands; None for CPU tensors, else the output of the
+    ``csrc/tree_gemm.cu`` kernel launched on them."""
     if plan.prod_route == "pair":
         raise NotImplementedError(
             "the 64-bit 'pair' product route is not yet ported "
@@ -268,9 +283,9 @@ def tree_gemm(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     if a.device.type == "cpu":
-        return tree_gemm_plain(a, b, plan, out_fmt)
+        return None
     if a.device.type != "cuda":
-        raise ValueError(f"tree_gemm runs on CUDA or CPU, not {a.device}")
+        raise ValueError(f"{name} runs on CUDA or CPU, not {a.device}")
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=torch_dtype_for(out_fmt), device=a.device)
@@ -281,11 +296,43 @@ def tree_gemm(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
     b32 = b.to(torch.int32).contiguous()
     err = lib.qk_tree_gemm(a.device.index, a32.data_ptr(), b32.data_ptr(),
                            out.data_ptr(), m, n, k, out.element_size(),
-                           _kernel_params(plan, out_fmt),
+                           _kernel_params(plan, out_fmt, log_blk),
                            torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(err, "tree_gemm")
+    _build.check(err, name)
+    return out
+
+
+def tree_gemm(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
+              out_fmt: QFormat) -> torch.Tensor:
+    """The tree GEMM ``a`` [M, K] @ ``b`` [K, N] of lane tensors under
+    ``plan``, stored in ``torch_dtype_for(out_fmt)``.
+
+    CPU tensors take the plain version; CUDA tensors launch K2.
+    ``tree_gemm.launches`` counts kernel launches.
+    """
+    log_blk = _block_size(plan.k).bit_length() - 1
+    out = _launch("tree_gemm", a, b, plan, out_fmt, log_blk)
+    if out is None:
+        return tree_gemm_plain(a, b, plan, out_fmt)
     tree_gemm.launches += 1
     return out
 
 
+def tree_gemm_stream(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
+                     out_fmt: QFormat) -> torch.Tensor:
+    """The same function as :func:`tree_gemm` on the one-pass schedule of
+    ``tree_gemm_pallas``: every product pushed through the slot stack.
+
+    CPU tensors take the plain version; CUDA tensors launch K2′ (the
+    ``csrc/tree_gemm.cu`` kernel with one product per block).
+    ``tree_gemm_stream.launches`` counts kernel launches.
+    """
+    out = _launch("tree_gemm_stream", a, b, plan, out_fmt, 0)
+    if out is None:
+        return tree_gemm_stream_plain(a, b, plan, out_fmt)
+    tree_gemm_stream.launches += 1
+    return out
+
+
 tree_gemm.launches = 0
+tree_gemm_stream.launches = 0

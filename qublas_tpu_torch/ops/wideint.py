@@ -3,7 +3,8 @@
 Plain-torch port of ``qublas_tpu.ops.wideint`` lines 335-465
 (``_carry_mode``, ``_overflow_i32``, ``requantize_i32``,
 ``requantize_split_mul``).  These functions are also the reference
-epilogue of both CUDA kernels, whose device copy is ``csrc/requant.cuh``.
+epilogue of the CUDA kernels, whose device copy is ``csrc/requant.cuh``;
+``_overflow_i32`` alone is the overflow stage of ``qdiv``.
 
 Two differences from the JAX version, both forced by torch on the CPU:
 
@@ -21,9 +22,9 @@ from __future__ import annotations
 
 import torch
 
-from qublas_tpu.qformat import OverflowMode, QFormat, RoundMode
+from ..qformat import OverflowMode, QFormat, RoundMode
 
-__all__ = ["requantize_i32", "requantize_split_mul"]
+__all__ = ["requantize_i32", "requantize_split_mul", "_overflow_i32"]
 
 
 def _carry_mode(mode, xl_gt, xl_ge, xl_eq, is_neg, is_pos, xh_odd):

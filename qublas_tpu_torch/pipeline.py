@@ -12,10 +12,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from qublas_tpu.qformat import OverflowMode, QFormat, qformat
-
 from .anus import build_table, sqrt_func
+from .convert import from_jax
 from .ops.gemm import qgemul
+from .qformat import OverflowMode, qformat
 from .qtensor import QTensor, from_raw
 
 __all__ = ["QuantPipeline", "pipeline_formats"]
@@ -27,16 +27,6 @@ def pipeline_formats():
     wide = qformat(20, 8)                                # lossless accumulate
     mid = qformat(3, 4, overflow_mode=OverflowMode.SAT_ZERO)
     return fa, wide, mid
-
-
-def _raws(w, fmt: QFormat) -> np.ndarray:
-    """Raws of a weight given as a numpy array or as any object with
-    ``.raw()`` and ``.fmt`` (e.g. a ``qublas_tpu.QTensor``)."""
-    if hasattr(w, "raw") and hasattr(w, "fmt"):
-        if w.fmt != fmt:
-            raise ValueError(f"weight in {w.fmt}, pipeline needs {fmt}")
-        return np.asarray(w.raw())
-    return np.asarray(w)
 
 
 class QuantPipeline(nn.Module):
@@ -59,9 +49,16 @@ class QuantPipeline(nn.Module):
         """Carry weights over from the JAX side: numpy raws, or objects with
         ``.raw()`` and ``.fmt``, placed on ``device``."""
         fa = pipeline_formats()[0]
-        w1 = from_raw(_raws(w1_raw, fa), fa, device).data
-        w2 = from_raw(_raws(w2_raw, fa), fa, device).data
-        return cls(w1, w2)
+
+        def weight(w) -> torch.Tensor:
+            if hasattr(w, "raw") and hasattr(w, "fmt"):
+                t = from_jax(w, device)
+                if t.fmt != fa:
+                    raise ValueError(f"weight in {t.fmt}, pipeline needs {fa}")
+                return t.data
+            return from_raw(np.asarray(w), fa, device).data
+
+        return cls(weight(w1_raw), weight(w2_raw))
 
     def forward(self, x_raw: torch.Tensor) -> torch.Tensor:
         fa, wide, mid = self.fa, self.wide, self.out_fmt

@@ -6,6 +6,10 @@ most 32 storage bits, held in int8/int16/int32 tensors by
 bits), limb storage (65..992 bits) and the host-resident object arrays that
 hold ``fill(int)`` wart raws beyond the int32 word are ROADMAP items 10-11
 and raise ``NotImplementedError`` here.
+
+Constructors place their tensor on ``device``, the card unless the caller
+names another.  The operators ``* + - / -x abs(x)`` are the elementwise ops
+of :mod:`~qublas_tpu_torch.ops.elementwise`.
 """
 
 from __future__ import annotations
@@ -15,12 +19,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from qublas_tpu.ops.widths import storage_kind
-from qublas_tpu.qformat import QFormat
+from . import hostint
+from .ops.widths import LANE_DTYPES, storage_kind, torch_dtype_for
+from .qformat import QFormat
 
-from .ops.widths import LANE_DTYPES, torch_dtype_for
-
-__all__ = ["QTensor", "from_raw"]
+__all__ = ["QTensor", "from_raw", "from_float", "from_double", "scalar",
+           "zeros", "random_fill"]
 
 
 def _lane_only(fmt: QFormat):
@@ -52,6 +56,10 @@ class QTensor:
         return self.data.ndim
 
     @property
+    def size(self) -> int:
+        return self.data.numel()
+
+    @property
     def device(self) -> torch.device:
         return self.data.device
 
@@ -80,8 +88,36 @@ class QTensor:
         return (f"QTensor(shape={self.shape}, fmt={self.fmt}, "
                 f"device={self.device})")
 
+    # operators: the elementwise ops (QuBLAS.h expression templates)
+    def _ew(self, name, other):
+        from .ops import elementwise
 
-def from_raw(values: Any, fmt: QFormat, device) -> QTensor:
+        return getattr(elementwise, name)(self, other)
+
+    def __mul__(self, other):
+        return self._ew("qmul", other)
+
+    def __add__(self, other):
+        return self._ew("qadd", other)
+
+    def __sub__(self, other):
+        return self._ew("qsub", other)
+
+    def __truediv__(self, other):
+        return self._ew("qdiv", other)
+
+    def __neg__(self):
+        from .ops.elementwise import qneg
+
+        return qneg(self)
+
+    def __abs__(self):
+        from .ops.elementwise import qabs
+
+        return qabs(self)
+
+
+def from_raw(values: Any, fmt: QFormat, device="cuda") -> QTensor:
     """Build a QTensor from raw storage integers on ``device``.
 
     Like ``qublas_tpu.qtensor.from_raw`` (and the reference's ``fill(int)``)
@@ -109,3 +145,40 @@ def from_raw(values: Any, fmt: QFormat, device) -> QTensor:
     raise NotImplementedError(
         f"raws [{vmin}, {vmax}] exceed the int32 lane: the fill(int) wart "
         "needs host object storage (ROADMAP item 11)")
+
+
+def from_float(values: Any, fmt: QFormat, device="cuda") -> QTensor:
+    """Exact double -> fixed conversion, element by element on the host
+    (``hostint.double_to_raw``: the reference's 2400-bit-exact constructor,
+    QuBLAS.h:2387-2393), placed on ``device``."""
+    _lane_only(fmt)
+    arr = np.asarray(values, dtype=np.float64)
+    flat = [hostint.double_to_raw(float(v), fmt) for v in arr.reshape(-1)]
+    return from_raw(np.array(flat, dtype=np.int64).reshape(arr.shape), fmt,
+                    device)
+
+
+from_double = from_float
+
+
+def scalar(value: float, fmt: QFormat, device="cuda") -> QTensor:
+    return from_float(np.float64(value), fmt, device)
+
+
+def zeros(shape, fmt: QFormat, device="cuda") -> QTensor:
+    _lane_only(fmt)
+    return QTensor(torch.zeros(shape, dtype=torch_dtype_for(fmt),
+                               device=device), fmt)
+
+
+def random_fill(shape, fmt: QFormat, seed: int = 1,
+                device="cuda") -> QTensor:
+    """Deterministic uniform raw fill over the storage range from numpy's
+    ``RandomState(seed)``: the same raws as ``qublas_tpu.qtensor.
+    random_fill`` (capability parity with the reference's ``fill()``,
+    QuBLAS.h:526-536, not its mt19937 stream)."""
+    _lane_only(fmt)
+    rng = np.random.RandomState(seed)
+    n = int(np.prod(shape)) if shape else 1
+    vals = rng.randint(fmt.raw_min, fmt.raw_max + 1, size=n, dtype=np.int64)
+    return from_raw(vals.reshape(shape), fmt, device)

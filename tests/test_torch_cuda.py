@@ -16,8 +16,11 @@ import torch
 import qublas_tpu_torch as qt
 from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm,
                                              fused_int8_gemm_plain)
+from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
+                                         qreduce_plain)
 from qublas_tpu_torch.ops.tree_gemm import (plan_tree, tree_gemm,
-                                            tree_gemm_plain)
+                                            tree_gemm_plain, tree_gemm_stream,
+                                            tree_gemm_stream_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -25,6 +28,11 @@ FA, WIDE, MID = qt.pipeline_formats()
 F88Z = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
 LAYERS = (qt.qformat(9, 6, round_mode=qt.RoundMode.RND_CONV),
           qt.qformat(10, 4))
+F44 = qt.qformat(4, 4)
+CONFIG2 = (qt.qformat(5, 3, round_mode=qt.RoundMode.RND_CONV,
+                      overflow_mode=qt.OverflowMode.SAT_ZERO),
+           qt.qformat(6, 2))
+SMGN = qt.qformat(3, 4, overflow_mode=qt.OverflowMode.SAT_SMGN)
 
 
 @pytest.fixture
@@ -97,3 +105,70 @@ def test_operands_on_two_devices_raise(cuda):
     a = _raws(5, FA, (8, 8), np.int8)
     with pytest.raises(ValueError, match="operands on"):
         fused_int8_gemm(a.to(cuda), a, 8, MID)
+
+
+@pytest.mark.parametrize("fmt,layers,shape,axis,dtype", [
+    (F44, CONFIG2, (4096, 1024), 1, np.int8),
+    (F44, CONFIG2, (1024, 300), 0, np.int8),
+    (F44, CONFIG2, (77, 1000), 1, np.int8),
+    (F44, CONFIG2, (13, 45), 0, np.int8),
+    (F44, (), (6, 13, 5), 1, np.int16),
+    (qt.qformat(7, 4), CONFIG2, (40, 3), 1, np.int16),
+    (qt.qformat(20, 8), (qt.qformat(26, 2),), (5, 1000, 3), 1, np.int32),
+    (SMGN, (), (33, 13), 1, np.int8),
+], ids=["config2-rows", "config2-cols", "ragged-batch", "odd-n-cols",
+        "no-layers-3d", "int16", "int32", "smgn"])
+def test_k3_matches_plain(cuda, fmt, layers, shape, axis, dtype):
+    x = _raws(sum(shape), fmt, shape, dtype)
+    if fmt == SMGN:
+        x[..., -1] = fmt.raw_min  # the odd tail's raw that SMGN would clamp
+    x = x.to(cuda)
+    plan = plan_reduce(fmt, layers, shape[axis])
+    got = qreduce_kernel(x, axis, plan)
+    want = qreduce_plain(x, axis, plan)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want), (shape, axis)
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_k3_every_mode_matches_plain(cuda, signed):
+    x = _raws(3, F44, (100, 13), np.int8).to(cuda)
+    for rm in qt.RoundMode:
+        for om in qt.OverflowMode:
+            layers = (qt.qformat(5, 2, signed, rm, om),)
+            plan = plan_reduce(F44, layers, 13)
+            got = qreduce_kernel(x, 1, plan)
+            want = qreduce_plain(x, 1, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), layers
+
+
+@pytest.mark.parametrize("m,k,n,layers", [
+    (64, 512, 64, ()), (33, 13, 17, ()), (77, 1000, 45, ()),
+    (128, 128, 128, LAYERS)])
+def test_k2_stream_matches_plain_and_k2(cuda, m, k, n, layers):
+    a = _raws(m + k, F88Z, (m, k), np.int32).to(cuda)
+    b = _raws(n + k, F88Z, (k, n), np.int32).to(cuda)
+    plan = plan_tree(F88Z, F88Z, qt.mul_merge(F88Z, F88Z), layers, k, F88Z)
+    got = tree_gemm_stream(a, b, plan, F88Z)
+    want = tree_gemm_stream_plain(a, b, plan, F88Z)
+    blocked = tree_gemm(a, b, plan, F88Z)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, blocked)
+
+
+def test_qreduce_launches_k3_only_when_proven(cuda):
+    x = qt.from_raw(_raws(9, F44, (64, 37), np.int8).numpy(), F44, cuda)
+    qreduce_kernel.launches = 0
+    tree_gemm_stream.launches = 0
+    r = qt.qreduce(x, CONFIG2, axis=1)
+    assert qreduce_kernel.launches == 1
+    qt.qreduce(x[:, :1], CONFIG2, axis=1)          # n = 1: no launch
+    wide = (qt.qformat(8, 8), qt.qformat(1000, 0), qt.qformat(6, 2))
+    h = qt.qreduce(x[:4, :8], wide, axis=1)         # resumes on the host
+    assert qreduce_kernel.launches == 1
+    assert h.device == x.device
+    cpu = qt.qreduce(x.to("cpu"), CONFIG2, axis=1)
+    assert r.fmt == cpu.fmt and torch.equal(r.data.cpu(), cpu.data)
+    assert qreduce_kernel.launches == 1 and tree_gemm_stream.launches == 0

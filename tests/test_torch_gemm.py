@@ -8,7 +8,8 @@
   ``qgemul(use_pallas=False)`` at ragged shapes, transposes and int16 lanes.
 
 The K1 kernel itself is held against this plain version on the card by
-``tests/test_torch_cuda.py``.
+``tests/test_torch_cuda.py``.  Formats cross into the port with ``P`` (the
+port's own QFormat class) and are compared field by field.
 """
 
 import dataclasses
@@ -22,6 +23,7 @@ from qublas_tpu.ops import pallas_gemm
 from qublas_tpu.ops import tree_gemm as JT
 from qublas_tpu.qformat import OverflowMode, RoundMode, mul_merge, qformat
 from qublas_tpu.qtensor import from_raw as jfrom_raw
+from qublas_tpu_torch.convert import port_format
 from qublas_tpu_torch.ops import gemm as TG
 from qublas_tpu_torch.ops import tree_gemm as TT
 from qublas_tpu_torch.qtensor import from_raw
@@ -56,6 +58,15 @@ CONFIGS = {
 }
 
 
+def P(f):
+    """The port's QFormat of a JAX-package format (or tuple of them)."""
+    if f is None:
+        return None
+    if isinstance(f, tuple):
+        return tuple(P(x) for x in f)
+    return port_format(f)
+
+
 def _fields(plan):
     return None if plan is None else dataclasses.astuple(plan)
 
@@ -65,18 +76,21 @@ def _fields(plan):
 def test_plans_match_jax(name, k):
     fa, fb, mul_to, full, adds, out = CONFIGS[name]
     mf = mul_merge(fa, fb, mul_to, full)
-    ep_t = TG.exact_plan(fa, fb, mf, adds, k)
+    ep_t = TG.exact_plan(P(fa), P(fb), P(mf), P(adds), k)
     ep_j = JG.exact_plan(fa, fb, mf, adds, k)
     assert _fields(ep_t) == _fields(ep_j)
     if ep_j is not None:
-        assert TG._device_epilogue_ok(ep_t, out) == \
+        assert TG._device_epilogue_ok(ep_t, P(out)) == \
             JG._device_epilogue_ok(ep_j, out)
-    tp_t = TT.plan_tree(fa, fb, mf, adds, k, out)
+    tp_t = TT.plan_tree(P(fa), P(fb), P(mf), P(adds), k, P(out))
     tp_j = JT.plan_tree(fa, fb, mf, adds, k, out)
     assert _fields(tp_t) == _fields(tp_j)
     for levels in (max(k.bit_length(), 1), 12):
         assert TT.drain_ops(k, levels) == JT.drain_ops(k, levels)
-    assert TT.level_formats(mf, adds, k) == JT.level_formats(mf, adds, k)
+    assert [[dataclasses.astuple(f) for f in fs]
+            for fs in TT.level_formats(P(mf), P(adds), k)] == \
+        [[dataclasses.astuple(f) for f in fs]
+         for fs in JT.level_formats(mf, adds, k)]
 
 
 def _raws(rng, fmt, shape, dtype=np.int64):
@@ -94,9 +108,9 @@ def test_fast_tier_matches_pallas_interpret():
     plan = JG.exact_plan(FA, FA, wide, (wide,), k)
     pal = pallas_gemm.qgemul_fast(jfrom_raw(A, FA), jfrom_raw(B, FA), out,
                                   plan, interpret=True)
-    got = TG.qgemul(from_raw(A, FA, "cpu"), from_raw(B, FA, "cpu"), out,
-                    mul_to=wide, add_formats=(wide,))
-    assert got.fmt == pal.fmt
+    got = TG.qgemul(from_raw(A, P(FA), "cpu"), from_raw(B, P(FA), "cpu"),
+                    P(out), mul_to=P(wide), add_formats=(P(wide),))
+    assert got.fmt == P(pal.fmt)
     assert got.data.dtype == getattr(torch, str(pal.data.dtype))
     np.testing.assert_array_equal(got.raw(), np.asarray(pal.raw()))
 
@@ -112,10 +126,10 @@ def test_fast_tier_matches_jax_ragged(m, k, n, ta, tb):
     want = JG.qgemul(jfrom_raw(A, FA), jfrom_raw(B, FA), MID, mul_to=WIDE,
                      add_formats=(WIDE,), transpose_a=ta, transpose_b=tb,
                      use_pallas=False)
-    got = TG.qgemul(from_raw(A, FA, "cpu"), from_raw(B, FA, "cpu"), MID,
-                    mul_to=WIDE, add_formats=(WIDE,), transpose_a=ta,
-                    transpose_b=tb)
-    assert got.fmt == want.fmt
+    got = TG.qgemul(from_raw(A, P(FA), "cpu"), from_raw(B, P(FA), "cpu"),
+                    P(MID), mul_to=P(WIDE), add_formats=(P(WIDE),),
+                    transpose_a=ta, transpose_b=tb)
+    assert got.fmt == P(want.fmt)
     np.testing.assert_array_equal(got.raw(), np.asarray(want.raw()))
 
 
@@ -133,24 +147,25 @@ def test_fast_tier_other_lanes(name):
         fa, fb, mul_to, full, adds, out = CONFIGS[name]
     A, B = _raws(rng, fa, (17, 40)), _raws(rng, fb, (40, 23))
     mf = mul_merge(fa, fb, mul_to, full)
-    plan = TG.exact_plan(fa, fb, mf, adds, 40)
-    assert plan is not None and TG._device_epilogue_ok(plan, out)
+    plan = TG.exact_plan(P(fa), P(fb), P(mf), P(adds), 40)
+    assert plan is not None and TG._device_epilogue_ok(plan, P(out))
     want = JG.qgemul(jfrom_raw(A, fa), jfrom_raw(B, fb), out, mul_to=mul_to,
                      add_formats=adds, mul_full_prec=full, use_pallas=False)
-    got = TG.qgemul(from_raw(A, fa, "cpu"), from_raw(B, fb, "cpu"), out,
-                    mul_to=mul_to, add_formats=adds, mul_full_prec=full)
-    assert got.fmt == want.fmt
+    got = TG.qgemul(from_raw(A, P(fa), "cpu"), from_raw(B, P(fb), "cpu"),
+                    P(out), mul_to=P(mul_to), add_formats=P(adds),
+                    mul_full_prec=full)
+    assert got.fmt == P(want.fmt)
     assert got.data.dtype == getattr(torch, str(want.data.dtype))
     np.testing.assert_array_equal(got.raw(), np.asarray(want.raw()))
 
 
 def test_unported_tiers_raise():
     rng = np.random.RandomState(3)
-    a = from_raw(_raws(rng, FA, (2, 3, 4)), FA, "cpu")
+    a = from_raw(_raws(rng, FA, (2, 3, 4)), P(FA), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        TG.qgemul(a, a, MID)
+        TG.qgemul(a, a, P(MID))
     # a lossless dot wider than int32 needs the wide tiers
-    f, w = qformat(15, 0), qformat(40, 0)
+    f, w = P(qformat(15, 0)), P(qformat(40, 0))
     x = from_raw(_raws(rng, f, (2, 8)), f, "cpu")
     y = from_raw(_raws(rng, f, (8, 2)), f, "cpu")
     with pytest.raises(NotImplementedError, match="wide tiers"):
@@ -160,10 +175,10 @@ def test_unported_tiers_raise():
 def test_kernel_wrappers_validate_operands():
     from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
 
-    mf = mul_merge(F88Z, F88Z)
-    plan = TT.plan_tree(F88Z, F88Z, mf, (), 4, F88Z)
+    f88z = P(F88Z)
+    plan = TT.plan_tree(f88z, f88z, P(mul_merge(F88Z, F88Z)), (), 4, f88z)
     for fn, arg in ((fused_int8_gemm, 8), (TT.tree_gemm, plan)):
-        out = MID if fn is fused_int8_gemm else F88Z
+        out = P(MID) if fn is fused_int8_gemm else f88z
         with pytest.raises(TypeError, match="int8/int16/int32"):
             fn(torch.zeros(3, 4), torch.zeros(4, 2), arg, out)
         with pytest.raises(ValueError):

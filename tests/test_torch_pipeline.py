@@ -18,8 +18,11 @@ from qublas_tpu.qtensor import from_raw as jfrom_raw
 from qublas_tpu_torch import (QTable, QTensor, QuantPipeline, from_raw,
                               pipeline_formats, qgemul)
 from qublas_tpu_torch import anus as tanus
+from qublas_tpu_torch.convert import port_format as P
 from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
-from qublas_tpu_torch.ops.tree_gemm import tree_gemm
+from qublas_tpu_torch.ops.reduce import qreduce, qreduce_kernel
+from qublas_tpu_torch.ops.tree_gemm import (plan_tree, tree_gemm,
+                                            tree_gemm_stream)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -48,7 +51,8 @@ def test_pipeline_matches_jax_entry():
 ], ids=["mid", "unsigned", "wrap-word"])
 def test_qtable_matches_jax(func, in_fmt, out_fmt):
     jt = janus.QTable(getattr(janus, func), in_fmt, out_fmt)
-    tt = QTable(getattr(tanus, func), in_fmt, out_fmt)
+    tt = QTable(getattr(tanus, func), P(in_fmt),
+                None if out_fmt is None else P(out_fmt))
     np.testing.assert_array_equal(tt.table.numpy(), jt._np_table)
     # applied to every input bit pattern
     w = in_fmt.width
@@ -56,16 +60,16 @@ def test_qtable_matches_jax(func, in_fmt, out_fmt):
     raws = np.where(in_fmt.signed & (pats >= (1 << (w - 1))),
                     pats - (1 << w), pats)
     want = jt(jfrom_raw(raws, in_fmt))
-    got = tt(from_raw(raws, in_fmt, "cpu"))
-    assert got.fmt == want.fmt
+    got = tt(from_raw(raws, P(in_fmt), "cpu"))
+    assert got.fmt == P(want.fmt)
     np.testing.assert_array_equal(got.raw(), np.asarray(want.raw()))
 
 
 def test_qtensor_lane_storage():
-    fa = qformat(3, 4)
+    fa = P(qformat(3, 4))
     # wart raws beyond the format's storage take a wider lane, as in JAX
     for raws in ([1, -2, 3], [1000, -3], [1 << 20]):
-        j = jfrom_raw(np.array(raws), fa)
+        j = jfrom_raw(np.array(raws), qformat(3, 4))
         t = from_raw(raws, fa, "cpu")
         assert t.data.dtype == getattr(torch, str(j.data.dtype))
         np.testing.assert_array_equal(t.raw(), np.asarray(j.raw()))
@@ -74,20 +78,24 @@ def test_qtensor_lane_storage():
     np.testing.assert_array_equal(t.to_double(), [[3 / 16, -5 / 16]])
     assert isinstance(t.to("cpu"), QTensor) and t[0].shape == (2,)
     with pytest.raises(NotImplementedError, match="ROADMAP items 10-11"):
-        from_raw([1], qformat(40, 0), "cpu")
+        from_raw([1], P(qformat(40, 0)), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP items 10-11"):
         from_raw(np.array([1 << 70], dtype=object), fa, "cpu")
 
 
 def test_cpu_tensors_launch_no_kernel():
-    fused_int8_gemm.launches = 0
-    tree_gemm.launches = 0
+    counters = (fused_int8_gemm, tree_gemm, tree_gemm_stream, qreduce_kernel)
+    for fn in counters:
+        fn.launches = 0
     forward, (x, w1, w2) = entry()
     QuantPipeline.from_numpy(w1, w2, "cpu")(torch.from_numpy(x[:8]))
-    f = qformat(8, 8, overflow_mode=OverflowMode.SAT_ZERO)
+    f = P(qformat(8, 8, overflow_mode=OverflowMode.SAT_ZERO))
     a = from_raw(np.arange(12).reshape(3, 4), f, "cpu")
-    qgemul(a, QTensor(a.data.t().contiguous(), f), f)
-    assert fused_int8_gemm.launches == 0 and tree_gemm.launches == 0
+    bt = a.data.t().contiguous()
+    qgemul(a, QTensor(bt, f), f)
+    tree_gemm_stream(a.data, bt, plan_tree(f, f, f, (), 4, f), f)
+    qreduce(a, axis=1)
+    assert [fn.launches for fn in counters] == [0, 0, 0, 0]
 
 
 def test_port_runs_without_jax():
@@ -101,7 +109,14 @@ def test_port_runs_without_jax():
         "y = qt.QuantPipeline.from_numpy(w[1], w[2], 'cpu')("
         "torch.from_numpy(w[0]))\n"
         "assert y.shape == (32, 32)\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "f = qt.qformat(4, 4)\n"
+        "x = qt.random_fill((8, 13), f, device='cpu')\n"
+        "r = qt.qreduce(x, (qt.qformat(5, 3), qt.qformat(6, 2)), axis=1)\n"
+        "assert r.shape == (8,)\n"
+        "assert (qt.qmul(x, x) + x).shape == (8, 13)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'qublas_tpu' or m.startswith('qublas_tpu.')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -4,7 +4,8 @@
 ``qublas_tpu_torch.ops.elementwise.qcast`` must give the JAX package's raws
 bit for bit under every rounding x overflow mode, signed and unsigned, at
 the int32 edges (INT32_MIN/MAX), at each format's range edges +-1, and at
-shifts d = -2, 0, 1, 31.  Inputs are made with numpy from a seed.
+shifts d = -2, 0, 1, 31.  Inputs are made with numpy from a seed; formats
+cross into the port with ``port_format`` and are compared field by field.
 """
 
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ from qublas_tpu.ops import elementwise as jew
 from qublas_tpu.ops import wideint as jW
 from qublas_tpu.qformat import OverflowMode, QFormat, RoundMode, qformat
 from qublas_tpu.qtensor import from_raw as jfrom_raw
+from qublas_tpu_torch.convert import port_format as P
 from qublas_tpu_torch.ops import wideint as tW
 from qublas_tpu_torch.ops.elementwise import qcast
 from qublas_tpu_torch.qtensor import from_raw
@@ -54,7 +56,8 @@ def test_requant_core_matches_jax(rm, om, signed):
         for d in (-2, 0, 1, 31):
             x = _inputs(rng, fmt, d)
             want = np.asarray(jW.requantize_i32(jnp.asarray(x), 4 + d, fmt))
-            got = tW.requantize_i32(torch.from_numpy(x), 4 + d, fmt).numpy()
+            got = tW.requantize_i32(torch.from_numpy(x), 4 + d,
+                                    P(fmt)).numpy()
             np.testing.assert_array_equal(got, want, err_msg=f"{fmt} d={d}")
 
     # requantize_split_mul: products wider than int32, d in [1, 30]
@@ -68,7 +71,7 @@ def test_requant_core_matches_jax(rm, om, signed):
         want = np.asarray(jW.requantize_split_mul(
             jnp.asarray(a), jnp.asarray(b), 8 + d, fmt))
         got = tW.requantize_split_mul(torch.from_numpy(a), torch.from_numpy(b),
-                                      8 + d, fmt).numpy()
+                                      8 + d, P(fmt)).numpy()
         np.testing.assert_array_equal(got, want, err_msg=f"split d={d}")
 
     # qcast (i32 route): full int16 source range into a narrower format
@@ -76,7 +79,7 @@ def test_requant_core_matches_jax(rm, om, signed):
     raws = np.arange(src.raw_min, src.raw_max + 1, 7, dtype=np.int64)
     for dst in (QFormat(3, 2, signed, rm, om), QFormat(5, 9, signed, rm, om)):
         want = jew.qcast(jfrom_raw(raws, src), dst)
-        got = qcast(from_raw(raws, src, "cpu"), dst)
-        assert got.fmt == want.fmt
+        got = qcast(from_raw(raws, P(src), "cpu"), P(dst))
+        assert got.fmt == P(want.fmt)
         assert got.data.dtype == getattr(torch, str(want.data.dtype))
         np.testing.assert_array_equal(got.raw(), np.asarray(want.raw()))
