@@ -9,9 +9,12 @@ Phases, each printing its lines:
    build time, the compiler's register/spill report and the card;
 2. hold each kernel against its plain-torch version on the card, bit for
    bit (max |difference| 0), at the main paths' shapes, ragged shapes and
-   every rounding x overflow mode: K1 (fused int8 GEMM), K2 (tree GEMM),
-   K2′ (tree GEMM, one-pass schedule) and K3 (tree reduce: any n, odd
-   tails, int8/int16/int32 lanes, an out-of-range raw at the odd tail);
+   every rounding x overflow mode: K1 (fused int8 GEMM, and ``int_dot``,
+   its identity epilogue), K2 (tree GEMM), K2′ (tree GEMM, one-pass
+   schedule), K3 (tree reduce: any n, odd tails, int8/int16/int32 lanes,
+   an out-of-range raw at the odd tail) and P1 (the per-product chain
+   probe, split and i32 product routes, and ``measured_chain_prods``'
+   tile at both chain lengths over all 2048 programs);
 3. drive the main paths through the public entry points, each with the
    launch counts set to 0 just before it and read just after:
    a. the quantized GEMM pipeline (``QuantPipeline``: GEMM -> sqrt ROM ->
@@ -24,6 +27,13 @@ Phases, each printing its lines:
       must agree bit for bit;
    c. the elementwise ops at 4096x4096 on the card against the same ops on
       CPU copies (plain torch ops, no kernel);
+   d. the complex GEMM of BASELINE config 5 (``cgemul``, TF and Basic) at
+      2048^3: K1 four times each; the order-sensitive complex GEMM at 512^3
+      on the layered path: K3 twice; config 5 at 256^3 equal to the
+      layered path, and a 64x64 block of its output through a BitStream
+      round trip;
+   e. ``measured_chain_prods`` of the canonical plan (bench.py's two-length
+      difference): P1 eight times;
    every result is checked against the plain versions, and 16x16 corners
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
@@ -40,6 +50,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 # main-path sizes
 PIPE_N = 4096                     # x, W1, W2: PIPE_N x PIPE_N
@@ -48,6 +59,9 @@ REDUCE_SHAPE = (4096, 1024)       # BASELINE config 2, reduced over axis 1
 REDUCE_BIG_ROWS = 131072          # K3 timed at [REDUCE_BIG_ROWS, 1024]
 LAYERED_N = 512                   # layered canonical GEMM: LAYERED_N^3
 EW_N = 4096                       # elementwise ops: EW_N x EW_N
+CPLX_N = 2048                     # config 5 complex GEMM: CPLX_N^3
+CPLX_LAYERED_N = 256              # config 5 against its layered path
+BITS_BLOCK = 64                   # BitStream round trip of a 64x64 block
 CORNER = 16                       # corner checked against the host model
 TIMED_RUNS = 10
 
@@ -133,7 +147,12 @@ def phase_kernels(dev, chk):
     import torch
 
     import qublas_tpu_torch as qt
-    from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm_plain
+    from qublas_tpu_torch.ops.chain_probe import (BM, BN, G, T1, T2,
+                                                  chain_probe,
+                                                  chain_probe_plain,
+                                                  probe_tile)
+    from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm_plain,
+                                                 int_dot, int_dot_plain)
     from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
                                              qreduce_plain)
     from qublas_tpu_torch.ops.tree_gemm import (plan_tree, tree_gemm_plain,
@@ -232,6 +251,35 @@ def phase_kernels(dev, chk):
                 lf = qt.qformat(5, 2, signed, rm, om)
                 k3_case(f"[100, 13] -> {lf}", f44, (lf,), (100, 13), 1,
                         np.int8)
+
+    i32f = qt.qformat(3, 4, round_mode=qt.RoundMode.RND_CONV,
+                      overflow_mode=qt.OverflowMode.WRP_TCPL)
+    for route, f in (("split", f88z), ("i32", i32f)):
+        plan = plan_tree(f, f, qt.mul_merge(f, f), (), TREE_N, f)
+        assert plan.prod_route == route, (route, plan.prod_route)
+        x = torch.from_numpy(rand_raws(rng, f, (BM, BN), np.int32)).to(dev)
+        y = torch.from_numpy(rand_raws(rng, f, (BM, BN), np.int32)).to(dev)
+        for steps in (1, 16):
+            chk.same("chain_probe", f"{route} route {f} T={steps}, 4 "
+                     f"programs of [{BM}, {BN}]",
+                     chain_probe(x, y, plan, steps, 4),
+                     chain_probe_plain(x, y, plan, steps, 4))
+        if route == "split":
+            # the main path's shapes: measured_chain_prods' tile and plan
+            xp, yp = probe_tile(f, dev)
+            for steps in (T1, T2):
+                chk.same("chain_probe", f"measured_chain_prods' tile T="
+                         f"{steps}, {G} programs of [{BM}, {BN}]",
+                         chain_probe(xp, yp, plan, steps, G),
+                         chain_probe_plain(xp, yp, plan, steps, G))
+            del xp, yp
+
+    for what, f, dtype in (("int8", fa, np.int8),
+                           ("int16 lanes Qu<7,4>", f16, np.int16)):
+        a = torch.from_numpy(rand_raws(rng, f, (1000, 777), dtype)).to(dev)
+        b = torch.from_numpy(rand_raws(rng, f, (777, 1003), dtype)).to(dev)
+        chk.same("fused_int8_gemm", f"int_dot {what} 1000x777x1003",
+                 int_dot(a, b), int_dot_plain(a, b))
     torch.cuda.synchronize()
 
 
@@ -437,6 +485,195 @@ def phase_elementwise(dev):
           f"the card equal the CPU, their {cn}x{cn} corners hostops")
 
 
+def config5():
+    """BASELINE config 5 (``bench.py:598-625``): ``Qu<3,4>`` operands,
+    ``Qu<5,4>`` operand sums, ``Qu<20,8>`` products, combines and layers,
+    ``Qu<3,4,SAT::ZERO>`` output parts; the TF tags and the Basic tags of
+    the same formats."""
+    import qublas_tpu_torch as qt
+
+    f, wide, mid = qt.qformat(3, 4), qt.qformat(20, 8), qt.qformat(5, 4)
+    out = (qt.qformat(3, 4, overflow_mode=qt.OverflowMode.SAT_ZERO),) * 2
+    tf = dict(ab=mid, cd=mid, ba=mid, abc=wide, cdb=wide, bad=wide, AB=wide,
+              BC=wide)
+    basic = dict(ac=wide, bd=wide, ad=wide, bc=wide, acbd=wide, adbc=wide)
+    return f, wide, out, tf, basic
+
+
+@contextmanager
+def plain_dots():
+    """The complex GEMM's dots on ``int_dot``'s plain version (a float64
+    matmul on the card) while the block runs: the reference side of the
+    K1 checks of phase 3d.  Fails if K1 launched inside the block, so the
+    reference cannot quietly run the kernel it is checking."""
+    from qublas_tpu_torch.ops import cgemm
+    from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm, int_dot,
+                                                 int_dot_plain)
+
+    cgemm.int_dot = int_dot_plain
+    fused_int8_gemm.launches = 0
+    try:
+        yield
+    finally:
+        cgemm.int_dot = int_dot
+    check_launches("plain-dot reference", fused_int8_gemm.launches, 0)
+
+
+def host_cgemul(a, b, out, algo, add_formats, **tags):
+    """Raws of the exact host golden model (``hostops.cgemul``) for the
+    same complex call, as (real, imag) pairs, one Python-int product at a
+    time."""
+    from qublas_tpu_torch import hostops
+
+    def rows(x):
+        re, im = x.real.raw(), x.imag.raw()
+        return [[((int(re[i, j]), x.real.fmt), (int(im[i, j]), x.imag.fmt))
+                 for j in range(re.shape[1])] for i in range(re.shape[0])]
+
+    c = hostops.cgemul(rows(a), rows(b), out, algo, add_formats, **tags)
+    return [[(r[0], i[0]) for r, i in row] for row in c]
+
+
+def phase_complex_path(dev, chk):
+    """Phase 3d: the complex GEMM through the public entry points."""
+    import numpy as np
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import bitstream
+    from qublas_tpu_torch.ops import cgemm
+    from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
+    from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
+                                             qreduce_plain)
+    from qublas_tpu_torch.ops.tree_gemm import tree_gemm, tree_gemm_stream
+
+    f, wide, out, tf_kw, basic_kw = config5()
+    f88z = formats()[0]
+    n, ln = CPLX_N, LAYERED_N
+    rng = np.random.RandomState(5)
+    # int8 lanes in bench.py's order: ar, ai, br, bi
+    parts = [rand_raws(rng, f, (n, n), np.int8) for _ in range(4)]
+    a = qt.complex_from_raw(parts[0], parts[1], f, device=dev)
+    b = qt.complex_from_raw(parts[2], parts[3], f, device=dev)
+    a3 = qt.complex_from_raw(rand_raws(rng, f88z, (ln, ln), np.int32),
+                             rand_raws(rng, f88z, (ln, ln), np.int32), f88z,
+                             device=dev)
+    b3 = qt.complex_from_raw(rand_raws(rng, f88z, (ln, ln), np.int32),
+                             rand_raws(rng, f88z, (ln, ln), np.int32), f88z,
+                             device=dev)
+    torch.cuda.synchronize()
+
+    calls = {
+        "tf": (f"config 5 TF cgemul {n}^3", lambda x, y: qt.cgemul(
+            x, y, out, algo="tf", add_formats=(wide,), **tf_kw)),
+        "basic": (f"config 5 Basic cgemul {n}^3", lambda x, y: qt.cgemul(
+            x, y, out, algo="basic", add_formats=(wide,), **basic_kw)),
+        "ordered": (f"order-sensitive Qu<8,8,SAT::ZERO> Basic cgemul "
+                    f"{ln}^3 (layered)",
+                    lambda x, y: qt.cgemul(x, y, f88z, algo="basic")),
+    }
+    expect = {"tf": (4, 0), "basic": (4, 0), "ordered": (0, 2)}
+    counters = (fused_int8_gemm, qreduce_kernel, tree_gemm, tree_gemm_stream)
+    launches = {fn.__name__: 0 for fn in counters}
+    res = {}
+    for key, (label, call) in calls.items():
+        x, y = (a3, b3) if key == "ordered" else (a, b)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res[key] = call(x, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {fn.__name__: fn.launches for fn in counters}
+        print(f"main path d: {label} in {wall * 1e3:.3f} ms wall (first "
+              f"call), launches {got}")
+        k1, k3 = expect[key]
+        check_launches(f"main path d, {label}", got,
+                       {"fused_int8_gemm": k1, "qreduce_kernel": k3,
+                        "tree_gemm": 0, "tree_gemm_stream": 0})
+        for name, v in got.items():
+            launches[name] += v
+
+    for key in ("tf", "basic"):
+        c = res[key]
+        assert c.shape == (n, n) and c.fmt == out, (key, c.shape, c.fmt)
+        assert c.real.data.dtype == torch.int8
+        with plain_dots():
+            ref = calls[key][1](a, b)
+        chk.same("fused_int8_gemm", f"{calls[key][0]}, real part", c.real,
+                 ref.real)
+        chk.same("fused_int8_gemm", f"{calls[key][0]}, imag part", c.imag,
+                 ref.imag)
+    c3 = res["ordered"]
+    assert c3.shape == (ln, ln) and c3.fmt == (f88z, f88z)
+    prod = qt.cmul(qt.complex_from_parts(
+        qt.QTensor(a3.real.data[:, :, None], f88z),
+        qt.QTensor(a3.imag.data[:, :, None], f88z)),
+        qt.complex_from_parts(qt.QTensor(b3.real.data[None], f88z),
+                              qt.QTensor(b3.imag.data[None], f88z)))
+    for part in ("real", "imag"):
+        x = getattr(prod, part)
+        plan = plan_reduce(x.fmt, (), ln)
+        ref = qt.qcast(qt.QTensor(qreduce_plain(x.data, 1, plan),
+                                  plan.final_fmt), f88z)
+        chk.same("qreduce_kernel", f"{calls['ordered'][0]}, {part} part",
+                 getattr(c3, part), ref)
+    del prod, x
+    torch.cuda.empty_cache()
+
+    m = CPLX_LAYERED_N
+    fast = calls["tf"][1](a[:m, :m], b[:m, :m])
+    with cgemm.force_fast_off():
+        layered = calls["tf"][1](a[:m, :m], b[:m, :m])
+    chk.same("fused_int8_gemm", f"config 5 TF {m}^3 == layered path, real",
+             fast.real, layered.real)
+    chk.same("fused_int8_gemm", f"config 5 TF {m}^3 == layered path, imag",
+             fast.imag, layered.imag)
+
+    cn = CORNER
+    host = host_cgemul(a[:cn], b[:, :cn], out, "tf", (wide,), **tf_kw)
+    c = res["tf"]
+    re, im = c.real.raw()[:cn, :cn], c.imag.raw()[:cn, :cn]
+    assert host == [[(int(re[i, j]), int(im[i, j])) for j in range(cn)]
+                    for i in range(cn)], "config 5 corner vs hostops.cgemul"
+
+    bb = BITS_BLOCK
+    blk = c[:bb, :bb]
+    bits = blk.to_bits()
+    assert len(bits) == bb * bb * blk.width
+    back = bitstream.from_bits_complex(bits, *out, shape=(bb, bb),
+                                       twos_complement=True, device=dev)
+    assert back.fmt == blk.fmt and back.device == blk.device
+    assert torch.equal(back.real.data, blk.real.data) and \
+        torch.equal(back.imag.data, blk.imag.data), "BitStream round trip"
+    print(f"main path d: config 5 TF and Basic equal their plain-dot "
+          f"versions, {ln}^3 order-sensitive equals plain K3, {m}^3 equals "
+          f"the layered path, the {cn}x{cn} corner equals hostops.cgemul, "
+          f"a {bb}x{bb} block survives to_bits -> from_bits_complex")
+    return launches, (a, b, a3, b3)
+
+
+def phase_chain(dev, state_a):
+    """Phase 3e: P1 on the canonical tree GEMM's measurement path."""
+    import torch
+
+    from qublas_tpu_torch.ops.chain_probe import (chain_probe,
+                                                  measured_chain_prods)
+
+    tplan, f88z = state_a[6], state_a[7]
+    chain_probe.launches = 0
+    t0 = time.perf_counter()
+    rate = measured_chain_prods(f88z, tplan, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = chain_probe.launches
+    print(f"main path e: measured_chain_prods (canonical plan) in "
+          f"{wall * 1e3:.3f} ms wall, launches {{'chain_probe': {launches}}}")
+    check_launches("main path e", launches, 8)
+    assert rate is not None and rate > 0, f"measured_chain_prods: {rate}"
+    return launches, rate
+
+
 def rq_ops(from_frac, fmt):
     """int32 operations of one requantize from ``from_frac`` into ``fmt``
     on the path csrc/requant.cuh takes for it: the rounding stage, then
@@ -493,6 +730,18 @@ def k2_bound(plan, out_fmt, m, n, k):
                     INT32_OPS_S)
 
 
+def p1_bound(plan, steps, programs, elems):
+    """Bound of P1: x and y once, the output once, and per element and step
+    one product (its requantize and the route's multiply) and one layer-0
+    merge (an add and its requantize), counted as ``k2_bound`` counts
+    them."""
+    prod = rq_ops(plan.prod_frac, plan.mul_fmt) + \
+        (5 if plan.prod_route == "split" else 1)
+    merge = 1 + rq_ops(plan.level_fmts[0].frac_bits, plan.merge_fmts[0])
+    return bound_ms(4 * (2 * elems + programs * elems),
+                    programs * elems * steps * (prod + merge), INT32_OPS_S)
+
+
 def k3_bound(plan, outputs, in_bytes, out_bytes):
     """Bound of the tree reduce: the input once, the output once, and per
     output the tree's adds and requantizes (a tail convert only where its
@@ -504,13 +753,18 @@ def k3_bound(plan, outputs, in_bytes, out_bytes):
                     outputs * per_out, INT32_OPS_S)
 
 
-def phase_times(card, state_a, state_b):
+def phase_times(card, state_a, state_b, state_d, chain_rate):
     """Phase 4: kernel, plain, library and main-path times."""
     import torch
 
     import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops.chain_probe import (BM, BN, G, T1,
+                                                  chain_probe,
+                                                  chain_probe_plain,
+                                                  probe_tile)
     from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm,
-                                                 fused_int8_gemm_plain)
+                                                 fused_int8_gemm_plain,
+                                                 int_dot)
     from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
                                              qreduce_plain)
     from qublas_tpu_torch.ops.tree_gemm import (tree_gemm, tree_gemm_plain,
@@ -532,6 +786,10 @@ def phase_times(card, state_a, state_b):
                           qreduce_plain(big, 1, big_plan))
     assert chk_big, f"K3 != plain at [{REDUCE_BIG_ROWS}, {REDUCE_SHAPE[1]}]"
     xd = xr.data
+    ca, cb, ca3, cb3 = state_d
+    _, wide, out5, tf_kw, basic_kw = config5()
+    ar, ai, br, bi = ca.real.data, ca.imag.data, cb.real.data, cb.imag.data
+    xp, yp = probe_tile(f88z, x.device)
     t = {
         "k1": timeit(lambda: fused_int8_gemm(x, w1, plan1.prod_frac, mid)),
         "k1_plain": timeit(lambda: fused_int8_gemm_plain(
@@ -561,6 +819,21 @@ def phase_times(card, state_a, state_b):
             qt.QTensor(a3.data[:, :, None], f88z),
             qt.QTensor(b3.data[None], f88z)), (), axis=1), f88z)),
         "qgemul_small": timeit(lambda: qt.qgemul(a3, b3, f88z)),
+        "cgemul_tf": timeit(lambda: qt.cgemul(
+            ca, cb, out5, algo="tf", add_formats=(wide,), **tf_kw)),
+        "cgemul_basic": timeit(lambda: qt.cgemul(
+            ca, cb, out5, algo="basic", add_formats=(wide,), **basic_kw)),
+        "cgemul_dots": timeit(lambda: (int_dot(ar, br), int_dot(ai, br),
+                                       int_dot(ai, bi), int_dot(ar, bi))),
+        "cgemul_transpose": timeit(lambda: br.t().contiguous()),
+        "int_mm3": timeit(lambda: (torch._int_mm(ar, br),
+                                   torch._int_mm(ai, br),
+                                   torch._int_mm(ar, bi))),
+        "cgemul_ordered": timeit(lambda: qt.cgemul(ca3, cb3, f88z,
+                                                   algo="basic")),
+        "p1": timeit(lambda: chain_probe(xp, yp, tplan, T1, G)),
+        "p1_plain": timeit(lambda: chain_probe_plain(xp, yp, tplan, T1, G),
+                           warmup=1),
     }
     ops = 2 * n ** 3
     for key, label in (
@@ -601,6 +874,27 @@ def phase_times(card, state_a, state_b):
           f"layered GEMM {ln}^3 {t['layered']:.4f} ms against qgemul "
           f"{ln}^3 {t['qgemul_small']:.4f} ms [{card}]")
 
+    cn = CPLX_N
+    print(f"time config 5: TF cgemul {cn}^3 {t['cgemul_tf']:.4f} ms, its "
+          f"four int_dots alone {t['cgemul_dots']:.4f} ms (of which the "
+          f"wrapper's per-call transpose of B, {cn}^2 int8: "
+          f"{t['cgemul_transpose']:.4f} ms each), three raw "
+          f"torch._int_mm (bench.py's vs_3xint8 arm, reference) "
+          f"{t['int_mm3']:.4f} ms ({t['int_mm3'] / t['cgemul_tf']:.4f} of "
+          f"the TF call's time), Basic cgemul {t['cgemul_basic']:.4f} ms "
+          f"[{card}]")
+    print(f"time order-sensitive complex GEMM {ln}^3 (layered, Basic): "
+          f"{t['cgemul_ordered']:.4f} ms, {ln ** 3 / t['cgemul_ordered'] / 1e6:.2f}"
+          f" Gprod/s [{card}]")
+    prods = BM * BN * G * T1
+    print(f"time chain_probe T={T1} x {G} programs of [{BM}, {BN}]: "
+          f"{t['p1']:.4f} ms, {prods / t['p1'] / 1e6:.2f} Gstep/s; plain "
+          f"{t['p1_plain']:.4f} ms [{card}]")
+    canon_rate = tn ** 3 / (t["canonical"] / 1e3)
+    print(f"P1: measured_chain_prods (canonical plan) {chain_rate / 1e9:.2f} "
+          f"Gprod/s; canonical qgemul {tn}^3 {canon_rate / 1e9:.2f} Gprod/s, "
+          f"vs_serial_chain {canon_rate / chain_rate:.4f} [{card}]")
+
     rows, cols = REDUCE_SHAPE
     bounds = {
         "k1": bound_ms(3 * n * n, ops, INT8_OPS_S),
@@ -610,6 +904,9 @@ def phase_times(card, state_a, state_b):
         "k3": k3_bound(r_plan, rows, 1, 2),
         "k3_big": k3_bound(big_plan, REDUCE_BIG_ROWS, 1, 2),
         "k3_layered": k3_bound(p_plan, ln * ln, 4, 4),
+        "p1": p1_bound(tplan, T1, G, BM * BN),
+        "cgemul_dots": bound_ms(4 * cn * cn + 4 * 4 * cn * cn,
+                                4 * 2 * cn ** 3, INT8_OPS_S),
     }
     for key, (ms, by) in bounds.items():
         print(f"bound {key}: {ms:.4f} ms ({by}); measured {t[key]:.4f} ms, "
@@ -647,7 +944,9 @@ def main() -> int:
     launches_a, state_a = phase_main_path(dev, chk)
     launches_b, state_b = phase_reduce_path(dev, chk)
     phase_elementwise(dev)
-    t, bounds = phase_times(card, state_a, state_b)
+    launches_d, state_d = phase_complex_path(dev, chk)
+    launches_e, chain_rate = phase_chain(dev, state_a)
+    t, bounds = phase_times(card, state_a, state_b, state_d, chain_rate)
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "qublas_tpu" or m.startswith("qublas_tpu.")]
     assert not bad, f"the port imported {bad}"
@@ -663,7 +962,8 @@ def main() -> int:
     kernels = [
         row("fused_int8_gemm", "qublas_tpu_torch/csrc/fused_gemm.cu",
             "qublas_tpu/ops/pallas_gemm.py:83",
-            launches_a["fused_int8_gemm"], "k1", "k1_plain", "int_mm"),
+            launches_a["fused_int8_gemm"] + launches_d["fused_int8_gemm"],
+            "k1", "k1_plain", "int_mm"),
         row("tree_gemm", "qublas_tpu_torch/csrc/tree_gemm.cu",
             "qublas_tpu/ops/tree_gemm.py:362", launches_a["tree_gemm"],
             "k2", "k2_plain", None),
@@ -671,8 +971,11 @@ def main() -> int:
             "qublas_tpu/ops/tree_gemm.py:457",
             launches_b["tree_gemm_stream"], "k2s", "k2s_plain", None),
         row("qreduce_kernel", "qublas_tpu_torch/csrc/qreduce.cu",
-            "qublas_tpu/ops/reduce.py:192", launches_b["qreduce_kernel"],
+            "qublas_tpu/ops/reduce.py:192",
+            launches_b["qreduce_kernel"] + launches_d["qreduce_kernel"],
             "k3", "k3_plain", None),
+        row("chain_probe", "qublas_tpu_torch/csrc/tree_gemm.cu",
+            "bench.py:408", launches_e, "p1", "p1_plain", None),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,7 @@ import numpy as np
 from .qformat import OverflowMode, QFormat, RoundMode
 from .qtensor import QTensor, from_raw
 
-__all__ = ["port_format", "from_jax"]
+__all__ = ["port_format", "from_jax", "complex_from_jax"]
 
 
 def port_format(f) -> QFormat:
@@ -32,3 +32,12 @@ def from_jax(t, device) -> QTensor:
     """A port QTensor on ``device`` with the raws and format of ``t``: any
     object with ``.raw()`` and ``.fmt`` (e.g. a ``qublas_tpu.QTensor``)."""
     return from_raw(np.asarray(t.raw()), port_format(t.fmt), device)
+
+
+def complex_from_jax(c, device):
+    """A port QComplexTensor on ``device`` with the parts of ``c``: any
+    object with ``.real`` and ``.imag`` parts that :func:`from_jax` takes
+    (e.g. a ``qublas_tpu.complex.QComplexTensor``)."""
+    from .complex import QComplexTensor
+
+    return QComplexTensor(from_jax(c.real, device), from_jax(c.imag, device))

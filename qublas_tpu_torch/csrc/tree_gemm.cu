@@ -1,5 +1,6 @@
 // K2 and K2': the order-sensitive quantized tree GEMM, for qgemul's general
-// tier (e.g. the canonical Qu<8,8,TRN::TCPL,SAT::ZERO> config).
+// tier (e.g. the canonical Qu<8,8,TRN::TCPL,SAT::ZERO> config), and P1, the
+// probe that measures its per-product work.
 //
 // One kernel, two schedules, chosen by LOG_BLK:
 //   * LOG_BLK = log2 of the largest power of two dividing k, capped at 4,
@@ -21,6 +22,17 @@
 // element and reads 32 neighbouring B elements).  Compute-bound.  K2'
 // spends more of it on the stack: every product takes the push's
 // trailing-ones branch, where K2 takes it once per block.
+//
+// P1 (chain_probe_kernel) is the measurement probe of the same per-product
+// work, replacing the Pallas kernel of bench.py:_measured_chain_prods
+// (build, pallas_call at bench.py:418): T dependent steps of product() and
+// a layer-0 merge on one [BM, BN] tile, written G times.  There the grid
+// runs the G programs one after another on one core; here one thread owns
+// one output element of one program, so all G x BM x BN chains run in
+// parallel and each keeps its value in a register.  Bound by int32 ALU
+// work (T x ~20 operations per element against 4 bytes stored); being a
+// dependent chain, each thread's steps cannot overlap, so it also measures
+// the latency that enough warps per SM hide.
 
 #include <cuda_runtime.h>
 
@@ -99,24 +111,49 @@ void launch_top(int top, const int32_t* a, const int32_t* b, void* c, int m,
   }
 }
 
-}  // namespace
+// P1: out[g, e] = x[e] after `steps` times v = merge(0, p, p) with
+// p = product(v, y[e]); X, Y [elems] int32, out [programs, elems].
+__global__ void __launch_bounds__(256)
+chain_probe_kernel(const int32_t* __restrict__ X,
+                   const int32_t* __restrict__ Y, int32_t* __restrict__ out,
+                   int elems, long long total, int steps, const TreeParams p) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int e = (int)(idx % elems);
+  int32_t v = __ldg(X + e);
+  const int32_t y = __ldg(Y + e);
+  for (int s = 0; s < steps; ++s) {
+    const int32_t prod = product(p, v, y);
+    v = qk::merge(p.fold, 0, prod, prod);
+  }
+  out[idx] = v;
+}
 
 // params (host int32), as qublas_tpu_torch/ops/tree_gemm.py:_kernel_params
 // writes them:
 //   split, log_blk, prod[5], levels, merge[levels][5], ndrain,
 //   (op, level)[ndrain], fin[5]
+// Returns false for parameters outside the kernels' range.
+bool read_params(const int* params, TreeParams* p, int* log_blk) {
+  const int* q = params;
+  p->split = *q++;
+  *log_blk = *q++;
+  p->prod = qk::read_rq(q);
+  q = qk::read_fold(q + 5, &p->fold);
+  if (q == nullptr || *log_blk < 0 || *log_blk > 4) return false;
+  p->fin = qk::read_rq(q);
+  return true;
+}
+
+}  // namespace
+
 // Returns a cudaError_t, or -1 for parameters outside the kernel's range.
 extern "C" int qk_tree_gemm(int device, const void* a, const void* b, void* c,
                             int m, int n, int k, int out_bytes,
                             const int* params, void* stream) {
   TreeParams p{};
-  const int* q = params;
-  p.split = *q++;
-  const int log_blk = *q++;
-  p.prod = qk::read_rq(q);
-  q = qk::read_fold(q + 5, &p.fold);
-  if (q == nullptr || log_blk < 0 || log_blk > 4) return -1;
-  p.fin = qk::read_rq(q);
+  int log_blk;
+  if (!read_params(params, &p, &log_blk)) return -1;
 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -133,5 +170,31 @@ extern "C" int qk_tree_gemm(int device, const void* a, const void* b, void* c,
     case 3: launch_top<3>(top, A, B, c, m, n, k, out_bytes, p, s); break;
     default: launch_top<4>(top, A, B, c, m, n, k, out_bytes, p, s); break;
   }
+  return (int)cudaGetLastError();
+}
+
+// P1 over `programs` copies of an [elems] tile; params as qk_tree_gemm's
+// (the product route, the product's requantize and layer 0's merge are
+// read).  Returns a cudaError_t, or -1 for parameters outside the range.
+extern "C" int qk_chain_probe(int device, const void* x, const void* y,
+                              void* out, int elems, int programs, int steps,
+                              const int* params, void* stream) {
+  TreeParams p{};
+  int log_blk;
+  if (!read_params(params, &p, &log_blk) || elems < 1 || programs < 0 ||
+      steps < 0) {
+    return -1;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)elems * programs;
+  if (total == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return -1;
+  chain_probe_kernel<<<(unsigned)blocks, threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<const int32_t*>(y),
+      static_cast<int32_t*>(out), elems, total, steps, p);
   return (int)cudaGetLastError();
 }

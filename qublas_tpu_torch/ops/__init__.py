@@ -1,4 +1,5 @@
 """Device ops of the torch port: the requantize core (:mod:`.wideint`), the
-converting cast (:mod:`.elementwise`), and the quantized GEMM
-(:mod:`.gemm`) with its two kernels, :mod:`.fused_gemm` (K1) and
-:mod:`.tree_gemm` (K2)."""
+elementwise ops (:mod:`.elementwise`), the quantized GEMM (:mod:`.gemm`)
+with its kernels :mod:`.fused_gemm` (K1) and :mod:`.tree_gemm` (K2, K2′),
+the tree reduce (:mod:`.reduce`, K3), the complex GEMM (:mod:`.cgemm`, on
+K1 and K3) and the per-product probe (:mod:`.chain_probe`, P1)."""

@@ -9,6 +9,10 @@ the dot fits int32, so int32 accumulation in any order is exact, and one
 
 int8 operands run on the tensor cores; other lanes are widened to int32 and
 run the int32 instantiation, as ``qgemul_fast`` casts them.
+
+:func:`int_dot` is the same kernel with an identity epilogue: the plain
+int32 dot that the complex GEMM's fast path combines (the JAX package's
+``jnp.matmul(..., preferred_element_type=int32)`` in ``ops/cgemm.py``).
 """
 
 from __future__ import annotations
@@ -16,11 +20,12 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..qformat import QFormat
+from ..qformat import OverflowMode, QFormat, RoundMode
 from .wideint import requantize_i32
 from .widths import LANE_DTYPES, torch_dtype_for
 
-__all__ = ["fused_int8_gemm", "fused_int8_gemm_plain"]
+__all__ = ["fused_int8_gemm", "fused_int8_gemm_plain", "int_dot",
+           "int_dot_plain"]
 
 
 def fused_int8_gemm_plain(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
@@ -32,37 +37,15 @@ def fused_int8_gemm_plain(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
     return raw.to(torch_dtype_for(out_fmt))
 
 
-def fused_int8_gemm(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
-                    out_fmt: QFormat) -> torch.Tensor:
-    """``requantize_i32(a @ b, prod_frac, out_fmt)`` for 2-D lane tensors
-    ``a`` [M, K] and ``b`` [K, N], stored in ``torch_dtype_for(out_fmt)``.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    ``fused_int8_gemm.launches`` counts kernel launches.
-    """
-    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"need [M, K] @ [K, N], got {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
-    if a.dtype not in LANE_DTYPES or b.dtype not in LANE_DTYPES:
-        raise TypeError(f"operands must be int8/int16/int32 lanes, got "
-                        f"{a.dtype} and {b.dtype}")
-    if a.device != b.device:
-        raise ValueError(f"operands on {a.device} and {b.device}")
-    out_dtype = torch_dtype_for(out_fmt)
-    if out_dtype is None:
-        raise ValueError(f"{out_fmt} has no lane storage")
-    if a.device.type == "cpu":
-        return fused_int8_gemm_plain(a, b, prod_frac, out_fmt)
-    if a.device.type != "cuda":
-        raise ValueError(f"fused_int8_gemm runs on CUDA or CPU, not "
-                         f"{a.device}")
+def _launch(a: torch.Tensor, b: torch.Tensor, rq, out_dtype) -> torch.Tensor:
+    """Launch K1 on CUDA operands with the requantize ``rq``
+    (``csrc/requant.cuh``'s ``Rq`` fields)."""
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
     lib = _build.lib()
-    rq = _build.rq_args(prod_frac, out_fmt)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     if a.dtype == torch.int8 and b.dtype == torch.int8:
         a8 = a.contiguous()
@@ -79,6 +62,65 @@ def fused_int8_gemm(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
     _build.check(err, "fused_int8_gemm")
     fused_int8_gemm.launches += 1
     return out
+
+
+def _check_operands(name: str, a: torch.Tensor, b: torch.Tensor):
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"need [M, K] @ [K, N], got {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.dtype not in LANE_DTYPES or b.dtype not in LANE_DTYPES:
+        raise TypeError(f"operands must be int8/int16/int32 lanes, got "
+                        f"{a.dtype} and {b.dtype}")
+    if a.device != b.device:
+        raise ValueError(f"operands on {a.device} and {b.device}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CUDA or CPU, not {a.device}")
+
+
+def fused_int8_gemm(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
+                    out_fmt: QFormat) -> torch.Tensor:
+    """``requantize_i32(a @ b, prod_frac, out_fmt)`` for 2-D lane tensors
+    ``a`` [M, K] and ``b`` [K, N], stored in ``torch_dtype_for(out_fmt)``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    ``fused_int8_gemm.launches`` counts kernel launches.
+    """
+    _check_operands("fused_int8_gemm", a, b)
+    out_dtype = torch_dtype_for(out_fmt)
+    if out_dtype is None:
+        raise ValueError(f"{out_fmt} has no lane storage")
+    if a.device.type == "cpu":
+        return fused_int8_gemm_plain(a, b, prod_frac, out_fmt)
+    return _launch(a, b, _build.rq_args(prod_frac, out_fmt), out_dtype)
+
+
+# K1's identity epilogue: requant.cuh returns y unchanged for d = 0 under
+# WRP_TCPL at a signed width of 32 (shift, round mode, overflow mode, width,
+# signedness)
+_IDENTITY_RQ = (0, int(RoundMode.TRN_TCPL), int(OverflowMode.WRP_TCPL), 32, 1)
+
+
+def int_dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain-torch :func:`int_dot`: a float64 matmul, exact while every
+    partial sum stays below 2^53 (the callers' proofs bound them by int32),
+    wrapped into int32 as the kernel's accumulator wraps."""
+    dot = torch.matmul(a.to(torch.float64), b.to(torch.float64))
+    return dot.to(torch.int64).to(torch.int32)
+
+
+def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The int32 dot ``a @ b`` of 2-D lane tensors ``a`` [M, K] and ``b``
+    [K, N]: K1 with the identity epilogue.  int8 operands run the tensor-core
+    instantiation, int16/int32 operands the int32 one, so every raw keeps its
+    value whatever its format (no narrowing by interval).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel and
+    add one to ``fused_int8_gemm.launches``.
+    """
+    _check_operands("int_dot", a, b)
+    if a.device.type == "cpu":
+        return int_dot_plain(a, b)
+    return _launch(a, b, _IDENTITY_RQ, torch.int32)
 
 
 fused_int8_gemm.launches = 0

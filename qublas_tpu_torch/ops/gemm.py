@@ -20,9 +20,10 @@ ported so far:
    package's prefix-lossless hybrid tier computes the same bits faster on a
    TPU; on the card K2 evaluates those configs directly.
 
-Batched operands, the limb and pair-domain wide tiers, the streaming wide
-GEMM and the host fallback raise ``NotImplementedError`` (ROADMAP items 4,
-10 and 11).
+Operands with equal leading (batch) dims run either tier once per matrix
+of the flattened batch.  Broadcast batch dims, the limb and pair-domain
+wide tiers, the streaming wide GEMM and the host fallback raise
+``NotImplementedError`` (ROADMAP items 4, 10 and 11).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .. import hostops
 from ..qformat import OverflowMode, QFormat, add_merge, mul_merge
@@ -40,7 +42,7 @@ from .reduce import layer_format
 from .tree_gemm import plan_tree, tree_gemm
 from .widths import Interval, fmt_interval, route_requant, torch_dtype_for
 
-__all__ = ["qgemul", "exact_plan", "ExactPlan", "host_qgemul"]
+__all__ = ["qgemul", "qgemv", "exact_plan", "ExactPlan", "host_qgemul"]
 
 
 # ---------------------------------------------------------------------------
@@ -162,8 +164,9 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     ``add_formats`` ~ QgemulAddArgs TypeList, ``transpose_a/b`` ~
     QgemulTransposedA/B.  ``epilogue_lut`` applies a
     :class:`~qublas_tpu_torch.anus.QTable` built for ``out_fmt`` to the
-    result.  Operands are 2-D lane-storage QTensors on one device; a CUDA
-    operand runs the tier's kernel, a CPU operand its plain version.
+    result.  Operands are lane-storage QTensors of at least 2 dims on one
+    device, with equal leading dims; a CUDA operand runs the tier's kernel,
+    a CPU operand its plain version.
     """
     if isinstance(out_fmt, QTensor):
         out_fmt = out_fmt.fmt  # readme-style call shape `Qgemul(C, A, B)`
@@ -173,21 +176,25 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     if isinstance(add_formats, QFormat):
         add_formats = (add_formats,)
     add_formats = tuple(add_formats)
-    if a.ndim != 2 or b.ndim != 2:
-        raise NotImplementedError(
-            "batched qgemul operands are not yet ported (ROADMAP item 4)")
     if transpose_a:
-        a = QTensor(a.data.t(), a.fmt)
+        a = QTensor(a.data.transpose(-1, -2), a.fmt)
     if transpose_b:
-        b = QTensor(b.data.t(), b.fmt)
+        b = QTensor(b.data.transpose(-1, -2), b.fmt)
+    if a.ndim < 2 or b.ndim < 2:
+        raise ValueError(f"qgemul takes operands of at least 2 dims, got "
+                         f"{a.shape} @ {b.shape}")
     if a.shape[-1] != b.shape[-2]:
         raise ValueError(f"inner dims mismatch: {a.shape} @ {b.shape}")
+    if a.shape[:-2] != b.shape[:-2]:
+        raise NotImplementedError(
+            "broadcast batch dims are not yet ported (ROADMAP item 4)")
     k = a.shape[-1]
     mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
 
     plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats, k)
     if plan is not None and _device_epilogue_ok(plan, out_fmt):
-        raw = fused_int8_gemm(a.data, b.data, plan.prod_frac, out_fmt)
+        raw = _per_batch(lambda x, y: fused_int8_gemm(
+            x, y, plan.prod_frac, out_fmt), a.data, b.data)
         return QTensor(raw, out_fmt)
     if plan is not None:
         raise NotImplementedError(
@@ -199,7 +206,38 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
         raise NotImplementedError(
             "config outside the int32 tree: the streaming wide GEMM and the "
             "host fallback are not yet ported (ROADMAP items 4, 10-11)")
-    return QTensor(tree_gemm(a.data, b.data, tplan, out_fmt), out_fmt)
+    raw = _per_batch(lambda x, y: tree_gemm(x, y, tplan, out_fmt), a.data,
+                     b.data)
+    return QTensor(raw, out_fmt)
+
+
+def _per_batch(fn, *xs: torch.Tensor):
+    """``fn`` over the 2-D matrices of operands with equal leading dims: a
+    loop over the flattened batch (the JAX package vmaps its kernels).
+    ``fn`` returns one matrix or a tuple of them."""
+    if xs[0].ndim == 2:
+        return fn(*xs)
+    batch = xs[0].shape[:-2]
+    flat = [x.reshape((-1,) + x.shape[-2:]) for x in xs]
+    outs = [fn(*mats) for mats in zip(*flat)]
+
+    def stack(ms):
+        return torch.stack(ms).reshape(batch + ms[0].shape)
+
+    if isinstance(outs[0], torch.Tensor):
+        return stack(outs)
+    return tuple(stack(ms) for ms in zip(*outs))
+
+
+def qgemv(a: QTensor, x: QTensor, out_fmt: QFormat, mul_to=None,
+          add_formats=(), transpose_a: bool = False,
+          mul_full_prec: bool = False) -> QTensor:
+    """y = op(A) @ x, the matrix-vector case of :func:`qgemul`
+    (``qublas_tpu/ops/gemm.py:705-713``)."""
+    col = QTensor(x.data[..., :, None], x.fmt)
+    y = qgemul(a, col, out_fmt, mul_to, add_formats,
+               transpose_a=transpose_a, mul_full_prec=mul_full_prec)
+    return QTensor(y.data[..., 0], y.fmt)
 
 
 def host_qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,

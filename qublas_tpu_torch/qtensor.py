@@ -90,6 +90,12 @@ class QTensor:
 
     # operators: the elementwise ops (QuBLAS.h expression templates)
     def _ew(self, name, other):
+        from .complex import QComplexTensor
+
+        if isinstance(other, QComplexTensor):
+            # real op complex: QComplexTensor's reflected operators take it
+            # (rc_mul/rc_add/rc_sub, QuBLAS.h:3600-3663)
+            return NotImplemented
         from .ops import elementwise
 
         return getattr(elementwise, name)(self, other)

@@ -197,3 +197,110 @@ def test_widths_match(rm, om):
                 for sub in (False, True):
                     assert _t(TW.route_addsub(*args_t, sub)) == \
                         _t(JW.route_addsub(*args_j, sub))
+
+
+# ---------------------------------------------------------------------------
+# bitstream (the port's copy of qublas_tpu/bitstream.py)
+# ---------------------------------------------------------------------------
+
+def _bs_orders(bs):
+    return [(None, None), (bs.r2l(1), None), (None, bs.r2l(1)),
+            (bs.r2l(3), bs.r2l(2)), (bs.r2l(2), bs.r2l(5))]
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_bitstream_matches(signed):
+    """Serialize and parse through both copies: the same strings and raws,
+    every order, both parse modes, wart raws included."""
+    from qublas_tpu import bitstream as JB
+    from qublas_tpu.complex import complex_from_raw as jcomplex
+    from qublas_tpu.qtensor import from_raw as jraw
+    from qublas_tpu_torch import bitstream as TB
+    from qublas_tpu_torch.convert import complex_from_jax, from_jax
+
+    rng = np.random.RandomState(31 + signed)
+    f = JF.qformat(6, 3, signed)                      # width 10 or 9
+    raws = rng.randint(f.raw_min, f.raw_max + 1, 12)
+    raws[0] = f.raw_min - 5 if signed else -3         # a wart raw
+    t = jraw(raws.reshape(3, 4), f)
+    pt = from_jax(t, "cpu")
+    for tord, eord in _bs_orders(JB)[:4 if signed else 3]:
+        s = JB.to_bits(t, tord, eord)
+        tt = TB.r2l(tord.chunk) if tord else None
+        te = TB.r2l(eord.chunk) if eord else None
+        assert TB.to_bits(pt, tt, te) == s
+        for tc in (False, True):
+            back = TB.from_bits(s, P(f), (3, 4), tt, te, tc, device="cpu")
+            want = JB.from_bits(s, f, (3, 4), tord, eord, tc)
+            assert _t(back.fmt) == _t(want.fmt)
+            assert back.raw().tolist() == \
+                np.asarray(want.raw(), dtype=np.int64).tolist()
+    scalar = jraw(np.array(int(raws[1])), f)
+    s = JB.to_bits(scalar, elem_order=JB.r2l(1))
+    assert TB.to_bits(from_jax(scalar, "cpu"), elem_order=TB.r2l(1)) == s
+    assert int(TB.from_bits(s, P(f), elem_order=TB.r2l(1),
+                            device="cpu").raw()) == \
+        int(np.asarray(JB.from_bits(s, f, elem_order=JB.r2l(1)).raw()))
+    fi = JF.qformat(4, 1)
+    c = jcomplex(raws[:6], rng.randint(fi.raw_min, fi.raw_max + 1, 6), f, fi)
+    pc = complex_from_jax(c, "cpu")
+    s = JB.to_bits_complex(c, JB.r2l(2), None)
+    assert TB.to_bits_complex(pc, TB.r2l(2), None) == s == \
+        pc.to_bits(TB.r2l(2))
+    back = TB.from_bits_complex(s, P(f), P(fi), (6,), TB.r2l(2), None,
+                                twos_complement=True, device="cpu")
+    want = JB.from_bits_complex(s, f, fi, (6,), JB.r2l(2), None,
+                                twos_complement=True)
+    assert back.real.raw().tolist() == \
+        np.asarray(want.real.raw(), dtype=np.int64).tolist()
+    assert back.imag.raw().tolist() == \
+        np.asarray(want.imag.raw(), dtype=np.int64).tolist()
+    with pytest.raises(ValueError):
+        TB.to_bits(pt, None, TB.r2l(4))
+    with pytest.raises(ValueError, match="expected"):
+        TB.from_bits(s[:-1], P(f), (3,), device="cpu")
+
+
+def test_bitstream_goldens():
+    """The port's copy against the compiled reference's BitStream goldens
+    (as tests/test_golden.py reads them)."""
+    import json
+    import pathlib
+
+    from qublas_tpu_torch import bitstream as TB
+    from qublas_tpu_torch.complex import complex_from_raw
+    from qublas_tpu_torch.qtensor import from_raw
+
+    data = pathlib.Path(__file__).parent / "golden_data"
+
+    def load(kind):
+        return json.loads((data / f"{kind}.json").read_text())[0]
+
+    rec = load("bitstream_demo")
+    f = TF.qformat(5, 0)
+    t = from_raw(np.arange(1, 7).reshape(2, 3), f, "cpu")
+    s = TB.to_bits(t, TB.r2l(1), None)
+    assert s == rec["str"]
+    z = TB.from_bits_complex(s, f, f, (3,), device="cpu")
+    assert [[int(r), int(i)] for r, i in zip(z.real.raw(), z.imag.raw())] \
+        == rec["parsed"]
+
+    rec = load("bitstream_r2l")
+    f = TF.qformat(6, 3, overflow_mode=TF.OverflowMode.SAT_ZERO)
+    t = from_raw(np.array([int(v) for v in rec["raws"]]), f, "cpu")
+    s = TB.to_bits(t, TB.r2l(3), TB.r2l(2))
+    assert s == rec["str"]
+    back = TB.from_bits(s, f, (6,), TB.r2l(3), TB.r2l(2), device="cpu")
+    assert [int(v) for v in back.raw()] == [int(v) for v in rec["back"]]
+
+    rec = load("bitstream_scalar")
+    t = from_raw(np.array(int(rec["raw"])), TF.qformat(4, 3), "cpu")
+    assert TB.to_bits(t) == rec["l2r"]
+    assert TB.to_bits(t, elem_order=TB.r2l(1)) == rec["r2l1"]
+
+    rec = load("bitstream_complex")
+    f = TF.qformat(3, 2)
+    c = complex_from_raw(np.array([5, -32]), np.array([-3, 31]), f,
+                         device="cpu")
+    assert TB.to_bits_complex(c) == \
+        "".join(ch for ch in rec["str"] if ch in "01")

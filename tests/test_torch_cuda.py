@@ -14,8 +14,12 @@ import pytest
 import torch
 
 import qublas_tpu_torch as qt
+from qublas_tpu_torch.ops import cgemm
+from qublas_tpu_torch.ops.chain_probe import (G, T1, T2, chain_probe,
+                                              chain_probe_plain, probe_tile)
 from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm,
-                                             fused_int8_gemm_plain)
+                                             fused_int8_gemm_plain, int_dot,
+                                             int_dot_plain)
 from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
                                          qreduce_plain)
 from qublas_tpu_torch.ops.tree_gemm import (plan_tree, tree_gemm,
@@ -172,3 +176,101 @@ def test_qreduce_launches_k3_only_when_proven(cuda):
     cpu = qt.qreduce(x.to("cpu"), CONFIG2, axis=1)
     assert r.fmt == cpu.fmt and torch.equal(r.data.cpu(), cpu.data)
     assert qreduce_kernel.launches == 1 and tree_gemm_stream.launches == 0
+
+
+@pytest.mark.parametrize("name,steps", [("canonical", 1), ("canonical", 16),
+                                        ("i32", 1), ("i32", 16),
+                                        ("canonical", 0)])
+def test_p1_matches_plain(cuda, name, steps):
+    f = F88Z if name == "canonical" else qt.qformat(
+        3, 4, round_mode=qt.RoundMode.RND_CONV,
+        overflow_mode=qt.OverflowMode.WRP_TCPL)
+    plan = plan_tree(f, f, qt.mul_merge(f, f), (), 256, f)
+    assert plan.prod_route == ("split" if name == "canonical" else "i32")
+    x = _raws(steps, f, (128, 256), np.int32).to(cuda)
+    y = _raws(steps + 1, f, (128, 256), np.int32).to(cuda)
+    chain_probe.launches = 0
+    got = chain_probe(x, y, plan, steps, 4)
+    want = chain_probe_plain(x, y, plan, steps, 4)
+    torch.cuda.synchronize()
+    assert chain_probe.launches == 1
+    assert got.shape == (4, 128, 256) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("steps", [T1, T2])
+def test_p1_matches_plain_at_measured_shapes(cuda, steps):
+    """P1 on measured_chain_prods' tile, plan, chain lengths and G."""
+    plan = plan_tree(F88Z, F88Z, qt.mul_merge(F88Z, F88Z), (), 2048, F88Z)
+    x, y = probe_tile(F88Z, cuda)
+    chain_probe.launches = 0
+    got = chain_probe(x, y, plan, steps, G)
+    want = chain_probe_plain(x, y, plan, steps, G)
+    torch.cuda.synchronize()
+    assert chain_probe.launches == 1
+    assert got.shape == (G,) + tuple(x.shape) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (1000, 777, 1003, np.int8), (300, 256, 300, np.int16),
+    (5, 33, 7, np.int32)])
+def test_int_dot_matches_plain(cuda, m, k, n, dtype):
+    f = FA if dtype == np.int8 else qt.qformat(7, 4)
+    a = _raws(m, f, (m, k), dtype).to(cuda)
+    b = _raws(n, f, (k, n), dtype).to(cuda)
+    fused_int8_gemm.launches = 0
+    got = int_dot(a, b)
+    want = int_dot_plain(a, b)
+    torch.cuda.synchronize()
+    assert fused_int8_gemm.launches == 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_int_dot_keeps_the_int32_extremes(cuda):
+    a = torch.tensor([[-(1 << 15), (1 << 15) - 1],
+                      [-(1 << 15), -(1 << 15)]], dtype=torch.int16)
+    b = torch.tensor([[-(1 << 15), 1 << 15], [(1 << 15) + 1, 1 << 15]],
+                     dtype=torch.int32)
+    got = int_dot(a.to(cuda), b.to(cuda)).cpu()
+    assert got.tolist() == [[(1 << 31) - 1, -(1 << 15)],
+                            [-(1 << 15), -(1 << 31)]]
+
+
+@pytest.mark.parametrize("algo", ["tf", "basic"])
+def test_config5_cgemul_matches_cpu_and_counts_launches(cuda, algo):
+    """BASELINE config 5 on the card equals the same call on CPU tensors
+    (int_dot's plain version), with four K1 launches; the order-sensitive
+    complex GEMM launches K3 once per part."""
+    wide, mid = qt.qformat(20, 8), qt.qformat(5, 4)
+    out = (qt.qformat(3, 4, overflow_mode=qt.OverflowMode.SAT_ZERO),) * 2
+    tags = dict(ab=mid, cd=mid, ba=mid, abc=wide, cdb=wide, bad=wide,
+                AB=wide, BC=wide) if algo == "tf" else \
+        dict(ac=wide, bd=wide, ad=wide, bc=wide, acbd=wide, adbc=wide)
+    parts = [_raws(s, FA, shape, np.int8) for s, shape in
+             ((1, (200, 300)), (2, (200, 300)), (3, (300, 150)),
+              (4, (300, 150)))]
+    a = qt.complex_from_raw(parts[0].numpy(), parts[1].numpy(), FA,
+                            device="cpu")
+    b = qt.complex_from_raw(parts[2].numpy(), parts[3].numpy(), FA,
+                            device="cpu")
+    fused_int8_gemm.launches = 0
+    got = qt.cgemul(a.to(cuda), b.to(cuda), out, algo=algo,
+                    add_formats=(wide,), **tags)
+    torch.cuda.synchronize()
+    assert fused_int8_gemm.launches == 4
+    want = qt.cgemul(a, b, out, algo=algo, add_formats=(wide,), **tags)
+    assert fused_int8_gemm.launches == 4
+    for g, w in ((got.real, want.real), (got.imag, want.imag)):
+        assert g.fmt == w.fmt and torch.equal(g.data.cpu(), w.data)
+    # the order-sensitive canonical config takes the layered path
+    c, d = (qt.complex_from_raw(_raws(s, F88Z, shape, np.int32).numpy(),
+                                _raws(s + 1, F88Z, shape, np.int32).numpy(),
+                                F88Z, device="cpu")
+            for s, shape in ((5, (24, 40)), (7, (40, 30))))
+    qreduce_kernel.launches = 0
+    fused_int8_gemm.launches = 0
+    got = qt.cgemul(c.to(cuda), d.to(cuda), F88Z, algo=algo)
+    torch.cuda.synchronize()
+    assert (qreduce_kernel.launches, fused_int8_gemm.launches) == (2, 0)
+    want = qt.cgemul(c, d, F88Z, algo=algo)
+    for g, w in ((got.real, want.real), (got.imag, want.imag)):
+        assert g.fmt == w.fmt and torch.equal(g.data.cpu(), w.data)

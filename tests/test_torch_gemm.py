@@ -162,8 +162,9 @@ def test_fast_tier_other_lanes(name):
 def test_unported_tiers_raise():
     rng = np.random.RandomState(3)
     a = from_raw(_raws(rng, FA, (2, 3, 4)), P(FA), "cpu")
+    b = from_raw(_raws(rng, FA, (4, 5)), P(FA), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        TG.qgemul(a, a, P(MID))
+        TG.qgemul(a, b, P(MID))            # a broadcast batch
     # a lossless dot wider than int32 needs the wide tiers
     f, w = P(qformat(15, 0)), P(qformat(40, 0))
     x = from_raw(_raws(rng, f, (2, 8)), f, "cpu")
@@ -184,3 +185,73 @@ def test_kernel_wrappers_validate_operands():
         with pytest.raises(ValueError):
             fn(torch.zeros(3, 4, dtype=torch.int8),
                torch.zeros(5, 2, dtype=torch.int8), arg, out)
+
+
+@pytest.mark.parametrize("name", ["headline", "canonical", "layered"])
+def test_batched_qgemul_matches_jax(name):
+    """Equal leading dims: the port loops its 2-D kernels (their plain
+    versions here) over the flattened batch, the JAX package broadcasts or
+    vmaps; the same bits, transposes included."""
+    fa, fb, mul_to, full, adds, out = CONFIGS[name]
+    rng = np.random.RandomState(len(name))
+    A = _raws(rng, fa, (2, 3, 5, 9))
+    B = _raws(rng, fb, (2, 3, 9, 4))
+    for ta, tb in ((False, False), (True, True)):
+        x = np.swapaxes(A, -1, -2) if ta else A
+        y = np.swapaxes(B, -1, -2) if tb else B
+        want = JG.qgemul(jfrom_raw(x, fa), jfrom_raw(y, fb), out,
+                         mul_to=mul_to, add_formats=adds, mul_full_prec=full,
+                         transpose_a=ta, transpose_b=tb, use_pallas=False)
+        got = TG.qgemul(from_raw(x, P(fa), "cpu"), from_raw(y, P(fb), "cpu"),
+                        P(out), mul_to=P(mul_to), add_formats=P(adds),
+                        mul_full_prec=full, transpose_a=ta, transpose_b=tb)
+        assert got.shape == (2, 3, 5, 4) and got.fmt == P(want.fmt)
+        assert got.data.dtype == getattr(torch, str(want.data.dtype))
+        np.testing.assert_array_equal(got.raw(), np.asarray(want.raw()))
+
+
+@pytest.mark.parametrize("name", ["headline", "canonical"])
+def test_qgemv_matches_jax(name):
+    fa, fb, mul_to, full, adds, out = CONFIGS[name]
+    rng = np.random.RandomState(7)
+    A = _raws(rng, fa, (6, 11))
+    x = _raws(rng, fb, (11,))
+    xt = _raws(rng, fb, (6,))
+    for mat, vec, ta in ((A, x, False), (A, xt, True),
+                         (_raws(rng, fa, (2, 6, 11)), _raws(rng, fb, (2, 11)),
+                          False)):
+        want = JG.qgemv(jfrom_raw(mat, fa), jfrom_raw(vec, fb), out,
+                        mul_to=mul_to, add_formats=adds, transpose_a=ta)
+        got = TG.qgemv(from_raw(mat, P(fa), "cpu"),
+                       from_raw(vec, P(fb), "cpu"), P(out),
+                       mul_to=P(mul_to), add_formats=P(adds), transpose_a=ta)
+        assert got.fmt == P(want.fmt) and got.shape == tuple(want.shape)
+        np.testing.assert_array_equal(got.raw(), np.asarray(want.raw()))
+
+
+def test_int_dot_plain_is_the_exact_int32_dot():
+    """K1 with the identity epilogue: the plain version keeps every dot
+    value, the int32 extremes included, for int8, int16 and int32 lanes."""
+    from qublas_tpu_torch.ops.fused_gemm import int_dot, int_dot_plain
+
+    i32 = torch.int32
+    a = torch.tensor([[1, 0], [-1, 0], [1, 1]], dtype=i32)
+    b = torch.tensor([[-(1 << 31), (1 << 31) - 1], [0, 0]], dtype=i32)
+    got = int_dot(a, b)
+    assert got.dtype == i32
+    assert got.tolist() == [[-(1 << 31), (1 << 31) - 1],
+                            [-(1 << 31), -(1 << 31) + 1],  # 2^31 wraps
+                            [-(1 << 31), (1 << 31) - 1]]
+    # sums that reach INT32_MAX and INT32_MIN exactly from int16 lanes
+    a16 = torch.tensor([[-(1 << 15), (1 << 15) - 1],
+                        [-(1 << 15), -(1 << 15)]], dtype=torch.int16)
+    b16 = torch.tensor([[-(1 << 15), 1 << 15], [(1 << 15) + 1, 1 << 15]],
+                       dtype=i32)
+    assert int_dot(a16, b16).tolist() == [[(1 << 31) - 1, -(1 << 15)],
+                                          [-(1 << 15), -(1 << 31)]]
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randint(-128, 128, (33, 70)).astype(np.int8))
+    y = torch.from_numpy(rng.randint(-128, 128, (70, 9)).astype(np.int8))
+    want = x.long() @ y.long()
+    assert torch.equal(int_dot(x, y).long(), want)
+    assert torch.equal(int_dot_plain(x.to(torch.int16), y), want.int())

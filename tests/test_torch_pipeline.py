@@ -114,6 +114,17 @@ def test_port_runs_without_jax():
         "r = qt.qreduce(x, (qt.qformat(5, 3), qt.qformat(6, 2)), axis=1)\n"
         "assert r.shape == (8,)\n"
         "assert (qt.qmul(x, x) + x).shape == (8, 13)\n"
+        "from qublas_tpu_torch import bitstream, complex\n"
+        "from qublas_tpu_torch.ops import cgemm, chain_probe\n"
+        "f34, w, m = qt.qformat(3, 4), qt.qformat(20, 8), qt.qformat(5, 4)\n"
+        "c = complex.complex_from_raw(rng.randint(-128, 128, (4, 6)),"
+        " rng.randint(-128, 128, (4, 6)), f34, device='cpu')\n"
+        "d = complex.complex_from_raw(rng.randint(-128, 128, (6, 3)),"
+        " rng.randint(-128, 128, (6, 3)), f34, device='cpu')\n"
+        "y = cgemm.cgemul(c, d, f34, algo='tf', add_formats=(w,), ab=m,"
+        " cd=m, ba=m, abc=w, cdb=w, bad=w, AB=w, BC=w)\n"
+        "assert y.shape == (4, 3) and len(y.to_bits()) == 12 * 16\n"
+        "assert chain_probe.T1 == 128 and bitstream.r2l(2).chunk == 2\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'qublas_tpu' or m.startswith('qublas_tpu.')]\n"
         "assert not bad, bad\n"
