@@ -46,7 +46,6 @@ exits non-zero and prints no result.
 """
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -63,7 +62,6 @@ CPLX_N = 2048                     # config 5 complex GEMM: CPLX_N^3
 CPLX_LAYERED_N = 256              # config 5 against its layered path
 BITS_BLOCK = 64                   # BitStream round trip of a 64x64 block
 CORNER = 16                       # corner checked against the host model
-TIMED_RUNS = 10
 
 # peak rates of one H100 SXM at its 700 W limit: HBM bytes/s and int8
 # tensor-core ops/s (NVIDIA's data sheet), and int32 ALU ops/s: 132 SMs x
@@ -73,31 +71,30 @@ INT8_OPS_S = 1979e12
 INT32_OPS_S = 132 * 64 * 1.98e9
 
 
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
+def ptxas_report(log: str):
+    """The build log's per-kernel lines: each kernel's name, then ptxas's
+    registers / shared memory and its stack / spill line, and each source's
+    compile time."""
+    lines, names = [], []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            names.append(line.split("'")[1])
+            lines.append(names[-1])
+        elif "registers" in line or "spill stores" in line \
+                or "done at" in line:
+            lines.append("  " + line.split(":", 1)[-1].strip()
+                         if "registers" in line else "  " + line.strip())
+    try:
+        res = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        plain = dict(zip(names, res.stdout.splitlines()))
+    except (OSError, subprocess.SubprocessError):
+        plain = {}
+    def short(name):
+        name = plain.get(name, name).replace("(anonymous namespace)::", "")
+        return name.split("(")[0].replace("void ", "")
 
-
-def timeit(fn, runs=TIMED_RUNS, warmup=2):
-    """Median milliseconds of ``runs`` calls of ``fn``, each between two
-    CUDA events, after ``warmup`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return [short(x) if x in names else x for x in lines]
 
 
 def rand_raws(rng, fmt, shape, dtype):
@@ -152,10 +149,12 @@ def phase_kernels(dev, chk):
                                                   chain_probe_plain,
                                                   probe_tile)
     from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm_plain,
-                                                 int_dot, int_dot_plain)
+                                                 int_dot, int_dot_plain,
+                                                 k1_route, kmajor)
     from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
                                              qreduce_plain)
-    from qublas_tpu_torch.ops.tree_gemm import (plan_tree, tree_gemm_plain,
+    from qublas_tpu_torch.ops.tree_gemm import (k2_modes, plan_tree,
+                                                tree_gemm, tree_gemm_plain,
                                                 tree_gemm_stream,
                                                 tree_gemm_stream_plain)
 
@@ -187,6 +186,14 @@ def phase_kernels(dev, chk):
                         np.int8)
     k1_case("left-shift epilogue 70x96x50 -> Qu<8,10>", fa, wide,
             qt.qformat(8, 10), 70, 96, 50, np.int8)
+    # the tensor-core route's edges: one past and one short of the 128 x
+    # 128 output tile, 1x1x1, K that TMA reads in place, K that takes the
+    # zero-padded copy (K1's wrapper, k1_route)
+    for m, k, n in ((129, 256, 127), (127, 256, 129),
+                    (1, 1, 1), (130, 16, 129), (130, 32, 129),
+                    (130, 48, 129), (130, 4112, 129), (130, 1, 129),
+                    (130, 777, 129), (130, 1003, 129)):
+        k1_case(f"tile edge {m}x{k}x{n}", fa, wide, mid, m, k, n, np.int8)
 
     f88z, f44, config2 = formats()
     layered = (qt.qformat(9, 6, round_mode=qt.RoundMode.RND_CONV),
@@ -210,6 +217,30 @@ def phase_kernels(dev, chk):
     k2_case("ragged m, n 77x96x45", 77, 96, 45)
     k2_case("odd k 33x13x17", 33, 13, 17)
     k2_case("layered formats 128x128x128", 128, 128, 128, layered)
+
+    # K2's tile edges (a block computes 32 x 16 outputs for k < 4096,
+    # 16 x 16 beyond, a thread 2 x 1 or 1 x 1), k around its 16-deep
+    # slices, both product routes, both instantiations (k2_modes)
+    i32f = qt.qformat(3, 4, round_mode=qt.RoundMode.RND_CONV,
+                      overflow_mode=qt.OverflowMode.WRP_TCPL)
+
+    def k2_edge(f, layers, m, k, n):
+        a = torch.from_numpy(rand_raws(rng, f, (m, k), np.int32)).to(dev)
+        b = torch.from_numpy(rand_raws(rng, f, (k, n), np.int32)).to(dev)
+        plan = plan_tree(f, f, qt.mul_merge(f, f), layers, k, f)
+        chk.same("tree_gemm", f"{plan.prod_route} route, modes "
+                 f"{k2_modes(plan)}, {'layered ' if layers else ''}"
+                 f"{m}x{k}x{n}", tree_gemm(a, b, plan, f),
+                 tree_gemm_plain(a, b, plan, f))
+
+    for m, n in ((1, 1), (63, 65), (65, 63), (200, 200)):
+        for k in (1, 13, 16, 17, 1000, 2048):
+            k2_edge(f88z, (), m, k, n)
+    # k from 4096 takes the 32-deep stack, with either instantiation
+    for k in (13, 1000, 4112):
+        k2_edge(i32f, (), 63, k, 65)
+        k2_edge(f88z, layered, 65, k, 63)
+    k2_edge(f88z, (), 65, 4112, 63)
 
     def k3_case(what, fmt, layers, shape, axis, dtype, tail=None):
         x = rand_raws(rng, fmt, shape, np.int64)
@@ -252,8 +283,6 @@ def phase_kernels(dev, chk):
                 k3_case(f"[100, 13] -> {lf}", f44, (lf,), (100, 13), 1,
                         np.int8)
 
-    i32f = qt.qformat(3, 4, round_mode=qt.RoundMode.RND_CONV,
-                      overflow_mode=qt.OverflowMode.WRP_TCPL)
     for route, f in (("split", f88z), ("i32", i32f)):
         plan = plan_tree(f, f, qt.mul_merge(f, f), (), TREE_N, f)
         assert plan.prod_route == route, (route, plan.prod_route)
@@ -280,6 +309,24 @@ def phase_kernels(dev, chk):
         b = torch.from_numpy(rand_raws(rng, f, (777, 1003), dtype)).to(dev)
         chk.same("fused_int8_gemm", f"int_dot {what} 1000x777x1003",
                  int_dot(a, b), int_dot_plain(a, b))
+    # int_dot on B row-major and K-major, and views of a wider tensor: at
+    # column 16 (TMA reads them in place) and at column 1 (one byte past
+    # 16-byte alignment: a K-major copy)
+    a = torch.from_numpy(rand_raws(rng, fa, (300, 544), np.int8)).to(dev)
+    b = torch.from_numpy(rand_raws(rng, fa, (544, 301), np.int8)).to(dev)
+    bk = kmajor(b)
+    for what, x, y, routes in (
+            ("B row-major 300x544x301", a, b, ("direct", "copy")),
+            ("B K-major 300x544x301", a, bk, ("direct", "direct")),
+            ("views at column 16, 300x528x301", a[:, 16:], bk[16:],
+             ("direct", "direct")),
+            ("views at column 1, 300x528x301", a[:, 1:529], bk[1:529],
+             ("copy", "copy")),
+            ("views at column 1, 300x527x301", a[:, 1:528], bk[1:528],
+             ("padded", "padded"))):
+        assert (k1_route(x), k1_route(y.t())) == routes, (what, routes)
+        chk.same("fused_int8_gemm", f"int_dot {what}, routes {routes}",
+                 int_dot(x, y), int_dot_plain(x, y))
     torch.cuda.synchronize()
 
 
@@ -764,19 +811,20 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
                                                   probe_tile)
     from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm,
                                                  fused_int8_gemm_plain,
-                                                 int_dot)
+                                                 int_dot, kmajor)
     from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
                                              qreduce_plain)
     from qublas_tpu_torch.ops.tree_gemm import (tree_gemm, tree_gemm_plain,
                                                 tree_gemm_stream,
                                                 tree_gemm_stream_plain)
+    from qublas_tpu_torch.timing import timeit
 
     x, pipe, plan1, mid, a2, b2, tplan, f88z = state_a
     xr, r_plan, prod, p_plan, a3, b3, splan, _ = state_b
     f44, config2 = formats()[1:]
     n, tn, ln = PIPE_N, TREE_N, LAYERED_N
-    w1 = pipe.w1
-    w1_cm = w1.t().contiguous().t()   # the same B, column-major
+    w1 = pipe.w1                      # K-major, as the pipeline stores it
+    w1_rm = w1.contiguous()           # the same B, row-major
     gen = torch.Generator(device=x.device).manual_seed(4)
     # every int8 raw is a Qu<4,4> raw: config 2's int8 lanes
     big = torch.randint(-128, 128, (REDUCE_BIG_ROWS, REDUCE_SHAPE[1]),
@@ -789,13 +837,16 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
     ca, cb, ca3, cb3 = state_d
     _, wide, out5, tf_kw, basic_kw = config5()
     ar, ai, br, bi = ca.real.data, ca.imag.data, cb.real.data, cb.imag.data
+    brk, bik = kmajor(br), kmajor(bi)  # as cgemul hands them to its dots
     xp, yp = probe_tile(f88z, x.device)
     t = {
         "k1": timeit(lambda: fused_int8_gemm(x, w1, plan1.prod_frac, mid)),
+        "k1_rm": timeit(lambda: fused_int8_gemm(x, w1_rm, plan1.prod_frac,
+                                                mid)),
         "k1_plain": timeit(lambda: fused_int8_gemm_plain(
             x, w1, plan1.prod_frac, mid)),
         "int_mm": timeit(lambda: torch._int_mm(x, w1)),
-        "int_mm_cm": timeit(lambda: torch._int_mm(x, w1_cm)),
+        "int_mm_rm": timeit(lambda: torch._int_mm(x, w1_rm)),
         "k2": timeit(lambda: tree_gemm(a2.data, b2.data, tplan, f88z)),
         "k2_plain": timeit(lambda: tree_gemm_plain(a2.data, b2.data, tplan,
                                                    f88z), warmup=1),
@@ -823,9 +874,15 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
             ca, cb, out5, algo="tf", add_formats=(wide,), **tf_kw)),
         "cgemul_basic": timeit(lambda: qt.cgemul(
             ca, cb, out5, algo="basic", add_formats=(wide,), **basic_kw)),
-        "cgemul_dots": timeit(lambda: (int_dot(ar, br), int_dot(ai, br),
-                                       int_dot(ai, bi), int_dot(ar, bi))),
-        "cgemul_transpose": timeit(lambda: br.t().contiguous()),
+        "cgemul_dots": timeit(lambda: (int_dot(ar, brk), int_dot(ai, brk),
+                                       int_dot(ai, bik), int_dot(ar, bik))),
+        "cgemul_dots_rm": timeit(lambda: (int_dot(ar, br), int_dot(ai, br),
+                                          int_dot(ai, bi), int_dot(ar, bi))),
+        "cgemul_transpose": timeit(lambda: kmajor(br)),
+        "int_mm4": timeit(lambda: (torch._int_mm(ar, brk),
+                                   torch._int_mm(ai, brk),
+                                   torch._int_mm(ai, bik),
+                                   torch._int_mm(ar, bik))),
         "int_mm3": timeit(lambda: (torch._int_mm(ar, br),
                                    torch._int_mm(ai, br),
                                    torch._int_mm(ar, bi))),
@@ -837,10 +894,12 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
     }
     ops = 2 * n ** 3
     for key, label in (
-            ("k1", "fused_int8_gemm"),
+            ("k1", "fused_int8_gemm, K-major B (the pipeline's weight)"),
+            ("k1_rm", "fused_int8_gemm, row-major B (the wrapper's copy "
+                      "included)"),
             ("k1_plain", "fused_int8_gemm plain (float64)"),
-            ("int_mm", "torch._int_mm, row-major B (raw int8, reference)"),
-            ("int_mm_cm", "torch._int_mm, column-major B (raw int8, "
+            ("int_mm", "torch._int_mm, K-major B (raw int8, reference)"),
+            ("int_mm_rm", "torch._int_mm, row-major B (raw int8, "
                           "reference)")):
         print(f"time {label} {n}^3: {t[key]:.4f} ms, "
               f"{ops / t[key] / 1e9:.2f} TOP/s [{card}]")
@@ -876,10 +935,13 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
 
     cn = CPLX_N
     print(f"time config 5: TF cgemul {cn}^3 {t['cgemul_tf']:.4f} ms, its "
-          f"four int_dots alone {t['cgemul_dots']:.4f} ms (of which the "
-          f"wrapper's per-call transpose of B, {cn}^2 int8: "
-          f"{t['cgemul_transpose']:.4f} ms each), three raw "
-          f"torch._int_mm (bench.py's vs_3xint8 arm, reference) "
+          f"four int_dots alone on K-major B {t['cgemul_dots']:.4f} ms "
+          f"against four raw torch._int_mm on the same B "
+          f"{t['int_mm4']:.4f} ms (reference); on row-major B "
+          f"{t['cgemul_dots_rm']:.4f} ms (a copy of B per dot); the K-major "
+          f"copy of one {cn}^2 int8 B that cgemul makes twice a call: "
+          f"{t['cgemul_transpose']:.4f} ms; three raw torch._int_mm on "
+          f"row-major B (bench.py's vs_3xint8 arm, reference) "
           f"{t['int_mm3']:.4f} ms ({t['int_mm3'] / t['cgemul_tf']:.4f} of "
           f"the TF call's time), Basic cgemul {t['cgemul_basic']:.4f} ms "
           f"[{card}]")
@@ -898,6 +960,7 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
     rows, cols = REDUCE_SHAPE
     bounds = {
         "k1": bound_ms(3 * n * n, ops, INT8_OPS_S),
+        "k1_rm": bound_ms(3 * n * n, ops, INT8_OPS_S),
         "k2": k2_bound(tplan, f88z, tn, tn, tn),
         "k2s": k2_bound(splan, f88z, ln, ln, ln),
         "k2s_big": k2_bound(tplan, f88z, tn, tn, tn),
@@ -923,6 +986,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     from qublas_tpu_torch import _build
+    from qublas_tpu_torch.timing import card_line
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -930,10 +994,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s, nvcc "
           f"{_build.build_seconds if _build.build_seconds is not None else 'cached'}"
           f" s -> {so}")
-    for line in _build.library_path().with_suffix(".log").read_text() \
-            .splitlines():
-        if "registers" in line or "spill stores" in line or "done at" in line:
-            print("  " + line.split(":", 1)[-1].strip())
+    for line in ptxas_report(_build.library_path().with_suffix(".log")
+                             .read_text()):
+        print("  " + line)
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -964,7 +1027,7 @@ def main() -> int:
             "qublas_tpu/ops/pallas_gemm.py:83",
             launches_a["fused_int8_gemm"] + launches_d["fused_int8_gemm"],
             "k1", "k1_plain", "int_mm"),
-        row("tree_gemm", "qublas_tpu_torch/csrc/tree_gemm.cu",
+        row("tree_gemm", "qublas_tpu_torch/csrc/tree_gemm_tiled.cu",
             "qublas_tpu/ops/tree_gemm.py:362", launches_a["tree_gemm"],
             "k2", "k2_plain", None),
         row("tree_gemm_stream", "qublas_tpu_torch/csrc/tree_gemm.cu",

@@ -38,13 +38,17 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # device, x, out, outer, n, inner, in_bytes, out_bytes, params, stream
     "qk_qreduce": (_I, _P, _P, _L, _L, _L, _I, _I, _P, _P),
-    # device, a, b, c, m, n, k, out_bytes, d, round, ovf, w, sgn, stream
-    "qk_fused_gemm_s8": (_I, _P, _P, _P, _I, _I, _I, _I,
+    # device, a, lda, bt, ldb, c, m, n, k, out_bytes, d, round, ovf, w,
+    # sgn, stream
+    "qk_fused_gemm_s8": (_I, _P, _L, _P, _L, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _P),
+    # device, a, b, c, m, n, k, out_bytes, d, round, ovf, w, sgn, stream
     "qk_fused_gemm_s32": (_I, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _P),
+    # device, a, b, c, m, n, k, out_bytes, params, modes, stream
+    "qk_tree_gemm": (_I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
     # device, a, b, c, m, n, k, out_bytes, params, stream
-    "qk_tree_gemm": (_I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "qk_tree_gemm_stream": (_I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     # device, x, y, out, elems, programs, steps, params, stream
     "qk_chain_probe": (_I, _P, _P, _P, _I, _I, _I, _P, _P),
 }

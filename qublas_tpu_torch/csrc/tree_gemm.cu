@@ -1,27 +1,20 @@
-// K2 and K2': the order-sensitive quantized tree GEMM, for qgemul's general
-// tier (e.g. the canonical Qu<8,8,TRN::TCPL,SAT::ZERO> config), and P1, the
-// probe that measures its per-product work.
+// K2' (the order-sensitive quantized tree GEMM on its one-pass schedule)
+// and P1, the probe that measures the tree GEMM's per-product work.  K2,
+// the same GEMM on its blocked schedule, is tree_gemm_tiled.cu.
 //
-// One kernel, two schedules, chosen by LOG_BLK:
-//   * LOG_BLK = log2 of the largest power of two dividing k, capped at 4,
-//     is K2, which replaces qublas_tpu/ops/tree_gemm.py:tree_gemm_blocked (a
-//     Pallas kernel that folds each 32-product k-block in VMEM, then a
-//     separate jnp phase 2 over the per-block values in HBM);
-//   * LOG_BLK = 0 is K2', which replaces tree_gemm_pallas (one pass over k,
-//     each product pushed through a binary-carry slot stack in VMEM
-//     scratch).
-// Here one thread owns one output element and runs tree_fold.cuh's
-// schedule: per block, 2^LOG_BLK requantized products (route "i32" or
-// "split") folded in registers, pushed onto the slot stack, then the
-// drain and the final requantize into the output format.  No block value
-// goes to device memory, so there is no phase-2 pass.
+// Both GEMM kernels evaluate the reference's balanced tree over k
+// (QuBLAS.h:4960-4990) with qublas_tpu/ops/tree_gemm.py:tree_gemm_scan's
+// binary-carry schedule, proven there for any k: requantized products
+// (route "i32" or "split") are counted in binary, each carry a layer's
+// Qadd; the planner's drain ops finish the ragged right edge; a final
+// requantize gives the output format.  No partial goes to device memory.
 //
-// What bounds it: int32 ALU work, about 14 operations per product (split
-// multiply, rounding carry, saturation, an amortised tree merge), against
-// two 4-byte operand loads that the L1 cache serves (a warp shares its A
-// element and reads 32 neighbouring B elements).  Compute-bound.  K2'
-// spends more of it on the stack: every product takes the push's
-// trailing-ones branch, where K2 takes it once per block.
+// K2' (tree_gemm_kernel<0, TOP>) replaces qublas_tpu/ops/tree_gemm.py:
+// tree_gemm_pallas (one pass over k, each product pushed through a
+// binary-carry slot stack in VMEM scratch): one thread owns one output
+// element, every product read through L1 and pushed through the stack.
+// Bound by int32 ALU work, about 14 operations per product (split
+// multiply, rounding carry, saturation, an amortised tree merge).
 //
 // P1 (chain_probe_kernel) is the measurement probe of the same per-product
 // work, replacing the Pallas kernel of bench.py:_measured_chain_prods
@@ -34,27 +27,11 @@
 // dependent chain, each thread's steps cannot overlap, so it also measures
 // the latency that enough warps per SM hide.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
-#include "requant.cuh"
-#include "tree_fold.cuh"
+#include "tree_gemm.cuh"
 
 namespace {
 
-struct TreeParams {
-  int split;             // product route: 0 = "i32", 1 = "split"
-  qk::Rq prod;           // product requantize into the mul format
-  qk::Fold fold;         // tree layers and drain
-  qk::Rq fin;            // final_fmt -> out_fmt
-};
-
-__device__ __forceinline__ int32_t product(const TreeParams& p, int32_t a,
-                                           int32_t b) {
-  return p.split ? qk::requant_split_mul(a, b, p.prod)
-                 : qk::requant(qk::wmul(a, b), p.prod);
-}
+// ---- K2' ----
 
 // A [M, K], B [K, N] int32; K is a multiple of 2^LOG_BLK and
 // K / 2^LOG_BLK < 2^TOP.
@@ -129,51 +106,28 @@ chain_probe_kernel(const int32_t* __restrict__ X,
   out[idx] = v;
 }
 
-// params (host int32), as qublas_tpu_torch/ops/tree_gemm.py:_kernel_params
-// writes them:
-//   split, log_blk, prod[5], levels, merge[levels][5], ndrain,
-//   (op, level)[ndrain], fin[5]
-// Returns false for parameters outside the kernels' range.
-bool read_params(const int* params, TreeParams* p, int* log_blk) {
-  const int* q = params;
-  p->split = *q++;
-  *log_blk = *q++;
-  p->prod = qk::read_rq(q);
-  q = qk::read_fold(q + 5, &p->fold);
-  if (q == nullptr || *log_blk < 0 || *log_blk > 4) return false;
-  p->fin = qk::read_rq(q);
-  return true;
-}
-
 }  // namespace
 
+// K2' on the same operands; params with log_blk = 0.
 // Returns a cudaError_t, or -1 for parameters outside the kernel's range.
-extern "C" int qk_tree_gemm(int device, const void* a, const void* b, void* c,
-                            int m, int n, int k, int out_bytes,
-                            const int* params, void* stream) {
+extern "C" int qk_tree_gemm_stream(int device, const void* a, const void* b,
+                                   void* c, int m, int n, int k,
+                                   int out_bytes, const int* params,
+                                   void* stream) {
   TreeParams p{};
   int log_blk;
-  if (!read_params(params, &p, &log_blk)) return -1;
-
+  if (!read_params(params, &p, &log_blk) || log_blk != 0) return -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int nblocks = k >> log_blk;
-  int top = 1;
-  while (top < 31 && (nblocks >> top) != 0) ++top;  // bit_length(nblocks)
-  const auto* A = static_cast<const int32_t*>(a);
-  const auto* B = static_cast<const int32_t*>(b);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (log_blk) {
-    case 0: launch_top<0>(top, A, B, c, m, n, k, out_bytes, p, s); break;
-    case 1: launch_top<1>(top, A, B, c, m, n, k, out_bytes, p, s); break;
-    case 2: launch_top<2>(top, A, B, c, m, n, k, out_bytes, p, s); break;
-    case 3: launch_top<3>(top, A, B, c, m, n, k, out_bytes, p, s); break;
-    default: launch_top<4>(top, A, B, c, m, n, k, out_bytes, p, s); break;
-  }
+  const int top = bit_length(k) > 1 ? bit_length(k) : 1;
+  launch_top<0>(top, static_cast<const int32_t*>(a),
+                static_cast<const int32_t*>(b), c, m, n, k, out_bytes, p,
+                static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
-// P1 over `programs` copies of an [elems] tile; params as qk_tree_gemm's
+// P1 over `programs` copies of an [elems] tile; params as qk_tree_gemm's,
+// with any log_blk
 // (the product route, the product's requantize and layer 0's merge are
 // read).  Returns a cudaError_t, or -1 for parameters outside the range.
 extern "C" int qk_chain_probe(int device, const void* x, const void* y,

@@ -43,7 +43,7 @@ from .. import hostops
 from ..qformat import QFormat, add_merge, mul_merge
 from ..qtensor import QTensor
 from . import elementwise as ew
-from .fused_gemm import int_dot
+from .fused_gemm import int_dot, kmajor
 from .gemm import (_lossless_requant, _per_batch, dot_partial_interval,
                    tree_exact)
 from .reduce import qreduce
@@ -276,6 +276,12 @@ def _fast_run(fp: _FastPlan, ar, ai, br, bi):
     operand parts (``qublas_tpu/ops/cgemm.py:286-359``): the integer dots on
     :func:`int_dot`, the exact shift/add combine and the two requantizes."""
     fr, fi = fp.fin_r.frac_bits, fp.fin_i.frac_bits
+    if fp.form != "tf3" and all(t.dtype == torch.int8
+                                for t in (ar, ai, br, bi)):
+        # every dot runs K1's tensor-core route, which reads B K-major: one
+        # copy of each B part per call instead of one per dot (tf3's dots
+        # take int32 sums, whose route reads B row-major)
+        br, bi = kmajor(br), kmajor(bi)
     if fp.form == "tf4":
         p1, p2, p3, p4, p5, p6, fA, fB, fC = fp.shifts
         prr = int_dot(ar, br)

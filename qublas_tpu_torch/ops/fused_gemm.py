@@ -7,8 +7,14 @@ and is valid only under ``gemm.exact_plan``'s proof: every partial sum of
 the dot fits int32, so int32 accumulation in any order is exact, and one
 ``requantize_i32(dot, prod_frac, out_fmt)`` gives the tree's bits.
 
-int8 operands run on the tensor cores; other lanes are widened to int32 and
-run the int32 instantiation, as ``qgemul_fast`` casts them.
+int8 operands run on the tensor cores (TMA + ``wgmma``), which read A
+[M, K] and B as Bt [N, K], both K-major: a ``b`` that is the ``.t()`` view
+of a K-major tensor (:func:`kmajor`) goes in without a copy, a row-major
+``b`` is transposed on every call.  TMA needs 16-byte aligned bases and
+row strides, so an operand that has neither goes in as a zero-padded copy
+with K rounded up to 16 (:func:`k1_route` says which).  Other lanes are
+widened to int32 and run the int32 instantiation on row-major operands, as
+``qgemul_fast`` casts them.
 
 :func:`int_dot` is the same kernel with an identity epilogue: the plain
 int32 dot that the complex GEMM's fast path combines (the JAX package's
@@ -25,7 +31,7 @@ from .wideint import requantize_i32
 from .widths import LANE_DTYPES, torch_dtype_for
 
 __all__ = ["fused_int8_gemm", "fused_int8_gemm_plain", "int_dot",
-           "int_dot_plain"]
+           "int_dot_plain", "k1_route", "k1_operand", "kmajor"]
 
 
 def fused_int8_gemm_plain(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
@@ -35,6 +41,41 @@ def fused_int8_gemm_plain(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
     dot = torch.matmul(a.to(torch.float64), b.to(torch.float64))
     raw = requantize_i32(dot.to(torch.int32), prod_frac, out_fmt)
     return raw.to(torch_dtype_for(out_fmt))
+
+
+def kmajor(b: torch.Tensor) -> torch.Tensor:
+    """``b`` [K, N] as the ``.t()`` view of a K-major copy ([N, K]
+    contiguous), the layout K1's tensor-core route reads in place.  A
+    caller that multiplies by one B several times converts it once."""
+    return b.t().contiguous().t()
+
+
+def k1_route(t: torch.Tensor) -> str:
+    """How the tensor-core route reads the int8 matrix ``t`` [R, K] (A, or
+    B transposed): ``"direct"`` where TMA can describe it in place (unit
+    stride along K, a row stride that is a multiple of 16 bytes and not
+    below K, a 16-byte aligned base), else a K-major copy, ``"copy"`` when
+    K is a multiple of 16, ``"padded"`` (zero columns up to the next one)
+    when it is not."""
+    if (t.stride(1) == 1 and t.stride(0) % 16 == 0
+            and t.stride(0) >= t.shape[1] and t.data_ptr() % 16 == 0):
+        return "direct"
+    return "copy" if t.shape[1] % 16 == 0 else "padded"
+
+
+def k1_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [R, K] as the tensor-core route reads it: itself, or a view of
+    the first K columns of a fresh K-major [R, K'] tensor, K' = K rounded up
+    to 16, zero beyond K (zero products add 0 to every partial sum)."""
+    route = k1_route(t)
+    if route == "direct":
+        return t
+    r, k = t.shape
+    kp = -(-k // 16) * 16
+    buf = (torch.zeros if route == "padded" else torch.empty)(
+        (r, kp), dtype=t.dtype, device=t.device)
+    buf[:, :k] = t
+    return buf[:, :k]
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, rq, out_dtype) -> torch.Tensor:
@@ -48,10 +89,11 @@ def _launch(a: torch.Tensor, b: torch.Tensor, rq, out_dtype) -> torch.Tensor:
     lib = _build.lib()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     if a.dtype == torch.int8 and b.dtype == torch.int8:
-        a8 = a.contiguous()
-        bt = b.t().contiguous()  # [N, K]: both tiles load along K
-        err = lib.qk_fused_gemm_s8(a.device.index, a8.data_ptr(),
-                                   bt.data_ptr(), out.data_ptr(), m, n, k,
+        a8 = k1_operand(a)
+        bt = k1_operand(b.t())  # [N, K]
+        err = lib.qk_fused_gemm_s8(a.device.index, a8.data_ptr(), a8.stride(0),
+                                   bt.data_ptr(), bt.stride(0),
+                                   out.data_ptr(), m, n, k,
                                    out.element_size(), *rq, stream)
     else:
         a32 = a.to(torch.int32).contiguous()

@@ -7,14 +7,19 @@ exactly.  The planners (``TreePlan``, ``level_formats``, ``drain_ops``,
 ``plan_tree``) are copies of ``qublas_tpu/ops/tree_gemm.py:73-245``, pinned
 to the originals by the CPU tests: the machine with the card has no JAX.
 
-Both kernels are ``csrc/tree_gemm.cu``, one thread per output element, on
-two schedules of the same function:
+The kernels are ``csrc/tree_gemm_tiled.cu`` (K2) and ``csrc/tree_gemm.cu``
+(K2′), two evaluations of the same binary-carry schedule:
 
 * :func:`tree_gemm` (K2, counterpart of the Pallas kernel
-  ``tree_gemm_blocked``): ``tree_gemm_scan``'s schedule, blocks of up to 16
-  products folded in registers, then a binary-carry slot stack over blocks;
+  ``tree_gemm_blocked``): a tiled kernel; each thread owns a register
+  micro-tile of outputs, operands come through shared memory in k-slices
+  of 16, each slice's products folded incrementally in registers (tree
+  levels 0-3), full slices pushed onto a binary-carry slot stack (levels 4
+  and up).  Plans whose product and merges all round and overflow with one
+  pair of :data:`K2_MODES` take an instantiation with those modes fixed at
+  compile time (:func:`k2_modes`);
 * :func:`tree_gemm_stream` (K2′, counterpart of ``tree_gemm_pallas``): one
-  product at a time through the slot stack, no fold inside a block.
+  thread per output, one product at a time through the slot stack.
 
 Their plain versions run the same schedules as Python loops on torch
 tensors: products of one block, the in-block tree layers, the slot stack,
@@ -30,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from ..qformat import QFormat, add_merge
+from ..qformat import OverflowMode, QFormat, RoundMode, add_merge
 from .reduce import layer_format
 from .wideint import requantize_i32, requantize_split_mul
 from .widths import (
@@ -44,7 +49,7 @@ from .widths import (
 
 __all__ = ["TreePlan", "plan_tree", "level_formats", "drain_ops",
            "tree_gemm", "tree_gemm_plain", "tree_gemm_stream",
-           "tree_gemm_stream_plain"]
+           "tree_gemm_stream_plain", "K2_LOG_BLK", "K2_MODES", "k2_modes"]
 
 
 @dataclass(frozen=True)
@@ -251,8 +256,8 @@ _OPS = {"seed": 0, "convert": 1, "add": 2}
 
 
 def _kernel_params(plan: TreePlan, out_fmt: QFormat, log_blk: int):
-    """The plan as ``csrc/tree_gemm.cu:qk_tree_gemm``'s int32 parameters,
-    with 2^log_blk products folded per block."""
+    """The plan as ``csrc/tree_gemm.cuh``'s int32 parameters (``read_params``)
+    with 2^log_blk products folded per block: 4 for K2, 0 for K2′ and P1."""
     p = [int(plan.prod_route == "split"), log_blk,
          *_build.rq_args(plan.prod_frac, plan.mul_fmt),
          plan.levels]
@@ -265,10 +270,30 @@ def _kernel_params(plan: TreePlan, out_fmt: QFormat, log_blk: int):
     return (ctypes.c_int * len(p))(*p)
 
 
+K2_LOG_BLK = 4   # K2 folds k in slices of 2^4 products (csrc LOG_BLK)
+
+# The (round, overflow) pairs that K2 has compile-time instantiations for,
+# in csrc/tree_gemm_tiled.cuh's K2_MODES order after its run-time entry 0.
+K2_MODES = ((RoundMode.TRN_TCPL, OverflowMode.SAT_ZERO),)
+
+
+def k2_modes(plan: TreePlan) -> int:
+    """K2's instantiation for ``plan``: 1 + the index in :data:`K2_MODES`
+    of the pair that the product and every tree merge (the drain's converts
+    included) round and overflow with, or 0 (modes read at run time) when
+    they do not all share one of those pairs.  The final requantize into
+    the output format always reads its modes at run time."""
+    steps = (plan.mul_fmt,) + tuple(plan.merge_fmts)
+    for i, (rm, om) in enumerate(K2_MODES):
+        if all(f.round_mode == rm and f.overflow_mode == om for f in steps):
+            return i + 1
+    return 0
+
+
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
-            out_fmt: QFormat, log_blk: int):
+            out_fmt: QFormat):
     """Check the operands; None for CPU tensors, else the output of the
-    ``csrc/tree_gemm.cu`` kernel launched on them."""
+    kernel ``name`` launched on them."""
     if plan.prod_route == "pair":
         raise NotImplementedError(
             "the 64-bit 'pair' product route is not yet ported "
@@ -294,10 +319,16 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
     lib = _build.lib()
     a32 = a.to(torch.int32).contiguous()
     b32 = b.to(torch.int32).contiguous()
-    err = lib.qk_tree_gemm(a.device.index, a32.data_ptr(), b32.data_ptr(),
-                           out.data_ptr(), m, n, k, out.element_size(),
-                           _kernel_params(plan, out_fmt, log_blk),
-                           torch.cuda.current_stream(a.device).cuda_stream)
+    args = (a.device.index, a32.data_ptr(), b32.data_ptr(), out.data_ptr(),
+            m, n, k, out.element_size())
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if name == "tree_gemm":
+        err = lib.qk_tree_gemm(*args, _kernel_params(plan, out_fmt,
+                                                     K2_LOG_BLK),
+                               k2_modes(plan), stream)
+    else:
+        err = lib.qk_tree_gemm_stream(*args, _kernel_params(plan, out_fmt, 0),
+                                      stream)
     _build.check(err, name)
     return out
 
@@ -310,8 +341,7 @@ def tree_gemm(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
     CPU tensors take the plain version; CUDA tensors launch K2.
     ``tree_gemm.launches`` counts kernel launches.
     """
-    log_blk = _block_size(plan.k).bit_length() - 1
-    out = _launch("tree_gemm", a, b, plan, out_fmt, log_blk)
+    out = _launch("tree_gemm", a, b, plan, out_fmt)
     if out is None:
         return tree_gemm_plain(a, b, plan, out_fmt)
     tree_gemm.launches += 1
@@ -327,7 +357,7 @@ def tree_gemm_stream(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
     ``csrc/tree_gemm.cu`` kernel with one product per block).
     ``tree_gemm_stream.launches`` counts kernel launches.
     """
-    out = _launch("tree_gemm_stream", a, b, plan, out_fmt, 0)
+    out = _launch("tree_gemm_stream", a, b, plan, out_fmt)
     if out is None:
         return tree_gemm_stream_plain(a, b, plan, out_fmt)
     tree_gemm_stream.launches += 1

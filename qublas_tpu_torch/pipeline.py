@@ -14,6 +14,7 @@ from torch import nn
 
 from .anus import build_table, sqrt_func
 from .convert import from_jax
+from .ops.fused_gemm import kmajor
 from .ops.gemm import qgemul
 from .qformat import OverflowMode, qformat
 from .qtensor import QTensor, from_raw
@@ -32,16 +33,19 @@ def pipeline_formats():
 class QuantPipeline(nn.Module):
     """``y = qgemul(table(qgemul(x, w1)).astype(fa), w2)`` on raw tensors.
 
-    ``w1`` and ``w2`` are int8 buffers of ``Qu<3,4>`` raws; ``forward``
-    takes the raws of ``x`` in ``Qu<3,4>`` and returns the raws of ``y`` in
-    ``Qu<3,4,SAT::ZERO>``, as ``entry()``'s forward does.
+    ``w1`` and ``w2`` are int8 buffers of ``Qu<3,4>`` raws, [K, N] as the
+    GEMM takes them but stored K-major (each the ``.t()`` view of an [N, K]
+    contiguous tensor, made once here), the layout K1's tensor-core route
+    reads without a copy; ``load_state_dict`` copies into them and keeps
+    it.  ``forward`` takes the raws of ``x`` in ``Qu<3,4>`` and returns the
+    raws of ``y`` in ``Qu<3,4,SAT::ZERO>``, as ``entry()``'s forward does.
     """
 
     def __init__(self, w1: torch.Tensor, w2: torch.Tensor):
         super().__init__()
         self.fa, self.wide, self.out_fmt = pipeline_formats()
-        self.register_buffer("w1", w1)
-        self.register_buffer("w2", w2)
+        self.register_buffer("w1", kmajor(w1))
+        self.register_buffer("w2", kmajor(w2))
         self.table = build_table(sqrt_func, self.out_fmt, self.out_fmt)
 
     @classmethod

@@ -19,10 +19,10 @@ from qublas_tpu_torch.ops.chain_probe import (G, T1, T2, chain_probe,
                                               chain_probe_plain, probe_tile)
 from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm,
                                              fused_int8_gemm_plain, int_dot,
-                                             int_dot_plain)
+                                             int_dot_plain, k1_route, kmajor)
 from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
                                          qreduce_plain)
-from qublas_tpu_torch.ops.tree_gemm import (plan_tree, tree_gemm,
+from qublas_tpu_torch.ops.tree_gemm import (k2_modes, plan_tree, tree_gemm,
                                             tree_gemm_plain, tree_gemm_stream,
                                             tree_gemm_stream_plain)
 
@@ -274,3 +274,74 @@ def test_config5_cgemul_matches_cpu_and_counts_launches(cuda, algo):
     want = qt.cgemul(c, d, F88Z, algo=algo)
     for g, w in ((got.real, want.real), (got.imag, want.imag)):
         assert g.fmt == w.fmt and torch.equal(g.data.cpu(), w.data)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (129, 256, 127), (127, 256, 129), (1, 1, 1),
+    (130, 16, 129), (130, 32, 129), (130, 48, 129), (130, 4112, 129),
+    (130, 1, 129), (130, 777, 129), (130, 1003, 129)])
+def test_k1_tile_and_k_edges_match_plain(cuda, m, k, n):
+    """K1's tensor-core route one past and one short of its 128 x 128 output
+    tile, and at K that TMA reads in place or through the zero-padded
+    copy."""
+    a = _raws(m + k, FA, (m, k), np.int8).to(cuda)
+    b = _raws(n + k, FA, (k, n), np.int8).to(cuda)
+    assert k1_route(a) == ("direct" if k % 16 == 0 else "padded")
+    for out in (MID, qt.qformat(8, 10)):
+        got = fused_int8_gemm(a, b, 8, out)
+        want = fused_int8_gemm_plain(a, b, 8, out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (m, k, n, out)
+    assert torch.equal(int_dot(a, kmajor(b)), int_dot_plain(a, b))
+
+
+@pytest.mark.parametrize("start,stop,routes", [
+    (0, 544, ("direct", "direct")), (16, 544, ("direct", "direct")),
+    (1, 529, ("copy", "copy")), (1, 528, ("padded", "padded"))])
+def test_int_dot_on_views_matches_plain(cuda, start, stop, routes):
+    """Views of wider tensors: at column 16 TMA reads them in place; one
+    byte past 16-byte alignment they take a K-major copy."""
+    a = _raws(1, FA, (300, 544), np.int8).to(cuda)
+    bk = kmajor(_raws(2, FA, (544, 301), np.int8).to(cuda))
+    x, y = a[:, start:stop], bk[start:stop]
+    assert (k1_route(x), k1_route(y.t())) == routes
+    got = int_dot(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int_dot_plain(x, y))
+    assert torch.equal(int_dot(x, y.contiguous()), got)
+
+
+@pytest.mark.parametrize("k", [1, 13, 16, 17, 1000, 2048])
+@pytest.mark.parametrize("m,n", [(1, 1), (63, 65), (65, 63), (200, 200)])
+def test_k2_tile_edges_match_plain(cuda, m, k, n):
+    """The tiled K2 at its block-tile and micro-tile edges and around its
+    16-deep k-slices, on the canonical plan's compiled modes."""
+    a = _raws(m + k, F88Z, (m, k), np.int32).to(cuda)
+    b = _raws(n + k, F88Z, (k, n), np.int32).to(cuda)
+    plan = plan_tree(F88Z, F88Z, qt.mul_merge(F88Z, F88Z), (), k, F88Z)
+    assert k2_modes(plan) == 1
+    got = tree_gemm(a, b, plan, F88Z)
+    want = tree_gemm_plain(a, b, plan, F88Z)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("config,k", [
+    ("i32", 13), ("i32", 1000), ("layered", 17), ("layered", 1000),
+    ("canonical", 4112), ("i32", 4112), ("layered", 4112)])
+def test_k2_routes_and_instantiations_match_plain(cuda, config, k):
+    """The i32 product route and the layered formats (modes read at run
+    time), and k past 4096 (the 32-slot stack, TOP = 32) with the modes
+    compiled and read at run time."""
+    f = qt.qformat(3, 4, round_mode=qt.RoundMode.RND_CONV,
+                   overflow_mode=qt.OverflowMode.WRP_TCPL) \
+        if config == "i32" else F88Z
+    layers = LAYERS if config == "layered" else ()
+    a = _raws(k, f, (63, k), np.int32).to(cuda)
+    b = _raws(k + 1, f, (k, 65), np.int32).to(cuda)
+    plan = plan_tree(f, f, qt.mul_merge(f, f), layers, k, f)
+    assert k2_modes(plan) == (1 if config == "canonical" else 0)
+    got = tree_gemm(a, b, plan, f)
+    want = tree_gemm_plain(a, b, plan, f)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
