@@ -12,7 +12,9 @@ Phases, each printing its lines:
    every rounding x overflow mode: K1 (fused int8 GEMM, and ``int_dot``,
    its identity epilogue), K2 (tree GEMM), K2′ (tree GEMM, one-pass
    schedule), K3 (tree reduce: any n, odd tails, int8/int16/int32 lanes,
-   an out-of-range raw at the odd tail) and P1 (the per-product chain
+   an out-of-range raw at the odd tail; its warp, thread and columns
+   kernels, each instantiation with compiled modes, rows whose base is off
+   16 bytes) and P1 (the per-product chain
    probe, split and i32 product routes, and ``measured_chain_prods``'
    tile at both chain lengths over all 2048 programs);
 3. drive the main paths through the public entry points, each with the
@@ -38,7 +40,9 @@ Phases, each printing its lines:
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
    after warm-up) beside its bound and, where one exists, the PyTorch call
-   computing the same function, and the main-path calls end to end.
+   computing the same function, and the main-path calls end to end; K3
+   also by its device time (a profiler trace) and the host's time to
+   enqueue a call.
 
 The second-to-last line is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -151,8 +155,8 @@ def phase_kernels(dev, chk):
     from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm_plain,
                                                  int_dot, int_dot_plain,
                                                  k1_route, kmajor)
-    from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
-                                             qreduce_plain)
+    from qublas_tpu_torch.ops.reduce import (k3_route, plan_reduce,
+                                             qreduce_kernel, qreduce_plain)
     from qublas_tpu_torch.ops.tree_gemm import (k2_modes, plan_tree,
                                                 tree_gemm, tree_gemm_plain,
                                                 tree_gemm_stream,
@@ -242,27 +246,75 @@ def phase_kernels(dev, chk):
         k2_edge(f88z, layered, 65, k, 63)
     k2_edge(f88z, (), 65, 4112, 63)
 
-    def k3_case(what, fmt, layers, shape, axis, dtype, tail=None):
+    def k3_check(what, x, layers, fmt, axis, route):
+        plan = plan_reduce(fmt, layers, x.shape[axis])
+        assert plan is not None, what
+        got_route = k3_route(x, axis, plan) + (plan.modes,)
+        if route is not None:
+            assert got_route == route, (what, got_route, route)
+        got = qreduce_kernel(x, axis, plan)
+        ref = qreduce_plain(x, axis, plan)
+        chk.same("qreduce_kernel", f"{what}, (kernel, S, modes) {got_route}",
+                 got, ref)
+
+    def k3_case(what, fmt, layers, shape, axis, dtype, tail=None, offset=0,
+                route=None):
         x = rand_raws(rng, fmt, shape, np.int64)
         if tail is not None:
             x[..., -1] = tail          # the odd tail of every row
-        x = torch.from_numpy(x.astype(dtype)).to(dev)
-        plan = plan_reduce(fmt, layers, shape[axis])
-        assert plan is not None, what
-        got = qreduce_kernel(x, axis, plan)
-        ref = qreduce_plain(x, axis, plan)
-        chk.same("qreduce_kernel", what, got, ref)
+        x = torch.from_numpy(x.astype(dtype))
+        # a storage offset moves the rows' base off 16 bytes
+        flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        flat[offset:] = x.reshape(-1).to(dev)
+        k3_check(what, flat[offset:].view(shape), layers, fmt, axis, route)
 
+    # (kernel, S, modes): ops.reduce.k3_route and k3_modes; the main paths'
+    # shapes take the instantiations with their modes compiled in
     r0, r1 = REDUCE_SHAPE
     k3_case(f"config 2 [{r0}, {r1}] axis 1", f44, config2, REDUCE_SHAPE, 1,
-            np.int8)
+            np.int8, route=("warp", 32, 1))
     k3_case(f"config 2 [{r0}, {r1}] axis 0", f44, config2, REDUCE_SHAPE, 0,
-            np.int8)
+            np.int8, route=("columns", 0, 1))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    big = torch.randint(-128, 128, (REDUCE_BIG_ROWS, r1), generator=gen,
+                        device=dev, dtype=torch.int8)
+    k3_check(f"config 2 [{REDUCE_BIG_ROWS}, {r1}] axis 1", big, config2, f44,
+             1, ("warp", 32, 1))
+    del big
+    k3_case("Qu<3,4,SAT::ZERO>, no layer formats [300, 1024]",
+            qt.qformat(3, 4, overflow_mode=qt.OverflowMode.SAT_ZERO), (),
+            (300, 1024), 1, np.int8, route=("warp", 32, 2))
+    k3_case(f"canonical Qu<8,8,SAT::ZERO> columns [8, {LAYERED_N}, 64]",
+            f88z, (), (8, LAYERED_N, 64), 1, np.int32,
+            route=("columns", 0, 2))
+    k3_case("Qu<4,4>, no layer formats, columns [4, 512, 33] (modes read "
+            "at run time)", f44, (), (4, 512, 33), 1, np.int8,
+            route=("columns", 0, 0))
+    for off, s in ((1, 1), (2, 2), (4, 4), (8, 8), (16, 32)):
+        k3_case(f"config 2 [300, 1024], rows {off} bytes past 32", f44,
+                config2, (300, 1024), 1, np.int8, offset=off,
+                route=("warp", s, 1))
+    k3_case("int16 lanes Qu<7,4> [40, 2048], rows 2 bytes off 16",
+            qt.qformat(7, 4), config2, (40, 2048), 1, np.int16, offset=1,
+            route=("warp", 1, 1))
+    k3_case("int32 lanes Qu<20,8> -> Qu<26,2> [5, 1024], rows 8 bytes off "
+            "16", qt.qformat(20, 8), (qt.qformat(26, 2),), (5, 1024), 1,
+            np.int32, offset=2, route=("warp", 2, 0))
+    k3_case("int16 lanes Qu<7,4> [40, 2048]", qt.qformat(7, 4), config2,
+            (40, 2048), 1, np.int16, route=("warp", 16, 1))
+    k3_case("int32 lanes Qu<20,8> -> Qu<26,2> [5, 1024]", qt.qformat(20, 8),
+            (qt.qformat(26, 2),), (5, 1024), 1, np.int32,
+            route=("warp", 8, 0))
+    k3_case("config 2 [3, 262144] (the 32-deep stack)", f44, config2,
+            (3, 1 << 18), 1, np.int8, route=("warp", 32, 1))
     for n3 in (3, 13, 1000):
         k3_case(f"config 2 n={n3} rows [300, {n3}]", f44, config2,
-                (300, n3), 1, np.int8)
+                (300, n3), 1, np.int8, route=("thread", 0, 1))
         k3_case(f"config 2 n={n3} columns [4, {n3}, 45]", f44, config2,
-                (4, n3, 45), 1, np.int8)
+                (4, n3, 45), 1, np.int8, route=("columns", 0, 1))
+    for n3, s in ((96, 1), (512, 16)):
+        k3_case(f"config 2 n={n3} rows [300, {n3}]", f44, config2,
+                (300, n3), 1, np.int8, route=("warp", s, 1))
     k3_case("batch 77 (not a multiple of 32) n=1000", f44, config2,
             (77, 1000), 1, np.int8)
     k3_case("int16 lanes Qu<7,4> [300, 24]", qt.qformat(7, 4), config2,
@@ -276,12 +328,19 @@ def phase_kernels(dev, chk):
             (64, 13), 1, np.int8, tail=smgn.raw_min)
     k3_case("Qu<3,4>, raw 300 (int16 lane) at the odd tail [64, 13]",
             qt.qformat(3, 4), (), (64, 13), 1, np.int16, tail=300)
+    # every mode pair on the thread kernel and on the warp kernel (read at
+    # run time, or compiled in where the pair is K3_MODES')
     for rm in qt.RoundMode:
         for om in qt.OverflowMode:
             for signed in (True, False):
                 lf = qt.qformat(5, 2, signed, rm, om)
-                k3_case(f"[100, 13] -> {lf}", f44, (lf,), (100, 13), 1,
-                        np.int8)
+                for n3, s in ((13, 0), (96, 1), (1024, 32)):
+                    k3_case(f"[100, {n3}] -> {lf}", f44, (lf,), (100, n3), 1,
+                            np.int8,
+                            route=("warp" if s else "thread", s,
+                                   2 if (rm, om) == (qt.RoundMode.TRN_TCPL,
+                                                     qt.OverflowMode.SAT_ZERO)
+                                   else 0))
 
     for route, f in (("split", f88z), ("i32", i32f)):
         plan = plan_tree(f, f, qt.mul_merge(f, f), (), TREE_N, f)
@@ -817,7 +876,7 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
     from qublas_tpu_torch.ops.tree_gemm import (tree_gemm, tree_gemm_plain,
                                                 tree_gemm_stream,
                                                 tree_gemm_stream_plain)
-    from qublas_tpu_torch.timing import timeit
+    from qublas_tpu_torch.timing import device_us, host_us, timeit
 
     x, pipe, plan1, mid, a2, b2, tplan, f88z = state_a
     xr, r_plan, prod, p_plan, a3, b3, splan, _ = state_b
@@ -927,6 +986,18 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
             elems *= d
         print(f"time {label} {list(shape)}: {t[key]:.4f} ms, "
               f"{elems / t[key] / 1e6:.2f} Gelem/s [{card}]")
+    # K3 alone on the device (a profiler trace), and the host's time to
+    # enqueue a call: at config 2 the event time above is mostly the host's
+    for key, fn, shape in (
+            ("k3", lambda: qreduce_kernel(xd, 1, r_plan), REDUCE_SHAPE),
+            ("k3_big", lambda: qreduce_kernel(big, 1, big_plan),
+             (REDUCE_BIG_ROWS, REDUCE_SHAPE[1])),
+            ("k3_layered", lambda: qreduce_kernel(prod.data, 1, p_plan),
+             (ln, ln, ln))):
+        dev_us = device_us(fn)
+        print(f"time qreduce_kernel {list(shape)}: event {t[key] * 1e3:.2f} "
+              f"us, device us per call {dev_us}, host us per call "
+              f"{host_us(fn):.2f} [{card}]")
     print(f"time main path: QuantPipeline forward {n}^3 {t['pipeline']:.4f}"
           f" ms ({2 * ops / t['pipeline'] / 1e9:.2f} TOP/s over its two "
           f"GEMMs), canonical qgemul {tn}^3 {t['canonical']:.4f} ms, "

@@ -36,8 +36,9 @@ build_seconds: Optional[float] = None  # nvcc wall seconds; None if cached
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # device, x, out, outer, n, inner, in_bytes, out_bytes, params, stream
-    "qk_qreduce": (_I, _P, _P, _L, _L, _L, _I, _I, _P, _P),
+    # device, x, out, outer, n, inner, in_bytes, out_bytes, params, modes,
+    # lanes, stream
+    "qk_qreduce": (_I, _P, _P, _L, _L, _L, _I, _I, _P, _I, _I, _P),
     # device, a, lda, bt, ldb, c, m, n, k, out_bytes, d, round, ovf, w,
     # sgn, stream
     "qk_fused_gemm_s8": (_I, _P, _L, _P, _L, _P, _I, _I, _I, _I,

@@ -6,67 +6,56 @@
 // format) and writes one row; Mosaic limited it to power-of-two n and
 // batches that are multiples of 128.
 //
-// Here one thread owns one output element and runs tree_fold.cuh's
-// schedule, with a load of the input (int8/int16/int32, widened to int32)
-// in place of a product: blocks of BLK = the largest power of two dividing
-// n (at most 16) folded in registers, a binary-carry slot stack over
-// blocks, and the planner's drain over the ragged right edge.  That is the
-// reference's pairing for any n and any batch.  Two differences from the
-// GEMM's tree, both settled by the planner (ops/reduce.py:ReducePlan): a
-// tail convert between equal formats is left out of the drain (qcast
-// leaves such raws as they are), and there is no final requantize.
+// Here each output runs tree_fold.cuh's schedule, with a load of the input
+// (int8/int16/int32, widened to int32) in place of a product: blocks of
+// leaves folded in registers, a binary-carry slot stack over blocks, and
+// the planner's drain over the ragged right edge.  Any aligned run of 2^j
+// leaves that ends within n is one node of the reference's tree (its
+// pairing (2i, 2i+1) per layer, odd tails carried up), so a block may be
+// any power of two dividing n.  That is the reference's pairing for any n
+// and any batch.  Two differences from the GEMM's tree, both settled by
+// the planner (ops/reduce.py:ReducePlan): a tail convert between equal
+// formats is left out of the drain (qcast leaves such raws as they are),
+// and there is no final requantize.
 //
-// The tensor is read in place as [outer, n, inner]:
-//   * inner > 1 (e.g. the layered GEMM's [m, k, n] over k): neighbouring
-//     threads own neighbouring i, so each load of a warp is coalesced;
-//   * inner == 1 (the last axis, e.g. BASELINE config 2's [4096, 1024]):
-//     rows lie n elements apart, so a warp owns 32 rows and stages them
-//     CHUNK elements at a time through shared memory, read along the row.
+// The tensor is read in place as [outer, n, inner], by one of three
+// kernels (ops/reduce.py:k3_route picks it):
+//   * inner > 1 (e.g. the layered GEMM's [m, k, n] over k): the columns
+//     kernel, a thread an output (qreduce.cuh);
+//   * inner == 1 and 32 | n (e.g. BASELINE config 2's [4096, 1024]): the
+//     warp kernel, a warp a row (qreduce.cuh).  A chunk of 32 S leaves is
+//     a block: each lane loads S contiguous leaves, up to 32 bytes, and
+//     folds them in registers, five shuffle levels fold the lanes;
+//   * inner == 1 otherwise: a thread a row (below), rows staged through
+//     shared memory.  A warp's chunk needs 32 | n to be a node of the tree,
+//     and a row of blocks smaller than 32 has too little work for a warp.
 //
 // What bounds it: int32 ALU work, one add and one requantize (about 5-15
 // operations, by the modes) per input element, against one 1-4 byte load:
-// compute-bound (see PERF.md for the count at the main-path shapes).
+// operations at config 2's int8 rows, bytes at the layered GEMM's int32
+// columns (see PERF.md for the count at the main-path shapes).  Two
+// things keep the ALU work near that count.  Plans whose merges round and
+// overflow with a pair of K3_MODES (one pair at level 0, one above it;
+// ops/reduce.py:k3_modes) take instantiations with those modes fixed at
+// compile time at the main paths' shapes (qreduce_modes_<M>.cu), so each
+// requantize is a few instructions, not the 7 x 5 mode dispatch; and the
+// warp kernel's 32 lanes share a row, so a config-2 row is 32 short
+// chains, not one long one.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "requant.cuh"
-#include "tree_fold.cuh"
+#include "qreduce.cuh"
 
 namespace {
 
-constexpr int ROWS = 32;   // rows kernel: one warp, one row per thread
+using qk::Fold;
+using qk::Shape;
+
+constexpr int ROWS = 32;   // thread kernel: one warp, one row per thread
 constexpr int CHUNK = 64;  // elements of each row staged per step (16 | it)
 constexpr int BATCH = 16;  // staging loads a lane keeps in flight
-constexpr int COLS_THREADS = 256;
-
-template <int LOG_BLK, int TOP>
-__global__ void __launch_bounds__(COLS_THREADS)
-qreduce_cols(const void* __restrict__ X, void* __restrict__ Y,
-             long long outer, long long n, long long inner, int in_bytes,
-             int out_bytes, const qk::Fold f) {
-  constexpr int BLK = 1 << LOG_BLK;
-  const long long idx = (long long)blockIdx.x * COLS_THREADS + threadIdx.x;
-  if (idx >= outer * inner) return;
-  const long long o = idx / inner;
-  const size_t base = (size_t)o * n * inner + (size_t)(idx - o * inner);
-  const int nblocks = (int)(n >> LOG_BLK);
-
-  int32_t slot[TOP];
-#pragma unroll
-  for (int l = 0; l < TOP; ++l) slot[l] = 0;
-  for (int t = 0; t < nblocks; ++t) {
-    int32_t v[BLK];
-#pragma unroll
-    for (int q = 0; q < BLK; ++q) {
-      const size_t kk = ((size_t)t << LOG_BLK) + q;
-      v[q] = qk::load_lane(X, base + kk * inner, in_bytes);
-    }
-    qk::push<LOG_BLK, TOP>(slot, t, qk::fold_block<LOG_BLK>(v, f), f);
-  }
-  qk::store_lane(Y, idx, qk::drain<LOG_BLK, TOP>(slot, f), out_bytes);
-}
 
 // Stage rows [row0, row0 + rows) x [c0, c0 + width) of x into the tile:
 // consecutive lanes read consecutive elements of a row, BATCH loads in
@@ -100,7 +89,7 @@ template <int LOG_BLK, int TOP>
 __global__ void __launch_bounds__(ROWS)
 qreduce_rows(const void* __restrict__ X, void* __restrict__ Y,
              long long outer, long long n, int in_bytes, int out_bytes,
-             const qk::Fold f) {
+             const Fold f) {
   constexpr int BLK = 1 << LOG_BLK;
   __shared__ int32_t tile[ROWS][CHUNK + 1];  // +1: conflict-free columns
   const int lane = threadIdx.x;
@@ -141,36 +130,68 @@ qreduce_rows(const void* __restrict__ X, void* __restrict__ Y,
   }
 }
 
-// One launch's tensors: x [outer, n, inner] and y [outer, inner].
-struct Shape {
-  const void* x;
-  void* y;
-  long long outer, n, inner;
-  int in_bytes, out_bytes;
-};
+int bit_length(long long v) {
+  int b = 0;
+  while (b < 63 && (v >> b) != 0) ++b;
+  return b;
+}
 
-template <int LOG_BLK, int TOP>
-void launch(const Shape& a, const qk::Fold& f, cudaStream_t s) {
+// The thread kernel or the columns kernel with modes read at run time.
+template <int LOG_BLK>
+void launch_any(bool deep, const Shape& a, const Fold& f, cudaStream_t s) {
   if (a.inner == 1) {
-    const long long grid = (a.outer + ROWS - 1) / ROWS;
-    qreduce_rows<LOG_BLK, TOP><<<(unsigned)grid, ROWS, 0, s>>>(
-        a.x, a.y, a.outer, a.n, a.in_bytes, a.out_bytes, f);
+    const unsigned grid = (unsigned)((a.outer + ROWS - 1) / ROWS);
+    if (deep) {
+      qreduce_rows<LOG_BLK, qk::MAXL><<<grid, ROWS, 0, s>>>(
+          a.x, a.y, a.outer, a.n, a.in_bytes, a.out_bytes, f);
+    } else {
+      qreduce_rows<LOG_BLK, 16><<<grid, ROWS, 0, s>>>(
+          a.x, a.y, a.outer, a.n, a.in_bytes, a.out_bytes, f);
+    }
   } else {
-    const long long grid =
-        (a.outer * a.inner + COLS_THREADS - 1) / COLS_THREADS;
-    qreduce_cols<LOG_BLK, TOP><<<(unsigned)grid, COLS_THREADS, 0, s>>>(
-        a.x, a.y, a.outer, a.n, a.inner, a.in_bytes, a.out_bytes, f);
+    (deep ? qk::launch_cols<LOG_BLK, qk::MAXL, 0>
+          : qk::launch_cols<LOG_BLK, 16, 0>)(a, f, s);
   }
 }
 
-template <int LOG_BLK>
-void launch_top(int top, const Shape& a, const qk::Fold& f,
-                cudaStream_t s) {
-  if (top <= 16) {
-    launch<LOG_BLK, 16>(a, f, s);
-  } else {
-    launch<LOG_BLK, qk::MAXL>(a, f, s);
+// The warp kernel with modes read at run time, S = 2^LOG_S leaves a lane.
+template <typename T, int LOG_S>
+void launch_warp_any(bool deep, const Shape& a, const Fold& f,
+                     cudaStream_t s) {
+  (deep ? qk::launch_warp<T, LOG_S, qk::MAXL, 0>
+        : qk::launch_warp<T, LOG_S, qk::WARP_TOP, 0>)(a, f, s);
+}
+
+template <typename T>
+void launch_warp_lanes(int lanes, bool deep, const Shape& a, const Fold& f,
+                       cudaStream_t s) {
+  switch (lanes) {
+    case 1: launch_warp_any<T, 0>(deep, a, f, s); break;
+    case 2: launch_warp_any<T, 1>(deep, a, f, s); break;
+    case 4: launch_warp_any<T, 2>(deep, a, f, s); break;
+    case 8: launch_warp_any<T, 3>(deep, a, f, s); break;
+    case 16:
+      if constexpr (sizeof(T) <= 2) launch_warp_any<T, 4>(deep, a, f, s);
+      break;
+    default:
+      if constexpr (sizeof(T) == 1) launch_warp_any<T, 5>(deep, a, f, s);
+      break;
   }
+}
+
+// Whether every merge of the plan rounds and overflows with K3_MODES[modes]
+// (the drain's converts are merges' requantizes).
+bool modes_match(const Fold& f, int levels, int modes) {
+  if (modes == 0) return true;
+  if (modes < 0 || modes >= qk::K3_NMODES) return false;
+  for (int l = 0; l < levels; ++l) {
+    const int p = l == 0 ? 0 : 2;
+    if (f.merge[l].round != qk::K3_MODES[modes][p] ||
+        f.merge[l].ovf != qk::K3_MODES[modes][p + 1]) {
+      return false;
+    }
+  }
+  return true;
 }
 
 }  // namespace
@@ -179,33 +200,64 @@ void launch_top(int top, const Shape& a, const qk::Fold& f,
 // out_bytes per element.  params (host int32), as
 // qublas_tpu_torch/ops/reduce.py:ReducePlan.kernel_params writes them:
 //   log_blk, levels, merge[levels][5], ndrain, (op, level)[ndrain]
-// Returns a cudaError_t, or -1 for parameters outside the kernel's range.
+// modes indexes K3_MODES (ops/reduce.py:k3_modes); lanes is the warp
+// kernel's S (ops/reduce.py:k3_route), 0 for the other two kernels.
+// Returns a cudaError_t, or -1 for parameters outside the kernels' range.
 extern "C" int qk_qreduce(int device, const void* x, void* y,
                           long long outer, long long n, long long inner,
                           int in_bytes, int out_bytes, const int* params,
-                          void* stream) {
-  qk::Fold f{};
+                          int modes, int lanes, void* stream) {
+  Fold f{};
   const int log_blk = params[0];
+  const int levels = params[1];
+  const long long word = (long long)lanes * in_bytes;
   if (qk::read_fold(params + 1, &f) == nullptr || log_blk < 0 ||
       log_blk > 4 || n < 2 || (n & ((1LL << log_blk) - 1)) != 0 ||
       (n >> log_blk) >= (1LL << 31) || outer < 1 || inner < 1 ||
-      (outer + ROWS - 1) / ROWS >= (1LL << 31) ||
-      (outer * inner + COLS_THREADS - 1) / COLS_THREADS >= (1LL << 31)) {
+      (in_bytes != 1 && in_bytes != 2 && in_bytes != 4) ||
+      !modes_match(f, levels, modes) ||
+      (outer + qk::WARP_ROWS - 1) / qk::WARP_ROWS >= (1LL << 31) ||
+      (outer * inner + qk::COLS_THREADS - 1) / qk::COLS_THREADS >=
+          (1LL << 31)) {
+    return -1;
+  }
+  if (lanes != 0 &&
+      (inner != 1 || lanes < 0 || (lanes & (lanes - 1)) != 0 || word > 32 ||
+       n % (32LL * lanes) != 0 ||
+       reinterpret_cast<uintptr_t>(x) % (uintptr_t)(word < 16 ? word : 16) !=
+           0)) {
     return -1;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long nblocks = n >> log_blk;
-  int top = 1;
-  while (top < 31 && (nblocks >> top) != 0) ++top;  // bit_length(nblocks)
   const Shape a{x, y, outer, n, inner, in_bytes, out_bytes};
   auto s = static_cast<cudaStream_t>(stream);
+  if (lanes != 0) {
+    const bool deep = bit_length(n / (32LL * lanes)) > qk::WARP_TOP;
+    if (modes != 0 && in_bytes == 1 && lanes == 32 && !deep) {
+      (modes == 1 ? qk::launch_warp<int8_t, 5, qk::WARP_TOP, 1>
+                  : qk::launch_warp<int8_t, 5, qk::WARP_TOP, 2>)(a, f, s);
+    } else if (in_bytes == 1) {
+      launch_warp_lanes<int8_t>(lanes, deep, a, f, s);
+    } else if (in_bytes == 2) {
+      launch_warp_lanes<int16_t>(lanes, deep, a, f, s);
+    } else {
+      launch_warp_lanes<int32_t>(lanes, deep, a, f, s);
+    }
+    return (int)cudaGetLastError();
+  }
+  const bool deep = bit_length(n >> log_blk) > 16;
+  if (modes != 0 && inner > 1 && log_blk == 4 && !deep) {
+    (modes == 1 ? qk::launch_cols<4, 16, 1>
+                : qk::launch_cols<4, 16, 2>)(a, f, s);
+    return (int)cudaGetLastError();
+  }
   switch (log_blk) {
-    case 0: launch_top<0>(top, a, f, s); break;
-    case 1: launch_top<1>(top, a, f, s); break;
-    case 2: launch_top<2>(top, a, f, s); break;
-    case 3: launch_top<3>(top, a, f, s); break;
-    default: launch_top<4>(top, a, f, s); break;
+    case 0: launch_any<0>(deep, a, f, s); break;
+    case 1: launch_any<1>(deep, a, f, s); break;
+    case 2: launch_any<2>(deep, a, f, s); break;
+    case 3: launch_any<3>(deep, a, f, s); break;
+    default: launch_any<4>(deep, a, f, s); break;
   }
   return (int)cudaGetLastError();
 }

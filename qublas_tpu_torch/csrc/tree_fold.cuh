@@ -25,6 +25,19 @@ namespace qk {
 
 constexpr int MAXL = 32;  // tree levels: n < 2^31
 
+// A mode read at run time from Rq, in the instantiations of K2 and K3.
+constexpr int ANY = -1;
+
+// The requantize step p with its round and overflow modes fixed to RND
+// and OVF (ANY: p's own): requant's mode dispatch then folds away at
+// compile time, and the shared requant.cuh stays as K2', K3 and P1 use it.
+template <int RND, int OVF>
+__device__ __forceinline__ Rq with_modes(Rq p) {
+  if constexpr (RND != ANY) p.round = RND;
+  if constexpr (OVF != ANY) p.ovf = OVF;
+  return p;
+}
+
 enum FoldOp : int { SEED = 0, CONVERT = 1, ADD = 2 };
 
 // The tree's requantize steps and drain schedule, as the Python planners

@@ -8,13 +8,6 @@
 
 #include "tree_gemm.cuh"
 
-namespace qk {
-
-// A mode read at run time from Rq, in K2's instantiations.
-constexpr int ANY = -1;
-
-}  // namespace qk
-
 namespace {
 
 constexpr int LOG_BLK = 4;        // products per block and k-slice: 16
@@ -34,20 +27,11 @@ __device__ __forceinline__ void cp_async4(void* dst, const int32_t* src,
                : "memory");
 }
 
-// The requantize step p with its round and overflow modes fixed to RND
-// and OVF (ANY: p's own): requant's mode dispatch then folds away at
-// compile time, and the shared requant.cuh stays as K2', K3 and P1 use it.
-template <int RND, int OVF>
-__device__ __forceinline__ qk::Rq with_modes(qk::Rq p) {
-  if constexpr (RND != qk::ANY) p.round = RND;
-  if constexpr (OVF != qk::ANY) p.ovf = OVF;
-  return p;
-}
-
+// qk::with_modes (tree_fold.cuh) fixes the modes of each step.
 template <int RND, int OVF>
 __device__ __forceinline__ int32_t product_modes(const TreeParams& p,
                                                  int32_t a, int32_t b) {
-  const qk::Rq r = with_modes<RND, OVF>(p.prod);
+  const qk::Rq r = qk::with_modes<RND, OVF>(p.prod);
   return p.split ? qk::requant_split_mul(a, b, r)
                  : qk::requant(qk::wmul(a, b), r);
 }
@@ -55,7 +39,8 @@ __device__ __forceinline__ int32_t product_modes(const TreeParams& p,
 template <int RND, int OVF>
 __device__ __forceinline__ int32_t merge_modes(const qk::Fold& f, int l,
                                                int32_t left, int32_t right) {
-  return qk::requant(qk::wadd(left, right), with_modes<RND, OVF>(f.merge[l]));
+  return qk::requant(qk::wadd(left, right),
+                     qk::with_modes<RND, OVF>(f.merge[l]));
 }
 
 // tree_fold.cuh's push on merge_modes.

@@ -1,6 +1,8 @@
-"""Design measurements for K1 and K2 on the card (not imported by the package).
+"""Design measurements for K1, K2 and K3 on the card (not imported by the
+package).
 
-    python3 -m qublas_tpu_torch.experiments.kernel_sweeps [k1|k2]
+    python3 -m qublas_tpu_torch.experiments.kernel_sweeps [k1|k2|k3|k3v]
+    python3 -m qublas_tpu_torch.experiments.kernel_sweeps k3 OTHER_CHECKOUT
 
 Run on a machine with a CUDA card.  Each part runs in its own process
 under a time limit, so a kernel that hangs ends that part and not the run:
@@ -13,7 +15,22 @@ under a time limit, so a kernel that hangs ends that part and not the run:
 * ``k2``: the tiled K2 at 2048^3 on the canonical plan, with its modes
   fixed at compile time and read at run time, checked against the plain
   version; the same kernel on other micro-tiles and occupancy targets
-  (``k2_tiles.cu``); and P1 (``chain_probe``) on the same plan.
+  (``k2_tiles.cu``); and P1 (``chain_probe``) on the same plan;
+* ``k3``: K3 at its main-path shapes (BASELINE config 2 at [4096, 1024]
+  and [131072, 1024], the layered GEMM's reduce at [512, 512, 512] over
+  axis 1), checked against its plain version, with its device and host
+  time per call; given another checkout's root (e.g. the parent commit's
+  ``git archive``), the same in both trees in turns (other, this, this,
+  other), each tree's own package and kernels;
+* ``k3v``: what bounds K3's warp kernel at config 2: variants of it
+  (``k3_variants.cu``: no requantize, no loads, loads only, lane levels by
+  ``__shfl_down_sync``, 16 leaves a lane) timed at [4096, 1024] and
+  [131072, 1024]; the package's warp and columns kernels with their modes
+  compiled in and read at run time; and the instructions that
+  ``cuobjdump -sass`` lists for
+  K3's main-path instantiations and the variants, by opcode, in the whole
+  kernel and in its longest loop (the SASS itself is written to
+  ``build/qublas_tpu_torch/experiments/k3_sass.txt``).
 
 Times are CUDA-event medians (``qublas_tpu_torch.timing.timeit``) and, for
 K1, device time per call from a ``torch.profiler`` trace (without the
@@ -22,8 +39,11 @@ with the card's name and power limit.
 """
 
 import ctypes
+import os
+import re
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -89,20 +109,27 @@ def _k1(card):
               f"[{card}]", flush=True)
 
 
-def _tiles_lib():
+def _experiment_lib(name):
+    """Build ``<name>.cu`` of this directory against the package's csrc/
+    into build/qublas_tpu_torch/experiments/lib<name>.so and load it."""
     from qublas_tpu_torch import _build
 
     out = _build.BUILD_DIR / "experiments"
     out.mkdir(parents=True, exist_ok=True)
-    so = out / "libk2_tiles.so"
+    so = out / f"lib{name}.so"
     cmd = [_build._nvcc(), *_build.COMPILE_FLAGS, "-shared",
-           "-I", str(_build.CSRC), str(HERE / "k2_tiles.cu"), "-o", str(so)]
+           "-I", str(_build.CSRC), str(HERE / f"{name}.cu"), "-o", str(so)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     for line in (res.stdout + res.stderr).splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(k in line for k in ("Compiling entry", "registers", "spill",
+                                   "error")):
             print("  " + line.strip(), flush=True)
     res.check_returncode()
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+def _tiles_lib():
+    lib = _experiment_lib("k2_tiles")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.k2_tiled_variant.argtypes = (I, I, I, I, P, P, P, I, I, I, P)
     lib.k2_tiled_variant.restype = I
@@ -183,6 +210,226 @@ def _k2(card):
         print(f"k2 {label}: {r / p1:.4f} of P1's rate [{card}]", flush=True)
 
 
+def _k3_cases():
+    """K3's main-path shapes: (label, x reduced over axis 1, plan)."""
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops.reduce import plan_reduce
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    f44 = qt.qformat(4, 4)
+    config2 = (qt.qformat(5, 3, round_mode=qt.RoundMode.RND_CONV,
+                          overflow_mode=qt.OverflowMode.SAT_ZERO),
+               qt.qformat(6, 2))
+    f88z = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
+    for rows in (4096, 131072):
+        x = torch.randint(-128, 128, (rows, 1024), generator=gen, device=dev,
+                          dtype=torch.int8)
+        yield (f"config 2 [{rows}, 1024] axis 1", x,
+               plan_reduce(f44, config2, 1024))
+    # the layered GEMM's products: Qu<8,8> raws in int32 lanes
+    x = torch.randint(f88z.raw_min, f88z.raw_max + 1, (512, 512, 512),
+                      generator=gen, device=dev, dtype=torch.int32)
+    yield ("layered GEMM's reduce [512, 512, 512] axis 1", x,
+           plan_reduce(qt.mul_merge(f88z, f88z), (), 512))
+
+
+def _k3_times(card):
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops.reduce import qreduce_kernel, qreduce_plain
+    from qublas_tpu_torch.timing import device_us, host_us, timeit
+
+    tree = Path(qt.__file__).resolve().parent.parent
+    for what, x, plan in _k3_cases():
+        def call():
+            return qreduce_kernel(x, 1, plan)
+
+        assert torch.equal(call(), qreduce_plain(x, 1, plan)), what
+        ms = timeit(call)
+        dev_us = device_us(call)
+        hus = host_us(call)
+        print(f"k3 {tree}: {what}: event {ms:.4f} ms, device us per call "
+              f"{dev_us}, host us per call {hus:.2f}, == plain [{card}]",
+              flush=True)
+
+
+def _k3_against(card, other: str):
+    """K3's times in this tree and in the checkout ``other`` (e.g. the
+    parent commit), in turns: other, this, this, other."""
+    this, other = str(HERE.parent.parent), str(Path(other).resolve())
+    for tree in (other, this, this, other):
+        env = dict(os.environ, PYTHONPATH=tree)
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "k3"],
+                       env=env, cwd=tree, timeout=900, check=True)
+
+
+# k3_variants.cu's variants of the warp kernel, by index; the first, the
+# fifth and the sixth compute K3's function, the others only take its time
+K3_VARIANTS = ("32 leaves a lane, as the package has it",
+               "merges plain adds (no requantize)",
+               "no loads (leaves made in registers)", "loads only (no merges)",
+               "lane levels by __shfl_down_sync",
+               "16 leaves a lane (one 16-byte load), chunks of 512")
+K3_EXACT = (0, 4, 5)
+
+# a SASS line of cuobjdump: /*address*/ [@predicate] OPCODE[.modifiers] ...;
+_SASS_INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)([^;]*)")
+
+
+def _sass_functions(so):
+    """{kernel name: its SASS lines} of the library ``so``, from
+    ``cuobjdump -sass``, names demangled where c++filt is there."""
+    from qublas_tpu_torch import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    try:
+        res = subprocess.run(["c++filt"], input="\n".join(funcs),
+                             capture_output=True, text=True, timeout=60)
+        plain = dict(zip(funcs, res.stdout.splitlines()))
+    except (OSError, subprocess.SubprocessError):
+        plain = {}
+    return {plain.get(k, k): v for k, v in funcs.items()}
+
+
+def _sass_counts(lines):
+    """Instructions of one kernel (NOPs left out), by opcode: in the whole
+    kernel, and in its longest loop (from the target of a backward branch
+    to the branch), each counted once whether it runs or is branched
+    over."""
+    ops, loops = [], []
+    for line in lines:
+        m = _SASS_INSTR.match(line)
+        if not m or m.group(2) == "NOP":
+            continue
+        addr = int(m.group(1), 16)
+        ops.append((addr, m.group(2)))
+        target = re.search(r"0x([0-9a-f]+)", m.group(3))
+        if m.group(2) == "BRA" and target and int(target.group(1), 16) <= addr:
+            loops.append((int(target.group(1), 16), addr))
+    lo, hi = max(loops, key=lambda ab: ab[1] - ab[0], default=(0, -1))
+    return (Counter(op for _, op in ops),
+            Counter(op for a, op in ops if lo <= a <= hi))
+
+
+def _k3_sass(variants_so):
+    """Instruction counts of K3's main-path instantiations (and the thread
+    kernel they replaced at config 2), and of the warp kernel's variants;
+    their SASS into build/qublas_tpu_torch/experiments/k3_sass.txt."""
+    from qublas_tpu_torch import _build
+
+    wanted = ("qreduce_warp<signed char, 5, 8, 1>",
+              "qreduce_warp<signed char, 5, 8, 0>",
+              "qreduce_cols<4, 16, 2>", "qreduce_cols<4, 16, 0>",
+              "qreduce_rows<4, 16>", "k3_warp<")
+    funcs = {**_sass_functions(_build.library_path()),
+             **_sass_functions(variants_so)}
+    dump = []
+    for name, lines in funcs.items():
+        if not any(w in name for w in wanted):
+            continue
+        whole, loop = _sass_counts(lines)
+        top = ", ".join(f"{op} {c}" for op, c in loop.most_common(14))
+        short = name.replace("(anonymous namespace)::", "")
+        print(f"k3v sass {short.split('(')[0].replace('void ', '')}: "
+              f"{sum(whole.values())} instructions, its longest loop "
+              f"{sum(loop.values())}: {top}", flush=True)
+        dump += [f"Function : {name}", *lines, ""]
+    path = _build.BUILD_DIR / "experiments" / "k3_sass.txt"
+    path.write_text("\n".join(dump))
+    print(f"k3v sass written to {path}", flush=True)
+
+
+def _k3_variants(card):
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import _build
+    from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
+                                             qreduce_plain)
+    from qublas_tpu_torch.timing import device_us, timeit
+
+    lib = _experiment_lib("k3_variants")
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.k3_warp_variant.argtypes = (I, P, P, L, L, I, P)
+    lib.k3_warp_variant.restype = I
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    config2 = (qt.qformat(5, 3, round_mode=qt.RoundMode.RND_CONV,
+                          overflow_mode=qt.OverflowMode.SAT_ZERO),
+               qt.qformat(6, 2))
+    plan = plan_reduce(qt.qformat(4, 4), config2, 1024)
+    assert plan.modes == 1
+    params = plan.kernel_params()
+    for rows in (4096, 131072):
+        x = torch.randint(-128, 128, (rows, 1024), generator=gen, device=dev,
+                          dtype=torch.int8)
+        want = qreduce_plain(x, 1, plan)
+        out = torch.empty_like(want)
+        for v, label in enumerate(K3_VARIANTS):
+            def run():
+                _build.check(lib.k3_warp_variant(
+                    v, x.data_ptr(), out.data_ptr(), rows, 1024,
+                    out.element_size(), params), "k3_warp_variant")
+            run()
+            torch.cuda.synchronize()
+            same = torch.equal(out, want)
+            assert same or v not in K3_EXACT, (rows, label)
+            ms = timeit(run)
+            dus = sum(device_us(run).values())
+            print(f"k3v [{rows}, 1024] {label}: event {ms:.4f} ms, device "
+                  f"{dus:.2f} us per call, "
+                  f"{'== plain' if same else 'not K3 function'} [{card}]",
+                  flush=True)
+        dus = sum(device_us(lambda: qreduce_kernel(x, 1, plan)).values())
+        print(f"k3v [{rows}, 1024] the package's qreduce_kernel: device "
+              f"{dus:.2f} us per call [{card}]", flush=True)
+    # the package's kernels with the plans' modes read at run time (entry 0
+    # of K3_MODES) against the compiled ones, at the main paths' shapes
+    f88z = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
+    prod = torch.randint(f88z.raw_min, f88z.raw_max + 1, (512, 512, 512),
+                         generator=gen, device=dev, dtype=torch.int32)
+    for what, x, p, outer, inner, lanes in (
+            ("warp [131072, 1024]", x, plan, 131072, 1, 32),
+            ("columns [512, 512, 512] axis 1", prod,
+             plan_reduce(qt.mul_merge(f88z, f88z), (), 512), 512, 512, 0)):
+        want = qreduce_plain(x, 1, p)
+        out = torch.empty_like(want)
+        for modes in (p.modes, 0):
+            def run():
+                _build.check(_build.lib().qk_qreduce(
+                    0, x.data_ptr(), out.data_ptr(), outer, p.n, inner,
+                    x.element_size(), out.element_size(), p.kernel_params(),
+                    modes, lanes, None), "qk_qreduce")
+            run()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (what, modes)
+            dus = sum(device_us(run).values())
+            print(f"k3v {what}, modes {modes}: device {dus:.2f} us per call, "
+                  f"== plain [{card}]", flush=True)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"k3v SM clock after the timings, and its maximum: {clocks} "
+          f"[{card}]", flush=True)
+    _k3_sass(_build.BUILD_DIR / "experiments" / "libk3_variants.so")
+
+
 def main() -> int:
     import torch
 
@@ -194,7 +441,10 @@ def main() -> int:
         return 1
     _build.lib()
     card = card_line()
-    parts = {"k1": _k1, "k2": _k2}
+    parts = {"k1": _k1, "k2": _k2, "k3": _k3_times, "k3v": _k3_variants}
+    if len(sys.argv) > 2 and sys.argv[1] == "k3":
+        _k3_against(card, sys.argv[2])
+        return 0
     if len(sys.argv) > 1:
         parts[sys.argv[1]](card)
         return 0

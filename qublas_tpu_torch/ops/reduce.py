@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import _build, hostops
-from ..qformat import QFormat, add_merge
+from ..qformat import OverflowMode, QFormat, RoundMode, add_merge
 from ..qtensor import QTensor, from_raw
 from .wideint import requantize_i32
 from .widths import (
@@ -47,7 +47,8 @@ from .widths import (
 )
 
 __all__ = ["qreduce", "qreduce_args", "layer_format", "qreduce_kernel",
-           "qreduce_plain", "ReducePlan"]
+           "qreduce_plain", "ReducePlan", "K3_MODES", "k3_modes",
+           "k3_lanes", "k3_route"]
 
 
 def layer_format(layer_formats, layer: int):
@@ -131,8 +132,9 @@ def _plan_reduce_lanes(fmt: QFormat, layer_formats, n: int):
 class ReducePlan:
     """A proven lane reduction of ``n`` elements: the layer schedule of
     :func:`_plan_reduce_lanes`, and the same tree as K3 runs it, a
-    binary-carry slot stack over blocks of ``blk`` elements with the tree
-    GEMM's level formats and drain."""
+    binary-carry slot stack over blocks of ``blk`` elements (or of a warp
+    kernel's chunk, :func:`k3_route`) with the tree GEMM's level formats
+    and drain.  Immutable once built."""
 
     def __init__(self, fmt: QFormat, layer_formats, n: int, sched,
                  final_fmt: QFormat):
@@ -150,19 +152,82 @@ class ReducePlan:
             (op, l) for op, l in drain_ops(n, self.levels)
             if not (op == "convert"
                     and self.level_fmts[l] == self.merge_fmts[l]))
+        self.modes = k3_modes(self)
+        self._params = None
 
     def kernel_params(self):
-        """The plan as ``csrc/qreduce.cu:qk_qreduce``'s int32 parameters."""
+        """The plan as ``csrc/qreduce.cu:qk_qreduce``'s int32 parameters,
+        built on the first call and shared by every launch after it."""
         from .tree_gemm import _OPS
 
-        p = [self.blk.bit_length() - 1, self.levels]
-        for l in range(self.levels):
-            p += _build.rq_args(self.level_fmts[l].frac_bits,
-                                self.merge_fmts[l])
-        p.append(len(self.drain))
-        for op, l in self.drain:
-            p += [_OPS[op], l]
-        return (ctypes.c_int * len(p))(*p)
+        if self._params is None:
+            p = [self.blk.bit_length() - 1, self.levels]
+            for l in range(self.levels):
+                p += _build.rq_args(self.level_fmts[l].frac_bits,
+                                    self.merge_fmts[l])
+            p.append(len(self.drain))
+            for op, l in self.drain:
+                p += [_OPS[op], l]
+            self._params = (ctypes.c_int * len(p))(*p)
+        return self._params
+
+
+# The (round, overflow) pairs that K3 has compile-time instantiations for,
+# each as (tree level 0's pair, the pair of every level above it), in
+# csrc/qreduce.cuh's K3_MODES order after its run-time entry 0: BASELINE
+# config 2's layers, and the layered canonical GEMM's Qu<8,8,TRN::TCPL,
+# SAT::ZERO> reduced with no layer formats.
+K3_MODES = (
+    ((RoundMode.RND_CONV, OverflowMode.SAT_ZERO),
+     (RoundMode.TRN_TCPL, OverflowMode.SAT_TCPL)),
+    ((RoundMode.TRN_TCPL, OverflowMode.SAT_ZERO),
+     (RoundMode.TRN_TCPL, OverflowMode.SAT_ZERO)),
+)
+
+
+def k3_modes(plan: ReducePlan) -> int:
+    """K3's instantiation for ``plan``: 1 + the index in :data:`K3_MODES`
+    of the entry whose level-0 pair the layer-0 merge rounds and overflows
+    with and whose upper pair every merge above it does (the drain's
+    converts are those merges' requantizes), or 0 (modes read at run time)
+    when no entry fits."""
+    pairs = [(f.round_mode, f.overflow_mode) for f in plan.merge_fmts]
+    for i, (first, upper) in enumerate(K3_MODES):
+        if pairs[0] == first and all(p == upper for p in pairs[1:]):
+            return i + 1
+    return 0
+
+
+K3_LANE_BYTES = 32   # leaves a lane of the warp kernel loads, at most
+K3_LOAD_BYTES = 16   # in loads of at most 16 bytes, each aligned to its size
+
+
+def k3_lanes(n: int, in_bytes: int, ptr: int) -> int:
+    """Leaves S a lane folds in K3's warp kernel, for rows of ``n``
+    ``in_bytes`` lanes starting at address ``ptr``: the largest power of
+    two with 32 S dividing n (a chunk of 32 S leaves is then one node of
+    the tree), S * in_bytes <= 32 (one load a lane, or two of 16 bytes)
+    and ptr a multiple of the load's size (a base off 16 bytes, e.g.
+    through a storage offset, takes a narrower load); 0 when 32 does not
+    divide n."""
+    if n % 32:
+        return 0
+    s = min((n & -n) // 32, K3_LANE_BYTES // in_bytes)
+    while ptr % min(s * in_bytes, K3_LOAD_BYTES):
+        s //= 2
+    return s
+
+
+def k3_route(x: torch.Tensor, axis: int, plan: ReducePlan):
+    """The K3 kernel that reduces the contiguous tensor ``x`` along
+    ``axis`` (``csrc/qreduce.cu``), and its S: ``("columns", 0)`` when
+    elements follow the axis (a thread an output), else ``("warp", S)``
+    (a warp a row, :func:`k3_lanes`) or, when 32 does not divide n,
+    ``("thread", 0)`` (a thread a row)."""
+    if math.prod(x.shape[axis + 1:]) > 1:
+        return "columns", 0
+    s = k3_lanes(plan.n, x.element_size(), x.data_ptr())
+    return ("warp", s) if s else ("thread", 0)
 
 
 def plan_reduce(fmt: QFormat, layer_formats, n: int):
@@ -196,7 +261,8 @@ def qreduce_kernel(x: torch.Tensor, axis: int, plan: ReducePlan):
     """Reduce the lane tensor ``x`` along ``axis`` under ``plan``, stored in
     ``torch_dtype_for(plan.final_fmt)``.
 
-    CPU tensors take the plain version; CUDA tensors launch K3.
+    CPU tensors take the plain version; CUDA tensors launch K3, the kernel
+    of :func:`k3_route` with the modes of :func:`k3_modes`.
     ``qreduce_kernel.launches`` counts kernel launches.
     """
     if x.dtype not in LANE_DTYPES:
@@ -218,10 +284,12 @@ def qreduce_kernel(x: torch.Tensor, axis: int, plan: ReducePlan):
     outer = math.prod(shape[:axis])
     inner = math.prod(shape[axis + 1:])
     x = x.contiguous()  # read in place as [outer, n, inner]
+    _, lanes = k3_route(x, axis, plan)
+    dev = x.device.index
     err = _build.lib().qk_qreduce(
-        x.device.index, x.data_ptr(), out.data_ptr(), outer, plan.n, inner,
+        dev, x.data_ptr(), out.data_ptr(), outer, plan.n, inner,
         x.element_size(), out.element_size(), plan.kernel_params(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        plan.modes, lanes, torch._C._cuda_getCurrentRawStream(dev))
     _build.check(err, "qreduce_kernel")
     qreduce_kernel.launches += 1
     return out

@@ -20,8 +20,8 @@ from qublas_tpu_torch.ops.chain_probe import (G, T1, T2, chain_probe,
 from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm,
                                              fused_int8_gemm_plain, int_dot,
                                              int_dot_plain, k1_route, kmajor)
-from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
-                                         qreduce_plain)
+from qublas_tpu_torch.ops.reduce import (k3_route, plan_reduce,
+                                         qreduce_kernel, qreduce_plain)
 from qublas_tpu_torch.ops.tree_gemm import (k2_modes, plan_tree, tree_gemm,
                                             tree_gemm_plain, tree_gemm_stream,
                                             tree_gemm_stream_plain)
@@ -111,23 +111,41 @@ def test_operands_on_two_devices_raise(cuda):
         fused_int8_gemm(a.to(cuda), a, 8, MID)
 
 
-@pytest.mark.parametrize("fmt,layers,shape,axis,dtype", [
-    (F44, CONFIG2, (4096, 1024), 1, np.int8),
-    (F44, CONFIG2, (1024, 300), 0, np.int8),
-    (F44, CONFIG2, (77, 1000), 1, np.int8),
-    (F44, CONFIG2, (13, 45), 0, np.int8),
-    (F44, (), (6, 13, 5), 1, np.int16),
-    (qt.qformat(7, 4), CONFIG2, (40, 3), 1, np.int16),
-    (qt.qformat(20, 8), (qt.qformat(26, 2),), (5, 1000, 3), 1, np.int32),
-    (SMGN, (), (33, 13), 1, np.int8),
-], ids=["config2-rows", "config2-cols", "ragged-batch", "odd-n-cols",
-        "no-layers-3d", "int16", "int32", "smgn"])
-def test_k3_matches_plain(cuda, fmt, layers, shape, axis, dtype):
+Z34 = qt.qformat(3, 4, overflow_mode=qt.OverflowMode.SAT_ZERO)
+
+
+# route: (kernel, S, modes) that k3_route and k3_modes give; the modes are
+# compiled in for int8 warp rows at S = 32 and columns in blocks of 16
+@pytest.mark.parametrize("fmt,layers,shape,axis,dtype,route", [
+    (F44, CONFIG2, (4096, 1024), 1, np.int8, ("warp", 32, 1)),
+    (F44, CONFIG2, (131072, 1024), 1, np.int8, ("warp", 32, 1)),
+    (Z34, (), (300, 1024), 1, np.int8, ("warp", 32, 2)),
+    (F44, CONFIG2, (1024, 300), 0, np.int8, ("columns", 0, 1)),
+    (F88Z, (), (8, 512, 64), 1, np.int32, ("columns", 0, 2)),
+    (F44, (), (4, 512, 33), 1, np.int8, ("columns", 0, 0)),
+    (F44, CONFIG2, (3, 1 << 18), 1, np.int8, ("warp", 32, 1)),
+    (qt.qformat(7, 4), CONFIG2, (40, 2048), 1, np.int16, ("warp", 16, 1)),
+    (qt.qformat(20, 8), (qt.qformat(26, 2),), (5, 1024), 1, np.int32,
+     ("warp", 8, 0)),
+    (F44, CONFIG2, (77, 1000), 1, np.int8, ("thread", 0, 1)),
+    (F44, CONFIG2, (13, 45), 0, np.int8, ("columns", 0, 1)),
+    (F44, (), (6, 13, 5), 1, np.int16, ("columns", 0, 0)),
+    (qt.qformat(7, 4), CONFIG2, (40, 3), 1, np.int16, ("thread", 0, 1)),
+    (qt.qformat(20, 8), (qt.qformat(26, 2),), (5, 1000, 3), 1, np.int32,
+     ("columns", 0, 0)),
+    (SMGN, (), (33, 13), 1, np.int8, ("thread", 0, 0)),
+    (SMGN, (), (33, 64), 1, np.int8, ("warp", 2, 0)),
+], ids=["config2-rows", "config2-rows-131072", "sat-zero-rows",
+        "config2-cols", "canonical-cols", "run-time-cols", "deep-stack-rows",
+        "int16-rows", "int32-rows", "ragged-batch", "odd-n-cols",
+        "no-layers-3d", "int16", "int32", "smgn", "smgn-warp"])
+def test_k3_matches_plain(cuda, fmt, layers, shape, axis, dtype, route):
     x = _raws(sum(shape), fmt, shape, dtype)
     if fmt == SMGN:
         x[..., -1] = fmt.raw_min  # the odd tail's raw that SMGN would clamp
     x = x.to(cuda)
     plan = plan_reduce(fmt, layers, shape[axis])
+    assert k3_route(x, axis, plan) + (plan.modes,) == route
     got = qreduce_kernel(x, axis, plan)
     want = qreduce_plain(x, axis, plan)
     torch.cuda.synchronize()
@@ -135,17 +153,45 @@ def test_k3_matches_plain(cuda, fmt, layers, shape, axis, dtype):
     assert torch.equal(got, want), (shape, axis)
 
 
+@pytest.mark.parametrize("n,route", [
+    (13, ("thread", 0)), (96, ("warp", 1)), (1024, ("warp", 32))])
 @pytest.mark.parametrize("signed", [True, False])
-def test_k3_every_mode_matches_plain(cuda, signed):
-    x = _raws(3, F44, (100, 13), np.int8).to(cuda)
+def test_k3_every_mode_matches_plain(cuda, signed, n, route):
+    """Every layer mode pair, on the thread kernel and on the warp kernel
+    (modes read at run time, or fixed where they are K3_MODES')."""
+    x = _raws(3, F44, (100, n), np.int8).to(cuda)
     for rm in qt.RoundMode:
         for om in qt.OverflowMode:
             layers = (qt.qformat(5, 2, signed, rm, om),)
-            plan = plan_reduce(F44, layers, 13)
+            plan = plan_reduce(F44, layers, n)
+            assert k3_route(x, 1, plan) == route
             got = qreduce_kernel(x, 1, plan)
             want = qreduce_plain(x, 1, plan)
             torch.cuda.synchronize()
             assert torch.equal(got, want), layers
+
+
+@pytest.mark.parametrize("dtype,offset,s", [
+    (np.int8, 1, 1), (np.int8, 2, 2), (np.int8, 4, 4), (np.int8, 8, 8),
+    (np.int8, 16, 32), (np.int16, 1, 1), (np.int16, 2, 2), (np.int16, 8, 16),
+    (np.int32, 1, 1), (np.int32, 2, 2)])
+def test_k3_row_base_off_16_bytes_matches_plain(cuda, dtype, offset, s):
+    """Rows that start off 16 bytes (a storage offset) take a narrower
+    load of the warp kernel; rows 16 bytes off 32 keep its two 16-byte
+    loads."""
+    f = {np.int8: F44, np.int16: qt.qformat(7, 4),
+         np.int32: qt.qformat(20, 8)}[dtype]
+    layers = CONFIG2 if dtype != np.int32 else (qt.qformat(26, 2),)
+    flat = _raws(offset, f, (300 * 1024 + offset,), dtype).to(cuda)
+    x = flat[offset:].view(300, 1024)
+    plan = plan_reduce(f, layers, 1024)
+    assert x.storage_offset() == offset
+    assert k3_route(x, 1, plan) == ("warp", s)
+    got = qreduce_kernel(x, 1, plan)
+    want = qreduce_plain(x, 1, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, qreduce_kernel(x.clone(), 1, plan))
 
 
 @pytest.mark.parametrize("m,k,n,layers", [
