@@ -11,7 +11,9 @@ Phases, each printing its lines:
    bit (max |difference| 0), at the main paths' shapes, ragged shapes and
    every rounding x overflow mode: K1 (fused int8 GEMM, and ``int_dot``,
    its identity epilogue), K2 (tree GEMM), K2′ (tree GEMM, one-pass
-   schedule), K3 (tree reduce: any n, odd tails, int8/int16/int32 lanes,
+   schedule: its tile edges, both product routes, both stack depths, its
+   compiled and run-time instantiations, operands that take the pitched
+   copy), K3 (tree reduce: any n, odd tails, int8/int16/int32 lanes,
    an out-of-range raw at the odd tail; its warp, thread and columns
    kernels, each instantiation with compiled modes, rows whose base is off
    16 bytes) and P1 (the per-product chain
@@ -40,9 +42,10 @@ Phases, each printing its lines:
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
    after warm-up) beside its bound and, where one exists, the PyTorch call
-   computing the same function, and the main-path calls end to end; K3
-   also by its device time (a profiler trace) and the host's time to
-   enqueue a call.
+   computing the same function, and the main-path calls end to end; K2′
+   and K3 also by their device time (a profiler trace) and the host's
+   time to enqueue a call, K2′ beside K2 and with its instantiations'
+   registers and spills.
 
 The second-to-last line is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -68,11 +71,14 @@ BITS_BLOCK = 64                   # BitStream round trip of a 64x64 block
 CORNER = 16                       # corner checked against the host model
 
 # peak rates of one H100 SXM at its 700 W limit: HBM bytes/s and int8
-# tensor-core ops/s (NVIDIA's data sheet), and int32 ALU ops/s: 132 SMs x
-# 64 INT32 lanes (Hopper white paper) x 1.98 GHz boost clock
+# tensor-core ops/s (NVIDIA's data sheet), and int32 ops/s at the rate the
+# SMs issue instructions: 132 SMs x 4 schedulers x 32 lanes (one warp
+# instruction a cycle each; integer multiply-adds and adds run on the
+# 128-lane FMA pipe beside the 64 INT32 lanes, Hopper white paper) x 1.98
+# GHz boost clock
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
-INT32_OPS_S = 132 * 64 * 1.98e9
+INT32_OPS_S = 132 * 128 * 1.98e9
 
 
 def ptxas_report(log: str):
@@ -99,6 +105,18 @@ def ptxas_report(log: str):
         return name.split("(")[0].replace("void ", "")
 
     return [short(x) if x in names else x for x in lines]
+
+
+def resources(report, name):
+    """ptxas's register and spill lines of the kernels in ``report``
+    (``ptxas_report``'s list) whose name contains ``name``."""
+    out, cur = [], None
+    for line in report:
+        if not line.startswith("  "):
+            cur = line if name in line else None
+        elif cur is not None and "done at" not in line:
+            out.append(f"{cur}: {line.strip()}")
+    return out
 
 
 def rand_raws(rng, fmt, shape, dtype):
@@ -157,7 +175,8 @@ def phase_kernels(dev, chk):
                                                  k1_route, kmajor)
     from qublas_tpu_torch.ops.reduce import (k3_route, plan_reduce,
                                              qreduce_kernel, qreduce_plain)
-    from qublas_tpu_torch.ops.tree_gemm import (k2_modes, plan_tree,
+    from qublas_tpu_torch.ops.tree_gemm import (k2_modes, k2s_operand,
+                                                k2s_plan, plan_tree,
                                                 tree_gemm, tree_gemm_plain,
                                                 tree_gemm_stream,
                                                 tree_gemm_stream_plain)
@@ -237,14 +256,39 @@ def phase_kernels(dev, chk):
                  f"{m}x{k}x{n}", tree_gemm(a, b, plan, f),
                  tree_gemm_plain(a, b, plan, f))
 
+    # K2′ the same way: its 64 x 16 tile (32 x 16 for plans read at run
+    # time, 16 x 16 from k = 4096), k around its 32-deep slices, both
+    # product routes, both plan instantiations (k2s_plan), both stack
+    # depths; k or n off a multiple of 4 and views off 16 bytes take the
+    # pitched copy (k2s_operand)
+    def k2s_edge(f, layers, m, k, n, view=0):
+        a = torch.from_numpy(rand_raws(rng, f, (m, k + view), np.int32))
+        b = torch.from_numpy(rand_raws(rng, f, (k + view, n), np.int32))
+        a, b = a.to(dev)[:, view:], b.to(dev)[view:]
+        plan = plan_tree(f, f, qt.mul_merge(f, f), layers, k, f)
+        copies = [k2s_operand(t)[0].data_ptr() != t.data_ptr()
+                  for t in (a, b)]
+        chk.same("tree_gemm_stream", f"{plan.prod_route} route, plan "
+                 f"{k2s_plan(plan)}, {'layered ' if layers else ''}"
+                 f"{m}x{k}x{n}{f' (views at {view})' if view else ''}, "
+                 f"pitched copies of A, B {copies}",
+                 tree_gemm_stream(a, b, plan, f),
+                 tree_gemm_stream_plain(a, b, plan, f))
+
     for m, n in ((1, 1), (63, 65), (65, 63), (200, 200)):
         for k in (1, 13, 16, 17, 1000, 2048):
             k2_edge(f88z, (), m, k, n)
+            k2s_edge(f88z, (), m, k, n)
     # k from 4096 takes the 32-deep stack, with either instantiation
     for k in (13, 1000, 4112):
         k2_edge(i32f, (), 63, k, 65)
         k2_edge(f88z, layered, 65, k, 63)
+        k2s_edge(i32f, (), 63, k, 65)
+        k2s_edge(f88z, layered, 65, k, 63)
     k2_edge(f88z, (), 65, 4112, 63)
+    k2s_edge(f88z, (), 65, 4112, 63)
+    k2s_edge(f88z, (), 70, 256, 92, view=1)
+    k2s_edge(f88z, (), 70, 256, 92, view=4)
 
     def k3_check(what, x, layers, fmt, axis, route):
         plan = plan_reduce(fmt, layers, x.shape[axis])
@@ -780,15 +824,18 @@ def phase_chain(dev, state_a):
     return launches, rate
 
 
-def rq_ops(from_frac, fmt):
+def rq_ops(from_frac, fmt, floored=False):
     """int32 operations of one requantize from ``from_frac`` into ``fmt``
-    on the path csrc/requant.cuh takes for it: the rounding stage, then
-    the overflow stage."""
+    on the path csrc/requant.cuh takes for it: the rounding stage (none for
+    a shift of 0; none beyond the floor for TRN::TCPL when the value comes
+    ``floored``, as the split product's does), then the overflow stage."""
     import qublas_tpu_torch as qt
 
     rm, om = fmt.round_mode, fmt.overflow_mode
     d = from_frac - fmt.frac_bits
-    if d <= 0 or rm == qt.RoundMode.TRN_TCPL:
+    if d == 0 or (floored and rm == qt.RoundMode.TRN_TCPL):
+        ops = 0
+    elif d < 0 or rm == qt.RoundMode.TRN_TCPL:
         ops = 1                      # shift
     elif rm == qt.RoundMode.TRN_SMGN:
         ops = 3                      # bias select, add, shift
@@ -822,15 +869,24 @@ def bound_ms(nbytes, ops, rate):
         "operations"
 
 
+def prod_ops(plan):
+    """int32 operations of one requantized product: the i32 route's
+    multiply, or the split route's two multiplies and shift, which give
+    the floor of the product at the step's shift (B's split into its high
+    and low bits is once per element of B, shared by every row of A), then
+    the requantize's rounding carry and overflow."""
+    if plan.prod_route == "split":
+        return 3 + rq_ops(plan.prod_frac, plan.mul_fmt, floored=True)
+    return 1 + rq_ops(plan.prod_frac, plan.mul_fmt)
+
+
 def k2_bound(plan, out_fmt, m, n, k):
     """Bound of the tree GEMM: operands and output once, and per output
     element k products and the tree of merges (drain converts included)
     plus the final requantize."""
     rqs = [rq_ops(plan.level_fmts[l].frac_bits, plan.merge_fmts[l])
            for l in range(plan.levels)]
-    prod = rq_ops(plan.prod_frac, plan.mul_fmt) + \
-        (5 if plan.prod_route == "split" else 1)
-    per_out = k * prod + tree_ops(k, rqs, lambda l: rqs[l]) + \
+    per_out = k * prod_ops(plan) + tree_ops(k, rqs, lambda l: rqs[l]) + \
         rq_ops(plan.final_fmt.frac_bits, out_fmt)
     return bound_ms(4 * (m * k + k * n + m * n), m * n * per_out,
                     INT32_OPS_S)
@@ -841,11 +897,10 @@ def p1_bound(plan, steps, programs, elems):
     one product (its requantize and the route's multiply) and one layer-0
     merge (an add and its requantize), counted as ``k2_bound`` counts
     them."""
-    prod = rq_ops(plan.prod_frac, plan.mul_fmt) + \
-        (5 if plan.prod_route == "split" else 1)
     merge = 1 + rq_ops(plan.level_fmts[0].frac_bits, plan.merge_fmts[0])
     return bound_ms(4 * (2 * elems + programs * elems),
-                    programs * elems * steps * (prod + merge), INT32_OPS_S)
+                    programs * elems * steps * (prod_ops(plan) + merge),
+                    INT32_OPS_S)
 
 
 def k3_bound(plan, outputs, in_bytes, out_bytes):
@@ -998,6 +1053,18 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
         print(f"time qreduce_kernel {list(shape)}: event {t[key] * 1e3:.2f} "
               f"us, device us per call {dev_us}, host us per call "
               f"{host_us(fn):.2f} [{card}]")
+    # K2′ the same way, beside K2 on the same plan at 2048^3
+    for key, fn, size in (
+            ("k2s", lambda: tree_gemm_stream(a3.data, b3.data, splan, f88z),
+             ln),
+            ("k2s_big", lambda: tree_gemm_stream(a2.data, b2.data, tplan,
+                                                 f88z), tn)):
+        dev_us = device_us(fn)
+        print(f"time tree_gemm_stream {size}^3: event {t[key] * 1e3:.2f} "
+              f"us, device us per call {dev_us}, host us per call "
+              f"{host_us(fn, runs=20):.2f} [{card}]")
+    print(f"time tree_gemm_stream / tree_gemm at {tn}^3 (canonical plan): "
+          f"{t['k2s_big'] / t['k2']:.4f} [{card}]")
     print(f"time main path: QuantPipeline forward {n}^3 {t['pipeline']:.4f}"
           f" ms ({2 * ops / t['pipeline'] / 1e9:.2f} TOP/s over its two "
           f"GEMMs), canonical qgemul {tn}^3 {t['canonical']:.4f} ms, "
@@ -1065,8 +1132,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s, nvcc "
           f"{_build.build_seconds if _build.build_seconds is not None else 'cached'}"
           f" s -> {so}")
-    for line in ptxas_report(_build.library_path().with_suffix(".log")
-                             .read_text()):
+    report = ptxas_report(_build.library_path().with_suffix(".log")
+                          .read_text())
+    for line in report:
         print("  " + line)
     card = card_line()
     print(card)
@@ -1081,6 +1149,8 @@ def main() -> int:
     launches_d, state_d = phase_complex_path(dev, chk)
     launches_e, chain_rate = phase_chain(dev, state_a)
     t, bounds = phase_times(card, state_a, state_b, state_d, chain_rate)
+    for line in resources(report, "tree_gemm_stream_kernel"):
+        print(f"registers {line}")
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "qublas_tpu" or m.startswith("qublas_tpu.")]
     assert not bad, f"the port imported {bad}"
@@ -1101,7 +1171,8 @@ def main() -> int:
         row("tree_gemm", "qublas_tpu_torch/csrc/tree_gemm_tiled.cu",
             "qublas_tpu/ops/tree_gemm.py:362", launches_a["tree_gemm"],
             "k2", "k2_plain", None),
-        row("tree_gemm_stream", "qublas_tpu_torch/csrc/tree_gemm.cu",
+        row("tree_gemm_stream",
+            "qublas_tpu_torch/csrc/tree_gemm_stream.cuh",
             "qublas_tpu/ops/tree_gemm.py:457",
             launches_b["tree_gemm_stream"], "k2s", "k2s_plain", None),
         row("qreduce_kernel", "qublas_tpu_torch/csrc/qreduce.cu",

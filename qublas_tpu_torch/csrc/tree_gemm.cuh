@@ -1,6 +1,6 @@
 // The tree GEMM's parameters, its requantized product and the reader of
-// the host's parameter array, shared by K2 (tree_gemm_tiled.cu) and by K2'
-// and P1 (tree_gemm.cu).
+// the host's parameter array, shared by K2 (tree_gemm_tiled.cu), K2'
+// (tree_gemm_stream.cu) and P1 (tree_gemm.cu).
 #pragma once
 
 #include <cuda_runtime.h>

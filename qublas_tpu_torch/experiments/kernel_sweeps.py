@@ -1,7 +1,8 @@
-"""Design measurements for K1, K2 and K3 on the card (not imported by the
-package).
+"""Design measurements for K1, K2, K2′ and K3 on the card (not imported by
+the package).
 
-    python3 -m qublas_tpu_torch.experiments.kernel_sweeps [k1|k2|k3|k3v]
+    python3 -m qublas_tpu_torch.experiments.kernel_sweeps [k1|k2|k2s|k3|k3v]
+    python3 -m qublas_tpu_torch.experiments.kernel_sweeps k2s OTHER_CHECKOUT
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps k3 OTHER_CHECKOUT
 
 Run on a machine with a CUDA card.  Each part runs in its own process
@@ -16,6 +17,17 @@ under a time limit, so a kernel that hangs ends that part and not the run:
   fixed at compile time and read at run time, checked against the plain
   version; the same kernel on other micro-tiles and occupancy targets
   (``k2_tiles.cu``); and P1 (``chain_probe``) on the same plan;
+* ``k2s``: K2′ at 512^3 (``chip_smoke.py``'s path b) and 2048^3 on the
+  canonical plan, checked against its plain version and K2, with its
+  device and host time per call beside K2's time (given another
+  checkout's root, the same in both trees in turns: other, this, this,
+  other); then its variants (``k2s_variants.cu``: 16-byte ``cp.async``
+  instead of TMA, slices of 16 instead of 32, only the modes compiled in,
+  other micro-tiles and blocks an SM beside the package's 4 x 1 at 3) and the
+  package's instantiation with every step read at run time, each checked
+  against the package's kernel; and the ``cuobjdump -sass`` opcode counts
+  of each one's slice loop (the SASS itself into
+  ``build/qublas_tpu_torch/experiments/k2s_sass.txt``);
 * ``k3``: K3 at its main-path shapes (BASELINE config 2 at [4096, 1024]
   and [131072, 1024], the layered GEMM's reduce at [512, 512, 512] over
   axis 1), checked against its plain version, with its device and host
@@ -210,6 +222,165 @@ def _k2(card):
         print(f"k2 {label}: {r / p1:.4f} of P1's rate [{card}]", flush=True)
 
 
+def _k2s_operands(n):
+    """The canonical plan's operands and plan at n^3 on the card."""
+    import numpy as np
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops import tree_gemm as TT
+
+    dev = torch.device("cuda", 0)
+    f = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
+    rng = np.random.RandomState(n)
+    a, b = (torch.from_numpy(rng.randint(f.raw_min, f.raw_max + 1, (n, n))
+                             .astype(np.int32)).to(dev) for _ in range(2))
+    return a, b, TT.plan_tree(f, f, qt.mul_merge(f, f), (), n, f), f
+
+
+def _k2s_times(card):
+    """K2′ in this tree (whichever ``qublas_tpu_torch`` is imported) at
+    512^3 and 2048^3, beside K2."""
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops import tree_gemm as TT
+    from qublas_tpu_torch.timing import device_us, host_us, timeit
+
+    tree = Path(qt.__file__).resolve().parent.parent
+    for n in (512, 2048):
+        a, b, plan, f = _k2s_operands(n)
+
+        def call():
+            return TT.tree_gemm_stream(a, b, plan, f)
+
+        got = call()
+        assert torch.equal(got, TT.tree_gemm(a, b, plan, f)), n
+        if n == 512:
+            assert torch.equal(got, TT.tree_gemm_stream_plain(a, b, plan, f))
+        ms = timeit(call)
+        k2 = timeit(lambda: TT.tree_gemm(a, b, plan, f))
+        print(f"k2s {tree}: {n}^3 event {ms:.4f} ms, device us per call "
+              f"{device_us(call)}, host us per call {host_us(call, 20):.2f};"
+              f" K2 {k2:.4f} ms, K2′/K2 {ms / k2:.4f}; == plain and K2 "
+              f"[{card}]", flush=True)
+
+
+def _k2s_against(card, other: str):
+    """K2′'s times in this tree and in the checkout ``other`` (e.g. the
+    parent commit), in turns: other, this, this, other."""
+    this, other = str(HERE.parent.parent), str(Path(other).resolve())
+    for tree in (other, this, this, other):
+        env = dict(os.environ, PYTHONPATH=tree)
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "k2s-times"], env=env, cwd=tree, timeout=900,
+                       check=True)
+
+
+# k2s_variants.cu's variants, by its K2S_VARIANT; each computes K2′'s
+# function on the canonical plan
+K2S_VARIANTS = {1: "16-byte cp.async instead of TMA",
+                2: "slices of 16 products",
+                3: "only the modes compiled in (shift, width at run time)",
+                4: "2 x 1 outputs a thread, 4 blocks an SM",
+                5: "4 x 1 outputs a thread, 2 blocks an SM",
+                6: "2 x 2 outputs a thread, 2 blocks an SM",
+                7: "2 x 2 outputs a thread, 3 blocks an SM"}
+
+
+def _k2s_variants_lib():
+    """Build k2s_variants.cu once for each variant, all at once, into
+    build/qublas_tpu_torch/experiments/libk2s_variants.so and load it."""
+    from qublas_tpu_torch import _build
+
+    out = _build.BUILD_DIR / "experiments"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for v in K2S_VARIANTS:
+        obj = out / f"k2s_variant_{v}.o"
+        cmd = [_build._nvcc(), *_build.COMPILE_FLAGS, f"-DK2S_VARIANT={v}",
+               "-I", str(_build.CSRC), "-c", str(HERE / "k2s_variants.cu"),
+               "-o", str(obj)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    for obj, proc in jobs:
+        text, _ = proc.communicate()
+        for line in text.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill", "error")):
+                print("  " + line.strip(), flush=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {obj.name}")
+    so = out / "libk2s_variants.so"
+    subprocess.run([_build._nvcc(), *_build.COMPILE_FLAGS[:2], "-shared",
+                    "-o", str(so), *(str(o) for o, _ in jobs)], check=True)
+    lib = ctypes.CDLL(str(so))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for v in K2S_VARIANTS:
+        fn = getattr(lib, f"k2s_variant_{v}")
+        fn.argtypes = (P, L, P, L, P, I, I, I, P)
+        fn.restype = I
+    return lib, so
+
+
+def _k2s_variants(card):
+    import torch
+
+    from qublas_tpu_torch import _build
+    from qublas_tpu_torch.ops import tree_gemm as TT
+    from qublas_tpu_torch.timing import device_us, timeit
+
+    lib, so = _k2s_variants_lib()
+    for n in (512, 2048):
+        a, b, plan, f = _k2s_operands(n)
+        assert TT.k2s_plan(plan) == 1
+        params = TT._kernel_params(plan, f, 0)
+        want = TT.tree_gemm_stream(a, b, plan, f)
+        out = torch.empty_like(want)
+        runs = [("the package's kernel (TMA, slices of 32, the steps "
+                 "compiled in, 4 x 1 outputs, 3 blocks an SM)", 1)]
+        runs += [(label, v) for v, label in K2S_VARIANTS.items()]
+        runs.append(("the package's kernel with every step read at run "
+                     "time (its plan 0, rolled)", 0))
+        for label, v in runs:
+            if label.startswith("the package"):
+                def run(plan_index=v):
+                    _build.check(_build.lib().qk_tree_gemm_stream(
+                        0, a.data_ptr(), n, b.data_ptr(), n, out.data_ptr(),
+                        n, n, n, 4, params, plan_index, None),
+                        "tree_gemm_stream")
+            else:
+                fn = getattr(lib, f"k2s_variant_{v}")
+
+                def run(fn=fn):
+                    _build.check(fn(a.data_ptr(), n, b.data_ptr(), n,
+                                    out.data_ptr(), n, n, n, params),
+                                 "k2s_variant")
+            out.zero_()
+            run()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (n, label)
+            ms = timeit(run, runs=5 if n > 512 else 10, warmup=1)
+            dus = sum(device_us(run, runs=5).values())
+            print(f"k2sv {n}^3 {label}: event {ms:.4f} ms, device "
+                  f"{dus:.2f} us per call, == the package's K2′ [{card}]",
+                  flush=True)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"k2sv SM clock after the timings, and its maximum: {clocks} "
+          f"[{card}]", flush=True)
+    _sass_dump(("tree_gemm_stream_kernel",), (_build.library_path(), so),
+               "k2sv", "k2s_sass.txt")
+
+
+def _k2s(card):
+    _k2s_times(card)
+    _k2s_variants(card)
+
+
 def _k3_cases():
     """K3's main-path shapes: (label, x reduced over axis 1, plan)."""
     import torch
@@ -326,6 +497,31 @@ def _sass_counts(lines):
             Counter(op for a, op in ops if lo <= a <= hi))
 
 
+def _sass_dump(wanted, libraries, tag, filename):
+    """Print the instruction counts of the kernels of ``libraries`` whose
+    names contain one of ``wanted``, and write their SASS to
+    build/qublas_tpu_torch/experiments/``filename``."""
+    from qublas_tpu_torch import _build
+
+    funcs = {}
+    for so in libraries:
+        funcs.update(_sass_functions(so))
+    dump = []
+    for name, lines in funcs.items():
+        if not any(w in name for w in wanted):
+            continue
+        whole, loop = _sass_counts(lines)
+        top = ", ".join(f"{op} {c}" for op, c in loop.most_common(14))
+        short = name.replace("(anonymous namespace)::", "")
+        print(f"{tag} sass {short.split('(')[0].replace('void ', '')}: "
+              f"{sum(whole.values())} instructions, its longest loop "
+              f"{sum(loop.values())}: {top}", flush=True)
+        dump += [f"Function : {name}", *lines, ""]
+    path = _build.BUILD_DIR / "experiments" / filename
+    path.write_text("\n".join(dump))
+    print(f"{tag} sass written to {path}", flush=True)
+
+
 def _k3_sass(variants_so):
     """Instruction counts of K3's main-path instantiations (and the thread
     kernel they replaced at config 2), and of the warp kernel's variants;
@@ -336,22 +532,8 @@ def _k3_sass(variants_so):
               "qreduce_warp<signed char, 5, 8, 0>",
               "qreduce_cols<4, 16, 2>", "qreduce_cols<4, 16, 0>",
               "qreduce_rows<4, 16>", "k3_warp<")
-    funcs = {**_sass_functions(_build.library_path()),
-             **_sass_functions(variants_so)}
-    dump = []
-    for name, lines in funcs.items():
-        if not any(w in name for w in wanted):
-            continue
-        whole, loop = _sass_counts(lines)
-        top = ", ".join(f"{op} {c}" for op, c in loop.most_common(14))
-        short = name.replace("(anonymous namespace)::", "")
-        print(f"k3v sass {short.split('(')[0].replace('void ', '')}: "
-              f"{sum(whole.values())} instructions, its longest loop "
-              f"{sum(loop.values())}: {top}", flush=True)
-        dump += [f"Function : {name}", *lines, ""]
-    path = _build.BUILD_DIR / "experiments" / "k3_sass.txt"
-    path.write_text("\n".join(dump))
-    print(f"k3v sass written to {path}", flush=True)
+    _sass_dump(wanted, (_build.library_path(), variants_so), "k3v",
+               "k3_sass.txt")
 
 
 def _k3_variants(card):
@@ -441,9 +623,17 @@ def main() -> int:
         return 1
     _build.lib()
     card = card_line()
-    parts = {"k1": _k1, "k2": _k2, "k3": _k3_times, "k3v": _k3_variants}
+    parts = {"k1": _k1, "k2": _k2, "k2s": _k2s, "k3": _k3_times,
+             "k3v": _k3_variants}
     if len(sys.argv) > 2 and sys.argv[1] == "k3":
         _k3_against(card, sys.argv[2])
+        return 0
+    if len(sys.argv) > 2 and sys.argv[1] == "k2s":
+        _k2s_against(card, sys.argv[2])
+        _k2s_variants(card)
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "k2s-times":
+        _k2s_times(card)
         return 0
     if len(sys.argv) > 1:
         parts[sys.argv[1]](card)

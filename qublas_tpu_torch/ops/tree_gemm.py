@@ -7,8 +7,9 @@ exactly.  The planners (``TreePlan``, ``level_formats``, ``drain_ops``,
 ``plan_tree``) are copies of ``qublas_tpu/ops/tree_gemm.py:73-245``, pinned
 to the originals by the CPU tests: the machine with the card has no JAX.
 
-The kernels are ``csrc/tree_gemm_tiled.cu`` (K2) and ``csrc/tree_gemm.cu``
-(K2′), two evaluations of the same binary-carry schedule:
+The kernels are ``csrc/tree_gemm_tiled.cu`` (K2) and
+``csrc/tree_gemm_stream.cu`` (K2′), two evaluations of the same
+binary-carry schedule:
 
 * :func:`tree_gemm` (K2, counterpart of the Pallas kernel
   ``tree_gemm_blocked``): a tiled kernel; each thread owns a register
@@ -18,8 +19,13 @@ The kernels are ``csrc/tree_gemm_tiled.cu`` (K2) and ``csrc/tree_gemm.cu``
   and up).  Plans whose product and merges all round and overflow with one
   pair of :data:`K2_MODES` take an instantiation with those modes fixed at
   compile time (:func:`k2_modes`);
-* :func:`tree_gemm_stream` (K2′, counterpart of ``tree_gemm_pallas``): one
-  thread per output, one product at a time through the slot stack.
+* :func:`tree_gemm_stream` (K2′, counterpart of ``tree_gemm_pallas``): a
+  tiled kernel too, with k-slices of ``2**K2S_LOG_S`` products arriving by
+  TMA, and one register stack over every tree level, every product pushed
+  through it.  Plans whose product route and requantize steps are those of
+  an entry of :data:`K2S_PLANS` take an instantiation with the whole steps
+  compiled in (:func:`k2s_plan`); operands whose rows TMA cannot describe
+  go in as pitched copies (:func:`k2s_operand`).
 
 Their plain versions run the same schedules as Python loops on torch
 tensors: products of one block, the in-block tree layers, the slot stack,
@@ -29,6 +35,7 @@ the drain, the final requantize.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -49,7 +56,8 @@ from .widths import (
 
 __all__ = ["TreePlan", "plan_tree", "level_formats", "drain_ops",
            "tree_gemm", "tree_gemm_plain", "tree_gemm_stream",
-           "tree_gemm_stream_plain", "K2_LOG_BLK", "K2_MODES", "k2_modes"]
+           "tree_gemm_stream_plain", "K2_LOG_BLK", "K2_MODES", "k2_modes",
+           "K2S_LOG_S", "K2S_PLANS", "k2s_plan", "k2s_operand"]
 
 
 @dataclass(frozen=True)
@@ -65,6 +73,13 @@ class TreePlan:
     merge_fmts: Tuple[QFormat, ...]   # layer-l format (merge level l -> l+1)
     drain: Tuple[Tuple[str, int], ...]  # ("seed"|"convert"|"add", level)
     final_fmt: QFormat
+
+    @functools.cached_property
+    def _kernel_cache(self) -> dict:
+        """The kernels' host-side arguments for this plan (``_kernel_params``,
+        ``k2s_plan``), built on first use and shared by every launch after
+        it; not a field, so equality and hashing ignore it."""
+        return {}
 
 
 def level_formats(value_fmt: QFormat, add_formats, k: int):
@@ -257,7 +272,16 @@ _OPS = {"seed": 0, "convert": 1, "add": 2}
 
 def _kernel_params(plan: TreePlan, out_fmt: QFormat, log_blk: int):
     """The plan as ``csrc/tree_gemm.cuh``'s int32 parameters (``read_params``)
-    with 2^log_blk products folded per block: 4 for K2, 0 for K2′ and P1."""
+    with 2^log_blk products folded per block: 4 for K2, 0 for K2′ and P1.
+    Built once per (out_fmt, log_blk) and kept on the plan: the kernels
+    only read it."""
+    key = (out_fmt, log_blk)
+    if key not in plan._kernel_cache:
+        plan._kernel_cache[key] = _build_params(plan, out_fmt, log_blk)
+    return plan._kernel_cache[key]
+
+
+def _build_params(plan: TreePlan, out_fmt: QFormat, log_blk: int):
     p = [int(plan.prod_route == "split"), log_blk,
          *_build.rq_args(plan.prod_frac, plan.mul_fmt),
          plan.levels]
@@ -290,6 +314,53 @@ def k2_modes(plan: TreePlan) -> int:
     return 0
 
 
+K2S_LOG_S = 5   # K2′ takes k in slices of 2^5 products (csrc K2S_LOG_S)
+
+# The plans that K2′ has compile-time instantiations for, in
+# csrc/tree_gemm_stream.cuh's K2S_PLANS order after its run-time entry 0:
+# (product route split, the product's requantize step, the step every tree
+# merge shares), each step as ``_build.rq_args`` gives it.  The one entry is
+# the canonical Qu<8,8,TRN::TCPL,SAT::ZERO> plan: products 16 -> 8
+# fraction bits and merges shift 0, both into 17-bit SAT::ZERO.
+K2S_PLANS = (
+    (1, (8, int(RoundMode.TRN_TCPL), int(OverflowMode.SAT_ZERO), 17, 1),
+     (0, int(RoundMode.TRN_TCPL), int(OverflowMode.SAT_ZERO), 17, 1)),
+)
+
+
+def k2s_plan(plan: TreePlan) -> int:
+    """K2′'s instantiation for ``plan``: 1 + the index in :data:`K2S_PLANS`
+    of the entry whose product route and step are the plan's and whose
+    merge step every tree merge (the drain's converts included) has, or 0
+    (every step read at run time).  The final requantize into the output
+    format always reads its step at run time."""
+    split = int(plan.prod_route == "split")
+    prod = _build.rq_args(plan.prod_frac, plan.mul_fmt)
+    merges = {_build.rq_args(plan.level_fmts[l].frac_bits, plan.merge_fmts[l])
+              for l in range(plan.levels)}
+    for i, (e_split, e_prod, e_merge) in enumerate(K2S_PLANS):
+        if (split, prod) == (e_split, e_prod) and merges == {e_merge}:
+            return i + 1
+    return 0
+
+
+def k2s_operand(t: torch.Tensor):
+    """``(tensor, row pitch in elements)`` as K2′'s TMA reads the int32
+    lanes of the 2-D ``t``: ``t`` itself ("direct") when its rows are
+    contiguous, its pitch a multiple of 4 elements and its base 16-byte
+    aligned, else a copy whose pitch is rounded up to 4 ("pitched"); the
+    columns past ``t``'s are zero and never read as products."""
+    t32 = t.to(torch.int32)
+    rows, cols = t32.shape
+    if t32.stride(1) == 1 and t32.stride(0) % 4 == 0 \
+            and t32.stride(0) >= cols and t32.data_ptr() % 16 == 0:
+        return t32, t32.stride(0)
+    pitch = -(-cols // 4) * 4
+    buf = torch.zeros((rows, pitch), dtype=torch.int32, device=t.device)
+    buf[:, :cols] = t32
+    return buf, pitch
+
+
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
             out_fmt: QFormat):
     """Check the operands; None for CPU tensors, else the output of the
@@ -317,18 +388,25 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
     if m == 0 or n == 0:
         return out
     lib = _build.lib()
-    a32 = a.to(torch.int32).contiguous()
-    b32 = b.to(torch.int32).contiguous()
-    args = (a.device.index, a32.data_ptr(), b32.data_ptr(), out.data_ptr(),
-            m, n, k, out.element_size())
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    dev = a.device.index
+    stream = torch._C._cuda_getCurrentRawStream(dev)
     if name == "tree_gemm":
-        err = lib.qk_tree_gemm(*args, _kernel_params(plan, out_fmt,
-                                                     K2_LOG_BLK),
+        a32 = a.to(torch.int32).contiguous()
+        b32 = b.to(torch.int32).contiguous()
+        err = lib.qk_tree_gemm(dev, a32.data_ptr(), b32.data_ptr(),
+                               out.data_ptr(), m, n, k, out.element_size(),
+                               _kernel_params(plan, out_fmt, K2_LOG_BLK),
                                k2_modes(plan), stream)
     else:
-        err = lib.qk_tree_gemm_stream(*args, _kernel_params(plan, out_fmt, 0),
-                                      stream)
+        a32, lda = k2s_operand(a)
+        b32, ldb = k2s_operand(b)
+        if "k2s" not in plan._kernel_cache:
+            plan._kernel_cache["k2s"] = k2s_plan(plan)
+        err = lib.qk_tree_gemm_stream(dev, a32.data_ptr(), lda,
+                                      b32.data_ptr(), ldb, out.data_ptr(),
+                                      m, n, k, out.element_size(),
+                                      _kernel_params(plan, out_fmt, 0),
+                                      plan._kernel_cache["k2s"], stream)
     _build.check(err, name)
     return out
 
@@ -353,8 +431,8 @@ def tree_gemm_stream(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
     """The same function as :func:`tree_gemm` on the one-pass schedule of
     ``tree_gemm_pallas``: every product pushed through the slot stack.
 
-    CPU tensors take the plain version; CUDA tensors launch K2′ (the
-    ``csrc/tree_gemm.cu`` kernel with one product per block).
+    CPU tensors take the plain version; CUDA tensors launch K2′, the
+    instantiation of :func:`k2s_plan`.
     ``tree_gemm_stream.launches`` counts kernel launches.
     """
     out = _launch("tree_gemm_stream", a, b, plan, out_fmt)

@@ -22,7 +22,8 @@ from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm,
                                              int_dot_plain, k1_route, kmajor)
 from qublas_tpu_torch.ops.reduce import (k3_route, plan_reduce,
                                          qreduce_kernel, qreduce_plain)
-from qublas_tpu_torch.ops.tree_gemm import (k2_modes, plan_tree, tree_gemm,
+from qublas_tpu_torch.ops.tree_gemm import (k2_modes, k2s_operand, k2s_plan,
+                                            plan_tree, tree_gemm,
                                             tree_gemm_plain, tree_gemm_stream,
                                             tree_gemm_stream_plain)
 
@@ -389,5 +390,78 @@ def test_k2_routes_and_instantiations_match_plain(cuda, config, k):
     assert k2_modes(plan) == (1 if config == "canonical" else 0)
     got = tree_gemm(a, b, plan, f)
     want = tree_gemm_plain(a, b, plan, f)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+I32F = qt.qformat(3, 4, round_mode=qt.RoundMode.RND_CONV,
+                  overflow_mode=qt.OverflowMode.WRP_TCPL)
+
+
+@pytest.mark.parametrize("k", [1, 13, 16, 17, 1000, 2048])
+@pytest.mark.parametrize("m,n", [(1, 1), (63, 65), (65, 63), (200, 200)])
+def test_k2s_tile_edges_match_plain(cuda, m, k, n):
+    """K2′ at its block-tile and micro-tile edges and around its 32-deep
+    k-slices, on the canonical plan's compiled steps; k and n off a
+    multiple of 4 take the pitched copy."""
+    a = _raws(m + k, F88Z, (m, k), np.int32).to(cuda)
+    b = _raws(n + k, F88Z, (k, n), np.int32).to(cuda)
+    plan = plan_tree(F88Z, F88Z, qt.mul_merge(F88Z, F88Z), (), k, F88Z)
+    assert k2s_plan(plan) == 1
+    tree_gemm_stream.launches = 0
+    got = tree_gemm_stream(a, b, plan, F88Z)
+    want = tree_gemm_stream_plain(a, b, plan, F88Z)
+    torch.cuda.synchronize()
+    assert tree_gemm_stream.launches == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("config,k", [
+    ("i32", 13), ("i32", 1000), ("layered", 17), ("layered", 1000),
+    ("canonical", 4112), ("i32", 4112), ("layered", 4112)])
+def test_k2s_routes_and_instantiations_match_plain(cuda, config, k):
+    """The i32 product route and the layered formats (steps read at run
+    time), and k past 4096 (the 32-level stack) with the steps compiled
+    and read at run time."""
+    f = I32F if config == "i32" else F88Z
+    layers = LAYERS if config == "layered" else ()
+    a = _raws(k, f, (63, k), np.int32).to(cuda)
+    b = _raws(k + 1, f, (k, 65), np.int32).to(cuda)
+    plan = plan_tree(f, f, qt.mul_merge(f, f), layers, k, f)
+    assert plan.prod_route == ("i32" if config == "i32" else "split")
+    assert k2s_plan(plan) == (1 if config == "canonical" else 0)
+    got = tree_gemm_stream(a, b, plan, f)
+    want = tree_gemm_stream_plain(a, b, plan, f)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, tree_gemm(a, b, plan, f))
+
+
+@pytest.mark.parametrize("what", ["int8 lanes", "view off 16 bytes",
+                                  "view at column 4", "transposed"])
+def test_k2s_operands_that_take_a_copy_match_plain(cuda, what):
+    """Operands in int8 lanes, views whose base or rows TMA cannot read in
+    place, and a transposed B: pitched copies (k2s_operand), or the view
+    itself where its base and pitch allow."""
+    wide_a = _raws(1, F88Z, (70, 300), np.int32).to(cuda)
+    wide_b = _raws(2, F88Z, (300, 92), np.int32).to(cuda)
+    a, b = wide_a[:, 4:260], wide_b[4:260, :]
+    if what == "int8 lanes":
+        a, b = a.to(torch.int8), b.to(torch.int8)
+        routes = (True, True)
+    elif what == "view off 16 bytes":
+        a, b = wide_a[:, 1:257], wide_b[1:257, 3:83]
+        routes = (True, True)
+    elif what == "view at column 4":
+        routes = (False, False)
+    else:
+        b = b.t().contiguous().t()
+        routes = (False, True)
+    for t, copied in zip((a, b), routes):
+        assert (k2s_operand(t)[0].data_ptr() != t.data_ptr()) == copied
+    f = F88Z
+    plan = plan_tree(f, f, qt.mul_merge(f, f), (), a.shape[1], f)
+    got = tree_gemm_stream(a, b, plan, f)
+    want = tree_gemm_stream_plain(a, b, plan, f)
     torch.cuda.synchronize()
     assert torch.equal(got, want)

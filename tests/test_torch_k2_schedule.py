@@ -1,4 +1,4 @@
-"""K2's schedule and instantiation choice, checked on the CPU.
+"""K2's and K2′'s schedules and instantiation choices, checked on the CPU.
 
 The tiled K2 kernel (``csrc/tree_gemm_tiled.cu``) cannot
 run here, so its schedule is replayed in torch from the int32 parameter
@@ -11,9 +11,20 @@ then the drain (levels below 4 read from the slice's partials) and the
 final requantize.  The replay must equal ``tree_gemm_plain`` (held to the
 JAX package by ``tests/test_torch_tree_gemm.py``).  ``k2_modes``, which
 picks the compiled (round, overflow) instantiation, is swept over plans.
+
+K2′ (``csrc/tree_gemm_stream.cuh``) is replayed the same way from its
+parameters (``log_blk`` 0): k in slices of ``2**K2S_LOG_S`` products, each
+product pushed onto one stack over every tree level (its trailing one-bits
+within the slice, and for the slice's last product the slice index's, are
+its carries), then the drain reading ``slot[l]`` at level l.  It must equal
+``tree_gemm_stream_plain`` and K2's replay.  ``k2s_plan``, which picks the
+instantiation with the whole requantize steps compiled in, is swept over
+mode pairs, shifts and widths and held to the C table.
 """
 
 import itertools
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -43,17 +54,18 @@ def _rq_fmt(r):
                          qt.OverflowMode(ovf))
 
 
-def _replay_k2(a, b, params):
-    """K2's schedule over ``a`` [M, K] @ ``b`` [K, N] from its parameters:
-    split, log_blk, prod[5], levels, merge[levels][5], ndrain,
-    (op, level)[ndrain], fin[5]."""
+def _steps(params):
+    """The kernels' parameter array (split, log_blk, prod[5], levels,
+    merge[levels][5], ndrain, (op, level)[ndrain], fin[5]) as log_blk and
+    the functions product(x, y), merge(l, left, right), drain(level),
+    which runs the drain ops over level(l), and the final requantize."""
     p = list(params)
     split, log_blk = p[0], p[1]
     levels = p[7]
     merges = [p[8 + 5 * l:13 + 5 * l] for l in range(levels)]
     q = 8 + 5 * levels
     nd = p[q]
-    drain = [(p[q + 1 + 2 * s], p[q + 2 + 2 * s]) for s in range(nd)]
+    drain_ops = [(p[q + 1 + 2 * s], p[q + 2 + 2 * s]) for s in range(nd)]
     fin = p[q + 1 + 2 * nd:q + 6 + 2 * nd]
 
     def rq(v, r):
@@ -67,6 +79,23 @@ def _replay_k2(a, b, params):
     def merge(l, left, right):
         return rq(left + right, merges[l])
 
+    def drain(level):
+        carry = None
+        for op, l in drain_ops:
+            if op == 1:
+                carry = rq(carry, merges[l])
+            elif op == 0:
+                carry = level(l)
+            else:
+                carry = merge(l, level(l), carry)
+        return rq(carry, fin)
+
+    return log_blk, product, merge, drain
+
+
+def _replay_k2(a, b, params):
+    """K2's schedule over ``a`` [M, K] @ ``b`` [K, N] from its parameters."""
+    log_blk, product, merge, drain = _steps(params)
     blk = 1 << log_blk
     k = a.shape[1]
     part, slots, t = {}, {}, 0
@@ -89,18 +118,7 @@ def _replay_k2(a, b, params):
         if cnt == blk:
             t += 1
 
-    def level(l):
-        return part[l] if l < log_blk else slots[l - log_blk]
-
-    carry = None
-    for op, l in drain:
-        if op == 1:
-            carry = rq(carry, merges[l])
-        elif op == 0:
-            carry = level(l)
-        else:
-            carry = merge(l, level(l), carry)
-    return rq(carry, fin)
+    return drain(lambda l: part[l] if l < log_blk else slots[l - log_blk])
 
 
 def _case(fmt, layers, k, seed=0, m=5, n=7):
@@ -188,3 +206,184 @@ def test_canonical_plan_takes_the_compiled_modes():
     assert TT.k2_modes(plan) == 1
     _, _, plan = _case(F88Z, LAYERS, 128)
     assert TT.k2_modes(plan) == 0
+
+
+# ---------------------------------------------------------------------------
+# K2′: the one-pass schedule of csrc/tree_gemm_stream.cuh
+# ---------------------------------------------------------------------------
+
+def _trailing_ones(x):
+    n = 0
+    while x & (1 << n):
+        n += 1
+    return n
+
+
+def _replay_k2s(a, b, params, log_s=TT.K2S_LOG_S):
+    """K2′'s kernel over ``a`` [M, K] @ ``b`` [K, N] from its parameters:
+    slices of 2^log_s products, one stack over every level, the drain
+    reading slot[l]."""
+    log_blk, product, merge, drain = _steps(params)
+    assert log_blk == 0
+    s_len = 1 << log_s
+    k = a.shape[1]
+    slot = {}
+    for s in range(-(-k // s_len)):
+        cnt = min(s_len, k - s * s_len)      # a ragged last slice stops
+        for q in range(cnt):                 # unrolled in the kernel
+            kk = s * s_len + q
+            v = product(a[:, kk, None], b[None, kk, :])
+            ones = _trailing_ones(q)         # compile-time carries
+            for l in range(ones):
+                v = merge(l, slot[l], v)
+            if ones == log_s:                # the slice's last product
+                up = _trailing_ones(s)       # read at run time
+                for l in range(log_s, log_s + up):
+                    v = merge(l, slot[l], v)
+                slot[log_s + up] = v
+            else:
+                slot[ones] = v
+    return drain(lambda l: slot[l])
+
+
+_K2S_KS = [1, 2, 13, 16, 17, 31, 32, 33, 48, 1000, 2048]
+
+
+@pytest.mark.parametrize("k", _K2S_KS)
+@pytest.mark.parametrize("config", ["canonical", "layered", "i32"])
+def test_k2s_schedule_matches_plain_and_k2(k, config):
+    fmt, layers = {"canonical": (F88Z, ()), "layered": (F88Z, LAYERS),
+                   "i32": (I32F, ())}[config]
+    a, b, plan = _case(fmt, layers, k, seed=k + 5, m=4, n=6)
+    want = TT.tree_gemm_stream_plain(a, b, plan, fmt)
+    got = _replay_k2s(a, b, TT._kernel_params(plan, fmt, 0)).to(want.dtype)
+    assert torch.equal(got, want)
+    k2 = _replay_k2(a, b, TT._kernel_params(plan, fmt, TT.K2_LOG_BLK))
+    assert torch.equal(got, k2.to(want.dtype))
+
+
+@pytest.mark.parametrize("log_s", [4, 5])
+@pytest.mark.parametrize("k", [31, 100, 1000])
+def test_k2s_slice_length_does_not_change_the_result(log_s, k):
+    """Slices of 16 (the variant kernel_sweeps times) and of 32 products
+    give the same stack."""
+    a, b, plan = _case(F88Z, (), k, seed=k, m=3, n=5)
+    got = _replay_k2s(a, b, TT._kernel_params(plan, F88Z, 0), log_s)
+    assert torch.equal(got.to(torch.int32),
+                       TT.tree_gemm_stream_plain(a, b, plan, F88Z))
+
+
+@pytest.mark.parametrize("level,k", [(0, 17), (3, 13), (4, 1000), (5, 1000),
+                                     (7, 1000), (9, 1000)])
+def test_k2s_schedule_replay_sees_a_wrong_merge(level, k):
+    """Mutation check of the replay: one merge's shift changed in the
+    parameters (0 -> 1) changes the result, inside a slice (levels below
+    5), at the slice's end carries (5 and up) and in the drain.  Small raws
+    keep the sums clear of saturation, which would hide the change."""
+    fmt = qt.qformat(3, 4)
+    a, b, plan = _case(fmt, (), k, seed=3, m=16, n=16)
+    want = TT.tree_gemm_stream_plain(a, b, plan, fmt)
+    params = list(TT._kernel_params(plan, fmt, 0))
+    d = 8 + 5 * level
+    assert params[d] == 0 and level < plan.levels
+    params[d] = 1
+    got = _replay_k2s(a, b, params).to(want.dtype)
+    assert not torch.equal(got, want)
+
+
+# (operand format, product format): the canonical step, a product shift
+# of 10, a wider product, an unsigned product, the i32 product route
+_STEPS = {"canonical": ((8, 8), (8, 8, True)), "shift": ((8, 9), (8, 8, True)),
+          "width": ((8, 8), (9, 8, True)), "unsigned": ((8, 8), (8, 8, False)),
+          "i32 route": ((3, 4), (8, 8, True))}
+
+
+@pytest.mark.parametrize("rm,om", list(itertools.product(_ROUNDS, _OVFS)))
+@pytest.mark.parametrize("step", list(_STEPS))
+@pytest.mark.parametrize("layer", ["none", "same", "other-width",
+                                   "other-shift"])
+def test_k2s_plan_specialises_only_the_compiled_steps(rm, om, step, layer):
+    """k2s_plan returns a compiled entry only when the product route, the
+    product's step and every merge's step (shift, modes, width,
+    signedness) are the entry's; the operand format's modes and the output
+    format do not matter."""
+    (ib, fb), (mi, mf, signed) = _STEPS[step]
+    fmt = qt.qformat(ib, fb, round_mode=qt.RoundMode.RND_ZERO)
+    mul = qt.qformat(mi, mf, signed, rm, om)
+    layers = {"none": (), "same": (mul,),
+              "other-width": (qt.qformat(mi + 1, mf, signed, rm, om),),
+              "other-shift": (qt.qformat(mi, mf - 1, signed, rm, om),)}[layer]
+    out = qt.qformat(6, 2, round_mode=qt.RoundMode.RND_INF)
+    for k in (1, 32, 100):
+        plan = TT.plan_tree(fmt, fmt, mul, layers, k, out)
+        assert plan is not None
+        params = list(TT._kernel_params(plan, out, 0))
+        steps = {tuple(params[8 + 5 * l:13 + 5 * l])
+                 for l in range(plan.levels)}
+        want = 0
+        for i, (split, prod, merge) in enumerate(TT.K2S_PLANS):
+            if params[0] == split and tuple(params[2:7]) == prod \
+                    and steps == {merge}:
+                want = i + 1
+        canonical = (rm, om) == (qt.RoundMode.TRN_TCPL,
+                                 qt.OverflowMode.SAT_ZERO) \
+            and step == "canonical" and layer in ("none", "same")
+        assert want == (1 if canonical else 0), (k, step, layer)
+        assert TT.k2s_plan(plan) == want, (k, step, layer, rm, om)
+
+
+def test_k2s_plans_match_the_kernel_source():
+    """ops.tree_gemm.K2S_PLANS lists csrc/tree_gemm_stream.cuh's K2S_PLANS
+    after its run-time entry."""
+    src = (pathlib.Path(TT.__file__).parent.parent / "csrc" /
+           "tree_gemm_stream.cuh").read_text()
+    body = re.search(r"K2S_PLANS\[\]\[11\] = \{(.*?)\};", src, re.S).group(1)
+    rows = [[x.strip() for x in r.split(",")]
+            for r in re.findall(r"\{([^{}]*)\}", body)]
+    assert rows[0] == ["ANY"] * 11
+
+    def value(x, enum):
+        return int(x) if x.lstrip("-").isdigit() else int(enum[x])
+
+    table = []
+    for r in rows[1:]:
+        step = [(value(r[c], qt.RoundMode) if c in (2, 7) else
+                 value(r[c], qt.OverflowMode) if c in (3, 8) else int(r[c]))
+                for c in range(11)]
+        table.append((step[0], tuple(step[1:6]), tuple(step[6:11])))
+    assert tuple(table) == TT.K2S_PLANS
+    assert re.search(r"K2S_LOG_S = (\d+);", src).group(1) == \
+        str(TT.K2S_LOG_S)
+
+
+def test_canonical_plan_takes_the_compiled_k2s_entry():
+    _, _, plan = _case(F88Z, (), 512)
+    assert TT.k2s_plan(plan) == 1
+    assert TT.k2s_plan(_case(F88Z, (), 4112)[2]) == 1
+    assert TT.k2s_plan(_case(F88Z, LAYERS, 128)[2]) == 0
+    assert TT.k2s_plan(_case(I32F, (), 128)[2]) == 0
+
+
+def test_kernel_parameters_are_built_once():
+    _, _, plan = _case(F88Z, (), 100)
+    assert TT._kernel_params(plan, F88Z, 0) is TT._kernel_params(plan, F88Z, 0)
+    assert list(TT._kernel_params(plan, F88Z, 0))[1] == 0
+
+
+@pytest.mark.parametrize("shape,view,direct", [
+    ((5, 8), None, True), ((5, 13), None, False), ((4, 12), (1, 9), False),
+    ((4, 12), (4, 12), True), ((4, 12), (0, 9), True), ((1, 3), None, False)])
+def test_k2s_operand_pitches_rows_tma_cannot_read(shape, view, direct):
+    """k2s_operand passes int32 rows whose base and pitch are multiples of
+    16 bytes as they are, and copies others into rows of a multiple of 4
+    elements, zero past the operand's columns."""
+    t = _raws(0, F88Z, shape).clone()   # torch's 64-byte aligned storage
+    if view is not None:
+        t = t[:, view[0]:view[1]]
+    got, pitch = TT.k2s_operand(t)
+    assert (got.data_ptr() == t.data_ptr()) == direct
+    assert pitch % 4 == 0 and got.stride(0) == pitch
+    assert torch.equal(got[:, :t.shape[1]], t)
+    if not direct:
+        assert pitch == -(-t.shape[1] // 4) * 4
+        assert not got[:, t.shape[1]:].any()
