@@ -17,8 +17,10 @@ Phases, each printing its lines:
    an out-of-range raw at the odd tail; its warp, thread and columns
    kernels, each instantiation with compiled modes, rows whose base is off
    16 bytes) and P1 (the per-product chain
-   probe, split and i32 product routes, and ``measured_chain_prods``'
-   tile at both chain lengths over all 2048 programs);
+   probe: its compiled and run-time instantiations, split and i32 product
+   routes, 0 to 17 steps, a ragged tile off 16 bytes, and
+   ``measured_chain_prods``' tile at both chain lengths over all 2048
+   programs);
 3. drive the main paths through the public entry points, each with the
    launch counts set to 0 just before it and read just after:
    a. the quantized GEMM pipeline (``QuantPipeline``: GEMM -> sqrt ROM ->
@@ -37,7 +39,8 @@ Phases, each printing its lines:
       layered path, and a 64x64 block of its output through a BitStream
       round trip;
    e. ``measured_chain_prods`` of the canonical plan (bench.py's two-length
-      difference): P1 eight times;
+      difference): P1 eight times, on the instantiation with the plan's
+      steps compiled in;
    every result is checked against the plain versions, and 16x16 corners
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
@@ -45,7 +48,9 @@ Phases, each printing its lines:
    computing the same function, and the main-path calls end to end; K2′
    and K3 also by their device time (a profiler trace) and the host's
    time to enqueue a call, K2′ beside K2 and with its instantiations'
-   registers and spills.
+   registers and spills; P1 by its device time too, with
+   ``vs_serial_chain`` (K2's rate over P1's) and K2′'s rate over P1's, and
+   its instantiations' registers.
 
 The second-to-last line is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -166,9 +171,10 @@ def phase_kernels(dev, chk):
     import torch
 
     import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops.chain_probe import _launch as p1_launch
     from qublas_tpu_torch.ops.chain_probe import (BM, BN, G, T1, T2,
                                                   chain_probe,
-                                                  chain_probe_plain,
+                                                  chain_probe_plain, p1_plan,
                                                   probe_tile)
     from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm_plain,
                                                  int_dot, int_dot_plain,
@@ -386,25 +392,46 @@ def phase_kernels(dev, chk):
                                                      qt.OverflowMode.SAT_ZERO)
                                    else 0))
 
-    for route, f in (("split", f88z), ("i32", i32f)):
+    # P1 at each instantiation (p1_plan): the canonical plan's compiled
+    # steps, a split-route and an i32-route plan read at run time; chains of
+    # 0, 1, 16 and 17 steps on 4 programs (the vector path), a ragged tile
+    # whose bases are off 16 bytes (the scalar path), and
+    # measured_chain_prods' tile, chain lengths and G, the canonical plan
+    # also through the run-time instantiation (a launch of its own, not
+    # counted)
+    rconv = qt.qformat(8, 8, round_mode=qt.RoundMode.RND_CONV,
+                       overflow_mode=qt.OverflowMode.SAT_ZERO)
+    for what, f, route, inst in (("compiled", f88z, "split", 1),
+                                 ("run-time", rconv, "split", 0),
+                                 ("run-time", i32f, "i32", 0)):
         plan = plan_tree(f, f, qt.mul_merge(f, f), (), TREE_N, f)
-        assert plan.prod_route == route, (route, plan.prod_route)
+        assert (plan.prod_route, p1_plan(plan)) == (route, inst), what
+        label = f"{what} (instantiation {inst}) {route} route {f}"
         x = torch.from_numpy(rand_raws(rng, f, (BM, BN), np.int32)).to(dev)
         y = torch.from_numpy(rand_raws(rng, f, (BM, BN), np.int32)).to(dev)
-        for steps in (1, 16):
-            chk.same("chain_probe", f"{route} route {f} T={steps}, 4 "
-                     f"programs of [{BM}, {BN}]",
-                     chain_probe(x, y, plan, steps, 4),
+        for steps in (0, 1, 16, 17):
+            chk.same("chain_probe", f"{label} T={steps}, 4 programs of "
+                     f"[{BM}, {BN}]", chain_probe(x, y, plan, steps, 4),
                      chain_probe_plain(x, y, plan, steps, 4))
-        if route == "split":
-            # the main path's shapes: measured_chain_prods' tile and plan
-            xp, yp = probe_tile(f, dev)
-            for steps in (T1, T2):
-                chk.same("chain_probe", f"measured_chain_prods' tile T="
-                         f"{steps}, {G} programs of [{BM}, {BN}]",
-                         chain_probe(xp, yp, plan, steps, G),
-                         chain_probe_plain(xp, yp, plan, steps, G))
-            del xp, yp
+        flat = torch.from_numpy(rand_raws(rng, f, (2 * 92,), np.int32))
+        flat = flat.to(dev)
+        xr, yr = flat[1:92].view(13, 7), flat[93:].view(13, 7)
+        chk.same("chain_probe", f"{label} T=17, 5 programs of a ragged "
+                 f"[13, 7] tile, bases 4 bytes off 16",
+                 chain_probe(xr, yr, plan, 17, 5),
+                 chain_probe_plain(xr, yr, plan, 17, 5))
+    plan = plan_tree(f88z, f88z, qt.mul_merge(f88z, f88z), (), TREE_N, f88z)
+    xp, yp = probe_tile(f88z, dev)
+    for steps in (T1, T2):
+        want = chain_probe_plain(xp, yp, plan, steps, G)
+        chk.same("chain_probe", f"measured_chain_prods' tile T={steps}, {G} "
+                 f"programs of [{BM}, {BN}]", chain_probe(xp, yp, plan,
+                                                          steps, G), want)
+        chk.same("chain_probe", f"measured_chain_prods' tile T={steps} "
+                 f"through the run-time instantiation",
+                 p1_launch(xp, yp, plan, steps, G, 0), want)
+        del want
+    del xp, yp
 
     for what, f, dtype in (("int8", fa, np.int8),
                            ("int16 lanes Qu<7,4>", f16, np.int16)):
@@ -808,9 +835,14 @@ def phase_chain(dev, state_a):
     import torch
 
     from qublas_tpu_torch.ops.chain_probe import (chain_probe,
-                                                  measured_chain_prods)
+                                                  measured_chain_prods,
+                                                  p1_plan)
 
     tplan, f88z = state_a[6], state_a[7]
+    inst = p1_plan(tplan)
+    print(f"main path e: p1_plan(canonical plan) = {inst} (its steps "
+          f"compiled in)")
+    assert inst == 1, inst
     chain_probe.launches = 0
     t0 = time.perf_counter()
     rate = measured_chain_prods(f88z, tplan, dev)
@@ -1087,13 +1119,17 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
           f"{t['cgemul_ordered']:.4f} ms, {ln ** 3 / t['cgemul_ordered'] / 1e6:.2f}"
           f" Gprod/s [{card}]")
     prods = BM * BN * G * T1
+    p1_us = device_us(lambda: chain_probe(xp, yp, tplan, T1, G))
     print(f"time chain_probe T={T1} x {G} programs of [{BM}, {BN}]: "
-          f"{t['p1']:.4f} ms, {prods / t['p1'] / 1e6:.2f} Gstep/s; plain "
-          f"{t['p1_plain']:.4f} ms [{card}]")
+          f"{t['p1']:.4f} ms, {prods / t['p1'] / 1e6:.2f} Gstep/s, device us "
+          f"per call {p1_us}; plain {t['p1_plain']:.4f} ms [{card}]")
     canon_rate = tn ** 3 / (t["canonical"] / 1e3)
+    k2s_rate = tn ** 3 / (t["k2s_big"] / 1e3)
     print(f"P1: measured_chain_prods (canonical plan) {chain_rate / 1e9:.2f} "
-          f"Gprod/s; canonical qgemul {tn}^3 {canon_rate / 1e9:.2f} Gprod/s, "
-          f"vs_serial_chain {canon_rate / chain_rate:.4f} [{card}]")
+          f"Gprod/s; canonical qgemul (K2) {tn}^3 {canon_rate / 1e9:.2f} "
+          f"Gprod/s, vs_serial_chain {canon_rate / chain_rate:.4f}; "
+          f"tree_gemm_stream (K2′) {tn}^3 {k2s_rate / 1e9:.2f} Gprod/s, "
+          f"{k2s_rate / chain_rate:.4f} of P1's rate [{card}]")
 
     rows, cols = REDUCE_SHAPE
     bounds = {
@@ -1149,7 +1185,8 @@ def main() -> int:
     launches_d, state_d = phase_complex_path(dev, chk)
     launches_e, chain_rate = phase_chain(dev, state_a)
     t, bounds = phase_times(card, state_a, state_b, state_d, chain_rate)
-    for line in resources(report, "tree_gemm_stream_kernel"):
+    for line in resources(report, "tree_gemm_stream_kernel") + \
+            resources(report, "chain_probe_kernel"):
         print(f"registers {line}")
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "qublas_tpu" or m.startswith("qublas_tpu.")]
@@ -1179,7 +1216,7 @@ def main() -> int:
             "qublas_tpu/ops/reduce.py:192",
             launches_b["qreduce_kernel"] + launches_d["qreduce_kernel"],
             "k3", "k3_plain", None),
-        row("chain_probe", "qublas_tpu_torch/csrc/tree_gemm.cu",
+        row("chain_probe", "qublas_tpu_torch/csrc/chain_probe.cuh",
             "bench.py:408", launches_e, "p1", "p1_plain", None),
     ]
     print(card)

@@ -51,8 +51,8 @@ _SIGNATURES = {
     # device, a, lda, b, ldb, c, m, n, k, out_bytes, params, plan, stream
     "qk_tree_gemm_stream": (_I, _P, _L, _P, _L, _P, _I, _I, _I, _I, _P, _I,
                             _P),
-    # device, x, y, out, elems, programs, steps, params, stream
-    "qk_chain_probe": (_I, _P, _P, _P, _I, _I, _I, _P, _P),
+    # device, x, y, out, elems, programs, steps, params, plan, stream
+    "qk_chain_probe": (_I, _P, _P, _P, _I, _I, _I, _P, _I, _P),
 }
 
 

@@ -6,11 +6,6 @@
 
 namespace {
 
-bool same_rq(const qk::Rq& r, const int* e) {
-  return r.d == e[0] && r.round == e[1] && r.ovf == e[2] && r.w == e[3] &&
-         r.sgn == e[4];
-}
-
 // Whether the plan's product route and requantize step, and every merge's
 // step (the drain's converts are merges' requantizes), are those of
 // K2S_PLANS[plan]; entry 0 takes any plan.
@@ -18,9 +13,9 @@ bool plan_match(const TreeParams& p, int levels, int plan) {
   if (plan == 0) return true;
   if (plan < 0 || plan >= qk::K2S_NPLANS) return false;
   const int* e = qk::K2S_PLANS[plan];
-  if (p.split != e[0] || !same_rq(p.prod, e + 1)) return false;
+  if (p.split != e[0] || !qk::same_rq(p.prod, e + 1)) return false;
   for (int l = 0; l < levels; ++l) {
-    if (!same_rq(p.fold.merge[l], e + 6)) return false;
+    if (!qk::same_rq(p.fold.merge[l], e + 6)) return false;
   }
   return true;
 }

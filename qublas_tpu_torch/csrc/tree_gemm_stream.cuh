@@ -33,10 +33,11 @@
 //    the slice counter's trailing ones at run time.  A ragged last slice
 //    stops early and the drain reads slot[l] directly, so one kernel takes
 //    any k;
-//  * the plans of qk::K2S_PLANS (the canonical Qu<8,8,TRN::TCPL,SAT::ZERO>)
-//    have the whole requantize step of the product and of every merge
-//    compiled in: shift, round, overflow, width and signedness, so each
-//    requantize folds to a few instructions.  Every other plan (entry 0)
+//  * the plans of qk::K2S_PLANS (plan_steps.cuh: the canonical
+//    Qu<8,8,TRN::TCPL,SAT::ZERO>) have the whole requantize step of the
+//    product and of every merge compiled in (Steps<PLAN>): shift, round,
+//    overflow, width and signedness, so each requantize folds to a few
+//    instructions.  Every other plan (entry 0)
 //    reads its steps at run time with the slice's loop rolled: unrolled,
 //    the run-time requantize's code overflows the instruction cache.
 #pragma once
@@ -48,20 +49,9 @@
 #include <cstdint>
 #include <utility>
 
-#include "tree_gemm.cuh"
+#include "plan_steps.cuh"
 
 namespace qk {
-
-// The plans K2' has instantiations for, by index: the product route
-// (1 = "split"), then the product's requantize step and the step that
-// every tree merge shares, each as Rq's fields (d, round, ovf, w, sgn).
-// Entry 0 reads everything at run time.  ops/tree_gemm.py:K2S_PLANS lists
-// the same entries after entry 0.
-constexpr int K2S_PLANS[][11] = {
-    {ANY, ANY, ANY, ANY, ANY, ANY, ANY, ANY, ANY, ANY, ANY},
-    {1, 8, TRN_TCPL, SAT_ZERO, 17, 1, 0, TRN_TCPL, SAT_ZERO, 17, 1},
-};
-constexpr int K2S_NPLANS = sizeof(K2S_PLANS) / sizeof(K2S_PLANS[0]);
 
 // The stack depth of the instantiations for k below 4096; MAXL above.
 constexpr int K2S_TOP = 12;
@@ -92,52 +82,9 @@ __device__ __forceinline__ int32_t lane(const int4& v) {
   else return v.w;
 }
 
-// ---- the requantize steps ----
+// ---- the requantize steps (plan_steps.cuh) ----
 
-template <int D, int RND, int OVF, int W, int SGN>
-__device__ __forceinline__ qk::Rq rq_of() {
-  return qk::Rq{D, RND, OVF, W, SGN};
-}
-
-// qk::K2S_PLANS[PLAN]'s step at column C as an Rq of constants.
-template <int PLAN, int C>
-__device__ __forceinline__ qk::Rq plan_rq() {
-  return rq_of<qk::K2S_PLANS[PLAN][C], qk::K2S_PLANS[PLAN][C + 1],
-               qk::K2S_PLANS[PLAN][C + 2], qk::K2S_PLANS[PLAN][C + 3],
-               qk::K2S_PLANS[PLAN][C + 4]>();
-}
-
-// The product and merge steps of plan PLAN: compiled in (PLAN > 0, the
-// slice unrolled) or read from the parameters (PLAN = 0, rolled).
-template <int PLAN>
-struct Steps {
-  static constexpr bool UNROLLED = PLAN != 0;
-  static constexpr bool SPLIT = PLAN != 0 && qk::K2S_PLANS[PLAN][0] == 1;
-
-  static __device__ __forceinline__ int32_t product(const TreeParams& p,
-                                                    int32_t a, int32_t b) {
-    if constexpr (PLAN == 0) {
-      return qk::product(p, a, b);
-    } else if constexpr (SPLIT) {
-      return qk::requant_split_mul(a, b, plan_rq<PLAN, 1>());
-    } else {
-      return qk::requant(qk::wmul(a, b), plan_rq<PLAN, 1>());
-    }
-  }
-
-  // the drain's converting assignment at level l
-  static __device__ __forceinline__ int32_t convert(const qk::Fold& f, int l,
-                                                    int32_t x) {
-    if constexpr (PLAN == 0) return qk::requant(x, f.merge[l]);
-    else return qk::requant(x, plan_rq<PLAN, 6>());
-  }
-
-  static __device__ __forceinline__ int32_t merge(const qk::Fold& f, int l,
-                                                  int32_t left,
-                                                  int32_t right) {
-    return convert(f, l, qk::wadd(left, right));
-  }
-};
+using qk::Steps;
 
 // Fold product v, the Q-th of a full or ragged slice, into one output's
 // stack: Q, its carries and its slot fixed at compile time; the slice's

@@ -1,9 +1,10 @@
-"""Design measurements for K1, K2, K2′ and K3 on the card (not imported by
-the package).
+"""Design measurements for K1, K2, K2′, K3 and P1 on the card (not
+imported by the package).
 
-    python3 -m qublas_tpu_torch.experiments.kernel_sweeps [k1|k2|k2s|k3|k3v]
+    python3 -m qublas_tpu_torch.experiments.kernel_sweeps [k1|k2|k2s|k3|k3v|p1]
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps k2s OTHER_CHECKOUT
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps k3 OTHER_CHECKOUT
+    python3 -m qublas_tpu_torch.experiments.kernel_sweeps p1 OTHER_CHECKOUT
 
 Run on a machine with a CUDA card.  Each part runs in its own process
 under a time limit, so a kernel that hangs ends that part and not the run:
@@ -42,7 +43,21 @@ under a time limit, so a kernel that hangs ends that part and not the run:
   ``cuobjdump -sass`` lists for
   K3's main-path instantiations and the variants, by opcode, in the whole
   kernel and in its longest loop (the SASS itself is written to
-  ``build/qublas_tpu_torch/experiments/k3_sass.txt``).
+  ``build/qublas_tpu_torch/experiments/k3_sass.txt``);
+* ``p1``: P1 (``chain_probe``) at ``measured_chain_prods``' shapes (the
+  canonical plan, G = 2048 programs of [128, 256], T = 128 and 16),
+  checked against its plain version, with its device time per call,
+  ``measured_chain_prods``, and K2′ at 2048^3 on the same plan with its
+  rate over P1's (given another checkout's root, the same in both trees in
+  turns: other, this, this, other); then P1's variants
+  (``p1_variants.cu``: 1, 2, 4 and 8 chains a thread, 128 to 1024 threads
+  a block, y's split recomputed every step, the run-time plan with its
+  invariants left to the compiler, and at 2 and 4 chains) beside the
+  package's
+  compiled and run-time instantiations, each checked against the plain
+  version on the main path's tile and on a ragged one; and the
+  ``cuobjdump -sass`` opcode counts of each one's step loop (the SASS
+  itself into ``build/qublas_tpu_torch/experiments/p1_sass.txt``).
 
 Times are CUDA-event medians (``qublas_tpu_torch.timing.timeit``) and, for
 K1, device time per call from a ``torch.profiler`` trace (without the
@@ -612,6 +627,176 @@ def _k3_variants(card):
     _k3_sass(_build.BUILD_DIR / "experiments" / "libk3_variants.so")
 
 
+def _p1_times(card):
+    """P1 in this tree (whichever ``qublas_tpu_torch`` is imported) at
+    ``measured_chain_prods``' shapes, ``measured_chain_prods`` itself, and
+    K2′ at 2048^3 on the same plan."""
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops import chain_probe as CP
+    from qublas_tpu_torch.ops import tree_gemm as TT
+    from qublas_tpu_torch.timing import device_us, host_us, timeit
+
+    tree = Path(qt.__file__).resolve().parent.parent
+    dev = torch.device("cuda", 0)
+    a, b, plan, f = _k2s_operands(2048)
+    x, y = CP.probe_tile(f, dev)
+    p1_ms = {}
+    for steps in (CP.T1, CP.T2):
+        def call():
+            return CP.chain_probe(x, y, plan, steps, CP.G)
+
+        assert torch.equal(call(), CP.chain_probe_plain(x, y, plan, steps,
+                                                        CP.G)), steps
+        p1_ms[steps] = timeit(call)
+        print(f"p1 {tree}: T={steps} x {CP.G} programs of [{CP.BM}, "
+              f"{CP.BN}] event {p1_ms[steps]:.4f} ms, device us per call "
+              f"{device_us(call)}, host us per call {host_us(call, 20):.2f}"
+              f"; == plain [{card}]", flush=True)
+    rate = CP.measured_chain_prods(f, plan, dev)
+    ms = timeit(lambda: TT.tree_gemm_stream(a, b, plan, f))
+    dus = device_us(lambda: TT.tree_gemm_stream(a, b, plan, f))
+    k2s_rate = 2048 ** 3 / (ms / 1e3)
+    print(f"p1 {tree}: measured_chain_prods {rate / 1e9:.2f} Gprod/s; K2′ "
+          f"2048^3 event {ms:.4f} ms, device us per call {dus}, "
+          f"{k2s_rate / 1e9:.2f} Gprod/s, {k2s_rate / rate:.4f} of P1's "
+          f"rate [{card}]", flush=True)
+
+
+def _p1_against(card, other: str):
+    """P1's times in this tree and in the checkout ``other`` (e.g. the
+    parent commit), in turns: other, this, this, other."""
+    this, other = str(HERE.parent.parent), str(Path(other).resolve())
+    for tree in (other, this, this, other):
+        env = dict(os.environ, PYTHONPATH=tree)
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "p1-times"], env=env, cwd=tree, timeout=900,
+                       check=True)
+
+
+# p1_variants.cu's variants, by its P1_VARIANT; 1-8 have the canonical
+# plan compiled in, 9-12 read any plan at run time
+P1_VARIANTS = {1: "compiled, 1 chain a thread, 256 threads a block",
+               2: "compiled, 2 chains, 256 threads",
+               3: "compiled, 4 chains, 256 threads",
+               4: "compiled, 8 chains, 256 threads",
+               5: "compiled, 4 chains, 128 threads",
+               6: "compiled, 4 chains, 512 threads",
+               7: "compiled, 4 chains, 1024 threads",
+               8: "compiled, 4 chains, y's split recomputed every step",
+               9: "run-time plan rolled, invariants left to the "
+                  "compiler (the first design), 1 chain",
+               10: "the same, 4 chains",
+               11: "run-time plan, invariants hoisted by hand (the "
+                   "package's), 2 chains",
+               12: "the same, 4 chains"}
+
+
+def _p1_variants_lib():
+    """Build p1_variants.cu once for each variant, all at once, into
+    build/qublas_tpu_torch/experiments/libp1_variants.so and load it."""
+    from qublas_tpu_torch import _build
+
+    out = _build.BUILD_DIR / "experiments"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for v in P1_VARIANTS:
+        obj = out / f"p1_variant_{v}.o"
+        cmd = [_build._nvcc(), *_build.COMPILE_FLAGS, f"-DP1_VARIANT={v}",
+               "-I", str(_build.CSRC), "-c", str(HERE / "p1_variants.cu"),
+               "-o", str(obj)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    for obj, proc in jobs:
+        text, _ = proc.communicate()
+        for line in text.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill", "error")):
+                print("  " + line.strip(), flush=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {obj.name}")
+    so = out / "libp1_variants.so"
+    subprocess.run([_build._nvcc(), *_build.COMPILE_FLAGS[:2], "-shared",
+                    "-o", str(so), *(str(o) for o, _ in jobs)], check=True)
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for v in P1_VARIANTS:
+        fn = getattr(lib, f"p1_variant_{v}")
+        fn.argtypes = (P, P, P, I, I, I, P)
+        fn.restype = I
+    return lib, so
+
+
+def _p1_variants(card):
+    import numpy as np
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import _build
+    from qublas_tpu_torch.ops import chain_probe as CP
+    from qublas_tpu_torch.ops import tree_gemm as TT
+    from qublas_tpu_torch.timing import device_us, timeit
+
+    lib, so = _p1_variants_lib()
+    dev = torch.device("cuda", 0)
+    f = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
+    plan = TT.plan_tree(f, f, qt.mul_merge(f, f), (), 2048, f)
+    assert CP.p1_plan(plan) == 1
+    params = TT._kernel_params(plan, plan.final_fmt, 0)
+    x, y = CP.probe_tile(f, dev)
+    want = CP.chain_probe_plain(x, y, plan, CP.T1, CP.G)
+    # a ragged tile whose base is 4 bytes off 16 (the scalar path)
+    rng = np.random.RandomState(8)
+    flat = torch.from_numpy(rng.randint(f.raw_min, f.raw_max + 1, 2 * 92)
+                            .astype(np.int32)).to(dev)
+    xr, yr = flat[1:92].view(13, 7), flat[93:].view(13, 7)
+    want_r = CP.chain_probe_plain(xr, yr, plan, 17, 5)
+    runs = [("the package's instantiation 1 (compiled, "
+             f"{CP.P1_CHAINS[1]} chains, {CP.P1_THREADS[1]} threads)", -1),
+            ("the package's instantiation 0 (run-time plan rolled, "
+             f"invariants hoisted by hand, {CP.P1_CHAINS[0]} chain, "
+             f"{CP.P1_THREADS[0]} threads)", -2)]
+    runs += [(label, v) for v, label in P1_VARIANTS.items()]
+    for label, v in runs:
+        if v < 0:
+            def run(a=x, b=y, steps=CP.T1, programs=CP.G, inst=v + 2):
+                return CP._launch(a, b, plan, steps, programs, inst)
+        else:
+            fn = getattr(lib, f"p1_variant_{v}")
+
+            def run(a=x, b=y, steps=CP.T1, programs=CP.G, fn=fn):
+                out = torch.empty((programs,) + tuple(a.shape),
+                                  dtype=torch.int32, device=dev)
+                _build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                a.numel(), programs, steps, params),
+                             "p1_variant")
+                return out
+        got = run()
+        got_r = run(xr, yr, 17, 5)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got_r, want_r), label
+        ms = timeit(run)
+        dus = sum(device_us(run).values())
+        print(f"p1v T={CP.T1} x {CP.G} programs {label}: event {ms:.4f} ms, "
+              f"device {dus:.2f} us per call, == plain, also on a ragged "
+              f"[13, 7] tile off 16 bytes [{card}]", flush=True)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"p1v SM clock after the timings, and its maximum: {clocks} "
+          f"[{card}]", flush=True)
+    _sass_dump(("chain_probe_kernel",), (_build.library_path(), so), "p1v",
+               "p1_sass.txt")
+
+
+def _p1(card):
+    _p1_times(card)
+    _p1_variants(card)
+
+
 def main() -> int:
     import torch
 
@@ -624,7 +809,7 @@ def main() -> int:
     _build.lib()
     card = card_line()
     parts = {"k1": _k1, "k2": _k2, "k2s": _k2s, "k3": _k3_times,
-             "k3v": _k3_variants}
+             "k3v": _k3_variants, "p1": _p1}
     if len(sys.argv) > 2 and sys.argv[1] == "k3":
         _k3_against(card, sys.argv[2])
         return 0
@@ -634,6 +819,13 @@ def main() -> int:
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "k2s-times":
         _k2s_times(card)
+        return 0
+    if len(sys.argv) > 2 and sys.argv[1] == "p1":
+        _p1_against(card, sys.argv[2])
+        _p1_variants(card)
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "p1-times":
+        _p1_times(card)
         return 0
     if len(sys.argv) > 1:
         parts[sys.argv[1]](card)

@@ -6,11 +6,15 @@ int32 raws, T dependent steps of the tree GEMM's building blocks,
 
     p = _product(plan, v, y);  v = _merge(plan, 0, p, p)
 
-written G times.  The CUDA kernel is ``qk_chain_probe`` in
-``csrc/tree_gemm.cu``, on K2's own ``product()`` and ``qk::merge``: one
-thread per output element, x and y read once, the chain in a register, one
-store.  :func:`measured_chain_prods` is bench.py's two-length difference,
-timed with CUDA events, which cancels the launch and the store.
+written G times.  The CUDA kernel is ``csrc/chain_probe.cuh`` (entry point
+``qk_chain_probe`` in ``csrc/tree_gemm.cu``): ``P1_CHAINS`` chains a
+thread, each in a register, x and y read once and the output stored once,
+16 bytes at a time where the tile allows.  Plans whose product route,
+product step and layer-0 merge step are those of an entry of
+``tree_gemm.K2S_PLANS`` take an instantiation with those steps compiled in
+(:func:`p1_plan`); every other plan reads them at run time.
+:func:`measured_chain_prods` is bench.py's two-length difference, timed
+with CUDA events, which cancels the launch and the store.
 
 The TPU ran the G programs one after another (``dimension_semantics=
 ("arbitrary",)``); here all G x BM x BN chains run at once, so the rate is
@@ -24,14 +28,22 @@ import torch
 
 from .. import _build
 from ..qformat import QFormat
-from .tree_gemm import TreePlan, _kernel_params, _merge, _product
+from .tree_gemm import K2S_PLANS, TreePlan, _kernel_params, _merge, _product
 from .widths import LANE_DTYPES
 
 __all__ = ["chain_probe", "chain_probe_plain", "measured_chain_prods",
-           "probe_tile", "BM", "BN", "G", "T1", "T2"]
+           "probe_tile", "p1_plan", "BM", "BN", "G", "T1", "T2",
+           "P1_CHAINS", "P1_THREADS"]
 
 BM, BN, G = 128, 256, 2048     # tile and program count (bench.py:401)
 T1, T2 = 128, 16               # the two chain lengths (bench.py:452)
+
+# Chains a thread and threads a block of P1's instantiation for plan index
+# 0 (steps read at run time) and each entry of K2S_PLANS after it, as
+# csrc/chain_probe.cuh has them: thread t of block b owns the chains of the
+# P1_CHAINS[i] flat outputs from (b P1_THREADS[i] + t) P1_CHAINS[i].
+P1_CHAINS = (1, 4)
+P1_THREADS = (256, 256)
 
 
 def chain_probe_plain(x: torch.Tensor, y: torch.Tensor, plan: TreePlan,
@@ -46,13 +58,48 @@ def chain_probe_plain(x: torch.Tensor, y: torch.Tensor, plan: TreePlan,
     return v.expand((programs,) + tuple(v.shape)).contiguous()
 
 
+def p1_plan(plan: TreePlan) -> int:
+    """P1's instantiation for ``plan``: 1 + the index in ``K2S_PLANS`` of
+    the entry whose product route and step are the plan's and whose merge
+    step is layer 0's, or 0 (every step read at run time).  P1 reads no
+    other level, so the upper levels' steps do not matter, as they do for
+    K2′'s ``k2s_plan``."""
+    split = int(plan.prod_route == "split")
+    prod = _build.rq_args(plan.prod_frac, plan.mul_fmt)
+    merge0 = _build.rq_args(plan.level_fmts[0].frac_bits, plan.merge_fmts[0])
+    for i, entry in enumerate(K2S_PLANS):
+        if (split, prod, merge0) == entry:
+            return i + 1
+    return 0
+
+
+def _launch(x: torch.Tensor, y: torch.Tensor, plan: TreePlan, steps: int,
+            programs: int, instance: int) -> torch.Tensor:
+    """P1's kernel on CUDA tensors, instantiation ``instance`` (``p1_plan``'s
+    index, or 0 for any plan); raises if it does not launch."""
+    out = torch.empty((programs,) + tuple(x.shape), dtype=torch.int32,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    x32 = x.to(torch.int32).contiguous()
+    y32 = y.to(torch.int32).contiguous()
+    dev = x.device.index
+    err = _build.lib().qk_chain_probe(
+        dev, x32.data_ptr(), y32.data_ptr(), out.data_ptr(), x32.numel(),
+        programs, steps, _kernel_params(plan, plan.final_fmt, 0), instance,
+        torch._C._cuda_getCurrentRawStream(dev))
+    _build.check(err, "chain_probe")
+    return out
+
+
 def chain_probe(x: torch.Tensor, y: torch.Tensor, plan: TreePlan,
                 steps: int, programs: int) -> torch.Tensor:
     """``steps`` dependent product + layer-0 merge steps on the tile ``x``
     against ``y`` (same shape, lane dtypes), as a [programs, *x.shape] int32
     tensor.
 
-    CPU tensors take the plain version; CUDA tensors launch P1.
+    CPU tensors take the plain version; CUDA tensors launch P1, the
+    instantiation of :func:`p1_plan`.
     ``chain_probe.launches`` counts kernel launches.
     """
     if x.shape != y.shape:
@@ -73,19 +120,11 @@ def chain_probe(x: torch.Tensor, y: torch.Tensor, plan: TreePlan,
         raise NotImplementedError(
             "the 64-bit 'pair' product route is not yet ported "
             "(ROADMAP item 10)")
-    out = torch.empty((programs,) + tuple(x.shape), dtype=torch.int32,
-                      device=x.device)
-    if out.numel() == 0:
-        return out
-    x32 = x.to(torch.int32).contiguous()
-    y32 = y.to(torch.int32).contiguous()
-    err = _build.lib().qk_chain_probe(
-        x.device.index, x32.data_ptr(), y32.data_ptr(), out.data_ptr(),
-        x32.numel(), programs, steps,
-        _kernel_params(plan, plan.final_fmt, 0),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "chain_probe")
-    chain_probe.launches += 1
+    if "p1" not in plan._kernel_cache:
+        plan._kernel_cache["p1"] = p1_plan(plan)
+    out = _launch(x, y, plan, steps, programs, plan._kernel_cache["p1"])
+    if out.numel():
+        chain_probe.launches += 1
     return out
 
 

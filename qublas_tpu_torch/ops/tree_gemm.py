@@ -316,8 +316,8 @@ def k2_modes(plan: TreePlan) -> int:
 
 K2S_LOG_S = 5   # K2′ takes k in slices of 2^5 products (csrc K2S_LOG_S)
 
-# The plans that K2′ has compile-time instantiations for, in
-# csrc/tree_gemm_stream.cuh's K2S_PLANS order after its run-time entry 0:
+# The plans that K2′ and P1 have compile-time instantiations for, in
+# csrc/plan_steps.cuh's K2S_PLANS order after its run-time entry 0:
 # (product route split, the product's requantize step, the step every tree
 # merge shares), each step as ``_build.rq_args`` gives it.  The one entry is
 # the canonical Qu<8,8,TRN::TCPL,SAT::ZERO> plan: products 16 -> 8

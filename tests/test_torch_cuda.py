@@ -15,8 +15,10 @@ import torch
 
 import qublas_tpu_torch as qt
 from qublas_tpu_torch.ops import cgemm
+from qublas_tpu_torch.ops import chain_probe as CP
 from qublas_tpu_torch.ops.chain_probe import (G, T1, T2, chain_probe,
-                                              chain_probe_plain, probe_tile)
+                                              chain_probe_plain, p1_plan,
+                                              probe_tile)
 from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm,
                                              fused_int8_gemm_plain, int_dot,
                                              int_dot_plain, k1_route, kmajor)
@@ -225,36 +227,80 @@ def test_qreduce_launches_k3_only_when_proven(cuda):
     assert qreduce_kernel.launches == 1 and tree_gemm_stream.launches == 0
 
 
-@pytest.mark.parametrize("name,steps", [("canonical", 1), ("canonical", 16),
-                                        ("i32", 1), ("i32", 16),
-                                        ("canonical", 0)])
-def test_p1_matches_plain(cuda, name, steps):
-    f = F88Z if name == "canonical" else qt.qformat(
-        3, 4, round_mode=qt.RoundMode.RND_CONV,
-        overflow_mode=qt.OverflowMode.WRP_TCPL)
-    plan = plan_tree(f, f, qt.mul_merge(f, f), (), 256, f)
-    assert plan.prod_route == ("split" if name == "canonical" else "i32")
-    x = _raws(steps, f, (128, 256), np.int32).to(cuda)
-    y = _raws(steps + 1, f, (128, 256), np.int32).to(cuda)
+# P1's plans, one for each instantiation (p1_plan): the canonical plan's
+# compiled steps, a split-route and an i32-route plan read at run time
+P1_PLANS = {"canonical": (F88Z, 1),
+            "run-time split": (qt.qformat(8, 8, round_mode=qt.RoundMode.
+                                          RND_CONV, overflow_mode=qt.
+                                          OverflowMode.SAT_ZERO), 0),
+            "run-time i32": (qt.qformat(3, 4, round_mode=qt.RoundMode.RND_CONV,
+                                        overflow_mode=qt.OverflowMode.
+                                        WRP_TCPL), 0)}
+
+
+def _p1_plan(name, k=256):
+    f, instance = P1_PLANS[name]
+    plan = plan_tree(f, f, qt.mul_merge(f, f), (), k, f)
+    assert plan.prod_route == ("i32" if name.endswith("i32") else "split")
+    assert p1_plan(plan) == instance
+    return f, plan
+
+
+@pytest.mark.parametrize("name", list(P1_PLANS))
+@pytest.mark.parametrize("steps", [0, 1, 16, 17])
+@pytest.mark.parametrize("shape,offset", [((128, 256), 0), ((13, 7), 1),
+                                          ((16, 32), 1), ((16, 33), 0)])
+def test_p1_matches_plain(cuda, name, steps, shape, offset):
+    """P1 at each instantiation on 4 programs: the vector path, a ragged
+    tile, and tiles whose base is 4 bytes off 16 (the scalar path)."""
+    f, plan = _p1_plan(name)
+    n = shape[0] * shape[1]
+    flat = _raws(steps, f, (2 * (n + offset),), np.int32).to(cuda)
+    x = flat[offset:offset + n].view(shape)
+    y = flat[n + 2 * offset:].view(shape)
     chain_probe.launches = 0
     got = chain_probe(x, y, plan, steps, 4)
     want = chain_probe_plain(x, y, plan, steps, 4)
     torch.cuda.synchronize()
     assert chain_probe.launches == 1
-    assert got.shape == (4, 128, 256) and torch.equal(got, want)
+    assert got.shape == (4,) + shape and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("name,instance", [("canonical", 1), ("canonical", 0),
+                                           ("run-time split", 0),
+                                           ("run-time i32", 0)])
 @pytest.mark.parametrize("steps", [T1, T2])
-def test_p1_matches_plain_at_measured_shapes(cuda, steps):
-    """P1 on measured_chain_prods' tile, plan, chain lengths and G."""
-    plan = plan_tree(F88Z, F88Z, qt.mul_merge(F88Z, F88Z), (), 2048, F88Z)
-    x, y = probe_tile(F88Z, cuda)
+def test_p1_matches_plain_at_measured_shapes(cuda, name, instance, steps):
+    """P1 on measured_chain_prods' tile, chain lengths and G, at each
+    instantiation (the canonical plan also through the run-time one)."""
+    f, plan = _p1_plan(name, 2048)
+    x, y = probe_tile(f, cuda)
     chain_probe.launches = 0
-    got = chain_probe(x, y, plan, steps, G)
+    got = chain_probe(x, y, plan, steps, G) if instance else \
+        CP._launch(x, y, plan, steps, G, 0)
     want = chain_probe_plain(x, y, plan, steps, G)
     torch.cuda.synchronize()
-    assert chain_probe.launches == 1
+    assert chain_probe.launches == (1 if instance else 0)
     assert got.shape == (G,) + tuple(x.shape) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("instance", [1, 0])
+def test_p1_runs_every_step_of_every_program(cuda, instance):
+    """On a tile whose canonical chains are still not 0 after T1 steps,
+    each of 8 programs equals the plain chain, and T1 - 1 steps give
+    another result: no chain leaves early and no program copies another."""
+    f, plan = _p1_plan("canonical", 2048)
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randint(100, 2001, (128, 256)).astype(np.int32))
+    y = torch.from_numpy(rng.randint(129, 132, (128, 256)).astype(np.int32))
+    want = chain_probe_plain(x, y, plan, T1, 1)[0]
+    assert bool((want != 0).all())
+    x, y = x.to(cuda), y.to(cuda)
+    got = CP._launch(x, y, plan, T1, 8, instance).cpu()
+    short = CP._launch(x, y, plan, T1 - 1, 8, instance).cpu()
+    for g in range(8):
+        assert torch.equal(got[g], want), g
+    assert (short != got).float().mean() > 0.9
 
 
 @pytest.mark.parametrize("m,k,n,dtype", [

@@ -333,10 +333,11 @@ def test_k2s_plan_specialises_only_the_compiled_steps(rm, om, step, layer):
 
 
 def test_k2s_plans_match_the_kernel_source():
-    """ops.tree_gemm.K2S_PLANS lists csrc/tree_gemm_stream.cuh's K2S_PLANS
-    after its run-time entry."""
-    src = (pathlib.Path(TT.__file__).parent.parent / "csrc" /
-           "tree_gemm_stream.cuh").read_text()
+    """ops.tree_gemm.K2S_PLANS lists csrc/plan_steps.cuh's K2S_PLANS (the
+    table that K2′ and P1 share) after its run-time entry, and K2S_LOG_S
+    is csrc/tree_gemm_stream.cuh's."""
+    csrc = pathlib.Path(TT.__file__).parent.parent / "csrc"
+    src = (csrc / "plan_steps.cuh").read_text()
     body = re.search(r"K2S_PLANS\[\]\[11\] = \{(.*?)\};", src, re.S).group(1)
     rows = [[x.strip() for x in r.split(",")]
             for r in re.findall(r"\{([^{}]*)\}", body)]
@@ -352,6 +353,7 @@ def test_k2s_plans_match_the_kernel_source():
                 for c in range(11)]
         table.append((step[0], tuple(step[1:6]), tuple(step[6:11])))
     assert tuple(table) == TT.K2S_PLANS
+    src = (csrc / "tree_gemm_stream.cuh").read_text()
     assert re.search(r"K2S_LOG_S = (\d+);", src).group(1) == \
         str(TT.K2S_LOG_S)
 
