@@ -20,7 +20,8 @@ Phases, each printing its lines:
    probe: its compiled and run-time instantiations, split and i32 product
    routes, 0 to 17 steps, a ragged tile off 16 bytes, and
    ``measured_chain_prods``' tile at both chain lengths over all 2048
-   programs);
+   programs); and K2, K2′ and P1 on the 64-bit "pair" product route in
+   every mode, at ragged shapes and both of K2's stack depths;
 3. drive the main paths through the public entry points, each with the
    launch counts set to 0 just before it and read just after:
    a. the quantized GEMM pipeline (``QuantPipeline``: GEMM -> sqrt ROM ->
@@ -41,6 +42,14 @@ Phases, each printing its lines:
    e. ``measured_chain_prods`` of the canonical plan (bench.py's two-length
       difference): P1 eight times, on the instantiation with the plan's
       steps compiled in;
+   f. pair storage (33..64-bit formats in int64) and the 64-bit product
+      route, at 2048^3: f1 ``qgemul`` on ``Qu<12,12,TRN::TCPL,SAT::ZERO>``
+      (50-bit products: K2 once, K2′ on the same operands bit for bit); f2
+      the lossless wide tier (``Qu<5,8>`` operands, a dot wider than int32,
+      outputs in a lane and in a pair: K1's ``int_dot`` once a segment);
+      f3 Q16.16 throughout and f4 full-precision ``Qu<16,16>`` products in
+      int64, both on the streaming tier (plain torch); the pair elementwise
+      ops and a pair ``qreduce`` at 4096x4096 against CPU copies;
    every result is checked against the plain versions, and 16x16 corners
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
@@ -50,7 +59,9 @@ Phases, each printing its lines:
    time to enqueue a call, K2′ beside K2 and with its instantiations'
    registers and spills; P1 by its device time too, with
    ``vs_serial_chain`` (K2's rate over P1's) and K2′'s rate over P1's, and
-   its instantiations' registers.
+   its instantiations' registers; K2 and K2′ on the pair route at 2048^3,
+   P1 on it at ``measured_chain_prods``' shapes, and the wall times of
+   paths f1-f4.
 
 The second-to-last line is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -74,6 +85,7 @@ CPLX_N = 2048                     # config 5 complex GEMM: CPLX_N^3
 CPLX_LAYERED_N = 256              # config 5 against its layered path
 BITS_BLOCK = 64                   # BitStream round trip of a 64x64 block
 CORNER = 16                       # corner checked against the host model
+PAIR_N = 2048                     # pair-storage paths f1-f4: PAIR_N^3
 
 # peak rates of one H100 SXM at its 700 W limit: HBM bytes/s and int8
 # tensor-core ops/s (NVIDIA's data sheet), and int32 ops/s at the rate the
@@ -433,6 +445,51 @@ def phase_kernels(dev, chk):
         del want
     del xp, yp
 
+    # K2, K2′ and P1 on the 64-bit "pair" product route: 25-bit by 15-bit
+    # lanes, products requantized in every mode pair into a 25-bit mul
+    # format, the layers saturating (WRP_TCPL_SAT layers would outgrow
+    # int32); ragged shapes, K2's 8-level stack (k = 37, 1000) and 32-level
+    # stack (k = 4112), its instantiation with the modes and the 64-bit
+    # product compiled in where the modes are (TRN::TCPL, SAT::ZERO)
+    # (k2_modes 2); K2′'s one-product slot stack at k = 4112
+    # for two mode pairs (its plain version is a loop over k)
+    wrap_sat = qt.OverflowMode.WRP_TCPL_SAT
+    deep = ((qt.RoundMode.TRN_TCPL, qt.OverflowMode.SAT_ZERO),
+            (qt.RoundMode.RND_CONV, qt.OverflowMode.WRP_TCPL))
+    for rm in qt.RoundMode:
+        for om in qt.OverflowMode:
+            sat = qt.OverflowMode.SAT_TCPL if om == wrap_sat else om
+            fa12 = qt.qformat(12, 12, round_mode=rm, overflow_mode=sat)
+            fb12 = qt.qformat(2, 12, round_mode=rm, overflow_mode=sat)
+            mul = qt.qformat(12, 12, round_mode=rm, overflow_mode=om)
+            lay = (qt.qformat(13, 12, round_mode=rm, overflow_mode=sat),)
+            out = qt.qformat(9, 5, False, rm, om)
+            for m, k, n in ((33, 37, 17), (65, 1000, 63), (63, 4112, 65)):
+                a = torch.from_numpy(rand_raws(rng, fa12, (m, k),
+                                               np.int32)).to(dev)
+                b = torch.from_numpy(rand_raws(rng, fb12, (k, n),
+                                               np.int32)).to(dev)
+                plan = plan_tree(fa12, fb12, mul, lay, k, out)
+                assert plan.prod_route == "pair" and k2s_plan(plan) == 0
+                label = (f"pair route, product {rm.name}/{om.name}, modes "
+                         f"{k2_modes(plan)}, {m}x{k}x{n}")
+                chk.same("tree_gemm", label, tree_gemm(a, b, plan, out),
+                         tree_gemm_plain(a, b, plan, out))
+                if k < 4096 or (rm, om) in deep:
+                    chk.same("tree_gemm_stream", label,
+                             tree_gemm_stream(a, b, plan, out),
+                             tree_gemm_stream_plain(a, b, plan, out))
+            x = torch.from_numpy(rand_raws(rng, fa12, (16, 33),
+                                           np.int32)).to(dev)
+            y = torch.from_numpy(rand_raws(rng, fb12, (16, 33),
+                                           np.int32)).to(dev)
+            assert p1_plan(plan) == 0
+            for steps in (1, 17):
+                chk.same("chain_probe", f"pair route, product {rm.name}/"
+                         f"{om.name}, T={steps}, 3 programs of [16, 33]",
+                         chain_probe(x, y, plan, steps, 3),
+                         chain_probe_plain(x, y, plan, steps, 3))
+
     for what, f, dtype in (("int8", fa, np.int8),
                            ("int16 lanes Qu<7,4>", f16, np.int16)):
         a = torch.from_numpy(rand_raws(rng, f, (1000, 777), dtype)).to(dev)
@@ -679,20 +736,21 @@ def config5():
 
 @contextmanager
 def plain_dots():
-    """The complex GEMM's dots on ``int_dot``'s plain version (a float64
-    matmul on the card) while the block runs: the reference side of the
-    K1 checks of phase 3d.  Fails if K1 launched inside the block, so the
-    reference cannot quietly run the kernel it is checking."""
-    from qublas_tpu_torch.ops import cgemm
+    """The complex GEMM's and the wide GEMM tier's dots on ``int_dot``'s
+    plain version (a float64 matmul on the card) while the block runs: the
+    reference side of the K1 checks of phases 3d and 3f.  Fails if K1
+    launched inside the block, so the reference cannot quietly run the
+    kernel it is checking."""
+    from qublas_tpu_torch.ops import cgemm, gemm
     from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm, int_dot,
                                                  int_dot_plain)
 
-    cgemm.int_dot = int_dot_plain
+    cgemm.int_dot = gemm.int_dot = int_dot_plain
     fused_int8_gemm.launches = 0
     try:
         yield
     finally:
-        cgemm.int_dot = int_dot
+        cgemm.int_dot = gemm.int_dot = int_dot
     check_launches("plain-dot reference", fused_int8_gemm.launches, 0)
 
 
@@ -856,30 +914,222 @@ def phase_chain(dev, state_a):
     return launches, rate
 
 
-def rq_ops(from_frac, fmt, floored=False):
+def pair_paths():
+    """Paths f1-f4: (label, operand format, qgemul keywords, out formats,
+    expected launches)."""
+    import qublas_tpu_torch as qt
+
+    sz = qt.OverflowMode.SAT_ZERO
+    f12 = qt.qformat(12, 12, round_mode=qt.RoundMode.TRN_TCPL,
+                     overflow_mode=sz)
+    q16 = qt.qformat(15, 16, round_mode=qt.RoundMode.TRN_TCPL,
+                     overflow_mode=sz)
+    f58, f88 = qt.qformat(5, 8), qt.qformat(8, 8)
+    segs = -(-PAIR_N // 31)     # 2^31 // 2^26: 31 products a segment
+    return {
+        "f1": ("K2 pair route Qu<12,12,TRN::TCPL,SAT::ZERO>", f12,
+               dict(mul_to=f12, add_formats=(f12,)), (f12,),
+               {"tree_gemm": 1}),
+        "f2": ("lossless wide dot Qu<5,8>", f58,
+               dict(mul_to=qt.qformat(11, 16),
+                    add_formats=(qt.qformat(22, 16),)),
+               (qt.qformat(23, 8), qt.qformat(31, 16)),
+               {"fused_int8_gemm": 2 * segs}),
+        "f3": ("Q16.16 Qu<15,16,TRN::TCPL,SAT::ZERO> throughout", q16,
+               dict(mul_to=q16, add_formats=(q16,)), (q16,), {}),
+        "f4": ("full-precision Qu<8,8> products (Qu<16,16> pairs)", f88,
+               dict(mul_full_prec=True, add_formats=(qt.qformat(24, 16),)),
+               (f88,), {}),
+    }
+
+
+def phase_pair(dev, chk):
+    """Phase 3f: pair storage and the 64-bit product route through the
+    public entry points."""
+    import numpy as np
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import hostops
+    from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
+    from qublas_tpu_torch.ops.reduce import qreduce_kernel
+    from qublas_tpu_torch.ops.tree_gemm import (k2_modes, plan_tree,
+                                                tree_gemm, tree_gemm_plain,
+                                                tree_gemm_stream)
+
+    counters = (fused_int8_gemm, tree_gemm, tree_gemm_stream, qreduce_kernel)
+    n, cn = PAIR_N, CORNER
+    rng = np.random.RandomState(11)
+    launches = {fn.__name__: 0 for fn in counters}
+    state = {}
+    for key, (label, f, kw, outs, expect) in pair_paths().items():
+        a = qt.from_raw(rand_raws(rng, f, (n, n), np.int64), f, dev)
+        b = qt.from_raw(rand_raws(rng, f, (n, n), np.int64), f, dev)
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = [qt.qgemul(a, b, out, **kw) for out in outs]
+        if key == "f1":
+            plan = plan_tree(f, f, qt.mul_merge(f, f, kw["mul_to"]),
+                             kw["add_formats"], n, outs[0])
+            stream = tree_gemm_stream(a.data, b.data, plan, outs[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {fn.__name__: fn.launches for fn in counters}
+        print(f"main path {key}: {label} {n}^3 in {wall * 1e3:.3f} ms wall "
+              f"(first call), launches {got}")
+        want = {fn.__name__: 0 for fn in counters}
+        want.update(expect)
+        if key == "f1":
+            want["tree_gemm_stream"] = 1
+        check_launches(f"main path {key}", got, want)
+        for name, v in got.items():
+            launches[name] += v
+        for out, c in zip(outs, res):
+            assert c.shape == (n, n) and c.fmt == out, (key, c.fmt)
+            assert c.is_pair == (out.storage_bits > 32), (key, out)
+        # against the plain versions: K2's, the wide tier on int_dot's,
+        # and the streaming tier's own plain torch on CPU copies of a
+        # 16-row, 16-column corner (the layered path there)
+        if key == "f1":
+            assert plan.prod_route == "pair" and k2_modes(plan) == 2
+            ref = tree_gemm_plain(a.data, b.data, plan, outs[0])
+            chk.same("tree_gemm", f"f1 pair route qgemul {n}^3", res[0].data,
+                     ref)
+            chk.same("tree_gemm_stream", f"f1 pair route, K2′ == K2 {n}^3",
+                     stream, res[0].data)
+            del ref, stream
+        elif key == "f2":
+            with plain_dots():
+                refs = [qt.qgemul(a, b, out, **kw) for out in outs]
+            for out, c, r in zip(outs, res, refs):
+                chk.same("fused_int8_gemm", f"f2 wide tier {n}^3 -> {out}",
+                         c, r)
+            del refs
+        else:
+            ref = qt.qgemul(a[:cn].to("cpu"),
+                            qt.QTensor(b.data[:, :cn].to("cpu"), f),
+                            outs[0], **kw)
+            corner = res[0].data[:cn, :cn].cpu()
+            assert torch.equal(corner, ref.data), f"{key}: card != CPU"
+        for out, c in zip(outs, res):
+            host = qt.host_qgemul(a[:cn], qt.QTensor(b.data[:, :cn], f), out,
+                                  add_formats=kw.get("add_formats", ()),
+                                  mul_to=kw.get("mul_to"),
+                                  mul_full_prec=kw.get("mul_full_prec",
+                                                       False))
+            assert np.array_equal(c.raw()[:cn, :cn], host), \
+                f"{key} corner vs hostops -> {out}"
+        state[key] = (a, b, kw, outs)
+        del res
+        torch.cuda.empty_cache()
+    print(f"main path f: f1 K2 == plain == K2′, f2 == its plain dots, f3 "
+          f"and f4 corners == CPU, every {cn}x{cn} corner == "
+          "hostops.qgemul")
+
+    # the pair elementwise ops on the card against CPU copies and hostops:
+    # u Qu<8,8> lanes, v Q16.16 lanes, w Q16.16 with zeros (divide by zero
+    # -> 0), r Qu<16,16> pairs (full-precision products, doubled)
+    f88, q16 = qt.qformat(8, 8), qt.qformat(15, 16)
+    u = qt.from_raw(rand_raws(rng, f88, (EW_N, EW_N), np.int32), f88, dev)
+    v = qt.from_raw(rand_raws(rng, q16, (EW_N, EW_N), np.int32), q16, dev)
+    w_np = rand_raws(rng, q16, (EW_N, EW_N), np.int32)
+    w_np[::7, ::3] = 0
+    w = qt.from_raw(w_np, q16, dev)
+    r = qt.qadd(qt.qmul(u, u, full_prec=True), qt.qmul(v, u, to=qt.qformat(
+        16, 16, round_mode=qt.RoundMode.RND_INF)))
+    assert r.is_pair
+    to20 = qt.qformat(30, 20)
+    sub_to = qt.qformat(20, 16, overflow_mode=qt.OverflowMode.WRP_TCPL)
+    cast_to = qt.qformat(6, 10, round_mode=qt.RoundMode.RND_CONV)
+    cases = [
+        ("qmul full precision (pair result)",
+         lambda u, v, w, r: qt.qmul(u, u, full_prec=True),
+         lambda u, v, w, r: hostops.qmul(u, u, full_prec=True), True),
+        ("qmul pair x lane", lambda u, v, w, r: qt.qmul(r, u, to=to20),
+         lambda u, v, w, r: hostops.qmul(r, u, to=to20), True),
+        ("qadd pair + lane", lambda u, v, w, r: qt.qadd(r, v),
+         lambda u, v, w, r: hostops.qadd(r, v), True),
+        ("qsub", lambda u, v, w, r: qt.qsub(v, r, to=sub_to),
+         lambda u, v, w, r: hostops.qsub(v, r, to=sub_to), True),
+        ("qdiv (pair route)", lambda u, v, w, r: qt.qdiv(r, w),
+         lambda u, v, w, r: hostops.qdiv(r, w), True),
+        ("qabs", lambda u, v, w, r: qt.qabs(r),
+         lambda u, v, w, r: hostops.qabs(r), True),
+        ("qneg", lambda u, v, w, r: qt.qneg(r),
+         lambda u, v, w, r: hostops.qneg(r), True),
+        ("qcmp", lambda u, v, w, r: qt.qcmp(r, v),
+         lambda u, v, w, r: hostops.qcmp(r, v), False),
+        ("qeq", lambda u, v, w, r: qt.qeq(r, r),
+         lambda u, v, w, r: hostops.qeq(r, r), False),
+        ("qcast pair -> lane", lambda u, v, w, r: qt.qcast(r, cast_to),
+         lambda u, v, w, r: hostops.convert(r, cast_to), True),
+    ]
+    args = (u, v, w, r)
+    cargs = tuple(t.to("cpu") for t in args)
+    raws = [t.raw()[:cn, :cn] for t in args]
+    for what, op, host_op, is_q in cases:
+        got, ref = op(*args), op(*cargs)
+        gd, rd = (got.data, ref.data) if is_q else (got, ref)
+        assert gd.device == r.device and gd.dtype == rd.dtype, what
+        assert torch.equal(gd.cpu(), rd), f"{what}: card != CPU"
+        corner = gd[:cn, :cn].cpu().numpy()
+        for i in range(cn):
+            for j in range(cn):
+                h = host_op(*((int(r[i, j]), t.fmt)
+                              for r, t in zip(raws, args)))
+                if is_q:
+                    assert h[1] == got.fmt and h[0] == int(corner[i, j]), \
+                        (what, i, j)
+                else:
+                    assert int(h) == int(corner[i, j]), (what, i, j)
+    layers = (qt.qformat(24, 16), qt.qformat(30, 10, round_mode=qt.RoundMode.
+                                              RND_CONV))
+    red = qt.qreduce(r, layers, axis=1)
+    assert red.is_pair and torch.equal(
+        red.data.cpu(), qt.qreduce(cargs[3], layers, axis=1).data)
+    rows = r.raw()[:cn]
+    for i in range(cn):
+        h = hostops.qreduce_list([(int(x), r.fmt) for x in rows[i]], layers)
+        assert h == (int(red.data[i]), red.fmt), ("qreduce row", i)
+    torch.cuda.synchronize()
+    print(f"main path f: {len(cases)} pair elementwise ops and a pair "
+          f"qreduce at {EW_N}x{EW_N} on the card equal the CPU, their "
+          f"{cn}x{cn} corners and {cn} rows hostops")
+    return launches, state
+
+
+def rq_ops(from_frac, fmt, floored=False, wide=False):
     """int32 operations of one requantize from ``from_frac`` into ``fmt``
     on the path csrc/requant.cuh takes for it: the rounding stage (none for
     a shift of 0; none beyond the floor for TRN::TCPL when the value comes
-    ``floored``, as the split product's does), then the overflow stage."""
+    ``floored``, as the split product's does), then the overflow stage.
+    ``wide``: ``requant64`` of a 64-bit value, whose shifts, compares and
+    selects each take a word pair (two operations), but for the WRP::TCPL
+    wrap, which runs on the narrowed word."""
     import qublas_tpu_torch as qt
 
     rm, om = fmt.round_mode, fmt.overflow_mode
     d = from_frac - fmt.frac_bits
     if d == 0 or (floored and rm == qt.RoundMode.TRN_TCPL):
-        ops = 0
+        rnd = 0
     elif d < 0 or rm == qt.RoundMode.TRN_TCPL:
-        ops = 1                      # shift
+        rnd = 1                      # shift
     elif rm == qt.RoundMode.TRN_SMGN:
-        ops = 3                      # bias select, add, shift
+        rnd = 3                      # bias select, add, shift
     else:
-        ops = 7                      # shift, mask, compares, carry, add
+        rnd = 7                      # shift, mask, compares, carry, add
+    ovf = 0
     if om == qt.OverflowMode.SAT_ZERO:
-        ops += 3                     # subtract, unsigned compare, select
+        ovf = 3                      # subtract, unsigned compare, select
     elif om in (qt.OverflowMode.SAT_TCPL, qt.OverflowMode.SAT_SMGN):
-        ops += 2                     # min, max
+        ovf = 2                      # min, max
     elif om == qt.OverflowMode.WRP_TCPL:
-        ops += 4 if fmt.signed else 1
-    return ops
+        ovf = 4 if fmt.signed else 1
+    if wide:
+        return 2 * rnd + (ovf if om == qt.OverflowMode.WRP_TCPL else 2 * ovf)
+    return rnd + ovf
 
 
 def tree_ops(n, rqs, convert_ops):
@@ -903,12 +1153,17 @@ def bound_ms(nbytes, ops, rate):
 
 def prod_ops(plan):
     """int32 operations of one requantized product: the i32 route's
-    multiply, or the split route's two multiplies and shift, which give
-    the floor of the product at the step's shift (B's split into its high
-    and low bits is once per element of B, shared by every row of A), then
-    the requantize's rounding carry and overflow."""
+    multiply, the split route's two multiplies and shift, which give the
+    floor of the product at the step's shift (B's split into its high and
+    low bits is once per element of B, shared by every row of A), or the
+    pair route's 64-bit multiply, then the requantize's rounding carry and
+    overflow."""
     if plan.prod_route == "split":
         return 3 + rq_ops(plan.prod_frac, plan.mul_fmt, floored=True)
+    if plan.prod_route == "pair":
+        # the 64-bit product (IMAD.WIDE: two words), its requantize on
+        # words pairs
+        return 2 + rq_ops(plan.prod_frac, plan.mul_fmt, wide=True)
     return 1 + rq_ops(plan.prod_frac, plan.mul_fmt)
 
 
@@ -946,7 +1201,7 @@ def k3_bound(plan, outputs, in_bytes, out_bytes):
                     outputs * per_out, INT32_OPS_S)
 
 
-def phase_times(card, state_a, state_b, state_d, chain_rate):
+def phase_times(card, state_a, state_b, state_d, chain_rate, state_f):
     """Phase 4: kernel, plain, library and main-path times."""
     import torch
 
@@ -960,7 +1215,8 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
                                                  int_dot, kmajor)
     from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
                                              qreduce_plain)
-    from qublas_tpu_torch.ops.tree_gemm import (tree_gemm, tree_gemm_plain,
+    from qublas_tpu_torch.ops.tree_gemm import (plan_tree, tree_gemm,
+                                                tree_gemm_plain,
                                                 tree_gemm_stream,
                                                 tree_gemm_stream_plain)
     from qublas_tpu_torch.timing import device_us, host_us, timeit
@@ -985,6 +1241,10 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
     ar, ai, br, bi = ca.real.data, ca.imag.data, cb.real.data, cb.imag.data
     brk, bik = kmajor(br), kmajor(bi)  # as cgemul hands them to its dots
     xp, yp = probe_tile(f88z, x.device)
+    pa, pb, pkw, (f12,) = state_f["f1"]
+    pplan = plan_tree(f12, f12, qt.mul_merge(f12, f12, pkw["mul_to"]),
+                      pkw["add_formats"], pa.shape[1], f12)
+    xq, yq = probe_tile(f12, x.device)
     t = {
         "k1": timeit(lambda: fused_int8_gemm(x, w1, plan1.prod_frac, mid)),
         "k1_rm": timeit(lambda: fused_int8_gemm(x, w1_rm, plan1.prod_frac,
@@ -1037,7 +1297,16 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
         "p1": timeit(lambda: chain_probe(xp, yp, tplan, T1, G)),
         "p1_plain": timeit(lambda: chain_probe_plain(xp, yp, tplan, T1, G),
                            warmup=1),
+        "k2_pair": timeit(lambda: tree_gemm(pa.data, pb.data, pplan, f12)),
+        "k2_pair_plain": timeit(lambda: tree_gemm_plain(
+            pa.data, pb.data, pplan, f12), runs=3, warmup=1),
+        "k2s_pair": timeit(lambda: tree_gemm_stream(pa.data, pb.data, pplan,
+                                                    f12), runs=5, warmup=1),
+        "p1_pair": timeit(lambda: chain_probe(xq, yq, pplan, T1, G)),
     }
+    for key, (a_, b_, kw_, outs_) in state_f.items():
+        t[key] = timeit(lambda: [qt.qgemul(a_, b_, o, **kw_) for o in outs_],
+                        runs=3, warmup=1)
     ops = 2 * n ** 3
     for key, label in (
             ("k1", "fused_int8_gemm, K-major B (the pipeline's weight)"),
@@ -1131,6 +1400,24 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
           f"tree_gemm_stream (K2′) {tn}^3 {k2s_rate / 1e9:.2f} Gprod/s, "
           f"{k2s_rate / chain_rate:.4f} of P1's rate [{card}]")
 
+    pn = pa.shape[1]
+    print(f"time tree_gemm pair route (f1, Qu<12,12,TRN::TCPL,SAT::ZERO>, "
+          f"modes and route compiled in) {pn}^3: {t['k2_pair']:.4f} ms, "
+          f"{pn ** 3 / t['k2_pair'] / 1e6:.2f} Gprod/s, over the canonical "
+          f"plan's {t['k2_pair'] / t['k2']:.4f}; plain "
+          f"{t['k2_pair_plain']:.4f} ms [{card}]")
+    dev_us = device_us(lambda: tree_gemm_stream(pa.data, pb.data, pplan,
+                                                f12), runs=3)
+    print(f"time tree_gemm_stream pair route (run-time plan) {pn}^3: "
+          f"{t['k2s_pair']:.4f} ms, device us per call {dev_us} [{card}]")
+    p1_us = device_us(lambda: chain_probe(xq, yq, pplan, T1, G))
+    print(f"time chain_probe pair route (f1's plan, run-time instantiation) "
+          f"T={T1} x {G} programs of [{BM}, {BN}]: {t['p1_pair']:.4f} ms, "
+          f"device us per call {p1_us} [{card}]")
+    for key, (label, *_rest) in pair_paths().items():
+        print(f"time main path {key} ({label}) {pn}^3: {t[key]:.4f} ms "
+              f"[{card}]")
+
     rows, cols = REDUCE_SHAPE
     bounds = {
         "k1": bound_ms(3 * n * n, ops, INT8_OPS_S),
@@ -1142,6 +1429,9 @@ def phase_times(card, state_a, state_b, state_d, chain_rate):
         "k3_big": k3_bound(big_plan, REDUCE_BIG_ROWS, 1, 2),
         "k3_layered": k3_bound(p_plan, ln * ln, 4, 4),
         "p1": p1_bound(tplan, T1, G, BM * BN),
+        "k2_pair": k2_bound(pplan, f12, pn, pn, pn),
+        "k2s_pair": k2_bound(pplan, f12, pn, pn, pn),
+        "p1_pair": p1_bound(pplan, T1, G, BM * BN),
         "cgemul_dots": bound_ms(4 * cn * cn + 4 * 4 * cn * cn,
                                 4 * 2 * cn ** 3, INT8_OPS_S),
     }
@@ -1184,8 +1474,11 @@ def main() -> int:
     phase_elementwise(dev)
     launches_d, state_d = phase_complex_path(dev, chk)
     launches_e, chain_rate = phase_chain(dev, state_a)
-    t, bounds = phase_times(card, state_a, state_b, state_d, chain_rate)
-    for line in resources(report, "tree_gemm_stream_kernel") + \
+    launches_f, state_f = phase_pair(dev, chk)
+    t, bounds = phase_times(card, state_a, state_b, state_d, chain_rate,
+                            state_f)
+    for line in resources(report, "tree_gemm_tiled_kernel") + \
+            resources(report, "tree_gemm_stream_kernel") + \
             resources(report, "chain_probe_kernel"):
         print(f"registers {line}")
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -1203,15 +1496,17 @@ def main() -> int:
     kernels = [
         row("fused_int8_gemm", "qublas_tpu_torch/csrc/fused_gemm.cu",
             "qublas_tpu/ops/pallas_gemm.py:83",
-            launches_a["fused_int8_gemm"] + launches_d["fused_int8_gemm"],
-            "k1", "k1_plain", "int_mm"),
+            launches_a["fused_int8_gemm"] + launches_d["fused_int8_gemm"]
+            + launches_f["fused_int8_gemm"], "k1", "k1_plain", "int_mm"),
         row("tree_gemm", "qublas_tpu_torch/csrc/tree_gemm_tiled.cu",
-            "qublas_tpu/ops/tree_gemm.py:362", launches_a["tree_gemm"],
-            "k2", "k2_plain", None),
+            "qublas_tpu/ops/tree_gemm.py:362",
+            launches_a["tree_gemm"] + launches_f["tree_gemm"], "k2",
+            "k2_plain", None),
         row("tree_gemm_stream",
             "qublas_tpu_torch/csrc/tree_gemm_stream.cuh",
             "qublas_tpu/ops/tree_gemm.py:457",
-            launches_b["tree_gemm_stream"], "k2s", "k2s_plain", None),
+            launches_b["tree_gemm_stream"] + launches_f["tree_gemm_stream"],
+            "k2s", "k2s_plain", None),
         row("qreduce_kernel", "qublas_tpu_torch/csrc/qreduce.cu",
             "qublas_tpu/ops/reduce.py:192",
             launches_b["qreduce_kernel"] + launches_d["qreduce_kernel"],

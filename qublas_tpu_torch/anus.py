@@ -4,10 +4,11 @@ Port of ``qublas_tpu.anus`` lines 210-383: :class:`QTable` maps every input
 bit pattern through a Python-double function and requantizes it into the
 output format with the exact host pipeline (``hostint``), exactly as the JAX
 package builds it.  Applying the table is a mask of the input raws and a
-plain index of the int32 table on the tensor's device.  (The JAX package's
-63-select packed tree exists only because Mosaic has no 1-D gather; torch
-indexes natively.)  ``qpoly``/``qapprox`` are still to be ported (ROADMAP
-item 6).
+plain index of the table on the tensor's device: int32 entries for a lane
+output format, int64 for a pair-storage one (33..64 bits).  (The JAX
+package's 63-select packed tree exists only because Mosaic has no 1-D
+gather; torch indexes natively.)  ``qpoly``/``qapprox`` are still to be
+ported (ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from . import hostint
-from .ops.widths import torch_dtype_for
+from .ops.widths import storage_dtype
 from .qformat import QFormat
 from .qtensor import QTensor
 
@@ -64,10 +65,11 @@ class QTable:
             raise ValueError(
                 f"LUT over a {w}-bit input needs 2^{w} entries; cap is "
                 f"2^{MAX_TABLE_BITS}.  Use qapprox for wide formats.")
-        if torch_dtype_for(self.out_fmt) is None:
+        out_dtype = storage_dtype(self.out_fmt)
+        if out_dtype is None:
             raise NotImplementedError(
-                f"{self.out_fmt}: a table into pair/limb storage is not yet "
-                "ported (ROADMAP items 10-11)")
+                f"{self.out_fmt}: a table into limb or host storage is not "
+                "yet ported (ROADMAP A4)")
         raws = []
         for p in range(1 << max(w, 0)):
             raw_in = p - (1 << w) if (in_fmt.signed and w > 0
@@ -79,7 +81,8 @@ class QTable:
                 out_val = math.nan
             raws.append(hostint.double_to_raw(out_val, self.out_fmt))
         self._mask = (1 << w) - 1 if w > 0 else 0
-        self.table = torch.from_numpy(np.array(raws, dtype=np.int32))
+        self.table = torch.from_numpy(np.array(
+            raws, dtype=np.int64 if out_dtype == torch.int64 else np.int32))
         self._on_device = {}
 
     def _table_on(self, device: torch.device) -> torch.Tensor:
@@ -97,7 +100,7 @@ class QTable:
             raise ValueError(f"QTable built for {self.in_fmt}, got {x.fmt}")
         idx = (x.data.to(torch.int32) & self._mask).long()
         raw = self._table_on(x.device)[idx]
-        return QTensor(raw.to(torch_dtype_for(self.out_fmt)), self.out_fmt)
+        return QTensor(raw.to(storage_dtype(self.out_fmt)), self.out_fmt)
 
 
 def build_table(func, in_fmt: QFormat,

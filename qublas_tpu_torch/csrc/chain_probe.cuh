@@ -26,8 +26,9 @@
 //    low bits hoisted out of the loop: y never changes along a chain), the
 //    merge's add and a SAT::ZERO range check after each (add, unsigned
 //    compare, select).  Every other plan (entry 0) reads its steps at run
-//    time with the step loop rolled, its product route chosen once a
-//    launch and y's split once a chain;
+//    time with the step loop rolled, its product route (i32, split, or
+//    the 64-bit pair product) chosen once a launch and y's split once a
+//    chain;
 //  * CHAINS independent chains a thread: their steps interleave, so a
 //    thread has CHAINS instructions to issue for each step's latency;
 //  * x and y are read and out written CHAINS neighbours at a time (16-byte
@@ -67,11 +68,12 @@ struct Chain {
 
 // One step with every requantize step read at run time (plan 0), the loop
 // rolled and its invariants hoisted by hand, which the compiler does not
-// do for qk::Steps<0> (PERF.md): the product route is chosen once a launch
-// (SPLIT), y's split into its high and low bits once a chain.
-template <bool SPLIT>
+// do for qk::Steps<0> (PERF.md): the product route (a qk::Route) is chosen
+// once a launch (ROUTE), y's split into its high and low bits once a chain.
+template <int ROUTE>
 struct RunTime {
   static constexpr bool ROLLED = true;
+  static constexpr bool SPLIT = ROUTE == qk::ROUTE_SPLIT;
   struct Y {
     int32_t y, bl, bh;
   };
@@ -117,6 +119,8 @@ struct RunTime {
     int32_t prod;
     if constexpr (SPLIT) {
       prod = split_mul(v, y, p.prod);
+    } else if constexpr (ROUTE == qk::ROUTE_PAIR) {
+      prod = qk::requant64((int64_t)v * y.y, p.prod);
     } else {
       prod = qk::requant(qk::wmul(v, y.y), p.prod);
     }
@@ -269,7 +273,7 @@ inline bool p1_match(const TreeParams& p, int plan) {
   if (plan == 0) return true;
   if (plan < 0 || plan >= K2S_NPLANS) return false;
   const int* e = K2S_PLANS[plan];
-  return p.split == e[0] && same_rq(p.prod, e + 1) &&
+  return p.route == e[0] && same_rq(p.prod, e + 1) &&
          same_rq(p.fold.merge[0], e + 6);
 }
 
@@ -282,9 +286,11 @@ int launch_p1(const int32_t* x, const int32_t* y, int32_t* out, int elems,
   constexpr int C = P1_CHAINS[PLAN];
   constexpr int T = P1_THREADS[PLAN];
   if constexpr (PLAN == 0) {
-    return (p.split ? p1::launch<p1::RunTime<true>, C, T>
-                    : p1::launch<p1::RunTime<false>, C, T>)(
-        x, y, out, elems, programs, steps, p, stream);
+    const auto run =
+        p.route == ROUTE_SPLIT  ? p1::launch<p1::RunTime<ROUTE_SPLIT>, C, T>
+        : p.route == ROUTE_PAIR ? p1::launch<p1::RunTime<ROUTE_PAIR>, C, T>
+                                : p1::launch<p1::RunTime<ROUTE_I32>, C, T>;
+    return run(x, y, out, elems, programs, steps, p, stream);
   } else {
     return p1::launch<p1::Chain<PLAN>, C, T>(x, y, out, elems, programs,
                                              steps, p, stream);

@@ -12,8 +12,8 @@
 
 namespace qk {
 
-// The plans with instantiations, by index: the product route (1 =
-// "split"), then the product's requantize step and the step that every
+// The plans with instantiations, by index: the product route (a Route),
+// then the product's requantize step and the step that every
 // tree merge shares, each as Rq's fields (d, round, ovf, w, sgn).  Entry 0
 // reads everything at run time.  ops/tree_gemm.py:K2S_PLANS lists the same
 // entries after entry 0; K2' takes an entry when every merge has its step
@@ -21,7 +21,7 @@ namespace qk {
 // (ops/chain_probe.py:p1_plan).
 constexpr int K2S_PLANS[][11] = {
     {ANY, ANY, ANY, ANY, ANY, ANY, ANY, ANY, ANY, ANY, ANY},
-    {1, 8, TRN_TCPL, SAT_ZERO, 17, 1, 0, TRN_TCPL, SAT_ZERO, 17, 1},
+    {ROUTE_SPLIT, 8, TRN_TCPL, SAT_ZERO, 17, 1, 0, TRN_TCPL, SAT_ZERO, 17, 1},
 };
 constexpr int K2S_NPLANS = sizeof(K2S_PLANS) / sizeof(K2S_PLANS[0]);
 
@@ -49,7 +49,10 @@ __device__ __forceinline__ Rq plan_rq() {
 template <int PLAN>
 struct Steps {
   static constexpr bool UNROLLED = PLAN != 0;
-  static constexpr bool SPLIT = PLAN != 0 && K2S_PLANS[PLAN][0] == 1;
+  static constexpr bool SPLIT =
+      PLAN != 0 && K2S_PLANS[PLAN][0] == ROUTE_SPLIT;
+  static_assert(PLAN == 0 || K2S_PLANS[PLAN][0] != ROUTE_PAIR,
+                "compiled plans have an int32 product route");
 
   static __device__ __forceinline__ int32_t product(const TreeParams& p,
                                                     int32_t a, int32_t b) {

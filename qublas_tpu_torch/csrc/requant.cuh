@@ -1,7 +1,9 @@
 // Bit-exact requantize of int32 values: the device copy of
 // qublas_tpu_torch/ops/wideint.py, itself the port of
 // qublas_tpu/ops/wideint.py:335-465 (_carry_mode, _overflow_i32,
-// requantize_i32, requantize_split_mul).  Shared by all the kernels.
+// requantize_i32, requantize_split_mul), and of a 64-bit product into a
+// lane (requant64: wideint.py's requantize_i64, the JAX package's
+// requantize_pair of mul32_wide).  Shared by all the kernels.
 //
 // Shifts and wrapping arithmetic go through uint32_t: in C++17 a left shift
 // of a negative int, or a signed overflow, is undefined; the JAX lanes and
@@ -142,6 +144,59 @@ __device__ __forceinline__ int32_t requant_split_mul(int32_t a, int32_t b,
     }
   }
   return overflow_i32(y, p);
+}
+
+__device__ __forceinline__ int64_t sar64(int64_t x, int s) {
+  return x >> (s > 63 ? 63 : s);
+}
+
+// requantize_i64 of a 64-bit value, narrowed to the int32 lane of a
+// destination whose value the width proof keeps inside int32 (the "pair"
+// product route: x is (int64_t)a * b, one IMAD.WIDE).  The steps are
+// requant's on 64 bits, with p.d up to 63 (widths.route_requant) and any
+// width up to 64; shifts of 64 or more are clamped, as in wideint.py.
+__device__ __forceinline__ int32_t requant64(int64_t x, const Rq& p) {
+  const int d = p.d;
+  int64_t y;
+  if (d <= 0) {
+    y = -d >= 64 ? 0 : (int64_t)((uint64_t)x << -d);
+  } else if (p.round == TRN_TCPL) {
+    y = sar64(x, d);
+  } else if (p.round == TRN_SMGN) {
+    // -((-x) >> d) for negative x, the negations wrapping as the pair's
+    const int64_t nx = (int64_t)(0ull - (uint64_t)x);
+    y = x < 0 ? (int64_t)(0ull - (uint64_t)sar64(nx, d)) : sar64(x, d);
+  } else {
+    const int64_t xh = sar64(x, d);
+    bool gt, eq;
+    if (d < 64) {
+      const int64_t xl = (int64_t)((uint64_t)x & ((1ull << d) - 1ull));
+      const int64_t t = (int64_t)(1ull << (d - 1));
+      gt = xl > t;
+      eq = xl == t;
+    } else {  // the low d bits are x or 2^d + x, past the threshold's reach
+      gt = x < 0 && (d > 64 || x != INT64_MIN);
+      eq = d == 64 && x == INT64_MIN;
+    }
+    const bool c = carry_mode(p.round, gt, gt || eq, eq, x < 0, x > 0,
+                              (xh & 1) != 0);
+    y = (int64_t)((uint64_t)xh + (c ? 1u : 0u));
+  }
+  const int w = p.w;
+  if (p.ovf == SAT_TCPL || p.ovf == SAT_ZERO || p.ovf == SAT_SMGN) {
+    const int64_t hi = (int64_t)((1ull << (w - 1)) - 1ull);
+    int64_t lo;
+    if (!p.sgn) lo = 0;
+    else if (p.ovf == SAT_SMGN) lo = -hi;
+    else lo = (int64_t)(~(uint64_t)hi);  // -(2^(w-1))
+    if (p.ovf == SAT_ZERO) return (y < lo || y > hi) ? 0 : (int32_t)y;
+    return (int32_t)(y < lo ? lo : (y > hi ? hi : y));
+  }
+  if (p.ovf == WRP_TCPL) {
+    // the low 32 bits of the 64-bit wrap: overflow_i32's wrap of them
+    return overflow_i32((int32_t)y, p);
+  }
+  return (int32_t)y;  // WRP_TCPL_SAT: the stub, then the word's low bits
 }
 
 // Load an int8/int16/int32 input lane, sign-extended to int32.

@@ -12,31 +12,48 @@
 
 namespace qk {
 
+// The product routes (widths.route_mul), as ops/tree_gemm.py:ROUTES codes
+// them: the int32 product, the split-B int32 product, the 64-bit product.
+enum Route : int { ROUTE_I32 = 0, ROUTE_SPLIT = 1, ROUTE_PAIR = 2 };
+// An instantiation's route where it reads one of the two int32 routes at
+// run time (beside one Route, or ANY: all three at run time).
+constexpr int INT32_ROUTES = -2;
+
 struct TreeParams {
-  int split;             // product route: 0 = "i32", 1 = "split"
+  int route;             // product route: a Route
   Rq prod;               // product requantize into the mul format
   Fold fold;             // tree layers and drain
   Rq fin;                // final_fmt -> out_fmt
 };
 
+// The requantized product of a and b by route, with the product's step r.
+__device__ __forceinline__ int32_t product_rq(int route, int32_t a,
+                                              int32_t b, const Rq& r) {
+  if (route == ROUTE_SPLIT) return requant_split_mul(a, b, r);
+  if (route == ROUTE_PAIR) return requant64((int64_t)a * b, r);
+  return requant(wmul(a, b), r);
+}
+
 __device__ __forceinline__ int32_t product(const TreeParams& p, int32_t a,
                                            int32_t b) {
-  return p.split ? requant_split_mul(a, b, p.prod)
-                 : requant(wmul(a, b), p.prod);
+  return product_rq(p.route, a, b, p.prod);
 }
 
 // params (host int32), as qublas_tpu_torch/ops/tree_gemm.py:_kernel_params
 // writes them:
-//   split, log_blk, prod[5], levels, merge[levels][5], ndrain,
+//   route, log_blk, prod[5], levels, merge[levels][5], ndrain,
 //   (op, level)[ndrain], fin[5]
 // Returns false for parameters outside the kernels' range.
 inline bool read_params(const int* params, TreeParams* p, int* log_blk) {
   const int* q = params;
-  p->split = *q++;
+  p->route = *q++;
   *log_blk = *q++;
   p->prod = read_rq(q);
   q = read_fold(q + 5, &p->fold);
-  if (q == nullptr || *log_blk < 0 || *log_blk > 4) return false;
+  if (q == nullptr || *log_blk < 0 || *log_blk > 4 || p->route < ROUTE_I32 ||
+      p->route > ROUTE_PAIR) {
+    return false;
+  }
   p->fin = read_rq(q);
   return true;
 }

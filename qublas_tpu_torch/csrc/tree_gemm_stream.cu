@@ -13,7 +13,7 @@ bool plan_match(const TreeParams& p, int levels, int plan) {
   if (plan == 0) return true;
   if (plan < 0 || plan >= qk::K2S_NPLANS) return false;
   const int* e = qk::K2S_PLANS[plan];
-  if (p.split != e[0] || !qk::same_rq(p.prod, e + 1)) return false;
+  if (p.route != e[0] || !qk::same_rq(p.prod, e + 1)) return false;
   for (int l = 0; l < levels; ++l) {
     if (!qk::same_rq(p.fold.merge[l], e + 6)) return false;
   }

@@ -21,11 +21,12 @@
 // levels 0-3, where the drain reads them, so one kernel takes any k.
 //
 // Instantiations fix the (round, overflow) modes that the product and
-// every merge share (ops/tree_gemm.py:k2_modes picks one, modes_match
-// checks it) and unroll the slice, so q is a compile-time index; or they
-// read the modes at run time and keep the slice's loop rolled, partials
-// picked by compare-and-select: sixteen unrolled copies of the run-time
-// requantize are too much code for the instruction cache.  The micro-tile
+// every merge share, and the product's 64-bit or int32 routes
+// (ops/tree_gemm.py:k2_modes picks one, modes_match checks it), and unroll
+// the slice, so q is a compile-time index; or they read the modes and the
+// route at run time and keep the slice's loop rolled, partials picked by
+// compare-and-select: sixteen unrolled copies of the run-time requantize
+// are too much code for the instruction cache.  The micro-tile
 // and the blocks per SM were chosen by measurement (PERF.md §6): the
 // work is int32 ALU operations with short dependent chains, so resident
 // warps count for more than operand reuse.
@@ -35,12 +36,18 @@
 namespace {
 
 // Whether the product and every merge of the plan round and overflow with
-// the pair K2_MODES[modes] (the drain's converts are merges' requantizes).
+// the pair K2_MODES[modes] (the drain's converts are merges' requantizes),
+// and the product's route is the entry's.
 bool modes_match(const TreeParams& p, int levels, int modes) {
   if (modes == 0) return true;
   if (modes < 0 || modes >= qk::K2_NMODES) return false;
   const int rnd = qk::K2_MODES[modes][0];
   const int ovf = qk::K2_MODES[modes][1];
+  const int route = qk::K2_MODES[modes][2];
+  if (route == qk::INT32_ROUTES ? p.route == qk::ROUTE_PAIR
+                                : p.route != route) {
+    return false;
+  }
   if (p.prod.round != rnd || p.prod.ovf != ovf) return false;
   for (int l = 0; l < levels; ++l) {
     if (p.fold.merge[l].round != rnd || p.fold.merge[l].ovf != ovf) {
@@ -70,12 +77,14 @@ extern "C" int qk_tree_gemm(int device, const void* a, const void* b, void* c,
   const auto* A = static_cast<const int32_t*>(a);
   const auto* B = static_cast<const int32_t*>(b);
   auto s = static_cast<cudaStream_t>(stream);
-  if (top <= 8) {
-    (modes ? qk::launch_k2<8, 1> : qk::launch_k2<8, 0>)(A, B, c, m, n, k,
-                                                        out_bytes, p, s);
-  } else {
-    (modes ? qk::launch_k2<qk::MAXL, 1> : qk::launch_k2<qk::MAXL, 0>)(
-        A, B, c, m, n, k, out_bytes, p, s);
-  }
+  static_assert(qk::K2_NMODES == 3, "qk_tree_gemm launches modes 0-2");
+  const auto run =
+      top <= 8 ? (modes == 2   ? qk::launch_k2<8, 2>
+                  : modes == 1 ? qk::launch_k2<8, 1>
+                               : qk::launch_k2<8, 0>)
+               : (modes == 2   ? qk::launch_k2<qk::MAXL, 2>
+                  : modes == 1 ? qk::launch_k2<qk::MAXL, 1>
+                               : qk::launch_k2<qk::MAXL, 0>);
+  run(A, B, c, m, n, k, out_bytes, p, s);
   return (int)cudaGetLastError();
 }

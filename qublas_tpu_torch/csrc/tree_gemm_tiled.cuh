@@ -27,13 +27,23 @@ __device__ __forceinline__ void cp_async4(void* dst, const int32_t* src,
                : "memory");
 }
 
-// qk::with_modes (tree_fold.cuh) fixes the modes of each step.
-template <int RND, int OVF>
+// qk::with_modes (tree_fold.cuh) fixes the modes of each step, ROUTE the
+// product route: the 64-bit product alone (ROUTE_PAIR), the two int32
+// routes (INT32_ROUTES) or all three (ANY) chosen at run time.  The int32
+// routes keep an instantiation of their own: the 64-bit product's
+// registers would push the compiled-modes kernel into spills.
+template <int RND, int OVF, int ROUTE>
 __device__ __forceinline__ int32_t product_modes(const TreeParams& p,
                                                  int32_t a, int32_t b) {
   const qk::Rq r = qk::with_modes<RND, OVF>(p.prod);
-  return p.split ? qk::requant_split_mul(a, b, r)
-                 : qk::requant(qk::wmul(a, b), r);
+  if constexpr (ROUTE == qk::ROUTE_PAIR) {
+    return qk::requant64((int64_t)a * b, r);
+  } else if constexpr (ROUTE == qk::INT32_ROUTES) {
+    return p.route != qk::ROUTE_I32 ? qk::requant_split_mul(a, b, r)
+                                    : qk::requant(qk::wmul(a, b), r);
+  } else {
+    return qk::product_rq(p.route, a, b, r);
+  }
 }
 
 template <int RND, int OVF>
@@ -113,7 +123,7 @@ __device__ __forceinline__ void fold_dynamic(int q, int32_t (&part)[LOG_BLK],
 
 // A [M, K], B [K, N] int32 row-major; k / 16 full blocks < 2^TOP; at
 // least MINB blocks of it resident on an SM.
-template <int TOP, int TM, int TN, int MINB, int RND, int OVF>
+template <int TOP, int TM, int TN, int MINB, int RND, int OVF, int ROUTE>
 __global__ void __launch_bounds__(TILED_THREADS, MINB)
 tree_gemm_tiled_kernel(const int32_t* __restrict__ A,
                        const int32_t* __restrict__ B, void* __restrict__ C,
@@ -174,7 +184,7 @@ tree_gemm_tiled_kernel(const int32_t* __restrict__ A,
     for (int i = 0; i < TM; ++i) {
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        fold(i * TN + j, product_modes<RND, OVF>(p, a[i], b[j]));
+        fold(i * TN + j, product_modes<RND, OVF, ROUTE>(p, a[i], b[j]));
       }
     }
   };
@@ -247,12 +257,12 @@ tree_gemm_tiled_kernel(const int32_t* __restrict__ A,
   }
 }
 
-template <int TOP, int TM, int TN, int MINB, int RND, int OVF>
+template <int TOP, int TM, int TN, int MINB, int RND, int OVF, int ROUTE>
 void launch_tiled(const int32_t* a, const int32_t* b, void* c, int m, int n,
                   int k, int out_bytes, const TreeParams& p,
                   cudaStream_t stream) {
   const dim3 grid((n + 16 * TN - 1) / (16 * TN), (m + 16 * TM - 1) / (16 * TM));
-  tree_gemm_tiled_kernel<TOP, TM, TN, MINB, RND, OVF>
+  tree_gemm_tiled_kernel<TOP, TM, TN, MINB, RND, OVF, ROUTE>
       <<<grid, TILED_THREADS, 0, stream>>>(a, b, c, m, n, k, out_bytes, p);
 }
 
@@ -260,10 +270,13 @@ void launch_tiled(const int32_t* a, const int32_t* b, void* c, int m, int n,
 
 namespace qk {
 
-// The (round, overflow) pairs that K2 has instantiations for, by index;
-// 0 reads the modes at run time.  ops/tree_gemm.py:K2_MODES lists the
-// same pairs after entry 0.
-constexpr int K2_MODES[][2] = {{ANY, ANY}, {TRN_TCPL, SAT_ZERO}};
+// The (round, overflow) pairs and product routes that K2 has
+// instantiations for, by index; 0 reads them at run time.  Each pair of
+// ops/tree_gemm.py:K2_MODES has two entries: its int32 routes, then its
+// 64-bit product route (ops/tree_gemm.py:k2_modes).
+constexpr int K2_MODES[][3] = {{ANY, ANY, ANY},
+                               {TRN_TCPL, SAT_ZERO, INT32_ROUTES},
+                               {TRN_TCPL, SAT_ZERO, ROUTE_PAIR}};
 constexpr int K2_NMODES = sizeof(K2_MODES) / sizeof(K2_MODES[0]);
 
 // K2 for k / 16 full blocks below 2^TOP, modes K2_MODES[MODES].  The
@@ -276,8 +289,8 @@ void launch_k2(const int32_t* a, const int32_t* b, void* c, int m, int n,
                cudaStream_t stream) {
   constexpr int TM = TOP <= 8 ? 2 : 1;
   constexpr int MINB = TOP <= 8 ? 4 : 2;
-  launch_tiled<TOP, TM, 1, MINB, K2_MODES[MODES][0], K2_MODES[MODES][1]>(
-      a, b, c, m, n, k, out_bytes, p, stream);
+  launch_tiled<TOP, TM, 1, MINB, K2_MODES[MODES][0], K2_MODES[MODES][1],
+               K2_MODES[MODES][2]>(a, b, c, m, n, k, out_bytes, p, stream);
 }
 
 #define QK_K2_INSTANCE(TOP, MODES)                                         \
@@ -286,7 +299,9 @@ void launch_k2(const int32_t* a, const int32_t* b, void* c, int m, int n,
                                       const TreeParams&, cudaStream_t)
 extern QK_K2_INSTANCE(8, 0);
 extern QK_K2_INSTANCE(8, 1);
+extern QK_K2_INSTANCE(8, 2);
 extern QK_K2_INSTANCE(MAXL, 0);
 extern QK_K2_INSTANCE(MAXL, 1);
+extern QK_K2_INSTANCE(MAXL, 2);
 
 }  // namespace qk

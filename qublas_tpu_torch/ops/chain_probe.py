@@ -28,7 +28,8 @@ import torch
 
 from .. import _build
 from ..qformat import QFormat
-from .tree_gemm import K2S_PLANS, TreePlan, _kernel_params, _merge, _product
+from .tree_gemm import (K2S_PLANS, ROUTES, TreePlan, _kernel_params, _merge,
+                        _product)
 from .widths import LANE_DTYPES
 
 __all__ = ["chain_probe", "chain_probe_plain", "measured_chain_prods",
@@ -64,11 +65,11 @@ def p1_plan(plan: TreePlan) -> int:
     step is layer 0's, or 0 (every step read at run time).  P1 reads no
     other level, so the upper levels' steps do not matter, as they do for
     K2′'s ``k2s_plan``."""
-    split = int(plan.prod_route == "split")
+    route = ROUTES[plan.prod_route]
     prod = _build.rq_args(plan.prod_frac, plan.mul_fmt)
     merge0 = _build.rq_args(plan.level_fmts[0].frac_bits, plan.merge_fmts[0])
     for i, entry in enumerate(K2S_PLANS):
-        if (split, prod, merge0) == entry:
+        if (route, prod, merge0) == entry:
             return i + 1
     return 0
 
@@ -116,10 +117,6 @@ def chain_probe(x: torch.Tensor, y: torch.Tensor, plan: TreePlan,
         return chain_probe_plain(x, y, plan, steps, programs)
     if x.device.type != "cuda":
         raise ValueError(f"chain_probe runs on CUDA or CPU, not {x.device}")
-    if plan.prod_route == "pair":
-        raise NotImplementedError(
-            "the 64-bit 'pair' product route is not yet ported "
-            "(ROADMAP item 10)")
     if "p1" not in plan._kernel_cache:
         plan._kernel_cache["p1"] = p1_plan(plan)
     out = _launch(x, y, plan, steps, programs, plan._kernel_cache["p1"])

@@ -2,32 +2,45 @@
 
 Port of ``qublas_tpu.ops.gemm``.  The proof machinery (``_identity_range``,
 ``_lossless_requant``, ``ExactPlan``, ``tree_exact``,
-``dot_partial_interval``, ``exact_plan``, ``_device_epilogue_ok``) is a copy
-of the JAX package's pure-Python planners: the machine with the card has no
-JAX, and ``qublas_tpu.ops.gemm`` imports it at module level.  The CPU tests
-pin the copies to the originals.
+``dot_partial_interval``, ``exact_plan``, ``_device_epilogue_ok``,
+``wide_dot_ok``) is a copy of the JAX package's pure-Python planners: the
+machine with the card has no JAX, and ``qublas_tpu.ops.gemm`` imports it at
+module level.  The CPU tests pin the copies to the originals.
 
-:func:`qgemul` dispatches in the JAX package's order over the two tiers
-ported so far:
+:func:`qgemul` dispatches in the JAX package's order over the tiers ported
+so far (by the losslessness proof, every tier that admits a configuration
+gives the same bits; the order is about speed):
 
 1. **Lossless tier** (``exact_plan`` and ``_device_epilogue_ok``): every
    association order gives the same bits, so the dot is one int8 (or int32)
    integer GEMM with the requantize fused on its int32 accumulator —
    :func:`~qublas_tpu_torch.ops.fused_gemm.fused_int8_gemm` (kernel K1).
-2. **Order-sensitive tier** (``plan_tree``): the reference's balanced tree
+2. **Lossless wide tier** (:func:`_fast_gemm_wide`): the proof holds but
+   the dot outgrows int32, so the dot is summed exactly in int64 — segment
+   dots on K1's ``int_dot`` where every product fits int32, chunked int64
+   products otherwise — and requantized once.  The JAX package first tries
+   its limb-domain dot, which comes with limb storage (ROADMAP A4).
+3. **Order-sensitive tier** (``plan_tree``): the reference's balanced tree
    with per-product and per-layer requantization —
-   :func:`~qublas_tpu_torch.ops.tree_gemm.tree_gemm` (kernel K2).  The JAX
-   package's prefix-lossless hybrid tier computes the same bits faster on a
-   TPU; on the card K2 evaluates those configs directly.
+   :func:`~qublas_tpu_torch.ops.tree_gemm.tree_gemm` (kernel K2), products
+   on the i32, split or 64-bit pair route.  The JAX package's
+   prefix-lossless hybrid tier computes the same bits faster on a TPU; on
+   the card K2 evaluates those configs directly.
+4. **Streaming tier** (:func:`_stream_gemm_wide`): the same tree as a
+   binary-carry stream of k-chunks over the elementwise ops and
+   :func:`~qublas_tpu_torch.ops.reduce.qreduce`, for configurations outside
+   the int32 tree (pair-storage values, 33..64-bit layer sums); small
+   GEMMs take the layered path instead: all products, then ``qreduce``.
 
-Operands with equal leading (batch) dims run either tier once per matrix
-of the flattened batch.  Broadcast batch dims, the limb and pair-domain
-wide tiers, the streaming wide GEMM and the host fallback raise
-``NotImplementedError`` (ROADMAP items 4, 10 and 11).
+Operands with equal leading (batch) dims run the kernel tiers once per
+matrix of the flattened batch.  Broadcast batch dims, and configurations
+whose values need limb or host storage, raise ``NotImplementedError``
+(ROADMAP items 4 and A4).
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional
 
@@ -37,12 +50,39 @@ import torch
 from .. import hostops
 from ..qformat import OverflowMode, QFormat, add_merge, mul_merge
 from ..qtensor import QTensor
-from .fused_gemm import fused_int8_gemm
-from .reduce import layer_format
-from .tree_gemm import plan_tree, tree_gemm
-from .widths import Interval, fmt_interval, route_requant, torch_dtype_for
+from . import elementwise as ew
+from .fused_gemm import fused_int8_gemm, int_dot
+from .reduce import layer_format, qreduce
+from .tree_gemm import drain_ops, plan_tree, tree_gemm
+from .wideint import mul_wide, requantize_i64
+from .widths import (
+    I32_MAX,
+    Interval,
+    fmt_interval,
+    route_requant,
+    storage_dtype,
+    storage_kind,
+    torch_dtype_for,
+)
 
-__all__ = ["qgemul", "qgemv", "exact_plan", "ExactPlan", "host_qgemul"]
+__all__ = ["qgemul", "qgemv", "exact_plan", "ExactPlan", "host_qgemul",
+           "wide_dot_ok", "pair_dot_2d", "stream_gate"]
+
+_STREAM_GATE_OVERRIDE: Optional[int] = None
+
+
+@contextmanager
+def stream_gate(min_elems: int):
+    """Override the streaming tier's admission gate (``_STREAM_MIN_ELEMS``)
+    within the context, as ``qublas_tpu.ops.gemm.stream_gate`` does: 0
+    sends small GEMMs onto the stream."""
+    global _STREAM_GATE_OVERRIDE
+    saved = _STREAM_GATE_OVERRIDE
+    _STREAM_GATE_OVERRIDE = min_elems
+    try:
+        yield
+    finally:
+        _STREAM_GATE_OVERRIDE = saved
 
 
 # ---------------------------------------------------------------------------
@@ -197,18 +237,26 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
             x, y, plan.prod_frac, out_fmt), a.data, b.data)
         return QTensor(raw, out_fmt)
     if plan is not None:
-        raise NotImplementedError(
-            "lossless dot wider than int32: the limb and pair-domain wide "
-            "tiers are not yet ported (ROADMAP items 10-11)")
+        res = _fast_gemm_wide(a, b, out_fmt, plan)
+        if res is not None:
+            return res
 
-    tplan = plan_tree(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
-    if tplan is None:
-        raise NotImplementedError(
-            "config outside the int32 tree: the streaming wide GEMM and the "
-            "host fallback are not yet ported (ROADMAP items 4, 10-11)")
-    raw = _per_batch(lambda x, y: tree_gemm(x, y, tplan, out_fmt), a.data,
-                     b.data)
-    return QTensor(raw, out_fmt)
+    if not (a.is_pair or b.is_pair):   # the tree kernels take lanes
+        tplan = plan_tree(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
+        if tplan is not None:
+            raw = _per_batch(lambda x, y: tree_gemm(x, y, tplan, out_fmt),
+                             a.data, b.data)
+            return QTensor(raw, out_fmt)
+
+    res = _stream_gemm_wide(a, b, out_fmt, mul_to, add_formats,
+                            mul_full_prec)
+    if res is not None:
+        return res
+    # layered: materialized quantized products, then the explicit tree
+    prod = ew.qmul(QTensor(a.data[..., :, :, None], a.fmt),
+                   QTensor(b.data[..., None, :, :], b.fmt),
+                   to=mul_to, full_prec=mul_full_prec)
+    return ew.qcast(qreduce(prod, add_formats, axis=-2), out_fmt)
 
 
 def _per_batch(fn, *xs: torch.Tensor):
@@ -227,6 +275,144 @@ def _per_batch(fn, *xs: torch.Tensor):
     if isinstance(outs[0], torch.Tensor):
         return stack(outs)
     return tuple(stack(ms) for ms in zip(*outs))
+
+
+# ---------------------------------------------------------------------------
+# Lossless wide tier: exact int64 dots (copy of qublas_tpu/ops/gemm.py:
+# 370-456 and 564-585, on int64 instead of (hi, lo) pairs)
+# ---------------------------------------------------------------------------
+
+_PAIR_SEG_MIN = 8    # segment dots only if >= this many products a segment
+_PAIR_CHUNK = 64     # otherwise products materialize [m, chunk, n]
+
+
+def wide_dot_ok(a: QTensor, b: QTensor, out_fmt: QFormat,
+                plan: ExactPlan) -> bool:
+    """Admission of the int64 dot (``qublas_tpu/ops/gemm.py:wide_dot_ok``):
+    2-D lane or pair operands, the dot (and so every partial sum and
+    product) in the signed 64-bit domain, and an epilogue that runs there
+    too, into lane or pair storage."""
+    if a.ndim != 2 or b.ndim != 2:
+        return False
+    if not plan.dot_interval.fits64:
+        return False
+    if storage_kind(out_fmt) not in ("lane", "pair"):
+        return False
+    return route_requant(plan.dot_interval, plan.prod_frac, out_fmt) \
+        in ("i32", "pair")
+
+
+def pair_dot_2d(ad: torch.Tensor, bd: torch.Tensor,
+                prod_iv: Interval) -> torch.Tensor:
+    """Exact int64 dot of ``ad`` [m, k] @ ``bd`` [k, n] under a losslessness
+    proof that bounds the dot and every partial sum by the signed 64-bit
+    domain, so any order of summation gives the same value.
+
+    Where every product fits int32 (lane operands), k is cut into segments
+    short enough that each segment's dot provably fits int32: each runs on
+    K1's :func:`~qublas_tpu_torch.ops.fused_gemm.int_dot` (one launch a
+    segment on the card), and the segment dots are summed in int64.
+    Otherwise the int64 products of chunks of k are summed elementwise
+    (torch has no int64 matmul on CUDA)."""
+    m, k = ad.shape
+    n = bd.shape[1]
+    lanes = ad.dtype != torch.int64 and bd.dtype != torch.int64
+    if lanes and prod_iv.fits32:
+        mx = max(abs(prod_iv.lo), abs(prod_iv.hi))
+        seg = k if mx == 0 else max(min(I32_MAX // mx, k), 1)
+        if seg >= _PAIR_SEG_MIN:
+            acc = torch.zeros((m, n), dtype=torch.int64, device=ad.device)
+            for s0 in range(0, k, seg):
+                acc += int_dot(ad[:, s0:s0 + seg], bd[s0:s0 + seg])
+            return acc
+    acc = torch.zeros((m, n), dtype=torch.int64, device=ad.device)
+    for t in range(0, k, _PAIR_CHUNK):
+        sl = slice(t, min(t + _PAIR_CHUNK, k))
+        acc += mul_wide(ad[:, sl, None], bd[None, sl, :]).sum(dim=1)
+    return acc
+
+
+def _fast_gemm_wide(a: QTensor, b: QTensor, out_fmt: QFormat,
+                    plan: ExactPlan) -> Optional[QTensor]:
+    """The lossless wide tier: the exact int64 dot (:func:`pair_dot_2d`)
+    requantized once from the raw products' scale.  Bit-exact by the same
+    argument as the int32 tier; None outside :func:`wide_dot_ok`."""
+    if not wide_dot_ok(a, b, out_fmt, plan):
+        return None
+    dot = pair_dot_2d(a.data, b.data, plan.prod_interval)
+    raw = requantize_i64(dot, plan.prod_frac, out_fmt)
+    return QTensor(raw.to(storage_dtype(out_fmt)), out_fmt)
+
+
+# ---------------------------------------------------------------------------
+# Streaming tier (copy of qublas_tpu/ops/gemm.py:592-702)
+# ---------------------------------------------------------------------------
+
+# stream only when the layered [.., m, k, n] products would be large;
+# stream_gate lowers the gate
+_STREAM_MIN_ELEMS = 1 << 22
+_STREAM_CHUNK = 64
+_STREAM_MAX_CHUNKS = 1024
+
+
+def _stream_gemm_wide(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
+                      add_formats, mul_full_prec) -> Optional[QTensor]:
+    """The order-sensitive tree GEMM as a stream of k-chunks of whole
+    QTensors, so the elementwise ops route each step to its storage (lane
+    or pair).  The schedule is the tree GEMM's binary counter: each chunk's
+    ``[.., m, chunk, n]`` products fold through the chunk's complete
+    subtree by :func:`qreduce` (layers ``0..log2(chunk)-1``), and the chunk
+    values merge at layers ``log2(chunk)+j`` on a slot stack, drained as
+    :func:`~qublas_tpu_torch.ops.tree_gemm.drain_ops` says.  A ragged tail
+    of ``k % chunk`` products is one subtree of its own, converted at each
+    layer up to the chunk level (globally unpaired there), as in the JAX
+    package.  None when streaming does not apply (k < 16) or the products
+    are few enough for the layered path."""
+    k = a.shape[-1]
+    chunk = min(1 << (max(k // 2, 1).bit_length() - 1), _STREAM_CHUNK)
+    nfull = k // chunk
+    r = k % chunk
+    nchunks = nfull + (1 if r else 0)
+    m, n = a.shape[-2], b.shape[-1]
+    batch = int(np.prod(np.broadcast_shapes(a.shape[:-2], b.shape[:-2])))
+    gate = _STREAM_MIN_ELEMS if _STREAM_GATE_OVERRIDE is None \
+        else _STREAM_GATE_OVERRIDE
+    if chunk < 8 or nfull < 2 or nchunks > _STREAM_MAX_CHUNKS \
+            or batch * m * k * n < gate:
+        return None
+    in_levels = chunk.bit_length() - 1
+
+    def at_layer(fmt: QFormat, l: int) -> QFormat:
+        lf = layer_format(add_formats, l)
+        return lf if lf is not None else add_merge(fmt, fmt)
+
+    slots = {}
+    for t in range(nchunks):
+        sl = slice(t * chunk, min((t + 1) * chunk, k))
+        prod = ew.qmul(QTensor(a.data[..., :, sl, None], a.fmt),
+                       QTensor(b.data[..., None, sl, :], b.fmt),
+                       to=mul_to, full_prec=mul_full_prec)
+        v = qreduce(prod, add_formats, axis=-2)
+        if t == nfull:   # the ragged tail, unpaired up to the chunk level
+            for l in range(max(r - 1, 0).bit_length(), in_levels):
+                v = ew.qcast(v, at_layer(v.fmt, l))
+        j = 0
+        while t & (1 << j):
+            v = ew.qadd(slots.pop(j), v,
+                        to=layer_format(add_formats, in_levels + j))
+            j += 1
+        slots[j] = v
+
+    carry = None
+    for op, l in drain_ops(nchunks, max(nchunks.bit_length(), 1)):
+        if op == "seed":
+            carry = slots[l]
+        elif op == "convert":
+            carry = ew.qcast(carry, at_layer(carry.fmt, in_levels + l))
+        else:   # add: slot l is the earlier (left) subtree
+            carry = ew.qadd(slots[l], carry,
+                            to=layer_format(add_formats, in_levels + l))
+    return ew.qcast(carry, out_fmt)
 
 
 def qgemv(a: QTensor, x: QTensor, out_fmt: QFormat, mul_to=None,

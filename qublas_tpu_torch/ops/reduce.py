@@ -18,9 +18,12 @@ Dispatch, per configuration and before any data is touched:
 2. A configuration that :func:`_plan_reduce_lanes` proves on int32 lanes
    goes to :func:`qreduce_kernel`: kernel K3 (``csrc/qreduce.cu``) for a
    CUDA tensor, its plain version :func:`qreduce_plain` for a CPU tensor.
-3. Any other runs the layered slice/add program of the elementwise ops; a
-   layer those cannot keep on int32 lanes resumes on the host golden model
-   from that layer on, as the JAX package's path does.
+3. Any other runs the layered slice/add program of the elementwise ops, on
+   int32 lanes or, where a layer needs them, on the int64 of pair storage
+   (``i32`` and ``pair`` routes); a layer that needs limbs or the host
+   resumes on the host golden model from that layer on, as the JAX
+   package's path does for host layers.  K3 stays lane-only, as its JAX
+   counterpart does.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from .widths import (
     requant_out_interval,
     route_addsub,
     route_requant,
+    storage_dtype,
     storage_kind,
     torch_dtype_for,
 )
@@ -325,14 +329,17 @@ def qreduce(x: QTensor, layer_formats=(), axis=None) -> QTensor:
     return _qreduce_layered(x, layer_formats, axis)
 
 
-def _layer_on_lanes(cur_fmt: QFormat, fmt, m: int) -> bool:
+def _layer_on_device(cur_fmt: QFormat, fmt, m: int) -> bool:
     """Layer ``Qadd`` of two ``cur_fmt`` values into ``fmt`` (and, for odd
-    m, the tail's cast) stays on the int32 lanes of the elementwise ops."""
+    m, the tail's cast) stays on the device routes of the elementwise ops:
+    int32 lanes or the int64 of the pair route."""
+    device = ("i32", "pair")
     out = add_merge(cur_fmt, cur_fmt, fmt)
-    if route_addsub(cur_fmt, cur_fmt, out, False)[0] != "i32":
+    if route_addsub(cur_fmt, cur_fmt, out, False)[0] not in device:
         return False
     return m % 2 == 0 or out == cur_fmt or \
-        route_requant(fmt_interval(cur_fmt), cur_fmt.frac_bits, out) == "i32"
+        route_requant(fmt_interval(cur_fmt), cur_fmt.frac_bits, out) \
+        in device
 
 
 def _qreduce_layered(x: QTensor, layer_formats, axis: int) -> QTensor:
@@ -345,7 +352,7 @@ def _qreduce_layered(x: QTensor, layer_formats, axis: int) -> QTensor:
     while cur.shape[0] > 1:
         m = cur.shape[0]
         fmt = layer_format(layer_formats, layer)
-        if not _layer_on_lanes(cur.fmt, fmt, m):
+        if not _layer_on_device(cur.fmt, fmt, m):
             return _qreduce_host(cur, layer_formats, first_layer=layer)
         s = ew.qadd(cur[0:m - 1:2], cur[1:m:2], to=fmt)
         if m % 2:
@@ -374,9 +381,9 @@ def _qreduce_host(x: QTensor, layer_formats, first_layer: int) -> QTensor:
         r, out_fmt = hostops.qreduce_list([(int(v), x.fmt) for v in lane],
                                           layer_formats)
         out_raws.append(r)
-    if storage_kind(out_fmt) != "lane":
+    if storage_dtype(out_fmt) is None:
         raise NotImplementedError(
-            f"qreduce into {out_fmt}: pair and limb storage are not yet "
-            "ported (ROADMAP items 10-11)")
+            f"qreduce into {out_fmt}: limb and host storage are not yet "
+            "ported (ROADMAP A4)")
     return from_raw(np.array(out_raws, dtype=np.int64).reshape(batch_shape),
                     out_fmt, x.device)

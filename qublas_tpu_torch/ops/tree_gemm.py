@@ -15,9 +15,9 @@ binary-carry schedule:
   ``tree_gemm_blocked``): a tiled kernel; each thread owns a register
   micro-tile of outputs, operands come through shared memory in k-slices
   of 16, each slice's products folded incrementally in registers (tree
-  levels 0-3), full slices pushed onto a binary-carry slot stack (levels 4
   and up).  Plans whose product and merges all round and overflow with one
-  pair of :data:`K2_MODES` take an instantiation with those modes fixed at
+  pair of :data:`K2_MODES` take an instantiation with those modes and the
+  product's route (the int32 ones, or the 64-bit "pair" product) fixed at
   compile time (:func:`k2_modes`);
 * :func:`tree_gemm_stream` (K2′, counterpart of ``tree_gemm_pallas``): a
   tiled kernel too, with k-slices of ``2**K2S_LOG_S`` products arriving by
@@ -44,7 +44,12 @@ import torch
 from .. import _build
 from ..qformat import OverflowMode, QFormat, RoundMode, add_merge
 from .reduce import layer_format
-from .wideint import requantize_i32, requantize_split_mul
+from .wideint import (
+    mul_wide,
+    requantize_i32,
+    requantize_i64,
+    requantize_split_mul,
+)
 from .widths import (
     LANE_DTYPES,
     Interval,
@@ -54,7 +59,7 @@ from .widths import (
     torch_dtype_for,
 )
 
-__all__ = ["TreePlan", "plan_tree", "level_formats", "drain_ops",
+__all__ = ["TreePlan", "plan_tree", "level_formats", "drain_ops", "ROUTES",
            "tree_gemm", "tree_gemm_plain", "tree_gemm_stream",
            "tree_gemm_stream_plain", "K2_LOG_BLK", "K2_MODES", "k2_modes",
            "K2S_LOG_S", "K2S_PLANS", "k2s_plan", "k2s_operand"]
@@ -192,13 +197,15 @@ def plan_tree(fa: QFormat, fb: QFormat, mul_fmt: QFormat, add_formats,
 
 
 def _product(plan: TreePlan, col, row):
-    """Requantized outer product (one level-0 value)."""
+    """Requantized outer product (one level-0 value) of int32 tensors, as
+    int32: the "pair" route multiplies in int64 and narrows the requantized
+    product (which the plan's proof keeps inside int32) to its lane."""
     if plan.prod_route == "i32":
         return requantize_i32(col * row, plan.prod_frac, plan.mul_fmt)
     if plan.prod_route == "split":
         return requantize_split_mul(col, row, plan.prod_frac, plan.mul_fmt)
-    raise NotImplementedError(
-        "the 64-bit 'pair' product route is not yet ported (ROADMAP item 10)")
+    return requantize_i64(mul_wide(col, row), plan.prod_frac,
+                          plan.mul_fmt).to(torch.int32)
 
 
 def _merge(plan: TreePlan, l: int, left, right):
@@ -269,6 +276,9 @@ def tree_gemm_stream_plain(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
 
 _OPS = {"seed": 0, "convert": 1, "add": 2}
 
+# The product routes as the kernels code them (csrc/tree_gemm.cuh's Route).
+ROUTES = {"i32": 0, "split": 1, "pair": 2}
+
 
 def _kernel_params(plan: TreePlan, out_fmt: QFormat, log_blk: int):
     """The plan as ``csrc/tree_gemm.cuh``'s int32 parameters (``read_params``)
@@ -282,7 +292,7 @@ def _kernel_params(plan: TreePlan, out_fmt: QFormat, log_blk: int):
 
 
 def _build_params(plan: TreePlan, out_fmt: QFormat, log_blk: int):
-    p = [int(plan.prod_route == "split"), log_blk,
+    p = [ROUTES[plan.prod_route], log_blk,
          *_build.rq_args(plan.prod_frac, plan.mul_fmt),
          plan.levels]
     for l in range(plan.levels):
@@ -296,21 +306,24 @@ def _build_params(plan: TreePlan, out_fmt: QFormat, log_blk: int):
 
 K2_LOG_BLK = 4   # K2 folds k in slices of 2^4 products (csrc LOG_BLK)
 
-# The (round, overflow) pairs that K2 has compile-time instantiations for,
-# in csrc/tree_gemm_tiled.cuh's K2_MODES order after its run-time entry 0.
+# The (round, overflow) pairs that K2 has compile-time instantiations for.
+# csrc/tree_gemm_tiled.cuh's K2_MODES has two entries for each, after its
+# run-time entry 0: the pair with the int32 product routes, then with the
+# 64-bit one.
 K2_MODES = ((RoundMode.TRN_TCPL, OverflowMode.SAT_ZERO),)
 
 
 def k2_modes(plan: TreePlan) -> int:
-    """K2's instantiation for ``plan``: 1 + the index in :data:`K2_MODES`
-    of the pair that the product and every tree merge (the drain's converts
-    included) round and overflow with, or 0 (modes read at run time) when
-    they do not all share one of those pairs.  The final requantize into
-    the output format always reads its modes at run time."""
+    """K2's instantiation for ``plan``: for the pair of :data:`K2_MODES` at
+    index i that the product and every tree merge (the drain's converts
+    included) round and overflow with, 2i + 1 on the i32 and split product
+    routes and 2i + 2 on the 64-bit "pair" route; 0 (modes and route read
+    at run time) when they do not all share one of those pairs.  The final
+    requantize into the output format always reads its modes at run time."""
     steps = (plan.mul_fmt,) + tuple(plan.merge_fmts)
     for i, (rm, om) in enumerate(K2_MODES):
         if all(f.round_mode == rm and f.overflow_mode == om for f in steps):
-            return i + 1
+            return 2 * i + (2 if plan.prod_route == "pair" else 1)
     return 0
 
 
@@ -318,12 +331,14 @@ K2S_LOG_S = 5   # K2′ takes k in slices of 2^5 products (csrc K2S_LOG_S)
 
 # The plans that K2′ and P1 have compile-time instantiations for, in
 # csrc/plan_steps.cuh's K2S_PLANS order after its run-time entry 0:
-# (product route split, the product's requantize step, the step every tree
-# merge shares), each step as ``_build.rq_args`` gives it.  The one entry is
-# the canonical Qu<8,8,TRN::TCPL,SAT::ZERO> plan: products 16 -> 8
-# fraction bits and merges shift 0, both into 17-bit SAT::ZERO.
+# (the product route's code in ROUTES, the product's requantize step, the
+# step every tree merge shares), each step as ``_build.rq_args`` gives it.
+# The one entry is the canonical Qu<8,8,TRN::TCPL,SAT::ZERO> plan: split
+# products 16 -> 8 fraction bits and merges shift 0, both into 17-bit
+# SAT::ZERO.
 K2S_PLANS = (
-    (1, (8, int(RoundMode.TRN_TCPL), int(OverflowMode.SAT_ZERO), 17, 1),
+    (ROUTES["split"],
+     (8, int(RoundMode.TRN_TCPL), int(OverflowMode.SAT_ZERO), 17, 1),
      (0, int(RoundMode.TRN_TCPL), int(OverflowMode.SAT_ZERO), 17, 1)),
 )
 
@@ -334,12 +349,12 @@ def k2s_plan(plan: TreePlan) -> int:
     merge step every tree merge (the drain's converts included) has, or 0
     (every step read at run time).  The final requantize into the output
     format always reads its step at run time."""
-    split = int(plan.prod_route == "split")
+    route = ROUTES[plan.prod_route]
     prod = _build.rq_args(plan.prod_frac, plan.mul_fmt)
     merges = {_build.rq_args(plan.level_fmts[l].frac_bits, plan.merge_fmts[l])
               for l in range(plan.levels)}
-    for i, (e_split, e_prod, e_merge) in enumerate(K2S_PLANS):
-        if (split, prod) == (e_split, e_prod) and merges == {e_merge}:
+    for i, (e_route, e_prod, e_merge) in enumerate(K2S_PLANS):
+        if (route, prod) == (e_route, e_prod) and merges == {e_merge}:
             return i + 1
     return 0
 
@@ -365,10 +380,6 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
             out_fmt: QFormat):
     """Check the operands; None for CPU tensors, else the output of the
     kernel ``name`` launched on them."""
-    if plan.prod_route == "pair":
-        raise NotImplementedError(
-            "the 64-bit 'pair' product route is not yet ported "
-            "(ROADMAP item 10)")
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0] \
             or a.shape[1] != plan.k:
         raise ValueError(f"need [M, {plan.k}] @ [{plan.k}, N], got "

@@ -118,8 +118,8 @@ _STEPS = {"canonical": ((8, 8), (8, 8, True)), "shift": ((8, 9), (8, 8, True)),
 def _table_entry(params, e):
     """Whether the kernel parameters' product route, product step and
     layer-0 merge step are the table entry e's."""
-    split, prod, merge = e
-    return params[0] == split and tuple(params[2:7]) == prod \
+    route, prod, merge = e
+    return params[0] == route and tuple(params[2:7]) == prod \
         and tuple(params[8:13]) == merge
 
 
@@ -168,9 +168,11 @@ def _c_plans():
 
     table = []
     for r in rows[1:]:
-        step = [(value(r[c], qt.RoundMode) if c in (2, 7) else
-                 value(r[c], qt.OverflowMode) if c in (3, 8) else int(r[c]))
-                for c in range(11)]
+        # the route by its name in csrc/tree_gemm.cuh's Route enum
+        step = [TT.ROUTES[r[0].removeprefix("ROUTE_").lower()]] + [
+            (value(r[c], qt.RoundMode) if c in (2, 7) else
+             value(r[c], qt.OverflowMode) if c in (3, 8) else int(r[c]))
+            for c in range(1, 11)]
         table.append((step[0], tuple(step[1:6]), tuple(step[6:11])))
     return tuple(table)
 
@@ -181,7 +183,7 @@ def test_p1_and_k2s_pickers_follow_the_kernel_table():
     that entry in both pickers."""
     table = _c_plans()
     assert table == TT.K2S_PLANS
-    for i, (split, prod, merge) in enumerate(table):
+    for i, (route, prod, merge) in enumerate(table):
         d, rnd, ovf, w, sgn = prod
         assert merge[0] == 0 and merge[1:] == prod[1:]
         # operands Qu<w-1-d, d>: products at 2d fraction bits, shifted by d
@@ -191,7 +193,7 @@ def test_p1_and_k2s_pickers_follow_the_kernel_table():
                          qt.OverflowMode(ovf))
         for k in (1, 100, 4112):
             plan = TT.plan_tree(fmt, fmt, mul, (), k, mul)
-            assert plan.prod_route == ("split" if split else "i32")
+            assert TT.ROUTES[plan.prod_route] == route
             assert CP.p1_plan(plan) == TT.k2s_plan(plan) == i + 1
 
 

@@ -13,6 +13,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 from qublas_tpu import hostint as JI
 from qublas_tpu import hostops as JO
@@ -174,6 +175,11 @@ def test_widths_match(rm, om):
     for f in fmts:
         pf = P(f)
         assert TW.storage_kind(pf) == JW.storage_kind(f)
+        # the port's storage dtype: the JAX lane dtype, int64 for a pair
+        jdt = JW.dtype_for(f)
+        assert TW.storage_dtype(pf) == (
+            getattr(torch, np.dtype(jdt).name) if jdt is not None else
+            torch.int64 if JW.storage_kind(f) == "pair" else None)
         assert _t(TW.fmt_interval(pf)) == _t(JW.fmt_interval(f))
         for iv in ivs:
             tiv = TW.Interval(iv.lo, iv.hi)

@@ -511,3 +511,91 @@ def test_k2s_operands_that_take_a_copy_match_plain(cuda, what):
     want = tree_gemm_stream_plain(a, b, plan, f)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# The 64-bit "pair" product route: 25-bit lanes whose products need 50 bits
+F12Z = qt.qformat(12, 12, round_mode=qt.RoundMode.TRN_TCPL,
+                  overflow_mode=qt.OverflowMode.SAT_ZERO)
+
+
+@pytest.mark.parametrize("rm", list(qt.RoundMode))
+@pytest.mark.parametrize("om", list(qt.OverflowMode))
+def test_pair_route_matches_plain_in_every_mode(cuda, rm, om):
+    """K2 (both stack depths), K2′ and P1 (run-time instantiations) on the
+    pair product route, with the product requantized in each mode pair and
+    the layers saturating, ragged shapes."""
+    sat = qt.OverflowMode.SAT_TCPL if om == qt.OverflowMode.WRP_TCPL_SAT \
+        else om
+    fa = qt.qformat(12, 12, round_mode=rm, overflow_mode=sat)
+    fb = qt.qformat(2, 12, round_mode=rm, overflow_mode=sat)
+    mul = qt.qformat(12, 12, round_mode=rm, overflow_mode=om)
+    layers = (qt.qformat(13, 12, round_mode=rm, overflow_mode=sat),)
+    out = qt.qformat(9, 5, signed=False, round_mode=rm, overflow_mode=om)
+    for k in (37, 4112):
+        a = _raws(k, fa, (33, k), np.int32).to(cuda)
+        b = _raws(k + 1, fb, (k, 17), np.int32).to(cuda)
+        plan = plan_tree(fa, fb, mul, layers, k, out)
+        assert plan.prod_route == "pair" and k2s_plan(plan) == 0
+        want = tree_gemm_plain(a, b, plan, out)
+        assert torch.equal(tree_gemm(a, b, plan, out), want)
+        assert torch.equal(tree_gemm_stream(a, b, plan, out), want)
+    x = _raws(3, fa, (16, 33), np.int32).to(cuda)
+    y = _raws(4, fb, (16, 33), np.int32).to(cuda)
+    assert p1_plan(plan) == 0
+    assert torch.equal(chain_probe(x, y, plan, 17, 3),
+                       chain_probe_plain(x, y, plan, 17, 3))
+    torch.cuda.synchronize()
+
+
+def test_pair_route_qgemul_launches_k2_in_its_modes_instantiation(cuda):
+    """qgemul on Qu<12,12,TRN::TCPL,SAT::ZERO>: the pair product route
+    through K2's instantiation with those modes and the 64-bit product
+    compiled in, equal to K2′ and to the plain version."""
+    a = qt.from_raw(_raws(5, F12Z, (100, 300), np.int32).numpy(), F12Z, cuda)
+    b = qt.from_raw(_raws(6, F12Z, (300, 70), np.int32).numpy(), F12Z, cuda)
+    plan = plan_tree(F12Z, F12Z, qt.mul_merge(F12Z, F12Z), (), 300, F12Z)
+    assert plan.prod_route == "pair" and k2_modes(plan) == 2
+    tree_gemm.launches = 0
+    got = qt.qgemul(a, b, F12Z)
+    torch.cuda.synchronize()
+    assert tree_gemm.launches == 1
+    want = tree_gemm_plain(a.data, b.data, plan, F12Z)
+    assert torch.equal(got.data, want)
+    assert torch.equal(tree_gemm_stream(a.data, b.data, plan, F12Z), want)
+
+
+def test_pair_storage_on_the_card_matches_cpu(cuda):
+    """Pair storage end to end on the card: the lossless wide tier (K1's
+    segment dots), the streaming tier and the pair elementwise ops, each
+    equal to the same call on CPU copies."""
+    from qublas_tpu_torch.ops import gemm as TG
+
+    f58 = qt.qformat(5, 8)
+    a = qt.from_raw(_raws(7, f58, (40, 200), np.int16).numpy(), f58, cuda)
+    b = qt.from_raw(_raws(8, f58, (200, 30), np.int16).numpy(), f58, cuda)
+    kw = dict(mul_to=qt.qformat(11, 16), add_formats=(qt.qformat(22, 16),))
+    fused_int8_gemm.launches = 0
+    for out in (qt.qformat(23, 8), qt.qformat(31, 16)):
+        got = qt.qgemul(a, b, out, **kw)
+        cpu = qt.qgemul(a.to("cpu"), b.to("cpu"), out, **kw)
+        assert got.fmt == cpu.fmt and torch.equal(got.data.cpu(), cpu.data)
+    assert fused_int8_gemm.launches == 2 * 7      # 200 = 6 x 31 + 14
+    f88 = qt.qformat(8, 8)
+    x = qt.from_raw(_raws(9, f88, (20, 48), np.int32).numpy(), f88, cuda)
+    y = qt.from_raw(_raws(10, f88, (48, 12), np.int32).numpy(), f88, cuda)
+    kw = dict(add_formats=(qt.qformat(24, 16),), mul_full_prec=True)
+    with TG.stream_gate(0):
+        got = qt.qgemul(x, y, f88, **kw)
+        cpu = qt.qgemul(x.to("cpu"), y.to("cpu"), f88, **kw)
+    assert torch.equal(got.data.cpu(), cpu.data)
+    p = qt.qmul(x, x, full_prec=True)
+    assert p.is_pair and p.device == x.device
+    for r in (p + p, p - x, qt.qdiv(p, x), -p, abs(p),
+              qt.qcast(p, qt.qformat(30, 3)), qt.qcmp(p, x)):
+        data = r.data if hasattr(r, "fmt") else r
+        assert data.device == x.device
+    pc, xc = p.to("cpu"), x.to("cpu")
+    for got, cpu in ((p + p, pc + pc), (qt.qdiv(p, x), qt.qdiv(pc, xc)),
+                     (qt.qreduce(p, (qt.qformat(40, 16),), axis=1),
+                      qt.qreduce(pc, (qt.qformat(40, 16),), axis=1))):
+        assert got.fmt == cpu.fmt and torch.equal(got.data.cpu(), cpu.data)

@@ -2,11 +2,12 @@
 package, Δ=0 in raws, lane dtype and format fields.
 
 Every lane route of the nine ops (``i32``; ``split`` for products wider
-than int32; ``host`` with a lane result) in every rounding x overflow mode,
-signed and unsigned, with the reference warts (``SAT::ZERO`` overflow to
-zero, divide by zero -> 0, truncation toward zero) and the int32 edges.
-Configurations whose JAX route is ``pair`` or ``limb`` must raise
-``NotImplementedError`` naming ROADMAP items 10-11 in the port.
+than int32; ``pair`` for 64-bit intermediates; ``host`` with a lane or
+pair result) in every rounding x overflow mode, signed and unsigned, with
+the reference warts (``SAT::ZERO`` overflow to zero, divide by zero -> 0,
+truncation toward zero) and the int32 edges.  Configurations whose JAX
+route is ``limb`` must raise ``NotImplementedError`` naming ROADMAP A4 in
+the port.  ``tests/test_torch_pair.py`` covers pair storage.
 """
 
 import dataclasses
@@ -59,7 +60,7 @@ def _same(got, want):
 
 def _compare(name, jargs, targs, **kw):
     """One op on both sides; True when compared, False when the port
-    refuses a route it has not ported yet (pair/limb storage or
+    refuses a route it has not ported yet (limb storage or
     intermediates)."""
     want = getattr(JE, name)(*jargs, **kw)
     tkw = {k: P(v) if k == "to" and v is not None else v
@@ -67,8 +68,8 @@ def _compare(name, jargs, targs, **kw):
     try:
         got = getattr(TE, name)(*targs, **tkw)
     except NotImplementedError as e:
-        assert "ROADMAP items 10-11" in str(e)
-        assert "'pair'" in str(e) or "'limb'" in str(e) or "host" in str(e)
+        assert "ROADMAP A4" in str(e)
+        assert "'limb'" in str(e) or "host" in str(e)
         return False
     _same(got, want)
     return True
@@ -128,14 +129,20 @@ def test_int32_edges(name, fmt):
 
 
 def test_unported_routes_raise():
+    """The pair route computes (``tests/test_torch_pair.py`` holds it to
+    the JAX package); the limb route and limb storage raise."""
     f = qformat(15, 16)  # 32-bit storage: products need the pair route
     (ja, jb), (ta, tb) = _pair(np.random.RandomState(1), f, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP items 10-11"):
-        qt.qmul(ta, tb)
-    with pytest.raises(NotImplementedError, match="ROADMAP items 10-11"):
-        qt.qadd(ta, tb, to=P(qformat(40, 0)))
-    with pytest.raises(NotImplementedError, match="ROADMAP items 10-11"):
-        qt.qneg(qt.from_raw([1, 2], P(qformat(31, 0)), "cpu"))
+    assert _compare("qmul", (ja, jb), (ta, tb))
+    assert _compare("qadd", (ja, jb), (ta, tb), to=qformat(40, 0))
+    w = P(qformat(40, 0))    # 41-bit pair storage: 82-bit products
+    t = qt.from_raw([1, 2], w, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        qt.qmul(t, t)
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        qt.qadd(ta, tb, to=P(qformat(70, 0)))
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        qt.qneg(qt.from_raw([1, 2], P(qformat(70, 0)), "cpu"))
 
 
 def test_operators_and_scalar_coercion_match_jax():

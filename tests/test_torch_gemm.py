@@ -165,12 +165,20 @@ def test_unported_tiers_raise():
     b = from_raw(_raws(rng, FA, (4, 5)), P(FA), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         TG.qgemul(a, b, P(MID))            # a broadcast batch
-    # a lossless dot wider than int32 needs the wide tiers
+    # a lossless dot wider than int32 takes the int64 wide tier
     f, w = P(qformat(15, 0)), P(qformat(40, 0))
     x = from_raw(_raws(rng, f, (2, 8)), f, "cpu")
     y = from_raw(_raws(rng, f, (8, 2)), f, "cpu")
-    with pytest.raises(NotImplementedError, match="wide tiers"):
-        TG.qgemul(x, y, f, mul_to=w, add_formats=(w,))
+    want = JG.qgemul(jfrom_raw(x.raw(), qformat(15, 0)),
+                     jfrom_raw(y.raw(), qformat(15, 0)), qformat(15, 0),
+                     mul_to=qformat(40, 0), add_formats=(qformat(40, 0),))
+    got = TG.qgemul(x, y, f, mul_to=w, add_formats=(w,))
+    np.testing.assert_array_equal(got.raw(), np.asarray(want.raw()))
+    # one whose products need limbs (82 bits) raises
+    x = from_raw(_raws(rng, w, (2, 8)), w, "cpu")
+    y = from_raw(_raws(rng, w, (8, 2)), w, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        TG.qgemul(x, y, w)
 
 
 def test_kernel_wrappers_validate_operands():

@@ -32,13 +32,17 @@ import torch
 
 import qublas_tpu_torch as qt
 from qublas_tpu_torch.ops import tree_gemm as TT
-from qublas_tpu_torch.ops.wideint import requantize_i32, requantize_split_mul
+from qublas_tpu_torch.ops.wideint import (mul_wide, requantize_i32,
+                                          requantize_i64,
+                                          requantize_split_mul)
 
 F88Z = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
 LAYERS = (qt.qformat(9, 6, round_mode=qt.RoundMode.RND_CONV),
           qt.qformat(10, 4))
 I32F = qt.qformat(3, 4, round_mode=qt.RoundMode.RND_CONV,
                   overflow_mode=qt.OverflowMode.WRP_TCPL)
+# 25-bit lanes: 50-bit products, the 64-bit "pair" product route
+PAIRF = qt.qformat(12, 12, overflow_mode=qt.OverflowMode.SAT_ZERO)
 
 
 def _raws(seed, fmt, shape):
@@ -55,12 +59,12 @@ def _rq_fmt(r):
 
 
 def _steps(params):
-    """The kernels' parameter array (split, log_blk, prod[5], levels,
+    """The kernels' parameter array (route, log_blk, prod[5], levels,
     merge[levels][5], ndrain, (op, level)[ndrain], fin[5]) as log_blk and
     the functions product(x, y), merge(l, left, right), drain(level),
     which runs the drain ops over level(l), and the final requantize."""
     p = list(params)
-    split, log_blk = p[0], p[1]
+    route, log_blk = p[0], p[1]
     levels = p[7]
     merges = [p[8 + 5 * l:13 + 5 * l] for l in range(levels)]
     q = 8 + 5 * levels
@@ -73,8 +77,11 @@ def _steps(params):
 
     def product(x, y):
         d, fmt = _rq_fmt(p[2:7])
-        return requantize_split_mul(x, y, d, fmt) if split else \
-            requantize_i32(x * y, d, fmt)
+        if route == TT.ROUTES["split"]:
+            return requantize_split_mul(x, y, d, fmt)
+        if route == TT.ROUTES["pair"]:
+            return requantize_i64(mul_wide(x, y), d, fmt).to(torch.int32)
+        return requantize_i32(x * y, d, fmt)
 
     def merge(l, left, right):
         return rq(left + right, merges[l])
@@ -130,10 +137,10 @@ def _case(fmt, layers, k, seed=0, m=5, n=7):
 
 
 @pytest.mark.parametrize("k", [1, 2, 13, 16, 17, 48, 1000])
-@pytest.mark.parametrize("config", ["canonical", "layered", "i32"])
+@pytest.mark.parametrize("config", ["canonical", "layered", "i32", "pair"])
 def test_k2_schedule_matches_plain(k, config):
     fmt, layers = {"canonical": (F88Z, ()), "layered": (F88Z, LAYERS),
-                   "i32": (I32F, ())}[config]
+                   "i32": (I32F, ()), "pair": (PAIRF, ())}[config]
     a, b, plan = _case(fmt, layers, k, seed=k)
     want = TT.tree_gemm_plain(a, b, plan, fmt)
     params = TT._kernel_params(plan, fmt, TT.K2_LOG_BLK)
@@ -193,7 +200,7 @@ def test_k2_modes_specialises_only_shared_pairs(rm, om, layer):
         assert plan is not None
         steps = (plan.mul_fmt,) + plan.merge_fmts
         shared = {(f.round_mode, f.overflow_mode) for f in steps}
-        want = TT.K2_MODES.index(shared.pop()) + 1 \
+        want = 2 * TT.K2_MODES.index(shared.pop()) + 1 \
             if len(shared) == 1 and shared <= set(TT.K2_MODES) else 0
         if layer in ("none", "same") and \
                 (rm, om) == (qt.RoundMode.TRN_TCPL, qt.OverflowMode.SAT_ZERO):
@@ -206,6 +213,25 @@ def test_canonical_plan_takes_the_compiled_modes():
     assert TT.k2_modes(plan) == 1
     _, _, plan = _case(F88Z, LAYERS, 128)
     assert TT.k2_modes(plan) == 0
+    _, _, plan = _case(PAIRF, (), 100)     # the same modes, 64-bit products
+    assert plan.prod_route == "pair" and TT.k2_modes(plan) == 2
+
+
+def test_k2_modes_match_the_kernel_source():
+    """csrc/tree_gemm_tiled.cuh's K2_MODES: the run-time entry, then for
+    each pair of ops.tree_gemm.K2_MODES its int32 routes and its 64-bit
+    product route, as k2_modes numbers them."""
+    src = (pathlib.Path(TT.__file__).parent.parent / "csrc" /
+           "tree_gemm_tiled.cuh").read_text()
+    body = re.search(r"K2_MODES\[\]\[3\] = \{(.*?)\};", src, re.S).group(1)
+    rows = [[x.strip() for x in r.split(",")]
+            for r in re.findall(r"\{([^{}]*)\}", body)]
+    assert rows[0] == ["ANY"] * 3
+    want = []
+    for rm, om in TT.K2_MODES:
+        want += [[rm.name, om.name, "INT32_ROUTES"],
+                 [rm.name, om.name, "ROUTE_PAIR"]]
+    assert rows[1:] == want
 
 
 # ---------------------------------------------------------------------------
@@ -250,10 +276,10 @@ _K2S_KS = [1, 2, 13, 16, 17, 31, 32, 33, 48, 1000, 2048]
 
 
 @pytest.mark.parametrize("k", _K2S_KS)
-@pytest.mark.parametrize("config", ["canonical", "layered", "i32"])
+@pytest.mark.parametrize("config", ["canonical", "layered", "i32", "pair"])
 def test_k2s_schedule_matches_plain_and_k2(k, config):
     fmt, layers = {"canonical": (F88Z, ()), "layered": (F88Z, LAYERS),
-                   "i32": (I32F, ())}[config]
+                   "i32": (I32F, ()), "pair": (PAIRF, ())}[config]
     a, b, plan = _case(fmt, layers, k, seed=k + 5, m=4, n=6)
     want = TT.tree_gemm_stream_plain(a, b, plan, fmt)
     got = _replay_k2s(a, b, TT._kernel_params(plan, fmt, 0)).to(want.dtype)
@@ -321,8 +347,8 @@ def test_k2s_plan_specialises_only_the_compiled_steps(rm, om, step, layer):
         steps = {tuple(params[8 + 5 * l:13 + 5 * l])
                  for l in range(plan.levels)}
         want = 0
-        for i, (split, prod, merge) in enumerate(TT.K2S_PLANS):
-            if params[0] == split and tuple(params[2:7]) == prod \
+        for i, (route, prod, merge) in enumerate(TT.K2S_PLANS):
+            if params[0] == route and tuple(params[2:7]) == prod \
                     and steps == {merge}:
                 want = i + 1
         canonical = (rm, om) == (qt.RoundMode.TRN_TCPL,
@@ -348,14 +374,21 @@ def test_k2s_plans_match_the_kernel_source():
 
     table = []
     for r in rows[1:]:
-        step = [(value(r[c], qt.RoundMode) if c in (2, 7) else
-                 value(r[c], qt.OverflowMode) if c in (3, 8) else int(r[c]))
-                for c in range(11)]
+        # the route by its name in csrc/tree_gemm.cuh's Route enum
+        step = [TT.ROUTES[r[0].removeprefix("ROUTE_").lower()]] + [
+            (value(r[c], qt.RoundMode) if c in (2, 7) else
+             value(r[c], qt.OverflowMode) if c in (3, 8) else int(r[c]))
+            for c in range(1, 11)]
         table.append((step[0], tuple(step[1:6]), tuple(step[6:11])))
     assert tuple(table) == TT.K2S_PLANS
     src = (csrc / "tree_gemm_stream.cuh").read_text()
     assert re.search(r"K2S_LOG_S = (\d+);", src).group(1) == \
         str(TT.K2S_LOG_S)
+    src = (csrc / "tree_gemm.cuh").read_text()
+    enum = re.search(r"enum Route : int \{(.*?)\};", src, re.S).group(1)
+    assert {k.strip().removeprefix("ROUTE_").lower(): int(v)
+            for k, v in (e.split("=") for e in enum.split(","))} == \
+        TT.ROUTES
 
 
 def test_canonical_plan_takes_the_compiled_k2s_entry():

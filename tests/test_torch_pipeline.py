@@ -77,9 +77,15 @@ def test_qtensor_lane_storage():
     assert t.shape == (1, 2) and t.device == torch.device("cpu")
     np.testing.assert_array_equal(t.to_double(), [[3 / 16, -5 / 16]])
     assert isinstance(t.to("cpu"), QTensor) and t[0].shape == (2,)
-    with pytest.raises(NotImplementedError, match="ROADMAP items 10-11"):
-        from_raw([1], P(qformat(40, 0)), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP items 10-11"):
+    # 41-bit storage is pair storage: one int64 (the JAX package's pair)
+    t = from_raw([1, -(1 << 40)], P(qformat(40, 0)), "cpu")
+    assert t.is_pair and t.data.dtype == torch.int64
+    np.testing.assert_array_equal(
+        t.raw(), np.asarray(jfrom_raw(np.array([1, -(1 << 40)]),
+                                      qformat(40, 0)).raw()))
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        from_raw([1], P(qformat(70, 0)), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         from_raw(np.array([1 << 70], dtype=object), fa, "cpu")
 
 
@@ -114,6 +120,12 @@ def test_port_runs_without_jax():
         "r = qt.qreduce(x, (qt.qformat(5, 3), qt.qformat(6, 2)), axis=1)\n"
         "assert r.shape == (8,)\n"
         "assert (qt.qmul(x, x) + x).shape == (8, 13)\n"
+        "p = qt.qmul(qt.random_fill((8, 13), qt.qformat(8, 8), device='cpu'),"
+        " qt.random_fill((8, 13), qt.qformat(8, 8), seed=2, device='cpu'),"
+        " full_prec=True)\n"
+        "assert p.is_pair and (p + p).is_pair and (-p).is_pair\n"
+        "s = qt.qreduce(p, (qt.qformat(30, 16),), axis=1)\n"
+        "assert s.is_pair and s.shape == (8,)\n"
         "from qublas_tpu_torch import bitstream, complex\n"
         "from qublas_tpu_torch.ops import cgemm, chain_probe\n"
         "f34, w, m = qt.qformat(3, 4), qt.qformat(20, 8), qt.qformat(5, 4)\n"

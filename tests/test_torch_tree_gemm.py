@@ -147,9 +147,18 @@ def test_qgemul_tree_tier_matches_jax(name, k):
 
 
 def test_pair_product_route_raises():
+    """The 64-bit product route computes on lane operands, equal to
+    ``tree_gemm_scan``; the kernels still raise on operands in pair storage
+    (int64), which no tree plan admits."""
     f = qformat(15, 8)
     plan = _plan(f, (), 4, f)
     assert plan is not None and plan.prod_route == "pair"
-    a = torch.zeros((2, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    A, B = _operands(4, f, 3, 4, 2)
+    want = np.asarray(JT.tree_gemm_scan(jfrom_raw(A, f).data,
+                                        jfrom_raw(B, f).data,
+                                        JT.plan_tree(f, f, mul_merge(f, f),
+                                                     (), 4, f), f))
+    np.testing.assert_array_equal(_plain(A, B, f, plan, f), want)
+    a = torch.zeros((2, 4), dtype=torch.int64)
+    with pytest.raises(TypeError, match="int8/int16/int32"):
         TT.tree_gemm(a, a.t().contiguous(), plan, P(f))
