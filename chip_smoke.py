@@ -86,6 +86,10 @@ CPLX_LAYERED_N = 256              # config 5 against its layered path
 BITS_BLOCK = 64                   # BitStream round trip of a 64x64 block
 CORNER = 16                       # corner checked against the host model
 PAIR_N = 2048                     # pair-storage paths f1-f4: PAIR_N^3
+LIMB_N = 2048                     # limb paths g1, g2, g6: LIMB_N^3
+LIMB_G3 = (1024, 2048, 1024)      # g3 (m, k, n): the digit-dot envelope
+LIMB_STREAM = (256, 2048, 256)    # g5's streaming GEMM (m, k, n)
+LIMB_CORNER = 4                   # corners at k = 2048 against hostops
 
 # peak rates of one H100 SXM at its 700 W limit: HBM bytes/s and int8
 # tensor-core ops/s (NVIDIA's data sheet), and int32 ops/s at the rate the
@@ -736,21 +740,21 @@ def config5():
 
 @contextmanager
 def plain_dots():
-    """The complex GEMM's and the wide GEMM tier's dots on ``int_dot``'s
-    plain version (a float64 matmul on the card) while the block runs: the
+    """The complex GEMM's, the wide GEMM tier's and the limb tier's digit
+    dots on ``int_dot``'s plain version (a float64 matmul on the card) while the block runs: the
     reference side of the K1 checks of phases 3d and 3f.  Fails if K1
     launched inside the block, so the reference cannot quietly run the
     kernel it is checking."""
-    from qublas_tpu_torch.ops import cgemm, gemm
+    from qublas_tpu_torch.ops import cgemm, gemm, limbdot
     from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm, int_dot,
                                                  int_dot_plain)
 
-    cgemm.int_dot = gemm.int_dot = int_dot_plain
+    cgemm.int_dot = gemm.int_dot = limbdot.int_dot = int_dot_plain
     fused_int8_gemm.launches = 0
     try:
         yield
     finally:
-        cgemm.int_dot = gemm.int_dot = int_dot
+        cgemm.int_dot = gemm.int_dot = limbdot.int_dot = int_dot
     check_launches("plain-dot reference", fused_int8_gemm.launches, 0)
 
 
@@ -916,7 +920,9 @@ def phase_chain(dev, state_a):
 
 def pair_paths():
     """Paths f1-f4: (label, operand format, qgemul keywords, out formats,
-    expected launches)."""
+    expected launches).  f2 runs with the limb tier off
+    (:func:`pair_tier`), so that it takes the int64 tier; path g2 runs the
+    same config on the limb tier."""
     import qublas_tpu_torch as qt
 
     sz = qt.OverflowMode.SAT_ZERO
@@ -930,7 +936,7 @@ def pair_paths():
         "f1": ("K2 pair route Qu<12,12,TRN::TCPL,SAT::ZERO>", f12,
                dict(mul_to=f12, add_formats=(f12,)), (f12,),
                {"tree_gemm": 1}),
-        "f2": ("lossless wide dot Qu<5,8>", f58,
+        "f2": ("lossless wide dot Qu<5,8>, int64 tier (limb tier off)", f58,
                dict(mul_to=qt.qformat(11, 16),
                     add_formats=(qt.qformat(22, 16),)),
                (qt.qformat(23, 8), qt.qformat(31, 16)),
@@ -941,6 +947,16 @@ def pair_paths():
                dict(mul_full_prec=True, add_formats=(qt.qformat(24, 16),)),
                (f88,), {}),
     }
+
+
+def pair_tier(key):
+    """The context in which path ``key`` of :func:`pair_paths` runs: f2
+    with the limb tier off, the others as they are."""
+    from contextlib import nullcontext
+
+    from qublas_tpu_torch.ops.gemm import force_tiers_off
+
+    return force_tiers_off("limb") if key == "f2" else nullcontext()
 
 
 def phase_pair(dev, chk):
@@ -969,7 +985,8 @@ def phase_pair(dev, chk):
         for fn in counters:
             fn.launches = 0
         t0 = time.perf_counter()
-        res = [qt.qgemul(a, b, out, **kw) for out in outs]
+        with pair_tier(key):
+            res = [qt.qgemul(a, b, out, **kw) for out in outs]
         if key == "f1":
             plan = plan_tree(f, f, qt.mul_merge(f, f, kw["mul_to"]),
                              kw["add_formats"], n, outs[0])
@@ -1001,7 +1018,7 @@ def phase_pair(dev, chk):
                      stream, res[0].data)
             del ref, stream
         elif key == "f2":
-            with plain_dots():
+            with plain_dots(), pair_tier(key):
                 refs = [qt.qgemul(a, b, out, **kw) for out in outs]
             for out, c, r in zip(outs, res, refs):
                 chk.same("fused_int8_gemm", f"f2 wide tier {n}^3 -> {out}",
@@ -1098,6 +1115,340 @@ def phase_pair(dev, chk):
           f"qreduce at {EW_N}x{EW_N} on the card equal the CPU, their "
           f"{cn}x{cn} corners and {cn} rows hostops")
     return launches, state
+
+
+def rand_limbs(gen, fmt, shape, dev):
+    """Uniform raws over a limb format's storage range, made on the card:
+    the low limbs whole, the top limb the sign-extended top bits."""
+    import torch
+
+    from qublas_tpu_torch.ops.limbint import LimbArray
+    from qublas_tpu_torch.ops.widths import limb_count
+
+    K = limb_count(fmt)
+    top = fmt.storage_bits - 32 * (K - 1)
+    low = torch.randint(0, 1 << 32, (K - 1,) + shape, generator=gen,
+                        device=dev, dtype=torch.int64)
+    hi = torch.randint(-(1 << (top - 1)), 1 << (top - 1), (1,) + shape,
+                       generator=gen, device=dev, dtype=torch.int64)
+    return LimbArray(torch.cat([low, hi & 0xFFFFFFFF]))
+
+
+def same_q(what, got, ref):
+    """A card QTensor equals a reference QTensor (format, storage kind and
+    raws), or a card tensor equals a reference tensor."""
+    import torch
+
+    if hasattr(ref, "fmt"):
+        assert got.fmt == ref.fmt, (what, got.fmt, ref.fmt)
+        assert got.is_limb == ref.is_limb, what
+        g = got.data.limbs if got.is_limb else got.data
+        r = ref.data.limbs if ref.is_limb else ref.data
+    else:
+        g, r = got, ref
+    assert g.shape == r.shape and g.dtype == r.dtype, \
+        (what, g.shape, r.shape, g.dtype, r.dtype)
+    assert torch.equal(g.cpu(), r.cpu()), f"{what}: card != reference"
+
+
+@contextmanager
+def checked_digit_dots(chk, what):
+    """Every digit-dot K1 launch in the block held against ``int_dot_plain``
+    on the same planes (a float64 matmul on the card, exact: the segment
+    bound keeps every partial sum inside int32)."""
+    from qublas_tpu_torch.ops import limbdot
+    from qublas_tpu_torch.ops.fused_gemm import int_dot, int_dot_plain
+
+    def dot(a, b):
+        out = int_dot(a, b)
+        chk.same("fused_int8_gemm", f"{what}: digit dot "
+                 f"{list(a.shape)} @ {list(b.shape)}", out,
+                 int_dot_plain(a, b))
+        return out
+
+    limbdot.int_dot = dot
+    try:
+        yield
+    finally:
+        limbdot.int_dot = int_dot
+
+
+def limb_paths():
+    """Paths g1-g3, g6: (label, operand format, qgemul keywords, out
+    formats, (m, k, n), expected K1 launches)."""
+    import qublas_tpu_torch as qt
+
+    f31, f70 = qt.qformat(31, 8), qt.qformat(70, 10)
+    g1 = dict(mul_to=qt.qformat(63, 16), add_formats=(qt.qformat(74, 16),))
+    n = LIMB_N
+    return {
+        "g1": ("Qu<31,8> pair operands, 80-bit limb products", f31, g1,
+               (qt.qformat(74, 16), qt.qformat(40, 8)), (n, n, n), 2),
+        "g2": ("f2 (Qu<5,8>) on the limb tier", qt.qformat(5, 8),
+               dict(mul_to=qt.qformat(11, 16),
+                    add_formats=(qt.qformat(22, 16),)),
+               (qt.qformat(23, 8), qt.qformat(31, 16)), (n, n, n), 2),
+        "g3": ("Qu<70,10> limb operands", f70,
+               dict(mul_to=qt.qformat(141, 20),
+                    add_formats=(qt.qformat(152, 20),)),
+               (qt.qformat(152, 20),), LIMB_G3, 1),
+    }
+
+
+def g6_config():
+    """Path g6: the Basic complex GEMM of ``Qu<31,8>`` parts in the limb
+    domain (80-bit products, 81-bit part sums, 93-bit layers holding 2048
+    of them, a limb output)."""
+    import qublas_tpu_torch as qt
+
+    w = qt.qformat(63, 16)
+    tags = dict(ac=w, bd=w, ad=w, bc=w, acbd=qt.qformat(64, 16),
+                adbc=qt.qformat(64, 16))
+    return qt.qformat(31, 8), tags, (qt.qformat(76, 16),), \
+        qt.qformat(76, 16)
+
+
+def phase_limb(dev, chk):
+    """Phase 3g: limb storage (65..992-bit formats, stacked 32-bit limbs in
+    int64) and the balanced-digit wide dot on K1, through the public entry
+    points."""
+    import numpy as np
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import hostint, hostops
+    from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
+    from qublas_tpu_torch.ops.gemm import exact_plan, limb_dot_plan
+    from qublas_tpu_torch.ops.reduce import qreduce_kernel
+    from qublas_tpu_torch.ops.tree_gemm import tree_gemm, tree_gemm_stream
+    from qublas_tpu_torch.ops.widths import route_div
+
+    counters = (fused_int8_gemm, tree_gemm, tree_gemm_stream, qreduce_kernel)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rng = np.random.RandomState(12)
+    cn, hc = CORNER, LIMB_CORNER
+    launches = {fn.__name__: 0 for fn in counters}
+    state = {}
+
+    def operand(f, shape):
+        if f.storage_bits > 64:
+            return qt.QTensor(rand_limbs(gen, f, shape, dev), f)
+        return qt.from_raw(rand_raws(rng, f, shape, np.int64), f, dev)
+
+    def drive(key, label, fn, expect):
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {c.__name__: c.launches for c in counters}
+        print(f"main path {key}: {label} in {wall * 1e3:.3f} ms wall (first "
+              f"call), launches {got}")
+        want = {c.__name__: 0 for c in counters}
+        want.update(expect)
+        check_launches(f"main path {key}", got, want)
+        for name, v in got.items():
+            launches[name] += v
+        return res
+
+    # g1-g3: qgemul's limb tier, one digit dot (one K1 launch) an output
+    for key, (label, f, kw, outs, (m, k, n), nl) in limb_paths().items():
+        a, b = operand(f, (m, k)), operand(f, (k, n))
+        mul = qt.mul_merge(f, f, kw["mul_to"])
+        plan = exact_plan(f, f, mul, kw["add_formats"], k)
+        kws = [limb_dot_plan(f, f, o, plan, k, m, n) for o in outs]
+        print(f"main path {key}: {label}, [{m}, {k}] @ [{k}, {n}], "
+              f"working limbs {kws}")
+        res = drive(key, f"{label} {m}x{k}x{n}", lambda: [
+            qt.qgemul(a, b, o, **kw) for o in outs], {"fused_int8_gemm": nl})
+        with checked_digit_dots(chk, f"{key} {m}x{k}x{n}"):
+            again = [qt.qgemul(a, b, o, **kw) for o in outs]
+        ca, cb = a[:cn].to("cpu"), qt.QTensor(b.data[:, :cn], f).to("cpu")
+        for o, c, r in zip(outs, res, again):
+            assert c.shape == (m, n) and c.fmt == o
+            assert c.is_limb == (o.storage_bits > 64), (key, o)
+            same_q(f"{key} -> {o}: again under the plain-dot check", c, r)
+            same_q(f"{key} -> {o}: {cn}x{cn} corner against the CPU",
+                   qt.QTensor(c.data[:cn, :cn], o),
+                   qt.qgemul(ca, cb, o, **kw))
+            host = qt.host_qgemul(a[:hc], qt.QTensor(b.data[:, :hc], f), o,
+                                  **kw)
+            assert np.array_equal(c[:hc, :hc].raw(), host), \
+                f"{key} corner vs hostops -> {o}"
+        state[key] = (a, b, kw, outs)
+        del res, again
+        torch.cuda.empty_cache()
+    print(f"main path g1-g3: every digit dot == int_dot_plain, {cn}x{cn} "
+          f"corners == CPU, {hc}x{hc} corners == hostops.qgemul")
+
+    # g4: the limb elementwise ops at EW_N^2 against CPU rows and hostops
+    f70, f20 = qt.qformat(70, 10, round_mode=qt.RoundMode.RND_CONV), \
+        qt.qformat(20, 9)
+    x = qt.QTensor(rand_limbs(gen, f70, (EW_N, EW_N), dev), f70)
+    y = qt.QTensor(rand_limbs(gen, f70, (EW_N, EW_N), dev), f70)
+    z_np = rand_raws(rng, f20, (EW_N, EW_N), np.int32)
+    z_np[::5, ::3] = 0
+    z = qt.from_raw(z_np, f20, dev)
+    div_to = qt.qformat(80, 10)
+    assert route_div(f70, f20, qt.add_merge(f70, f20, div_to))[0] == "limb"
+    sz = qt.OverflowMode.SAT_ZERO
+    cases = {
+        "qmul limb x lane": (lambda x, y, z: qt.qmul(x, z, to=qt.qformat(
+            95, 19)), lambda x, y, z: hostops.qmul(x, z, to=qt.qformat(
+                95, 19))),
+        "qmul limb x limb": (lambda x, y, z: qt.qmul(x, y, to=qt.qformat(
+            141, 20)), lambda x, y, z: hostops.qmul(x, y, to=qt.qformat(
+                141, 20))),
+        "qadd": (lambda x, y, z: qt.qadd(x, y),
+                 lambda x, y, z: hostops.qadd(x, y)),
+        "qsub into a pair": (lambda x, y, z: qt.qsub(x, z, to=qt.qformat(
+            40, 12, overflow_mode=qt.OverflowMode.WRP_TCPL)),
+            lambda x, y, z: hostops.qsub(x, z, to=qt.qformat(
+                40, 12, overflow_mode=qt.OverflowMode.WRP_TCPL))),
+        "qcast out of a limb": (lambda x, y, z: qt.qcast(x, qt.qformat(
+            20, 5, round_mode=qt.RoundMode.RND_INF, overflow_mode=sz)),
+            lambda x, y, z: hostops.convert(x, qt.qformat(
+                20, 5, round_mode=qt.RoundMode.RND_INF, overflow_mode=sz))),
+        "qcast into a limb": (lambda x, y, z: qt.qcast(z, qt.qformat(
+            100, 40)), lambda x, y, z: hostops.convert(z, qt.qformat(
+                100, 40))),
+        "qabs": (lambda x, y, z: qt.qabs(x), lambda x, y, z: hostops.qabs(x)),
+        "qneg": (lambda x, y, z: qt.qneg(y), lambda x, y, z: hostops.qneg(y)),
+        "qcmp": (lambda x, y, z: qt.qcmp(x, z),
+                 lambda x, y, z: hostops.qcmp(x, z)),
+        "qeq": (lambda x, y, z: qt.qeq(x, y), lambda x, y, z: hostops.qeq(
+            x, y)),
+        "qdiv (bit-serial)": (lambda x, y, z: qt.qdiv(x, z, to=div_to),
+                              lambda x, y, z: hostops.qdiv(x, z, to=div_to)),
+    }
+    args = (x, y, z)
+    rows = tuple(t[:cn].to("cpu") for t in args)
+    raws = [t[:cn, :cn].raw() for t in args]
+    ew_wall = {}
+    for what, (op, host_op) in cases.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = op(*args)
+        torch.cuda.synchronize()
+        ew_wall[what] = time.perf_counter() - t0
+        is_q = hasattr(got, "fmt")
+        head = qt.QTensor(got.data[:cn], got.fmt) if is_q else got[:cn]
+        same_q(f"g4 {what}: {cn} rows against the CPU", head, op(*rows))
+        corner = head.raw()[:, :cn] if is_q else head[:, :cn].cpu().numpy()
+        for i in range(cn):
+            for j in range(cn):
+                h = host_op(*((int(r[i, j]), t.fmt)
+                              for r, t in zip(raws, args)))
+                if is_q:
+                    assert h == (int(corner[i, j]), got.fmt), (what, i, j)
+                else:
+                    assert int(h) == int(corner[i, j]), (what, i, j)
+        del got
+    print(f"main path g4: {len(cases)} limb elementwise ops at {EW_N}x{EW_N}"
+          f" on the card equal the CPU on {cn} rows and hostops on "
+          f"{cn}x{cn} corners; qdiv, bit-serial, ran at {EW_N}x{EW_N} in "
+          f"{ew_wall['qdiv (bit-serial)']:.3f} s, inside a minute, so at "
+          "the other ops' size")
+
+    # g5: qreduce and a ROM into limb formats, the streaming tier in limbs
+    fr = qt.qformat(31, 8)
+    r = qt.from_raw(rand_raws(rng, fr, REDUCE_SHAPE, np.int64), fr, dev)
+    layers = (qt.qformat(70, 8), qt.qformat(90, 8,
+                                            round_mode=qt.RoundMode.RND_CONV))
+    red = drive("g5", f"qreduce of Qu<31,8> pairs into limb layers "
+                f"{list(REDUCE_SHAPE)}", lambda: qt.qreduce(r, layers, axis=1),
+                {})
+    assert red.is_limb
+    same_q("g5 qreduce rows against the CPU", qt.QTensor(red.data[:cn],
+                                                        red.fmt),
+           qt.qreduce(r[:cn].to("cpu"), layers, axis=1))
+    rr, rh = r[:cn].raw(), red[:cn].raw()
+    for i in range(cn):
+        h = hostops.qreduce_list([(int(v), fr) for v in rr[i]], layers)
+        assert h == (int(rh[i]), red.fmt), ("g5 qreduce row", i)
+    f34, rom_out = qt.qformat(3, 4), qt.qformat(90, 40)
+    table = qt.QTable(qt.sqrt_func, f34, rom_out)
+    xs = qt.from_raw(rand_raws(rng, f34, (EW_N, EW_N), np.int8), f34, dev)
+    rom = drive("g5", f"sqrt ROM into Qu<90,40> limbs {EW_N}x{EW_N}",
+                lambda: table(xs), {})
+    same_q("g5 ROM rows against the CPU", qt.QTensor(rom.data[:cn],
+                                                     rom_out),
+           table(xs[:cn].to("cpu")))
+    rx, ro = xs[:cn, :cn].raw(), rom[:cn, :cn].raw()
+    for i in range(cn):
+        for j in range(cn):
+            v = hostint.raw_to_double(int(rx[i, j]), f34)
+            want = hostint.double_to_raw(qt.sqrt_func(v), rom_out)
+            assert int(ro[i, j]) == want, ("g5 ROM", i, j)
+    fs = qt.qformat(70, 10, round_mode=qt.RoundMode.TRN_TCPL,
+                    overflow_mode=sz)
+    m, k, n = LIMB_STREAM
+    sa, sb = operand(fs, (m, k)), operand(fs, (k, n))
+    skw = dict(mul_to=fs, add_formats=(fs,))
+    print(f"main path g5: the streaming GEMM at {m}x{k}x{n}, not "
+          f"{LIMB_N}^3: its [m, 64, n] chunks of {fs.storage_bits}-bit "
+          "products (6 working limbs, 12 16-bit digits in int64) would "
+          "take tens of GiB a chunk and minutes at 2048^3")
+    st = drive("g5", f"streaming tier Qu<70,10,TRN::TCPL,SAT::ZERO> "
+               f"{m}x{k}x{n}", lambda: qt.qgemul(sa, sb, fs, **skw), {})
+    from qublas_tpu_torch.ops.gemm import stream_gate
+    with stream_gate(0):
+        ref = qt.qgemul(sa[:2].to("cpu"), sb.to("cpu"), fs, **skw)
+    same_q("g5 streaming GEMM 2 rows against the CPU",
+           qt.QTensor(st.data[:2], fs), ref)
+    host = qt.host_qgemul(sa[:hc], qt.QTensor(sb.data[:, :hc], fs), fs,
+                          **skw)
+    assert np.array_equal(st[:hc, :hc].raw(), host), "g5 streaming corner"
+    state["g5"] = (r, layers, table, xs, sa, sb, skw)
+    print(f"main path g5: qreduce and the ROM into limb formats and the "
+          f"streaming GEMM in limb values equal the CPU on {cn} rows (2 for "
+          f"the GEMM) and hostops on rows and corners")
+
+    # g6: cgemul in the limb domain, four digit dots (four K1 launches)
+    from qublas_tpu_torch.ops import cgemm
+
+    f, tags, cl, out = g6_config()
+    n = LIMB_N
+    ca = qt.complex_from_parts(operand(f, (n, n)), operand(f, (n, n)))
+    cb = qt.complex_from_parts(operand(f, (n, n)), operand(f, (n, n)))
+    info = {}
+    c = drive("g6", f"Basic cgemul, Qu<31,8> parts, {n}^3",
+              lambda: cgemm._fast_cgemul(ca, cb, out, out, "basic", cl, cl,
+                                         tags, info=info),
+              {"fused_int8_gemm": 4})
+    assert info == {"domain": "limb"}, info
+    with checked_digit_dots(chk, f"g6 {n}^3"):
+        again = qt.cgemul(ca, cb, out, algo="basic", add_formats=cl, **tags)
+    rows_c = qt.cgemul(qt.complex_from_parts(ca.real[:cn], ca.imag[:cn])
+                       .to("cpu"), cb.to("cpu"), out, algo="basic",
+                       add_formats=cl, **tags)
+    for part, p2, p3 in ((c.real, again.real, rows_c.real),
+                         (c.imag, again.imag, rows_c.imag)):
+        assert part.is_limb and part.shape == (n, n)
+        same_q("g6 again under the plain-dot check", part, p2)
+        same_q(f"g6 {cn} rows against the CPU",
+               qt.QTensor(part.data[:cn], out), p3)
+    host = host_cgemul(qt.complex_from_parts(ca.real[:hc], ca.imag[:hc]),
+                       qt.complex_from_parts(
+                           qt.QTensor(cb.real.data[:, :hc], f),
+                           qt.QTensor(cb.imag.data[:, :hc], f)),
+                       out, "basic", cl, **tags)
+    cr, ci = c.real[:hc, :hc].raw(), c.imag[:hc, :hc].raw()
+    for i in range(hc):
+        for j in range(hc):
+            assert host[i][j] == (int(cr[i, j]), int(ci[i, j])), \
+                ("g6 corner vs hostops", i, j)
+    state["g6"] = (ca, cb)
+    del c, again
+    torch.cuda.empty_cache()
+    print(f"main path g6: the limb-domain cgemul equals its plain digit dots, "
+          f"the CPU on {cn} rows and hostops on a {hc}x{hc} corner")
+    return launches, {"gemms": {k: state[k] for k in ("g1", "g2", "g3")},
+                      "ew": (args, cases), "g5": state["g5"],
+                      "g6": state["g6"]}
+
 
 
 def rq_ops(from_frac, fmt, floored=False, wide=False):
@@ -1199,6 +1550,76 @@ def k3_bound(plan, outputs, in_bytes, out_bytes):
                        if plan.sched[l][0] != plan.sched[l][1] else 0)
     return bound_ms(outputs * (plan.n * in_bytes + out_bytes),
                     outputs * per_out, INT32_OPS_S)
+
+
+def limb_times(card, state_g, t, bounds):
+    """Phase 4, path g: the limb tier's GEMMs (and f2 on both tiers), g1's
+    digit dot beside ``torch._int_mm`` on the same stacked planes, the limb
+    elementwise ops, ``qreduce``, the ROM, the streaming GEMM and the
+    limb-domain ``cgemul``."""
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops import cgemm
+    from qublas_tpu_torch.ops.fused_gemm import int_dot
+    from qublas_tpu_torch.ops.limbdot import balanced_digits, digits_needed
+    from qublas_tpu_torch.ops.widths import fmt_interval
+    from qublas_tpu_torch.timing import timeit
+
+    gemms, ew_args, ew_cases = state_g["gemms"], *state_g["ew"]
+    for key, (a_, b_, kw_, outs_) in gemms.items():
+        t[key] = timeit(lambda: [qt.qgemul(a_, b_, o, **kw_) for o in outs_],
+                        runs=3, warmup=1)
+    a, b, _, _ = gemms["g1"]
+    nd = digits_needed(fmt_interval(a.fmt))
+    n = a.shape[0]
+    ad = balanced_digits(a.data, nd).reshape(nd * n, n)
+    bd = balanced_digits(b.data.t(), nd).reshape(nd * n, n).t()
+    t["g1_dot"] = timeit(lambda: int_dot(ad, bd), runs=5, warmup=1)
+    t["g1_int_mm"] = timeit(lambda: torch._int_mm(ad, bd), runs=5, warmup=1)
+    t["g1_digits"] = timeit(lambda: (balanced_digits(a.data, nd),
+                                     balanced_digits(b.data.t(), nd)))
+    bounds["g1_dot"] = bound_ms(2 * nd * n * n + 4 * (nd * n) ** 2,
+                                2 * (nd * n) ** 2 * n, INT8_OPS_S)
+    del ad, bd
+    for what, (op, _) in ew_cases.items():
+        runs = 1 if what.startswith("qdiv") else 3
+        t["g4 " + what] = timeit(lambda: op(*ew_args), runs=runs,
+                                 warmup=runs - 1)
+    r, layers, table, xs, sa, sb, skw = state_g["g5"]
+    t["g5 qreduce"] = timeit(lambda: qt.qreduce(r, layers, axis=1))
+    t["g5 rom"] = timeit(lambda: table(xs))
+    t["g5 stream"] = timeit(lambda: qt.qgemul(sa, sb, sa.fmt, **skw), runs=1,
+                            warmup=0)
+    ca, cb = state_g["g6"]
+    f, tags, cl, out = g6_config()
+    t["g6"] = timeit(lambda: qt.cgemul(ca, cb, out, algo="basic",
+                                       add_formats=cl, **tags), runs=3,
+                     warmup=1)
+    for key, (label, _f, _kw, _outs, (m, k, n_), nl) in limb_paths().items():
+        print(f"time main path {key} ({label}) {m}x{k}x{n_}: {t[key]:.4f} "
+              f"ms for {len(_outs)} output(s), {nl} K1 launch(es) [{card}]")
+    print(f"time f2 on its two tiers {PAIR_N}^3, two outputs: limb tier (g2, "
+          f"2 K1 launches) {t['g2']:.4f} ms, int64 tier (f2, 134 K1 "
+          f"launches) {t['f2']:.4f} ms, limb/int64 {t['g2'] / t['f2']:.4f} "
+          f"[{card}]")
+    ms, by = bounds["g1_dot"]
+    print(f"time g1 digit dot int_dot [{nd * n}, {n}] @ [{n}, {nd * n}] "
+          f"(K1, one launch): {t['g1_dot']:.4f} ms, torch._int_mm on the "
+          f"same planes {t['g1_int_mm']:.4f} ms (reference), bound {ms:.4f} "
+          f"ms ({by}); the digit planes of A and B {t['g1_digits']:.4f} ms "
+          f"[{card}]")
+    for what in ew_cases:
+        print(f"time g4 {what} {EW_N}x{EW_N}: {t['g4 ' + what]:.4f} ms "
+              f"[{card}]")
+    m, k, n_ = LIMB_STREAM
+    print(f"time g5 qreduce of Qu<31,8> pairs into limb layers "
+          f"{list(REDUCE_SHAPE)}: {t['g5 qreduce']:.4f} ms; sqrt ROM into "
+          f"Qu<90,40> limbs {EW_N}x{EW_N}: {t['g5 rom']:.4f} ms; streaming "
+          f"GEMM in limb values {m}x{k}x{n_}: {t['g5 stream']:.4f} ms "
+          f"[{card}]")
+    print(f"time g6 limb-domain Basic cgemul {LIMB_N}^3 (4 K1 launches): "
+          f"{t['g6']:.4f} ms [{card}]")
 
 
 def phase_times(card, state_a, state_b, state_d, chain_rate, state_f):
@@ -1305,8 +1726,9 @@ def phase_times(card, state_a, state_b, state_d, chain_rate, state_f):
         "p1_pair": timeit(lambda: chain_probe(xq, yq, pplan, T1, G)),
     }
     for key, (a_, b_, kw_, outs_) in state_f.items():
-        t[key] = timeit(lambda: [qt.qgemul(a_, b_, o, **kw_) for o in outs_],
-                        runs=3, warmup=1)
+        with pair_tier(key):
+            t[key] = timeit(lambda: [qt.qgemul(a_, b_, o, **kw_)
+                                     for o in outs_], runs=3, warmup=1)
     ops = 2 * n ** 3
     for key, label in (
             ("k1", "fused_int8_gemm, K-major B (the pipeline's weight)"),
@@ -1475,8 +1897,10 @@ def main() -> int:
     launches_d, state_d = phase_complex_path(dev, chk)
     launches_e, chain_rate = phase_chain(dev, state_a)
     launches_f, state_f = phase_pair(dev, chk)
+    launches_g, state_g = phase_limb(dev, chk)
     t, bounds = phase_times(card, state_a, state_b, state_d, chain_rate,
                             state_f)
+    limb_times(card, state_g, t, bounds)
     for line in resources(report, "tree_gemm_tiled_kernel") + \
             resources(report, "tree_gemm_stream_kernel") + \
             resources(report, "chain_probe_kernel"):
@@ -1497,7 +1921,8 @@ def main() -> int:
         row("fused_int8_gemm", "qublas_tpu_torch/csrc/fused_gemm.cu",
             "qublas_tpu/ops/pallas_gemm.py:83",
             launches_a["fused_int8_gemm"] + launches_d["fused_int8_gemm"]
-            + launches_f["fused_int8_gemm"], "k1", "k1_plain", "int_mm"),
+            + launches_f["fused_int8_gemm"] + launches_g["fused_int8_gemm"],
+            "k1", "k1_plain", "int_mm"),
         row("tree_gemm", "qublas_tpu_torch/csrc/tree_gemm_tiled.cu",
             "qublas_tpu/ops/tree_gemm.py:362",
             launches_a["tree_gemm"] + launches_f["tree_gemm"], "k2",

@@ -6,7 +6,10 @@ lossless int8 GEMM with a fused requantize epilogue (also the int32 dots of
 the complex GEMM's fast path); K2 and K2′, the order-sensitive tree GEMM on
 its blocked and one-pass schedules; K3, the layered tree reduce (Qreduce);
 and P1, the probe that measures the tree GEMM's per-product work.  The
-elementwise and complex elementwise ops are plain torch ops; ``bitstream``
+elementwise and complex elementwise ops are plain torch ops, on int32
+lanes, int64 (pair storage, 33..64 bits) or stacked 32-bit limbs in int64
+(limb storage, 65..992 bits: ``ops.limbint``); the wide lossless GEMMs run
+as balanced int8 digit dots on K1 (``ops.limbdot``); ``bitstream``
 serializes tensors to the reference's bit strings.
 
 The package stands alone: it imports torch and numpy, never JAX and nothing

@@ -5,7 +5,8 @@ bit pattern through a Python-double function and requantizes it into the
 output format with the exact host pipeline (``hostint``), exactly as the JAX
 package builds it.  Applying the table is a mask of the input raws and a
 plain index of the table on the tensor's device: int32 entries for a lane
-output format, int64 for a pair-storage one (33..64 bits).  (The JAX
+output format, int64 for a pair-storage one (33..64 bits), a column of
+stacked limbs for a limb-storage one (65..992 bits).  (The JAX
 package's 63-select packed tree exists only because Mosaic has no 1-D
 gather; torch indexes natively.)  ``qpoly``/``qapprox`` are still to be
 ported (ROADMAP item 6).
@@ -20,9 +21,10 @@ import numpy as np
 import torch
 
 from . import hostint
-from .ops.widths import storage_dtype
+from .ops.limbint import LimbArray, limbs_from_ints
+from .ops.widths import limb_count, storage_dtype, storage_kind
 from .qformat import QFormat
-from .qtensor import QTensor
+from .qtensor import QTensor, host_storage_error
 
 __all__ = ["QTable", "build_table", "rsqrt_func", "reciprocal_func",
            "sqrt_func"]
@@ -65,11 +67,9 @@ class QTable:
             raise ValueError(
                 f"LUT over a {w}-bit input needs 2^{w} entries; cap is "
                 f"2^{MAX_TABLE_BITS}.  Use qapprox for wide formats.")
-        out_dtype = storage_dtype(self.out_fmt)
-        if out_dtype is None:
-            raise NotImplementedError(
-                f"{self.out_fmt}: a table into limb or host storage is not "
-                "yet ported (ROADMAP A4)")
+        kind = storage_kind(self.out_fmt)
+        if kind is None:
+            raise host_storage_error(f"a table into {self.out_fmt}")
         raws = []
         for p in range(1 << max(w, 0)):
             raw_in = p - (1 << w) if (in_fmt.signed and w > 0
@@ -81,8 +81,12 @@ class QTable:
                 out_val = math.nan
             raws.append(hostint.double_to_raw(out_val, self.out_fmt))
         self._mask = (1 << w) - 1 if w > 0 else 0
-        self.table = torch.from_numpy(np.array(
-            raws, dtype=np.int64 if out_dtype == torch.int64 else np.int32))
+        if kind == "limb":
+            # [K, entries]: entry p is column p
+            self.table = limbs_from_ints(raws, limb_count(self.out_fmt))
+        else:
+            self.table = torch.from_numpy(np.array(
+                raws, dtype=np.int64 if kind == "pair" else np.int32))
         self._on_device = {}
 
     def _table_on(self, device: torch.device) -> torch.Tensor:
@@ -99,8 +103,11 @@ class QTable:
                                                    t.signed):
             raise ValueError(f"QTable built for {self.in_fmt}, got {x.fmt}")
         idx = (x.data.to(torch.int32) & self._mask).long()
-        raw = self._table_on(x.device)[idx]
-        return QTensor(raw.to(storage_dtype(self.out_fmt)), self.out_fmt)
+        table = self._table_on(x.device)
+        if table.ndim == 2:
+            return QTensor(LimbArray(table[:, idx]), self.out_fmt)
+        return QTensor(table[idx].to(storage_dtype(self.out_fmt)),
+                       self.out_fmt)
 
 
 def build_table(func, in_fmt: QFormat,

@@ -96,15 +96,11 @@ def _flat_raws(qtensor):
 
 
 def _from_raws(raws, shape, fmt: QFormat, device):
-    """A QTensor of the parsed raws on ``device``; raws beyond int64 raise
-    as the port's ``from_raw`` does for raws beyond its lanes."""
+    """A QTensor of the parsed raws on ``device``; raws beyond the format's
+    storage word raise as the port's ``from_raw`` does."""
     from .qtensor import from_raw
 
-    if any(not -(1 << 63) <= r < (1 << 63) for r in raws):
-        raise NotImplementedError(
-            "raws beyond int64 need host object storage (ROADMAP item 11)")
-    return from_raw(np.array(raws, dtype=np.int64).reshape(shape), fmt,
-                    device)
+    return from_raw(np.array(raws, dtype=object).reshape(shape), fmt, device)
 
 
 def to_bits(qtensor, tensor_order=None, elem_order=None) -> str:

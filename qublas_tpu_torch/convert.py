@@ -30,7 +30,8 @@ def port_format(f) -> QFormat:
 
 def from_jax(t, device) -> QTensor:
     """A port QTensor on ``device`` with the raws and format of ``t``: any
-    object with ``.raw()`` and ``.fmt`` (e.g. a ``qublas_tpu.QTensor``)."""
+    object with ``.raw()`` and ``.fmt`` (e.g. a ``qublas_tpu.QTensor``).
+    Raws of limb formats, Python ints, become stacked limbs."""
     return from_raw(np.asarray(t.raw()), port_format(t.fmt), device)
 
 

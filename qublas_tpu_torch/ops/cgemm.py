@@ -1,7 +1,7 @@
 """Complex quantized GEMM on torch (TFComplexMul / BasicComplexMul per
 product).
 
-Port of ``qublas_tpu/ops/cgemm.py`` for lane storage.  The semantics
+Port of ``qublas_tpu/ops/cgemm.py``.  The semantics
 compose what the reference defines (it has no GEMM of its own, SURVEY.md
 §2.14):
 
@@ -23,9 +23,12 @@ Dispatch, per configuration and before any data is touched:
    identity epilogue on the card); the combine and the two final
    requantizes are plain torch ops, as they are XLA ops in the JAX package.
    Batched operands with equal leading dims run the same plan per batch
-   element.  Where the proof holds but a dot or an epilogue outgrows int32,
-   the JAX package computes in its limb domain, which is not yet ported:
-   that raises ``NotImplementedError`` (ROADMAP item 11).
+   element.  Where the proof holds but an operand, a dot or an epilogue
+   outgrows int32 lanes, the dots run in the **limb domain**, as in the JAX
+   package: each a balanced-digit dot on K1
+   (:func:`~qublas_tpu_torch.ops.limbdot.limb_dot_2d`, one launch a
+   k-segment), the combine exact limb arithmetic, one limb requantize a
+   part into any device storage.
 2. **Layered path.**  ``cmul``/``cmul_tf`` over the [.., m, k, 1] x
    [.., 1, k, n] broadcast, :func:`~qublas_tpu_torch.ops.reduce.qreduce` per
    part (kernel K3 on the card), then ``qcast``.
@@ -43,12 +46,16 @@ from .. import hostops
 from ..qformat import QFormat, add_merge, mul_merge
 from ..qtensor import QTensor
 from . import elementwise as ew
+from . import limbdot as D
+from . import limbint as L
 from .fused_gemm import int_dot, kmajor
-from .gemm import (_lossless_requant, _per_batch, dot_partial_interval,
+from .gemm import (_LIMBDOT_MAX_DOT_ELEMS, _LIMBDOT_MAX_MATMULS,
+                   _lossless_requant, _per_batch, dot_partial_interval,
                    tree_exact)
 from .reduce import qreduce
 from .wideint import requantize_i32
-from .widths import (Interval, fmt_interval, route_requant, storage_kind,
+from .widths import (LIMB_INTER_MAX_BITS, Interval, fmt_interval,
+                     requant_work_bits, route_requant, storage_kind,
                      torch_dtype_for)
 
 __all__ = ["cgemul", "cgemv", "force_fast_off"]
@@ -110,10 +117,23 @@ class _FastPlan:
     oif: QFormat
 
 
-def _unported_limb():
-    return NotImplementedError(
-        "lossless complex GEMM beyond int32 lanes: the JAX package's limb "
-        "domain is not yet ported (ROADMAP item 11)")
+@dataclass(frozen=True)
+class _LimbPlan:
+    """The fast path of one configuration in the limb domain
+    (``qublas_tpu/ops/cgemm.py:limb_path``): each dot a balanced-digit dot
+    on K1 (:func:`~qublas_tpu_torch.ops.limbdot.limb_dot_2d`) into ``Kw``
+    limbs, then an exact limb shift/combine and one limb requantize a
+    part."""
+
+    algo: str
+    Kw: int
+    dspecs: Tuple[Tuple[Interval, Interval, int], ...]  # (iv_x, iv_y, shift)
+    align: Tuple[int, ...]   # TF: the operand sums' alignment shifts
+    fabc: Tuple[int, ...]    # TF: the fractional scales fA, fB, fC
+    fin_r: QFormat
+    fin_i: QFormat
+    orf: QFormat
+    oif: QFormat
 
 
 def _tf_int8_distributed(fmts, k, fal1, fal2, w1, w2, w3, fin_r, fin_i,
@@ -153,13 +173,14 @@ def _tf_int8_distributed(fmts, k, fal1, fal2, w1, w2, w3, fin_r, fin_i,
 
 
 def _fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags, k,
-               int8_parts: bool) -> Optional[_FastPlan]:
+               mn: Tuple[int, int]):
     """Prove the configuration lossless (``qublas_tpu/ops/cgemm.py:
-    _fast_cgemul``, the proof and ``i32_path``'s width gates) and return its
-    :class:`_FastPlan`; None when the proof fails, so the layered path
-    computes it.  ``int8_parts``: all four operand parts in int8 lanes (TF
-    then distributes over four elementary dots).  Raises where the proof
-    holds but int32 lanes do not suffice."""
+    _fast_cgemul``) and return its plan: a :class:`_FastPlan` where
+    ``i32_path``'s width gates hold (lane operands, int32 dots and
+    epilogues), else a :class:`_LimbPlan` where ``limb_path``'s envelope
+    holds (``mn``: the output's rows and columns); None when the proof
+    fails or neither domain admits the configuration, so the layered path
+    computes it."""
     far, fai = a.real.fmt, a.imag.fmt
     fbr, fbi = b.real.fmt, b.imag.fmt
     ar = _Step(fmt_interval(far), far)
@@ -214,28 +235,8 @@ def _fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags, k,
     # final values at tree frac: lossless layers only shift left
     re_tot = re_tot << (fin_r.frac_bits - re_p.fmt.frac_bits)
     im_tot = im_tot << (fin_i.frac_bits - im_p.fmt.frac_bits)
-
-    # i32_path's width gates (qublas_tpu/ops/cgemm.py:247-303)
-    if torch_dtype_for(orf) is None or torch_dtype_for(oif) is None:
-        raise _unported_limb()
-    if not (re_tot.fits32 and im_tot.fits32):
-        raise _unported_limb()
-    if route_requant(re_tot, fin_r.frac_bits, orf) != "i32" or \
-            route_requant(im_tot, fin_i.frac_bits, oif) != "i32":
-        raise _unported_limb()
-
-    def gate(iv_x, iv_y, post_shift):
-        # every shifted dot term must itself fit int32, not just the
-        # combined difference
-        iv = dot_partial_interval(iv_x * iv_y, k)
-        if not iv.fits32 or not (iv << post_shift).fits32:
-            raise _unported_limb()
-
     fr, fi = fin_r.frac_bits, fin_i.frac_bits
     if algo == "tf":
-        # precomputed elementwise operands must fit int32 lanes
-        if not (s_ab.iv.fits32 and s_cd.iv.fits32 and s_ba.iv.fits32):
-            raise _unported_limb()
         fal1 = max(far.frac_bits, fai.frac_bits)
         w1 = s_ab.fmt.frac_bits - fal1
         fal2 = max(fbr.frac_bits, fbi.frac_bits)
@@ -244,31 +245,139 @@ def _fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags, k,
         fA = s_ab.fmt.frac_bits + fbr.frac_bits
         fB = s_cd.fmt.frac_bits + fai.frac_bits
         fC = s_ba.fmt.frac_bits + fbi.frac_bits
-        # the combine shifts dB by fin_r-fB AND fin_i-fB (and dA, dC by
-        # fin_r-fA, fin_i-fC): every static shift must be non-negative
-        if min(fr - fA, fr - fB, fi - fB, fi - fC) < 0:
-            raise _unported_limb()
-        p = _tf_int8_distributed((far, fai, fbr, fbi), k, fal1, fal2, w1,
-                                 w2, w3, fin_r, fin_i, fA, fB, fC) \
-            if int8_parts else None
-        if p is not None:
-            return _FastPlan("tf4", p + (fA, fB, fC), fin_r, fin_i, orf, oif)
-        gate(s_ab.iv, fmt_interval(fbr), fr - fA)
-        gate(fmt_interval(fai), s_cd.iv, max(fr, fi) - fB)
-        gate(s_ba.iv, fmt_interval(fbi), fi - fC)
         align = (fal1 - far.frac_bits + w1, fal1 - fai.frac_bits + w1,
                  fal2 - fbr.frac_bits + w2, fal2 - fbi.frac_bits + w2,
                  fal1 - fai.frac_bits + w3, fal1 - far.frac_bits + w3)
-        return _FastPlan("tf3", align + (fA, fB, fC), fin_r, fin_i, orf, oif)
-    shifts = (fr - far.frac_bits - fbr.frac_bits,
-              fr - fai.frac_bits - fbi.frac_bits,
-              fi - far.frac_bits - fbi.frac_bits,
-              fi - fai.frac_bits - fbr.frac_bits)
-    gate(fmt_interval(far), fmt_interval(fbr), shifts[0])
-    gate(fmt_interval(fai), fmt_interval(fbi), shifts[1])
-    gate(fmt_interval(far), fmt_interval(fbi), shifts[2])
-    gate(fmt_interval(fai), fmt_interval(fbr), shifts[3])
-    return _FastPlan("basic", shifts, fin_r, fin_i, orf, oif)
+
+    def i32_plan():
+        """``i32_path``'s width gates (qublas_tpu/ops/cgemm.py:247-303);
+        None when one fails, so the limb domain is tried."""
+        if any(t.is_pair or t.is_limb
+               for t in (a.real, a.imag, b.real, b.imag)):
+            return None
+        if torch_dtype_for(orf) is None or torch_dtype_for(oif) is None:
+            return None
+        if not (re_tot.fits32 and im_tot.fits32):
+            return None
+        if route_requant(re_tot, fr, orf) != "i32" or \
+                route_requant(im_tot, fi, oif) != "i32":
+            return None
+
+        def gate(iv_x, iv_y, post_shift):
+            # every shifted dot term must itself fit int32, not just the
+            # combined difference
+            iv = dot_partial_interval(iv_x * iv_y, k)
+            return iv.fits32 and (iv << post_shift).fits32
+
+        if algo == "tf":
+            # precomputed elementwise operands must fit int32 lanes
+            if not (s_ab.iv.fits32 and s_cd.iv.fits32 and s_ba.iv.fits32):
+                return None
+            # the combine shifts dB by fin_r-fB AND fin_i-fB (and dA, dC by
+            # fin_r-fA, fin_i-fC): every static shift must be non-negative
+            if min(fr - fA, fr - fB, fi - fB, fi - fC) < 0:
+                return None
+            p = _tf_int8_distributed((far, fai, fbr, fbi), k, fal1, fal2, w1,
+                                     w2, w3, fin_r, fin_i, fA, fB, fC) \
+                if _int8_parts(a, b) else None
+            if p is not None:
+                return _FastPlan("tf4", p + (fA, fB, fC), fin_r, fin_i, orf,
+                                 oif)
+            if not (gate(s_ab.iv, fmt_interval(fbr), fr - fA)
+                    and gate(fmt_interval(fai), s_cd.iv, max(fr, fi) - fB)
+                    and gate(s_ba.iv, fmt_interval(fbi), fi - fC)):
+                return None
+            return _FastPlan("tf3", align + (fA, fB, fC), fin_r, fin_i, orf,
+                             oif)
+        shifts = (fr - far.frac_bits - fbr.frac_bits,
+                  fr - fai.frac_bits - fbi.frac_bits,
+                  fi - far.frac_bits - fbi.frac_bits,
+                  fi - fai.frac_bits - fbr.frac_bits)
+        if not (gate(fmt_interval(far), fmt_interval(fbr), shifts[0])
+                and gate(fmt_interval(fai), fmt_interval(fbi), shifts[1])
+                and gate(fmt_interval(far), fmt_interval(fbi), shifts[2])
+                and gate(fmt_interval(fai), fmt_interval(fbr), shifts[3])):
+            return None
+        return _FastPlan("basic", shifts, fin_r, fin_i, orf, oif)
+
+    def limb_plan():
+        """``limb_path``'s envelope (qublas_tpu/ops/cgemm.py:361-446)."""
+        if route_requant(re_tot, fr, orf) == "host" or \
+                route_requant(im_tot, fi, oif) == "host":
+            return None
+        iv_ar, iv_ai = fmt_interval(far), fmt_interval(fai)
+        iv_br, iv_bi = fmt_interval(fbr), fmt_interval(fbi)
+        if algo == "tf":
+            dspecs = ((s_ab.iv, iv_br, fr - fA),
+                      (iv_ai, s_cd.iv, max(fr, fi) - fB),
+                      (s_ba.iv, iv_bi, fi - fC))
+            shifts, fabc = align, (fA, fB, fC)
+            extra_bits = [s_ab.iv.bits, s_cd.iv.bits, s_ba.iv.bits]
+        else:
+            dspecs = ((iv_ar, iv_br, fr - far.frac_bits - fbr.frac_bits),
+                      (iv_ai, iv_bi, fr - fai.frac_bits - fbi.frac_bits),
+                      (iv_ar, iv_bi, fi - far.frac_bits - fbi.frac_bits),
+                      (iv_ai, iv_br, fi - fai.frac_bits - fbr.frac_bits))
+            shifts, fabc, extra_bits = (), (), []
+        if any(sh < 0 for _, _, sh in dspecs) or any(sh < 0 for sh in shifts):
+            return None                   # shift invariant violated
+        if algo == "tf" and (fr < fB or fi < fB):
+            return None
+        need = max(requant_work_bits(re_tot, fr, orf),
+                   requant_work_bits(im_tot, fi, oif),
+                   re_tot.bits, im_tot.bits, 1, *extra_bits)
+        for ivx, ivy, sh in dspecs:
+            if D.digit_matmuls(ivx, ivy) > _LIMBDOT_MAX_MATMULS:
+                return None
+            nd_x, nd_y = D.digits_needed(ivx), D.digits_needed(ivy)
+            nseg = -(-k // D._seg_len(k, min(nd_x, nd_y)))
+            if nd_x * nd_y * nseg * mn[0] * mn[1] > _LIMBDOT_MAX_DOT_ELEMS:
+                return None
+            need = max(need, D.work_bits(ivx, ivy, k),
+                       (dot_partial_interval(ivx * ivy, k) << sh).bits)
+        if need > LIMB_INTER_MAX_BITS:
+            return None
+        return _LimbPlan(algo, L.bits_to_limbs(need), dspecs, shifts, fabc,
+                         fin_r, fin_i, orf, oif)
+
+    fp = i32_plan()
+    return fp if fp is not None else limb_plan()
+
+
+def _limb_run(lp: _LimbPlan, a, b):
+    """The raws of both output parts in the limb domain
+    (``qublas_tpu/ops/cgemm.py:limb_path``): the dots on
+    :func:`~qublas_tpu_torch.ops.limbdot.limb_dot_2d`, the exact limb
+    shift/combine and one limb requantize a part, into any device
+    storage."""
+    Kw, fr, fi = lp.Kw, lp.fin_r.frac_bits, lp.fin_i.frac_bits
+    ar, ai, br, bi = a.real.data, a.imag.data, b.real.data, b.imag.data
+
+    def dot(x, y, spec):
+        return D.limb_dot_2d(x, y, spec[0], spec[1], Kw)
+
+    if lp.algo == "tf":
+        def tolimb(x, shift):
+            return L.lshl(D.to_limbs_any(x, Kw), shift)
+
+        al = lp.align
+        fA, fB, fC = lp.fabc
+        S1 = L.ladd(tolimb(ar, al[0]), tolimb(ai, al[1]))
+        S2 = L.ladd(tolimb(br, al[2]), tolimb(bi, al[3]))
+        S3 = L.lsub(tolimb(ai, al[4]), tolimb(ar, al[5]))
+        dA = dot(L.LimbArray(S1), br, lp.dspecs[0])
+        dB = dot(ai, L.LimbArray(S2), lp.dspecs[1])
+        dC = dot(L.LimbArray(S3), bi, lp.dspecs[2])
+        re = L.lsub(L.lshl(dA, fr - fA), L.lshl(dB, fr - fB))
+        im = L.lsub(L.lshl(dB, fi - fB), L.lshl(dC, fi - fC))
+    else:
+        sp = lp.dspecs
+        re = L.lsub(L.lshl(dot(ar, br, sp[0]), sp[0][2]),
+                    L.lshl(dot(ai, bi, sp[1]), sp[1][2]))
+        im = L.ladd(L.lshl(dot(ar, bi, sp[2]), sp[2][2]),
+                    L.lshl(dot(ai, br, sp[3]), sp[3][2]))
+    return (L.requantize_limb(re, fr, lp.orf),
+            L.requantize_limb(im, fi, lp.oif))
 
 
 def _fast_run(fp: _FastPlan, ar, ai, br, bi):
@@ -317,7 +426,7 @@ def _fast_run(fp: _FastPlan, ar, ai, br, bi):
 
 
 def _int8_parts(a, b) -> bool:
-    return all(t.data.dtype == torch.int8
+    return all(not t.is_limb and t.data.dtype == torch.int8
                for t in (a.real, a.imag, b.real, b.imag))
 
 
@@ -325,19 +434,27 @@ def _fast_cgemul(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
                  info=None):
     """The fast-path result, or None when the proof fails
     (``qublas_tpu/ops/cgemm.py:_fast_cgemul``).  ``info["domain"]`` is set
-    to ``"i32"`` where it computes, as the JAX package sets it.
+    to ``"i32"`` or ``"limb"`` where it computes, as the JAX package sets
+    it.
 
-    Operands with equal leading dims run one plan per element of the
-    flattened batch: the proof depends on formats, k and lane dtypes only,
-    so no 1x1 probe is needed as in the JAX package."""
+    Operands with equal leading dims run one int32 plan per element of the
+    flattened batch, as the JAX package vmaps its 2-D fast path; batched
+    configurations of the limb domain take the layered path (the same
+    bits, by the proof)."""
     from ..complex import QComplexTensor
 
     if a.ndim < 2 or a.ndim != b.ndim or a.shape[:-2] != b.shape[:-2]:
         return None
     fp = _fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
-                    a.shape[-1], _int8_parts(a, b))
-    if fp is None:
+                    a.shape[-1], (a.shape[-2], b.shape[-1]))
+    if fp is None or (isinstance(fp, _LimbPlan) and a.ndim != 2):
         return None
+    if isinstance(fp, _LimbPlan):
+        if info is not None:
+            info["domain"] = "limb"
+        raw_r, raw_i = _limb_run(fp, a, b)
+        return QComplexTensor(ew._finish(raw_r, fp.orf),
+                              ew._finish(raw_i, fp.oif))
     if info is not None:
         info["domain"] = "i32"
     raw_r, raw_i = _per_batch(lambda *p: _fast_run(fp, *p), a.real.data,

@@ -3,39 +3,47 @@
 Port of ``qublas_tpu.ops.gemm``.  The proof machinery (``_identity_range``,
 ``_lossless_requant``, ``ExactPlan``, ``tree_exact``,
 ``dot_partial_interval``, ``exact_plan``, ``_device_epilogue_ok``,
-``wide_dot_ok``) is a copy of the JAX package's pure-Python planners: the
-machine with the card has no JAX, and ``qublas_tpu.ops.gemm`` imports it at
-module level.  The CPU tests pin the copies to the originals.
+``wide_dot_ok``, ``limb_dot_plan``) is a copy of the JAX package's
+pure-Python planners: the machine with the card has no JAX, and
+``qublas_tpu.ops.gemm`` imports it at module level.  The CPU tests pin the
+copies to the originals.
 
-:func:`qgemul` dispatches in the JAX package's order over the tiers ported
-so far (by the losslessness proof, every tier that admits a configuration
-gives the same bits; the order is about speed):
+:func:`qgemul` dispatches in the JAX package's order (by the losslessness
+proof, every tier that admits a configuration gives the same bits; the
+order is about speed):
 
 1. **Lossless tier** (``exact_plan`` and ``_device_epilogue_ok``): every
    association order gives the same bits, so the dot is one int8 (or int32)
    integer GEMM with the requantize fused on its int32 accumulator —
    :func:`~qublas_tpu_torch.ops.fused_gemm.fused_int8_gemm` (kernel K1).
-2. **Lossless wide tier** (:func:`_fast_gemm_wide`): the proof holds but
-   the dot outgrows int32, so the dot is summed exactly in int64 — segment
-   dots on K1's ``int_dot`` where every product fits int32, chunked int64
-   products otherwise — and requantized once.  The JAX package first tries
-   its limb-domain dot, which comes with limb storage (ROADMAP A4).
-3. **Order-sensitive tier** (``plan_tree``): the reference's balanced tree
+2. **Lossless limb tier** (:func:`_fast_gemm_limb`): the proof holds but
+   the dot outgrows int32, so it runs as balanced int8 digit dots, one K1
+   ``int_dot`` launch a k-segment, recombined exactly into stacked limbs
+   (:mod:`.limbdot`) and requantized once, into any device storage.
+   ``limb_dot_plan`` bounds the digit grid and the dot tensor.
+3. **Lossless wide tier** (:func:`_fast_gemm_wide`): configurations outside
+   the limb tier's envelope whose dot fits int64 sum it exactly in int64 —
+   segment dots on K1's ``int_dot`` where every product fits int32, chunked
+   int64 products otherwise — and requantize once.
+   :func:`force_tiers_off` turns tiers 2 and 3 off by name ("limb",
+   "wide"), as the JAX package's switch does.
+4. **Order-sensitive tier** (``plan_tree``): the reference's balanced tree
    with per-product and per-layer requantization —
    :func:`~qublas_tpu_torch.ops.tree_gemm.tree_gemm` (kernel K2), products
-   on the i32, split or 64-bit pair route.  The JAX package's
-   prefix-lossless hybrid tier computes the same bits faster on a TPU; on
-   the card K2 evaluates those configs directly.
-4. **Streaming tier** (:func:`_stream_gemm_wide`): the same tree as a
+   on the i32, split or 64-bit pair route, lane operands only.  The JAX
+   package's prefix-lossless hybrid tier computes the same bits faster on
+   a TPU; on the card K2 evaluates those configs directly.
+5. **Streaming tier** (:func:`_stream_gemm_wide`): the same tree as a
    binary-carry stream of k-chunks over the elementwise ops and
    :func:`~qublas_tpu_torch.ops.reduce.qreduce`, for configurations outside
-   the int32 tree (pair-storage values, 33..64-bit layer sums); small
+   the int32 tree (pair or limb values, layer sums beyond 32 bits); small
    GEMMs take the layered path instead: all products, then ``qreduce``.
 
-Operands with equal leading (batch) dims run the kernel tiers once per
-matrix of the flattened batch.  Broadcast batch dims, and configurations
-whose values need limb or host storage, raise ``NotImplementedError``
-(ROADMAP items 4 and A4).
+Operands with equal leading (batch) dims run the lossless and tree tiers
+once per matrix of the flattened batch (tiers 2 and 3 are 2-D only, as in
+the JAX package).  Broadcast batch dims, and configurations whose values
+need host storage, raise ``NotImplementedError`` (ROADMAP items 4 and
+A4b).
 """
 
 from __future__ import annotations
@@ -51,14 +59,17 @@ from .. import hostops
 from ..qformat import OverflowMode, QFormat, add_merge, mul_merge
 from ..qtensor import QTensor
 from . import elementwise as ew
+from . import limbint as L
 from .fused_gemm import fused_int8_gemm, int_dot
 from .reduce import layer_format, qreduce
 from .tree_gemm import drain_ops, plan_tree, tree_gemm
 from .wideint import mul_wide, requantize_i64
 from .widths import (
     I32_MAX,
+    LIMB_INTER_MAX_BITS,
     Interval,
     fmt_interval,
+    requant_work_bits,
     route_requant,
     storage_dtype,
     storage_kind,
@@ -66,9 +77,26 @@ from .widths import (
 )
 
 __all__ = ["qgemul", "qgemv", "exact_plan", "ExactPlan", "host_qgemul",
-           "wide_dot_ok", "pair_dot_2d", "stream_gate"]
+           "wide_dot_ok", "pair_dot_2d", "stream_gate", "force_tiers_off",
+           "limb_dot_plan"]
 
+_TIERS_OFF: frozenset = frozenset()   # subset of {"wide", "limb"}
 _STREAM_GATE_OVERRIDE: Optional[int] = None
+
+
+@contextmanager
+def force_tiers_off(*tiers: str):
+    """Turn the named lossless wide tiers off within the context ("limb":
+    the balanced-digit dot; "wide": the int64 dot), as
+    ``qublas_tpu.ops.gemm.force_tiers_off`` does: a check or a timing can
+    then run the next tier on a configuration both admit."""
+    global _TIERS_OFF
+    saved = _TIERS_OFF
+    _TIERS_OFF = saved | frozenset(tiers)
+    try:
+        yield
+    finally:
+        _TIERS_OFF = saved
 
 
 @contextmanager
@@ -204,9 +232,9 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     ``add_formats`` ~ QgemulAddArgs TypeList, ``transpose_a/b`` ~
     QgemulTransposedA/B.  ``epilogue_lut`` applies a
     :class:`~qublas_tpu_torch.anus.QTable` built for ``out_fmt`` to the
-    result.  Operands are lane-storage QTensors of at least 2 dims on one
-    device, with equal leading dims; a CUDA operand runs the tier's kernel,
-    a CPU operand its plain version.
+    result.  Operands are QTensors (lane, pair or limb storage) of at least
+    2 dims on one device, with equal leading dims; a CUDA operand runs the
+    tier's kernel, a CPU operand its plain version.
     """
     if isinstance(out_fmt, QTensor):
         out_fmt = out_fmt.fmt  # readme-style call shape `Qgemul(C, A, B)`
@@ -237,11 +265,17 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
             x, y, plan.prod_frac, out_fmt), a.data, b.data)
         return QTensor(raw, out_fmt)
     if plan is not None:
-        res = _fast_gemm_wide(a, b, out_fmt, plan)
+        # the dot outgrows int32: the digit dot first, then the int64 dot,
+        # in the JAX package's order
+        res = None if "limb" in _TIERS_OFF else \
+            _fast_gemm_limb(a, b, out_fmt, plan)
+        if res is None and "wide" not in _TIERS_OFF:
+            res = _fast_gemm_wide(a, b, out_fmt, plan)
         if res is not None:
             return res
 
-    if not (a.is_pair or b.is_pair):   # the tree kernels take lanes
+    # the tree kernels take lanes
+    if not (a.is_pair or b.is_pair or a.is_limb or b.is_limb):
         tplan = plan_tree(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
         if tplan is not None:
             raw = _per_batch(lambda x, y: tree_gemm(x, y, tplan, out_fmt),
@@ -275,6 +309,64 @@ def _per_batch(fn, *xs: torch.Tensor):
     if isinstance(outs[0], torch.Tensor):
         return stack(outs)
     return tuple(stack(ms) for ms in zip(*outs))
+
+
+# ---------------------------------------------------------------------------
+# Lossless limb tier: balanced-digit dots (copy of qublas_tpu/ops/gemm.py:
+# 491-561)
+# ---------------------------------------------------------------------------
+
+# admission caps of the digit dot (static, from formats and shapes): the
+# number of int8 digit-pair dots, and the int32 dot elements of all of them
+_LIMBDOT_MAX_MATMULS = 2500          # 384-bit x 384-bit operands = 49*49
+_LIMBDOT_MAX_DOT_ELEMS = 1 << 28     # 1 GiB of int32 digit dots
+
+
+def limb_dot_plan(a_fmt: QFormat, b_fmt: QFormat, out_fmt: QFormat,
+                  plan: ExactPlan, k: int, m: int, n: int):
+    """Working limb count of the digit-domain wide dot, or None when the
+    configuration is outside its envelope."""
+    from . import limbdot as D
+
+    if storage_kind(out_fmt) is None:
+        return None
+    iva, ivb = fmt_interval(a_fmt), fmt_interval(b_fmt)
+    if D.digit_matmuls(iva, ivb) > _LIMBDOT_MAX_MATMULS:
+        return None
+    da, db = D.digits_needed(iva), D.digits_needed(ivb)
+    nseg = -(-k // D._seg_len(k, min(da, db)))
+    if da * db * nseg * m * n > _LIMBDOT_MAX_DOT_ELEMS:
+        return None
+    if route_requant(plan.dot_interval, plan.prod_frac, out_fmt) == "host":
+        return None
+    need = max(D.work_bits(iva, ivb, k),
+               requant_work_bits(plan.dot_interval, plan.prod_frac,
+                                 out_fmt))
+    if need > LIMB_INTER_MAX_BITS:
+        return None
+    return L.bits_to_limbs(need)
+
+
+def _fast_gemm_limb(a: QTensor, b: QTensor, out_fmt: QFormat,
+                    plan: ExactPlan) -> Optional[QTensor]:
+    """The lossless limb tier: the exact stacked-limb dot of
+    :func:`~qublas_tpu_torch.ops.limbdot.limb_dot_2d` (one K1 launch a
+    k-segment on the card) and ONE limb requantize from the raw products'
+    scale into any device storage.  Bit-exact by the losslessness proof, as
+    the int32 tier is.  None for batched operands or outside
+    :func:`limb_dot_plan`."""
+    from . import limbdot as D
+
+    if a.ndim != 2 or b.ndim != 2:
+        return None
+    Kw = limb_dot_plan(a.fmt, b.fmt, out_fmt, plan, a.shape[-1],
+                       a.shape[-2], b.shape[-1])
+    if Kw is None:
+        return None
+    acc = D.limb_dot_2d(a.data, b.data, fmt_interval(a.fmt),
+                        fmt_interval(b.fmt), Kw)
+    return ew._finish(L.requantize_limb(acc, plan.prod_frac, out_fmt),
+                      out_fmt)
 
 
 # ---------------------------------------------------------------------------
@@ -358,8 +450,8 @@ _STREAM_MAX_CHUNKS = 1024
 def _stream_gemm_wide(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
                       add_formats, mul_full_prec) -> Optional[QTensor]:
     """The order-sensitive tree GEMM as a stream of k-chunks of whole
-    QTensors, so the elementwise ops route each step to its storage (lane
-    or pair).  The schedule is the tree GEMM's binary counter: each chunk's
+    QTensors, so the elementwise ops route each step to its storage (lane,
+    pair or limb).  The schedule is the tree GEMM's binary counter: each chunk's
     ``[.., m, chunk, n]`` products fold through the chunk's complete
     subtree by :func:`qreduce` (layers ``0..log2(chunk)-1``), and the chunk
     values merge at layers ``log2(chunk)+j`` on a slot stack, drained as
@@ -438,4 +530,5 @@ def host_qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     b_rows = [[(int(B[p, j]), b.fmt) for j in range(n)] for p in range(k)]
     c = hostops.qgemul(a_rows, b_rows, out_fmt, mul_to, add_formats,
                        mul_full_prec=mul_full_prec)
-    return np.array([[v[0] for v in row] for row in c], dtype=np.int64)
+    dtype = object if storage_kind(out_fmt) == "limb" else np.int64
+    return np.array([[v[0] for v in row] for row in c], dtype=dtype)

@@ -20,10 +20,10 @@ Dispatch, per configuration and before any data is touched:
    CUDA tensor, its plain version :func:`qreduce_plain` for a CPU tensor.
 3. Any other runs the layered slice/add program of the elementwise ops, on
    int32 lanes or, where a layer needs them, on the int64 of pair storage
-   (``i32`` and ``pair`` routes); a layer that needs limbs or the host
-   resumes on the host golden model from that layer on, as the JAX
-   package's path does for host layers.  K3 stays lane-only, as its JAX
-   counterpart does.
+   or on stacked limbs (``i32``, ``pair`` and ``limb`` routes); a layer
+   that needs the host resumes on the host golden model from that layer
+   on, as the JAX package's path does for host layers.  K3 stays
+   lane-only, as its JAX counterpart does.
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ import torch
 
 from .. import _build, hostops
 from ..qformat import OverflowMode, QFormat, RoundMode, add_merge
-from ..qtensor import QTensor, from_raw
+from ..qtensor import QTensor, from_raw, host_storage_error
+from .limbint import LimbArray
 from .wideint import requantize_i32
 from .widths import (
     LANE_DTYPES,
@@ -45,7 +46,6 @@ from .widths import (
     requant_out_interval,
     route_addsub,
     route_requant,
-    storage_dtype,
     storage_kind,
     torch_dtype_for,
 )
@@ -332,8 +332,8 @@ def qreduce(x: QTensor, layer_formats=(), axis=None) -> QTensor:
 def _layer_on_device(cur_fmt: QFormat, fmt, m: int) -> bool:
     """Layer ``Qadd`` of two ``cur_fmt`` values into ``fmt`` (and, for odd
     m, the tail's cast) stays on the device routes of the elementwise ops:
-    int32 lanes or the int64 of the pair route."""
-    device = ("i32", "pair")
+    int32 lanes, the int64 of the pair route or stacked limbs."""
+    device = ("i32", "pair", "limb")
     out = add_merge(cur_fmt, cur_fmt, fmt)
     if route_addsub(cur_fmt, cur_fmt, out, False)[0] not in device:
         return False
@@ -347,7 +347,10 @@ def _qreduce_layered(x: QTensor, layer_formats, axis: int) -> QTensor:
     package's default path, ``qublas_tpu/ops/reduce.py:125-145``)."""
     from . import elementwise as ew
 
-    cur = QTensor(torch.movedim(x.data, axis, 0), x.fmt)
+    if x.is_limb:
+        cur = QTensor(x.data.movedim(axis, 0), x.fmt)
+    else:
+        cur = QTensor(torch.movedim(x.data, axis, 0), x.fmt)
     layer = 0
     while cur.shape[0] > 1:
         m = cur.shape[0]
@@ -356,14 +359,21 @@ def _qreduce_layered(x: QTensor, layer_formats, axis: int) -> QTensor:
             return _qreduce_host(cur, layer_formats, first_layer=layer)
         s = ew.qadd(cur[0:m - 1:2], cur[1:m:2], to=fmt)
         if m % 2:
-            # an unchanged tail may hold raws in a wider lane: promote, as
-            # the JAX package's concatenate does
             tail = ew.qcast(cur[m - 1:m], s.fmt)
-            dt = torch.promote_types(s.data.dtype, tail.data.dtype)
-            s = QTensor(torch.cat([s.data.to(dt), tail.data.to(dt)]), s.fmt)
+            s = QTensor(_concat(s.data, tail.data), s.fmt)
         cur = s
         layer += 1
     return QTensor(cur.data[0], cur.fmt)
+
+
+def _concat(s, tail):
+    """The layer's sums and its converted odd tail (of the same format)
+    along the first axis.  An unchanged lane tail may hold raws in a wider
+    lane: promote, as the JAX package's concatenate does."""
+    if isinstance(s, LimbArray):
+        return LimbArray(torch.cat([s.limbs, tail.limbs], dim=1))
+    dt = torch.promote_types(s.dtype, tail.dtype)
+    return torch.cat([s.to(dt), tail.to(dt)])
 
 
 def _qreduce_host(x: QTensor, layer_formats, first_layer: int) -> QTensor:
@@ -381,9 +391,7 @@ def _qreduce_host(x: QTensor, layer_formats, first_layer: int) -> QTensor:
         r, out_fmt = hostops.qreduce_list([(int(v), x.fmt) for v in lane],
                                           layer_formats)
         out_raws.append(r)
-    if storage_dtype(out_fmt) is None:
-        raise NotImplementedError(
-            f"qreduce into {out_fmt}: limb and host storage are not yet "
-            "ported (ROADMAP A4)")
-    return from_raw(np.array(out_raws, dtype=np.int64).reshape(batch_shape),
+    if storage_kind(out_fmt) is None:
+        raise host_storage_error(f"qreduce into {out_fmt}")
+    return from_raw(np.array(out_raws, dtype=object).reshape(batch_shape),
                     out_fmt, x.device)

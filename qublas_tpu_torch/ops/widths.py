@@ -9,14 +9,16 @@ arithmetic exact:
 * ``i32``   — every intermediate fits one int32 lane (``split`` is the
   int32 split-B product of a wider multiply),
 * ``pair``  — 64-bit intermediates, on int64 tensors (:mod:`.wideint`),
-* ``limb``  — stacked 32-bit limbs (not yet ported: ROADMAP A4),
+* ``limb``  — stacked 32-bit limbs (:mod:`.limbint`, working widths up to
+  1,024 bits),
 * ``host``  — the exact Python-int golden model (:mod:`..hostops`).
 
 The proof is exact interval arithmetic over Python ints.  Raw values are
 assumed to lie within their format's storage range, as the reference
 assumes (QuBLAS.h:341); ``from_raw`` can violate it (the ``fill(int)``
 wart).  The dtype rules are :func:`torch_dtype_for` (lanes only) and
-:func:`storage_dtype` (lanes and pairs).
+:func:`storage_dtype` (lanes and pairs); :func:`limb_count` gives the limbs
+of limb storage.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..qformat import OverflowMode, QFormat
 __all__ = ["torch_dtype_for", "storage_dtype", "LANE_DTYPES", "Interval",
            "fmt_interval", "rounded_interval", "requant_out_interval",
            "route_requant", "requant_work_bits", "split_mul_ok", "route_mul",
-           "route_addsub", "route_div", "storage_kind"]
+           "route_addsub", "route_div", "storage_kind", "limb_count"]
 
 LANE_DTYPES = (torch.int8, torch.int16, torch.int32)
 
@@ -338,11 +340,14 @@ def storage_kind(fmt: QFormat):
     * ``"pair"`` — one int64 per element (storage 33..64; reference
       multiword ``ArbiInt``, QuBLAS.h:566-912; the JAX package's (hi, lo)
       pair),
-    * ``"limb"`` — stacked 32-bit limbs (storage 65..992),
-    * ``None``  — wider still: host-side Python-int object arrays.
+    * ``"limb"`` — stacked 32-bit limbs in int64 (storage 65..992,
+      :class:`~qublas_tpu_torch.ops.limbint.LimbArray`),
+    * ``None``  — wider still: host-side Python-int object arrays (not yet
+      ported: ROADMAP A4b).
 
-    ``"lane"`` and ``"pair"`` are ported; limb and host storage are not
-    yet (ROADMAP A4).
+    For WRP_TCPL_SAT (the reference identity stub) storage is the machine
+    word: the int32 word up to 32 bits, the 64-bit pair up to 64 bits, a
+    64-bit-multiple limb count beyond (:func:`limb_count`).
     """
     s = fmt.storage_bits
     if s <= 32:
@@ -353,3 +358,12 @@ def storage_kind(fmt: QFormat):
         return "limb"
     return None
 
+
+def limb_count(fmt: QFormat) -> int:
+    """Stacked-limb count of a "limb"-storage format: ceil(storage/32),
+    except WRP_TCPL_SAT, whose store wraps at the 64-bit-multiple machine
+    word (copy of ``qublas_tpu/ops/widths.py:limb_count``)."""
+    s = fmt.storage_bits
+    if fmt.overflow_mode == OverflowMode.WRP_TCPL_SAT:
+        return 2 * ((s + 63) // 64)
+    return (s + 31) // 32

@@ -259,25 +259,23 @@ def test_fast_path_preserves_wart_raws():
 
 def test_limb_domain_raises():
     """Proof-lossless but wider than int32 (outputs of 49-bit pair
-    storage, as in the JAX package's own wart test): the JAX package
-    computes in its limb domain, the port raises and does not fall through
-    to the layered path."""
+    storage, as in the JAX package's own wart test): the port computes in
+    its limb domain, as the JAX package does, Δ=0; the batched call (the
+    layered path in both packages, since its outputs are not lanes) too."""
     wide = qformat(40, 8)
     out = (qformat(40, 8), qformat(40, 8))
     tags = dict(ac=wide, bd=wide, ad=wide, bc=wide, acbd=qformat(41, 8),
                 adbc=qformat(41, 8))
     a, b = _mat(24, (2, 3)), _mat(25, (3, 2))
-    info = {}
-    assert JCG._fast_cgemul(a, b, *out, "basic", (qformat(44, 8),),
-                            (qformat(44, 8),), tags, info=info) is not None
-    assert info["domain"] == "limb"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        _both(a, b, out, "basic", (qformat(44, 8),), tags)
+    layers = (qformat(44, 8),)
+    assert _domains(a, b, out, "basic", layers, tags) == \
+        ("limb", "limb")
     batched = (_mat(26, (2, 2, 3)), _mat(27, (2, 3, 2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        TCG.cgemul(*(complex_from_jax(x, "cpu") for x in batched), P(out),
-                   add_formats=P((qformat(44, 8),)),
-                   **{k: P(v) for k, v in tags.items()})
+    for x, y in ((a, b), batched):
+        got, want = _both(x, y, out, "basic", layers, tags)
+        for g, w in ((got.real, want.real), (got.imag, want.imag)):
+            assert g.is_pair and w.is_pair and g.fmt == P(w.fmt)
+            np.testing.assert_array_equal(g.raw(), np.asarray(w.raw()))
 
 
 def test_proof_copies_match_jax():

@@ -1,8 +1,10 @@
 """The port's copies of the JAX package's pure-Python modules, Δ=0.
 
 ``qublas_tpu_torch`` imports nothing of ``qublas_tpu``, so it carries its
-own ``qformat``, ``hostint``, ``hostops`` and the width proofs of
-``ops.widths``.  Each copy must answer as its original does over a seeded
+own ``qformat``, ``hostint``, ``hostops``, the width proofs of
+``ops.widths`` (``limb_count`` included) and the limb-dot planners
+(``gemm.limb_dot_plan``; ``limbdot.digits_needed``, ``work_bits`` and
+``_seg_len``).  Each copy must answer as its original does over a seeded
 sweep: formats compare field by field (the two packages' QFormat classes
 differ), everything else by value.
 """
@@ -175,6 +177,8 @@ def test_widths_match(rm, om):
     for f in fmts:
         pf = P(f)
         assert TW.storage_kind(pf) == JW.storage_kind(f)
+        if JW.storage_kind(f) == "limb":
+            assert TW.limb_count(pf) == JW.limb_count(f)
         # the port's storage dtype: the JAX lane dtype, int64 for a pair
         jdt = JW.dtype_for(f)
         assert TW.storage_dtype(pf) == (
@@ -203,6 +207,69 @@ def test_widths_match(rm, om):
                 for sub in (False, True):
                     assert _t(TW.route_addsub(*args_t, sub)) == \
                         _t(JW.route_addsub(*args_j, sub))
+
+
+@pytest.mark.parametrize("om", list(JF.OverflowMode),
+                         ids=[o.name for o in JF.OverflowMode])
+def test_limb_count_matches(om):
+    for bits in (33, 63, 64, 65, 96, 97, 128, 129, 200, 511, 992, 993):
+        f = JF.QFormat(bits - 1, 0, True, JF.RoundMode.TRN_TCPL, om)
+        assert TW.storage_kind(P(f)) == JW.storage_kind(f)
+        if JW.storage_kind(f) == "limb":
+            assert TW.limb_count(P(f)) == JW.limb_count(f)
+
+
+def test_limb_dot_planners_match():
+    """``limb_dot_plan`` and the digit planners it rests on, over operand
+    widths from int8 lanes to 200-bit limbs, k from 1 to 2^20 and output
+    formats of every storage kind."""
+    from qublas_tpu.ops import gemm as JG
+    from qublas_tpu.ops import limbdot as JD
+    from qublas_tpu_torch.ops import gemm as TG
+    from qublas_tpu_torch.ops import limbdot as TD
+
+    widths = [(3, 4), (5, 8), (15, 16), (31, 8), (62, 0), (70, 10),
+              (120, 40), (199, 0)]
+    ks = [1, 7, 64, 1000, 2048, 40000, 1 << 20]
+    for ib, fb in widths:
+        iv = JW.fmt_interval(JF.QFormat(ib, fb))
+        tiv = TW.Interval(iv.lo, iv.hi)
+        assert TD.digits_needed(tiv) == JD.digits_needed(iv)
+        for ib2, fb2 in widths[::3]:
+            iv2 = JW.fmt_interval(JF.QFormat(ib2, fb2))
+            tiv2 = TW.Interval(iv2.lo, iv2.hi)
+            assert TD.digit_matmuls(tiv, tiv2) == JD.digit_matmuls(iv, iv2)
+            for k in ks:
+                assert TD.work_bits(tiv, tiv2, k) == JD.work_bits(iv, iv2, k)
+    for k in ks:
+        for g in range(1, 60, 7):
+            assert TD._seg_len(k, g) == JD._seg_len(k, g)
+    outs = [JF.QFormat(7, 0), JF.QFormat(40, 8), JF.QFormat(74, 16),
+            JF.QFormat(300, 20, True, JF.RoundMode.RND_CONV,
+                       JF.OverflowMode.SAT_ZERO), JF.QFormat(1000, 0)]
+    assert TG._LIMBDOT_MAX_MATMULS == JG._LIMBDOT_MAX_MATMULS
+    assert TG._LIMBDOT_MAX_DOT_ELEMS == JG._LIMBDOT_MAX_DOT_ELEMS
+    checked = set()
+    for ib, fb in widths:
+        fa = JF.QFormat(ib, fb)
+        mul = JF.QFormat(2 * ib + 1, 2 * fb)   # holds every product
+        for k in (2, 64, 2048):
+            plan = JG.exact_plan(fa, fa, mul, (JF.QFormat(mul.int_bits + 12,
+                                                          mul.frac_bits),),
+                                 k)
+            tplan = TG.exact_plan(P(fa), P(fa), P(mul), (P(JF.QFormat(
+                mul.int_bits + 12, mul.frac_bits)),), k)
+            assert (plan is None) == (tplan is None)
+            if plan is None:
+                continue
+            for out in outs:
+                for m, n in ((1, 1), (64, 64), (2048, 2048)):
+                    kw = JG.limb_dot_plan(fa, fa, out, plan, k, m, n)
+                    assert TG.limb_dot_plan(P(fa), P(fa), P(out), tplan, k,
+                                            m, n) == kw
+                    checked.add(kw)
+    # admitted at several working widths, and refused
+    assert None in checked and len(checked) >= 4
 
 
 # ---------------------------------------------------------------------------

@@ -574,12 +574,17 @@ def test_pair_storage_on_the_card_matches_cpu(cuda):
     a = qt.from_raw(_raws(7, f58, (40, 200), np.int16).numpy(), f58, cuda)
     b = qt.from_raw(_raws(8, f58, (200, 30), np.int16).numpy(), f58, cuda)
     kw = dict(mul_to=qt.qformat(11, 16), add_formats=(qt.qformat(22, 16),))
-    fused_int8_gemm.launches = 0
-    for out in (qt.qformat(23, 8), qt.qformat(31, 16)):
-        got = qt.qgemul(a, b, out, **kw)
-        cpu = qt.qgemul(a.to("cpu"), b.to("cpu"), out, **kw)
-        assert got.fmt == cpu.fmt and torch.equal(got.data.cpu(), cpu.data)
-    assert fused_int8_gemm.launches == 2 * 7      # 200 = 6 x 31 + 14
+    for tiers_off, launches in (((), 2), (("limb",), 2 * 7)):
+        # the limb tier: one digit dot an output; the int64 wide tier: one
+        # K1 segment dot a 31 products, 200 = 6 x 31 + 14
+        fused_int8_gemm.launches = 0
+        with TG.force_tiers_off(*tiers_off):
+            for out in (qt.qformat(23, 8), qt.qformat(31, 16)):
+                got = qt.qgemul(a, b, out, **kw)
+                cpu = qt.qgemul(a.to("cpu"), b.to("cpu"), out, **kw)
+                assert got.fmt == cpu.fmt and \
+                    torch.equal(got.data.cpu(), cpu.data)
+        assert fused_int8_gemm.launches == launches
     f88 = qt.qformat(8, 8)
     x = qt.from_raw(_raws(9, f88, (20, 48), np.int32).numpy(), f88, cuda)
     y = qt.from_raw(_raws(10, f88, (48, 12), np.int32).numpy(), f88, cuda)
@@ -599,3 +604,129 @@ def test_pair_storage_on_the_card_matches_cpu(cuda):
                      (qt.qreduce(p, (qt.qformat(40, 16),), axis=1),
                       qt.qreduce(pc, (qt.qformat(40, 16),), axis=1))):
         assert got.fmt == cpu.fmt and torch.equal(got.data.cpu(), cpu.data)
+
+
+# ---------------------------------------------------------------------------
+# limb storage (65..992-bit formats): plain torch on the card, the digit
+# dots on K1
+# ---------------------------------------------------------------------------
+
+def _limb_same(got, cpu):
+    """A card QTensor (or tensor) equals the same call on CPU copies."""
+    if hasattr(cpu, "fmt"):
+        assert got.fmt == cpu.fmt and got.is_limb == cpu.is_limb
+        assert got.device.type == "cuda"
+        assert np.array_equal(got.raw(), cpu.raw())
+    else:
+        assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("name", ["g1", "g3"])
+def test_limb_tier_digit_dots_on_k1_match_plain(cuda, name):
+    """``qgemul``'s limb tier on the card: one K1 launch a k-segment an
+    output, equal to the CPU and to the same digit dots on
+    ``int_dot_plain``."""
+    from qublas_tpu_torch.ops import limbdot
+
+    if name == "g1":
+        f, mul, add = (qt.qformat(31, 8), qt.qformat(63, 16),
+                       qt.qformat(74, 16))
+        outs = (add, qt.qformat(40, 8))
+    else:
+        f, mul, add = (qt.qformat(70, 10), qt.qformat(141, 20),
+                       qt.qformat(152, 20))
+        outs = (add,)
+    a = qt.random_fill((70, 300), f, seed=3, device=cuda)
+    b = qt.random_fill((300, 50), f, seed=4, device=cuda)
+    for out in outs:
+        fused_int8_gemm.launches = 0
+        got = qt.qgemul(a, b, out, mul_to=mul, add_formats=(add,))
+        torch.cuda.synchronize()
+        assert fused_int8_gemm.launches == 1
+        _limb_same(got, qt.qgemul(a.to("cpu"), b.to("cpu"), out,
+                                  mul_to=mul, add_formats=(add,)))
+        limbdot.int_dot = int_dot_plain
+        try:
+            plain = qt.qgemul(a, b, out, mul_to=mul, add_formats=(add,))
+        finally:
+            limbdot.int_dot = int_dot
+        _limb_same(got, plain.to("cpu"))
+
+
+def test_limb_dot_takes_a_k1_launch_a_segment(cuda):
+    """300-bit operands at k = 3400: two k-segments, two K1 launches,
+    equal to the plain digit dots."""
+    from qublas_tpu_torch.ops import limbdot, limbint
+
+    f = qt.qformat(299, 0)
+    a = qt.random_fill((2, 3400), f, seed=5, device=cuda)
+    b = qt.random_fill((3400, 3), f, seed=6, device=cuda)
+    iv = limbdot.Interval(f.raw_min, f.raw_max)
+    Kw = limbint.bits_to_limbs(limbdot.work_bits(iv, iv, 3400))
+    fused_int8_gemm.launches = 0
+    got = limbdot.limb_dot_2d(a.data, b.data, iv, iv, Kw)
+    torch.cuda.synchronize()
+    assert fused_int8_gemm.launches == 2
+    want = limbdot.limb_dot_2d(a.data.to("cpu"), b.data.to("cpu"), iv, iv,
+                               Kw)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_limb_storage_on_the_card_matches_cpu(cuda):
+    """The limb elementwise routes, ``qreduce``, ``QTable``, the streaming
+    tier in limb values and ``cgemul``'s limb domain on the card, each
+    equal to the same call on CPU copies, in every overflow mode."""
+    from qublas_tpu_torch.ops import gemm as TG
+
+    f70 = qt.qformat(70, 10, round_mode=qt.RoundMode.RND_CONV)
+    u = qt.random_fill((33, 17), f70, seed=7, device=cuda)
+    v = qt.random_fill((33, 17), qt.qformat(20, 9), seed=8, device=cuda)
+    uc, vc = u.to("cpu"), v.to("cpu")
+    assert u.is_limb and u.data.limbs.is_cuda
+    cases = [lambda x, y: qt.qmul(x, x, to=qt.qformat(141, 20)),
+             lambda x, y: qt.qadd(x, y), lambda x, y: x - y,
+             lambda x, y: qt.qdiv(y, x, to=qt.qformat(40, 20)),
+             lambda x, y: -x, lambda x, y: abs(x),
+             lambda x, y: qt.qcmp(x, y), lambda x, y: qt.qeq(x, x),
+             lambda x, y: qt.qreduce(x, (qt.qformat(90, 12),), axis=1),
+             lambda x, y: qt.qcast(y, qt.qformat(200, 60))]
+    for om in qt.OverflowMode:
+        to = qt.qformat(50, 8, round_mode=qt.RoundMode.RND_INF,
+                        overflow_mode=om)
+        cases.append(lambda x, y, to=to: qt.qmul(x, y, to=to))
+        cases.append(lambda x, y, to=to: qt.qcast(x, to))
+    for op in cases:
+        _limb_same(op(u, v), op(uc, vc))
+    table = qt.QTable(np.sqrt, qt.qformat(3, 4), qt.qformat(90, 40))
+    x = qt.from_raw(np.arange(-128, 128).reshape(16, 16), qt.qformat(3, 4),
+                    cuda)
+    _limb_same(table(x), table(x.to("cpu")))
+    fs = qt.qformat(70, 10, round_mode=qt.RoundMode.TRN_TCPL,
+                    overflow_mode=qt.OverflowMode.SAT_ZERO)
+    a = qt.random_fill((4, 70), fs, seed=9, device=cuda)
+    b = qt.random_fill((70, 3), fs, seed=10, device=cuda)
+    with TG.stream_gate(0):
+        _limb_same(qt.qgemul(a, b, fs, mul_to=fs, add_formats=(fs,)),
+                   qt.qgemul(a.to("cpu"), b.to("cpu"), fs, mul_to=fs,
+                             add_formats=(fs,)))
+    f = qt.qformat(31, 8)
+    w = qt.qformat(63, 16)
+    tags = dict(ac=w, bd=w, ad=w, bc=w, acbd=qt.qformat(64, 16),
+                adbc=qt.qformat(64, 16))
+    rng = np.random.RandomState(11)
+    parts = [rng.randint(f.raw_min, f.raw_max + 1, size=s)
+             for s in ((20, 40), (20, 40), (40, 10), (40, 10))]
+    ca = qt.complex_from_raw(parts[0], parts[1], f, device=cuda)
+    cb = qt.complex_from_raw(parts[2], parts[3], f, device=cuda)
+    info = {}
+    fused_int8_gemm.launches = 0
+    got = cgemm._fast_cgemul(ca, cb, None, None, "basic",
+                             (qt.qformat(74, 16),), (qt.qformat(74, 16),),
+                             tags, info=info)
+    torch.cuda.synchronize()
+    assert info == {"domain": "limb"} and fused_int8_gemm.launches == 4
+    want = qt.cgemul(ca.to("cpu"), cb.to("cpu"), None, algo="basic",
+                     add_formats=(qt.qformat(74, 16),), **tags)
+    _limb_same(got.real, want.real)
+    _limb_same(got.imag, want.imag)
+

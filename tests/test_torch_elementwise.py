@@ -6,8 +6,10 @@ than int32; ``pair`` for 64-bit intermediates; ``host`` with a lane or
 pair result) in every rounding x overflow mode, signed and unsigned, with
 the reference warts (``SAT::ZERO`` overflow to zero, divide by zero -> 0,
 truncation toward zero) and the int32 edges.  Configurations whose JAX
-route is ``limb`` must raise ``NotImplementedError`` naming ROADMAP A4 in
-the port.  ``tests/test_torch_pair.py`` covers pair storage.
+route is ``limb`` compute on the port's limb route; results that need host
+storage (beyond 992 bits) raise ``NotImplementedError`` naming ROADMAP
+A4b.  ``tests/test_torch_pair.py`` covers pair storage,
+``tests/test_torch_limb.py`` limb storage.
 """
 
 import dataclasses
@@ -52,6 +54,10 @@ def _pair(rng, fa, fb, shape=(6, 7), zeros=False):
 def _same(got, want):
     if hasattr(want, "fmt"):
         assert dataclasses.astuple(got.fmt) == dataclasses.astuple(want.fmt)
+        assert got.is_limb == want.is_limb
+        if got.is_limb:
+            np.testing.assert_array_equal(got.raw(), want.raw())
+            return
         got, want = got.data, want.raw()
     w = np.asarray(want)
     assert got.dtype == getattr(torch, str(w.dtype)), (got.dtype, w.dtype)
@@ -59,19 +65,12 @@ def _same(got, want):
 
 
 def _compare(name, jargs, targs, **kw):
-    """One op on both sides; True when compared, False when the port
-    refuses a route it has not ported yet (limb storage or
-    intermediates)."""
+    """One op on both sides, held Δ=0; True once compared (every device
+    route is ported, the limb route included)."""
     want = getattr(JE, name)(*jargs, **kw)
     tkw = {k: P(v) if k == "to" and v is not None else v
            for k, v in kw.items()}
-    try:
-        got = getattr(TE, name)(*targs, **tkw)
-    except NotImplementedError as e:
-        assert "ROADMAP A4" in str(e)
-        assert "'limb'" in str(e) or "host" in str(e)
-        return False
-    _same(got, want)
+    _same(getattr(TE, name)(*targs, **tkw), want)
     return True
 
 
@@ -103,7 +102,7 @@ def test_ops_match_jax(rm, om, signed):
         compared += _compare("qmul", (jc, jd), (tc, td), to=to)
     # the divide's host route (negative output frac) with a lane result
     compared += _compare("qdiv", (ja, jb), (ta, tb), to=f(9, -1))
-    assert compared >= (8 if om == OverflowMode.WRP_TCPL_SAT else 30)
+    assert compared == 33
 
 
 @pytest.mark.parametrize("name,fmt", [
@@ -130,19 +129,25 @@ def test_int32_edges(name, fmt):
 
 def test_unported_routes_raise():
     """The pair route computes (``tests/test_torch_pair.py`` holds it to
-    the JAX package); the limb route and limb storage raise."""
+    the JAX package), and so do the routes that raised before limb storage
+    was ported: the limb route and limb results, Δ=0 against the JAX
+    package.  Results that need host storage still raise."""
     f = qformat(15, 16)  # 32-bit storage: products need the pair route
     (ja, jb), (ta, tb) = _pair(np.random.RandomState(1), f, f)
     assert _compare("qmul", (ja, jb), (ta, tb))
     assert _compare("qadd", (ja, jb), (ta, tb), to=qformat(40, 0))
-    w = P(qformat(40, 0))    # 41-bit pair storage: 82-bit products
-    t = qt.from_raw([1, 2], w, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        qt.qmul(t, t)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        qt.qadd(ta, tb, to=P(qformat(70, 0)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        qt.qneg(qt.from_raw([1, 2], P(qformat(70, 0)), "cpu"))
+    w = qformat(40, 0)       # 41-bit pair storage: 82-bit products
+    jt, tt = JQ.from_raw(np.array([1, 2]), w), qt.from_raw([1, 2], P(w), "cpu")
+    assert route_mul(w, w, w)[0] == "limb"
+    assert _compare("qmul", (jt, jt), (tt, tt))
+    assert _compare("qadd", (ja, jb), (ta, tb), to=qformat(70, 0))
+    f70 = qformat(70, 0)
+    assert _compare("qneg", (JQ.from_raw(np.array([1, -2]), f70),),
+                    (qt.from_raw([1, -2], P(f70), "cpu"),))
+    big = qt.from_raw([1, 2], P(qformat(900, 0)), "cpu")
+    assert big.is_limb
+    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
+        qt.qmul(big, big, full_prec=True)
 
 
 def test_operators_and_scalar_coercion_match_jax():

@@ -165,7 +165,8 @@ def test_unported_tiers_raise():
     b = from_raw(_raws(rng, FA, (4, 5)), P(FA), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         TG.qgemul(a, b, P(MID))            # a broadcast batch
-    # a lossless dot wider than int32 takes the int64 wide tier
+    # a lossless dot wider than int32 takes the limb tier (the digit dot,
+    # as in the JAX package), and the int64 wide tier with it turned off
     f, w = P(qformat(15, 0)), P(qformat(40, 0))
     x = from_raw(_raws(rng, f, (2, 8)), f, "cpu")
     y = from_raw(_raws(rng, f, (8, 2)), f, "cpu")
@@ -174,11 +175,22 @@ def test_unported_tiers_raise():
                      mul_to=qformat(40, 0), add_formats=(qformat(40, 0),))
     got = TG.qgemul(x, y, f, mul_to=w, add_formats=(w,))
     np.testing.assert_array_equal(got.raw(), np.asarray(want.raw()))
-    # one whose products need limbs (82 bits) raises
+    with TG.force_tiers_off("limb"):
+        got = TG.qgemul(x, y, f, mul_to=w, add_formats=(w,))
+    np.testing.assert_array_equal(got.raw(), np.asarray(want.raw()))
+    # one whose products need limbs (82 bits) computes on the limb route
+    jw = qformat(40, 0)
     x = from_raw(_raws(rng, w, (2, 8)), w, "cpu")
     y = from_raw(_raws(rng, w, (8, 2)), w, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        TG.qgemul(x, y, w)
+    want = JG.qgemul(jfrom_raw(x.raw(), jw), jfrom_raw(y.raw(), jw), jw)
+    np.testing.assert_array_equal(TG.qgemul(x, y, w).raw(),
+                                  np.asarray(want.raw()))
+    # one whose products need host storage (1,801 bits) raises
+    h = P(qformat(900, 0))
+    x = from_raw([[1, 2]], h, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
+        TG.qgemul(x, from_raw([[3], [4]], h, "cpu"), h,
+                  mul_full_prec=True)
 
 
 def test_kernel_wrappers_validate_operands():

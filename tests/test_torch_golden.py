@@ -7,11 +7,12 @@ converting copy (``requant.json``, skipping the reference's documented
 defects with the port's ``hostint.reference_requant_defect``), the binary
 ops (``mul``/``add``/``sub``), ``qabs``/``qneg`` (``unary``), ``qcmp``/
 ``qeq`` (``cmp``), ``qreduce`` (``reduce``, its vector entry point) and the
-double constructor (``dbl``); and the converting copy's records again
-through the 64-bit requantize of the pair route.  Lane and pair storage
-are ported; a record whose operands, result or intermediates need limb or
-host storage must raise ``NotImplementedError`` until ROADMAP A4 ports
-them.  There is no ``div.json``.  This file imports no JAX.
+double constructor (``dbl``); and the converting copy's lane records again
+through the 64-bit requantize of the pair route.  Lane, pair and limb
+storage are ported; a record whose operands or result need host storage
+(raws beyond the storage word, formats beyond 992 bits) must raise
+``NotImplementedError`` until ROADMAP A4b ports it (no record does).  There
+is no ``div.json``.  This file imports no JAX.
 """
 
 import json
@@ -26,8 +27,7 @@ from qublas_tpu_torch import hostint
 from qublas_tpu_torch.ops import elementwise as ew
 from qublas_tpu_torch.ops.reduce import qreduce
 from qublas_tpu_torch.ops.wideint import requantize_i64
-from qublas_tpu_torch.ops.widths import (fmt_interval, route_addsub,
-                                         route_mul,
+from qublas_tpu_torch.ops.widths import (fmt_interval, limb_count,
                                          route_requant, storage_dtype,
                                          storage_kind)
 from qublas_tpu_torch.qformat import (OverflowMode, QFormat, RoundMode,
@@ -50,17 +50,17 @@ def _ids(kind):
 
 
 def _on_device(raws, fmt) -> bool:
-    """The raws fit the format's lane or pair storage word."""
-    dt = storage_dtype(fmt)
-    if dt is None:
+    """The raws fit the format's lane, pair or limb storage word."""
+    kind = storage_kind(fmt)
+    if kind is None:
         return False
-    word = 64 if storage_kind(fmt) == "pair" else 32
+    word = {"lane": 32, "pair": 64}.get(kind) or 32 * limb_count(fmt)
     return all(-(1 << (word - 1)) <= int(v) < (1 << (word - 1))
                for v in raws)
 
 
 def _tensor(raws, fmt):
-    return qt.from_raw(np.array([int(v) for v in raws], dtype=np.int64), fmt,
+    return qt.from_raw(np.array([int(v) for v in raws], dtype=object), fmt,
                        "cpu")
 
 
@@ -73,19 +73,26 @@ def _raws(t):
 # ---------------------------------------------------------------------------
 
 def _requant_needs_limbs(rec) -> bool:
+    """The record's source or destination has limb storage, or its
+    requantize takes the limb route."""
     src, dst = _fmt(rec["from"]), _fmt(rec["to"])
-    return not (_on_device(rec["in"], src)
-                and storage_dtype(dst) is not None
-                and route_requant(fmt_interval(src), src.frac_bits, dst)
-                != "limb")
+    return "limb" in (storage_kind(src), storage_kind(dst),
+                      route_requant(fmt_interval(src), src.frac_bits, dst))
+
+
+def _requant_needs_host(rec) -> bool:
+    src, dst = _fmt(rec["from"]), _fmt(rec["to"])
+    return not _on_device(rec["in"], src) or storage_kind(dst) is None
 
 
 def test_requant_limb_records_are_counted():
-    """21 of the 140 records need limb storage (or a limb requantize) and
-    wait for ROADMAP A4; the other 119 are held Δ=0 below."""
+    """21 of the 140 records need limb storage (or a limb requantize), none
+    host storage: all 140 are held Δ=0 below, the 119 lane ones through
+    the 64-bit core too."""
     recs = _load("requant")
     assert len(recs) == 140
     assert sum(_requant_needs_limbs(r) for r in recs) == 21
+    assert sum(_requant_needs_host(r) for r in recs) == 0
 
 
 @pytest.mark.parametrize("i", range(len(_load("requant"))),
@@ -95,12 +102,13 @@ def test_requant_golden(i):
     src, dst = _fmt(rec["from"]), _fmt(rec["to"])
     ins = [int(v) for v in rec["in"]]
     outs = [int(v) for v in rec["out"]]
-    if _requant_needs_limbs(rec):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    if _requant_needs_host(rec):
+        with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
             ew.qcast(_tensor(ins, src), dst)
         return
     got = ew.qcast(_tensor(ins, src), dst)
     assert got.fmt == dst
+    assert got.is_limb == (storage_kind(dst) == "limb")
     keep = [not hostint.reference_requant_defect(x, src, dst) for x in ins]
     assert sum(keep) > 0
     for x, g, want, ok in zip(ins, _raws(got), outs, keep):
@@ -144,16 +152,15 @@ def test_binary_op_golden(kind, i):
     res_fmt = _fmt(rec["res_fmt"])
     if kind == "mul":
         out = mul_merge(fa, fb, to)
-        route = route_mul(fa, fb, out)[0]
     else:
         out = add_merge(fa, fb, to)
-        route = route_addsub(fa, fb, out, kind == "sub")[0]
     assert out == res_fmt
     op = {"mul": qt.qmul, "add": qt.qadd, "sub": qt.qsub}[kind]
-    limbs = route == "limb" or storage_dtype(res_fmt) is None or not (
+    # every device route computes, and the host route into device storage
+    host = storage_kind(res_fmt) is None or not (
         _on_device(rec["ina"], fa) and _on_device(rec["inb"], fb))
-    if limbs:
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    if host:
+        with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
             op(_tensor(rec["ina"], fa), _tensor(rec["inb"], fb), to=to)
         return
     got = op(_tensor(rec["ina"], fa), _tensor(rec["inb"], fb), to=to)
@@ -171,7 +178,7 @@ def test_unary_golden(i):
         res_fmt = _fmt(rec[f"{key}_fmt"])
         want = [int(v) for v in rec[key]]
         if not _on_device(ins, fa) or not _on_device(want, res_fmt):
-            with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
                 op(_tensor(ins, fa))
             continue
         got = op(_tensor(ins, fa))
@@ -203,8 +210,8 @@ def test_reduce_golden(i):
     layers = tuple(_fmt(l) for l in rec["layers"])
     res_fmt = _fmt(rec["res_fmt"])
     x = _tensor(rec["in"], elem)
-    if storage_dtype(res_fmt) is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    if storage_kind(res_fmt) is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
             qreduce(x, layers)
         return
     got = qreduce(x, layers)
@@ -219,8 +226,8 @@ def test_double_to_fixed_golden(i):
     keep = [not hostint.reference_double_ctor_defect(float(d), f)
             for d in rec["in"]]
     assert any(keep)
-    if storage_dtype(f) is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    if storage_kind(f) is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
             qt.from_float(np.array([float(d) for d in rec["in"]]), f, "cpu")
         return
     got = _raws(qt.from_float(np.array([float(d) for d in rec["in"]]), f,

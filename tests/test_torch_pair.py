@@ -72,6 +72,10 @@ def _same(got, want):
     if hasattr(want, "fmt"):
         assert dataclasses.astuple(got.fmt) == dataclasses.astuple(want.fmt)
         assert got.is_pair == want.is_pair
+        assert got.is_limb == want.is_limb
+        if got.is_limb:
+            np.testing.assert_array_equal(got.raw(), want.raw())
+            return
         got, want = got.data, want.raw()
     w = np.asarray(want)
     assert got.dtype == getattr(torch, str(w.dtype)), (got.dtype, w.dtype)
@@ -216,11 +220,18 @@ def test_from_jax_takes_a_pair_tensor():
 
 
 def test_beyond_pair_storage_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        qt.from_raw([1], P(qformat(70, 0)), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    """Beyond pair storage: a 71-bit format takes limb storage; raws beyond
+    the storage word and formats beyond 992 bits need host storage and
+    raise."""
+    f70 = qformat(70, 0)
+    t = qt.from_raw([1, -(1 << 70)], P(f70), "cpu")
+    assert t.is_limb and not t.is_pair
+    _same(t, JQ.from_raw(np.array([1, -(1 << 70)], dtype=object), f70))
+    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
         qt.from_raw(np.array([1 << 70], dtype=object), P(qformat(40, 0)),
                     "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
+        qt.from_raw([1], P(qformat(1000, 0)), "cpu")
     with pytest.raises(TypeError, match="int64"):
         qt.QTensor(torch.zeros(3, dtype=torch.int32), P(qformat(40, 0)))
 
@@ -321,12 +332,12 @@ def test_pair_corners_match_jax():
 
 
 def test_limb_routes_still_raise():
+    """The limb routes of pair operands, which raised before limb storage
+    was ported, compute Δ=0 against the JAX package."""
     f = qformat(40, 0)
-    _, t = _both(np.arange(6) - 3, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        qt.qmul(t, t)                       # an 82-bit product
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        qt.qadd(t, t, to=P(qformat(70, 0)))
+    j, t = _both(np.arange(6) - 3, f)
+    _compare("qmul", (j, j), (t, t))        # an 82-bit product
+    _compare("qadd", (j, j), (t, t), to=qformat(70, 0))
 
 
 # ---------------------------------------------------------------------------

@@ -83,9 +83,14 @@ def test_qtensor_lane_storage():
     np.testing.assert_array_equal(
         t.raw(), np.asarray(jfrom_raw(np.array([1, -(1 << 40)]),
                                       qformat(40, 0)).raw()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        from_raw([1], P(qformat(70, 0)), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    # 71-bit storage is limb storage: three 32-bit limbs (in int64)
+    t = from_raw([1, -(1 << 70)], P(qformat(70, 0)), "cpu")
+    assert t.is_limb and t.data.nlimbs == 3 and t.shape == (2,)
+    np.testing.assert_array_equal(
+        t.raw(), np.asarray(jfrom_raw(np.array([1, -(1 << 70)], dtype=object),
+                                      qformat(70, 0)).raw()))
+    # raws beyond the storage word need host storage
+    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
         from_raw(np.array([1 << 70], dtype=object), fa, "cpu")
 
 
@@ -137,6 +142,16 @@ def test_port_runs_without_jax():
         " cd=m, ba=m, abc=w, cdb=w, bad=w, AB=w, BC=w)\n"
         "assert y.shape == (4, 3) and len(y.to_bits()) == 12 * 16\n"
         "assert chain_probe.T1 == 128 and bitstream.r2l(2).chunk == 2\n"
+        "from qublas_tpu_torch.ops import gemm\n"
+        "f70 = qt.qformat(70, 10)\n"
+        "u = qt.random_fill((4, 5), f70, device='cpu')\n"
+        "v = qt.qmul(u, u, to=qt.qformat(141, 20))\n"
+        "assert v.is_limb and (v - v).is_limb and v.shape == (4, 5)\n"
+        "g = gemm.qgemul(qt.random_fill((3, 8), f70, device='cpu'),"
+        " qt.random_fill((8, 2), f70, seed=2, device='cpu'),"
+        " qt.qformat(152, 20), mul_to=qt.qformat(141, 20),"
+        " add_formats=(qt.qformat(152, 20),))\n"
+        "assert g.is_limb and g.shape == (3, 2)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'qublas_tpu' or m.startswith('qublas_tpu.')]\n"
         "assert not bad, bad\n"
