@@ -50,6 +50,17 @@ Phases, each printing its lines:
       f3 Q16.16 throughout and f4 full-precision ``Qu<16,16>`` products in
       int64, both on the streaming tier (plain torch); the pair elementwise
       ops and a pair ``qreduce`` at 4096x4096 against CPU copies;
+   g. limb storage (65..992-bit formats) and the balanced-digit wide dot on
+      K1 (paths g1-g6);
+   h. lane completion: h1 the pipeline input as a [16, 256, 4096] batch
+      against the 2-D first weight, folded into ONE K1 launch equal to the
+      2-D GEMM 1, and a [4, 4096, 4096] batch of B against the 2-D x (four
+      launches); h2 the canonical tree's a2 as [8, 256, 2048] against b2,
+      one K2 launch equal to the 2-D tree; h3 a ``qgemv`` of 64 vectors
+      against [4096, 4096], one K1 launch; h4 ``qpoly``/``qapprox`` at
+      4096^2 on lane, pair and limb storage; h5 the bitwise ops, a
+      checkpoint round trip, ``requant_stats`` and the reference's
+      ``fill()``/``shuffle()`` streams;
    every result is checked against the plain versions, and 16x16 corners
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
@@ -60,8 +71,9 @@ Phases, each printing its lines:
    registers and spills; P1 by its device time too, with
    ``vs_serial_chain`` (K2's rate over P1's) and K2′'s rate over P1's, and
    its instantiations' registers; K2 and K2′ on the pair route at 2048^3,
-   P1 on it at ``measured_chain_prods``' shapes, and the wall times of
-   paths f1-f4.
+   P1 on it at ``measured_chain_prods``' shapes, the wall times of
+   paths f1-f4 and g1-g6, and path h beside the 2-D calls of the same
+   size.
 
 The second-to-last line is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -90,6 +102,12 @@ LIMB_N = 2048                     # limb paths g1, g2, g6: LIMB_N^3
 LIMB_G3 = (1024, 2048, 1024)      # g3 (m, k, n): the digit-dot envelope
 LIMB_STREAM = (256, 2048, 256)    # g5's streaming GEMM (m, k, n)
 LIMB_CORNER = 4                   # corners at k = 2048 against hostops
+LANE_BATCH = 16                   # h1: x as [LANE_BATCH, PIPE_N / it, PIPE_N]
+LANE_B_BATCH = 4                  # h1: [LANE_B_BATCH, PIPE_N, PIPE_N] B
+TREE_BATCH = 8                    # h2: a2 as [TREE_BATCH, TREE_N / it, TREE_N]
+GEMV_VECS = 64                    # h3: [GEMV_VECS, PIPE_N] vectors
+LANE_BLOCK = 64                   # h2-h5: rows held against the CPU
+CKPT_LIMB_ROWS = 512              # h5: rows of the limb tensor saved
 
 # peak rates of one H100 SXM at its 700 W limit: HBM bytes/s and int8
 # tensor-core ops/s (NVIDIA's data sheet), and int32 ops/s at the rate the
@@ -1134,6 +1152,36 @@ def rand_limbs(gen, fmt, shape, dev):
     return LimbArray(torch.cat([low, hi & 0xFFFFFFFF]))
 
 
+class Driver:
+    """Drives one main-path call at a time: every launch count set to 0
+    just before it and read just after, held to what the call must launch,
+    and summed over the phase in ``launches``."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.launches = {c.__name__: 0 for c in counters}
+
+    def __call__(self, key, label, fn, expect):
+        import torch
+
+        torch.cuda.synchronize()
+        for c in self.counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {c.__name__: c.launches for c in self.counters}
+        print(f"main path {key}: {label} in {wall * 1e3:.3f} ms wall (first "
+              f"call), launches {got}")
+        want = {c.__name__: 0 for c in self.counters}
+        want.update(expect)
+        check_launches(f"main path {key}", got, want)
+        for name, v in got.items():
+            self.launches[name] += v
+        return res
+
+
 def same_q(what, got, ref):
     """A card QTensor equals a reference QTensor (format, storage kind and
     raws), or a card tensor equals a reference tensor."""
@@ -1223,35 +1271,18 @@ def phase_limb(dev, chk):
     from qublas_tpu_torch.ops.tree_gemm import tree_gemm, tree_gemm_stream
     from qublas_tpu_torch.ops.widths import route_div
 
-    counters = (fused_int8_gemm, tree_gemm, tree_gemm_stream, qreduce_kernel)
     gen = torch.Generator(device=dev).manual_seed(12)
     rng = np.random.RandomState(12)
     cn, hc = CORNER, LIMB_CORNER
-    launches = {fn.__name__: 0 for fn in counters}
+    drive = Driver((fused_int8_gemm, tree_gemm, tree_gemm_stream,
+                    qreduce_kernel))
+    launches = drive.launches
     state = {}
 
     def operand(f, shape):
         if f.storage_bits > 64:
             return qt.QTensor(rand_limbs(gen, f, shape, dev), f)
         return qt.from_raw(rand_raws(rng, f, shape, np.int64), f, dev)
-
-    def drive(key, label, fn, expect):
-        torch.cuda.synchronize()
-        for c in counters:
-            c.launches = 0
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = {c.__name__: c.launches for c in counters}
-        print(f"main path {key}: {label} in {wall * 1e3:.3f} ms wall (first "
-              f"call), launches {got}")
-        want = {c.__name__: 0 for c in counters}
-        want.update(expect)
-        check_launches(f"main path {key}", got, want)
-        for name, v in got.items():
-            launches[name] += v
-        return res
 
     # g1-g3: qgemul's limb tier, one digit dot (one K1 launch) an output
     for key, (label, f, kw, outs, (m, k, n), nl) in limb_paths().items():
@@ -1449,6 +1480,297 @@ def phase_limb(dev, chk):
                       "ew": (args, cases), "g5": state["g5"],
                       "g6": state["g6"]}
 
+
+
+def anus_cases():
+    """Path h4: the x format and the coefficient format of each storage
+    kind."""
+    import qublas_tpu_torch as qt
+
+    return {"lane": (qt.qformat(3, 4), qt.qformat(6, 6)),
+            "pair": (qt.qformat(31, 8), qt.qformat(20, 12)),
+            "limb": (qt.qformat(80, 40), qt.qformat(90, 30))}
+
+
+def anus_segments(fc, dev):
+    """Path h4's segments: a constant below -1, a line below 1, a quadratic
+    above (coefficients from doubles, on ``dev``)."""
+    import qublas_tpu_torch as qt
+
+    c = [qt.scalar(v, fc, dev) for v in (0.75, -1.5, 0.25)]
+    return [qt.Segment(-1.0, c[:1]), qt.Segment(1.0, c[:2]),
+            qt.Segment(2.0, c)]
+
+
+def host_qapprox(raw, fx, segs):
+    """The reference's ``Qapprox`` of one raw on the host golden model:
+    the segment by the raw's double value, the Horner recursion
+    (QuBLAS.h:4836-4884), the result converted into x's format."""
+    from qublas_tpu_torch import hostint, hostops
+
+    val = hostint.raw_to_double(raw, fx)
+    seg = next((s for s in segs if val < s.breakpoint), segs[-1])
+    coeffs = [(int(c.raw()), c.fmt) for c in seg.coeffs]
+    acc = coeffs[-1]
+    for a in reversed(coeffs[:-1]):
+        acc = hostops.qadd(a, hostops.qmul((raw, fx), acc, to=a[1]), to=a[1])
+    return hostops.convert(acc, fx)[0]
+
+
+def phase_lanes(dev, chk, state_a):
+    """Phase 3h: lane completion through the public entry points: broadcast
+    batches folded into one K1 or K2 launch, a batch of vectors in one
+    ``qgemv``, ``qpoly``/``qapprox`` on lane, pair and limb storage, and the
+    auxiliaries (``bitwise``, ``checkpoint``, ``diagnostics``, ``refrand``)
+    at EW_N^2."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import bitwise
+    from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm,
+                                                 fused_int8_gemm_plain)
+    from qublas_tpu_torch.ops.reduce import qreduce_kernel
+    from qublas_tpu_torch.ops.tree_gemm import (tree_gemm, tree_gemm_plain,
+                                                tree_gemm_stream)
+    from qublas_tpu_torch.ops.widths import storage_dtype
+    from qublas_tpu_torch.refrand import MT19937
+
+    x, pipe, plan1, mid, a2, b2, tplan, f88z = state_a
+    fa, wide, _ = qt.pipeline_formats()
+    kw = dict(mul_to=wide, add_formats=(wide,))
+    n, tn, en, rb, cn = PIPE_N, TREE_N, EW_N, LANE_BLOCK, CORNER
+    gen = torch.Generator(device=dev).manual_seed(13)
+    drive = Driver((fused_int8_gemm, tree_gemm, tree_gemm_stream,
+                    qreduce_kernel))
+    state = {}
+
+    # h1: a [LANE_BATCH, n / LANE_BATCH, n] activation against the 2-D
+    # first weight (K-major, as the pipeline keeps it): one K1 launch on
+    # the folded rows, no copy
+    x3 = qt.QTensor(x.reshape(LANE_BATCH, n // LANE_BATCH, n), fa)
+    w1 = qt.QTensor(pipe.w1, fa)
+    h = drive("h1", f"qgemul {list(x3.shape)} @ [{n}, {n}] (a folded "
+              f"broadcast batch)", lambda: qt.qgemul(x3, w1, mid, **kw),
+              {"fused_int8_gemm": 1})
+    assert h.shape == x3.shape[:2] + (n,) and h.fmt == mid
+    ref = fused_int8_gemm_plain(x, pipe.w1, plan1.prod_frac, mid)
+    chk.same("fused_int8_gemm", f"h1 folded {list(x3.shape)} batch == plain "
+             "on the folded operands", h.data.reshape(n, n), ref)
+    chk.same("fused_int8_gemm", "h1 folded batch == the 2-D GEMM 1 of path "
+             "a", h.data.reshape(n, n), fused_int8_gemm(x, pipe.w1,
+                                                        plan1.prod_frac, mid))
+    # a batch of LANE_B_BATCH weights against the 2-D x: one launch each
+    bb = qt.QTensor(torch.randint(fa.raw_min, fa.raw_max + 1,
+                                  (LANE_B_BATCH, n, n), generator=gen,
+                                  device=dev, dtype=torch.int8), fa)
+    xq = qt.QTensor(x, fa)
+    hb = drive("h1", f"qgemul [{n}, {n}] @ {list(bb.shape)} (a 2-D A "
+               "against a batched B)", lambda: qt.qgemul(xq, bb, mid, **kw),
+               {"fused_int8_gemm": LANE_B_BATCH})
+    for i in range(LANE_B_BATCH):
+        chk.same("fused_int8_gemm", f"h1 batch {i} of [{n}, {n}] @ "
+                 f"{list(bb.shape)} == plain on its 2-D operands", hb.data[i],
+                 fused_int8_gemm_plain(x, bb.data[i], plan1.prod_frac, mid))
+    state["h1"] = (x3, w1, xq, bb, kw, mid)
+
+    # h2: the canonical tree's a2 as [TREE_BATCH, tn / TREE_BATCH, tn]
+    # against the 2-D b2: one K2 launch
+    a3 = qt.QTensor(a2.data.reshape(TREE_BATCH, tn // TREE_BATCH, tn), f88z)
+    c3 = drive("h2", f"canonical qgemul {list(a3.shape)} @ [{tn}, {tn}] (a "
+               "folded broadcast batch)", lambda: qt.qgemul(a3, b2, f88z),
+               {"tree_gemm": 1})
+    chk.same("tree_gemm", "h2 folded batch == the 2-D canonical qgemul of "
+             "path a", c3.data.reshape(tn, tn),
+             tree_gemm(a2.data, b2.data, tplan, f88z))
+    chk.same("tree_gemm", f"h2 folded batch, rows 0..{rb} == plain",
+             c3.data[0, :rb], tree_gemm_plain(a2.data[:rb], b2.data, tplan,
+                                               f88z))
+    state["h2"] = (a3, b2, f88z)
+
+    # h3: GEMV_VECS vectors against x: the vectors are the columns of one
+    # GEMM, one K1 launch
+    xv = qt.QTensor(torch.randint(fa.raw_min, fa.raw_max + 1, (GEMV_VECS, n),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int8), fa)
+    y = drive("h3", f"qgemv [{n}, {n}] @ {list(xv.shape)} (a batch of "
+              "vectors)", lambda: qt.qgemv(xq, xv, mid, **kw),
+              {"fused_int8_gemm": 1})
+    assert y.shape == (GEMV_VECS, n)
+    chk.same("fused_int8_gemm", f"h3 batched qgemv, rows 0..{rb} == plain",
+             y.data[:, :rb], fused_int8_gemm_plain(
+                 x[:rb], xv.data.t(), plan1.prod_frac, mid).t())
+    state["h3"] = (xq, xv, kw, mid)
+
+    # h4: qpoly and qapprox at EW_N^2 on each storage kind, against the
+    # CPU on a row block and hostops on a corner
+    xs = {}
+    for kind, (fx, fc) in anus_cases().items():
+        if kind == "limb":
+            xk = qt.QTensor(rand_limbs(gen, fx, (en, en), dev), fx)
+        else:
+            xk = qt.QTensor(torch.randint(
+                fx.raw_min, fx.raw_max + 1, (en, en), generator=gen,
+                device=dev, dtype=storage_dtype(fx)), fx)
+        xs[kind] = xk
+        segs = anus_segments(fc, dev)
+        segs_cpu = anus_segments(fc, "cpu")
+        poly = drive("h4", f"qpoly of {fx} ({kind}), 3 coefficients, "
+                     f"{en}x{en}", lambda: qt.qpoly(xk, segs[-1].coeffs), {})
+        ap = drive("h4", f"qapprox of {fx} ({kind}), 3 segments, {en}x{en}",
+                   lambda: qt.qapprox(xk, segs), {})
+        blk = xk[:rb].to("cpu")
+        same_q(f"h4 qpoly {kind}, rows 0..{rb}, card == CPU", poly[:rb],
+               qt.qpoly(blk, segs_cpu[-1].coeffs))
+        same_q(f"h4 qapprox {kind}, rows 0..{rb}, card == CPU", ap[:rb],
+               qt.qapprox(blk, segs_cpu))
+        corner = xk[:cn, :cn].raw()
+        host = np.array([[host_qapprox(int(r), fx, segs_cpu) for r in row]
+                         for row in corner], dtype=object)
+        assert np.array_equal(ap[:cn, :cn].raw().astype(object), host), \
+            f"h4 qapprox {kind} corner vs hostops"
+        state["h4 " + kind] = (xk, segs)
+    print(f"main path h4: qpoly/qapprox rows 0..{rb} equal the CPU and "
+          f"{cn}x{cn} corners of qapprox equal hostops, each storage kind")
+
+    # h5: the bitwise ops (lane x pair, pair x limb, qnot on each), a
+    # checkpoint round trip, requant_stats and the reference's fill() and
+    # shuffle() streams
+    lane, pair, limb = xs["lane"], xs["pair"], xs["limb"]
+    ops = {"qand": bitwise.qand, "qor": bitwise.qor, "qxor": bitwise.qxor}
+    for name, op in ops.items():
+        for xa, xb, what in ((lane, pair, "lane x pair"),
+                             (pair, limb, "pair x limb")):
+            got = drive("h5", f"{name} {what} {en}x{en}",
+                        lambda: op(xa, xb), {})
+            same_q(f"h5 {name} {what}, rows 0..{rb}, card == CPU", got[:rb],
+                   op(xa[:rb].to("cpu"), xb[:rb].to("cpu")))
+    for kind, xk in xs.items():
+        got = drive("h5", f"qnot {kind} {en}x{en}", lambda: bitwise.qnot(xk),
+                    {})
+        same_q(f"h5 qnot {kind}, rows 0..{rb}, card == CPU", got[:rb],
+               bitwise.qnot(xk[:rb].to("cpu")))
+        if kind == "limb":
+            limbs = got.data.limbs
+            assert int(limbs.min()) >= 0 and int(limbs.max()) <= 0xFFFFFFFF
+    tree = {"lane": lane, "pair": pair, "limb": limb[:CKPT_LIMB_ROWS]}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "lanes.npz")
+        back = drive("h5", f"checkpoint save/load: lane and pair {en}x{en}, "
+                     f"limb [{CKPT_LIMB_ROWS}, {en}]",
+                     lambda: (qt.save(path, tree), qt.load(path, dev))[1],
+                     {})
+    for key, t in tree.items():
+        assert back[key].device == t.device, key
+        same_q(f"h5 checkpoint round trip {key}", back[key], t)
+    dst = qt.qformat(2, 2, overflow_mode=qt.OverflowMode.SAT_ZERO)
+    st = drive("h5", f"requant_stats {lane.fmt} -> {dst} {en}x{en}",
+               lambda: qt.requant_stats(lane, dst), {})
+    st_cpu = qt.requant_stats(lane.to("cpu"), dst)
+    assert st == st_cpu, (st, st_cpu)
+    print(f"main path h5: requant_stats on the card {tuple(st)} == CPU")
+    f88 = qt.qformat(8, 8)
+    fill = drive("h5", "reference_fill (64, 64) Qu<8,8> and its "
+                 "reference_shuffle",
+                 lambda: qt.reference_shuffle(qt.reference_fill(
+                     (64, 64), f88, MT19937(1), dev), MT19937(2)), {})
+    want = qt.reference_shuffle(qt.reference_fill((64, 64), f88, MT19937(1),
+                                                  "cpu"), MT19937(2))
+    same_q("h5 reference_fill + reference_shuffle, card == CPU", fill, want)
+    state["h5"] = (lane, pair, limb, tree, dst)
+    return drive.launches, state
+
+
+def lane_times(card, state_h, t):
+    """Phase 4, path h: the broadcast GEMMs beside the 2-D calls of the same
+    size, the batched qgemv, qpoly/qapprox and the auxiliaries."""
+    import os
+    import tempfile
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import bitwise
+    from qublas_tpu_torch.refrand import MT19937
+    from qublas_tpu_torch.timing import device_us, host_us, timeit
+
+    x3, w1, xq, bb, kw, mid = state_h["h1"]
+    a3, b2, f88z = state_h["h2"]
+    a2 = qt.QTensor(a3.data.reshape(-1, a3.shape[-1]), f88z)
+    calls = {"h1": lambda: qt.qgemul(x3, w1, mid, **kw),
+             "h1_2d": lambda: qt.qgemul(xq, w1, mid, **kw),
+             "h2": lambda: qt.qgemul(a3, b2, f88z),
+             "h2_2d": lambda: qt.qgemul(a2, b2, f88z)}
+    # each folded call and the 2-D call on the same bytes, in turns (2-D,
+    # folded, folded, 2-D); the mean of each one's two medians
+    for flat, fold, runs in (("h1_2d", "h1", 10), ("h2_2d", "h2", 3)):
+        ms = {flat: [], fold: []}
+        for key in (flat, fold, fold, flat):
+            ms[key].append(timeit(calls[key], runs=runs, warmup=1))
+        for key, v in ms.items():
+            t[key] = sum(v) / len(v)
+    hus = {key: host_us(calls[key]) for key in ("h1", "h1_2d")}
+    # the kernels each call runs on the card, by name (a copy made by the
+    # fold would show as a kernel of its own)
+    dus = {key: device_us(calls[key]) for key in ("h1", "h1_2d")}
+    t["h1_b"] = timeit(lambda: qt.qgemul(xq, bb, mid, **kw), runs=5)
+    xq, xv, kw, mid = state_h["h3"]
+    t["h3"] = timeit(lambda: qt.qgemv(xq, xv, mid, **kw))
+    n, tn, en = PIPE_N, TREE_N, EW_N
+    print(f"time h1 qgemul {list(x3.shape)} @ [{n}, {n}] (one K1 launch): "
+          f"{t['h1']:.4f} ms, host {hus['h1']:.2f} us a call; the 2-D "
+          f"qgemul [{n}, {n}] @ [{n}, {n}] {t['h1_2d']:.4f} ms, host "
+          f"{hus['h1_2d']:.2f} us a call; K1 alone at {n}^3 {t['k1']:.4f} ms "
+          f"[{card}]")
+    for key in ("h1", "h1_2d"):
+        print(f"time {key} device us per call by kernel: {dus[key]} "
+              f"[{card}]")
+    print(f"time h1 qgemul [{n}, {n}] @ {list(bb.shape)} ({LANE_B_BATCH} K1 "
+          f"launches on row-major B): {t['h1_b']:.4f} ms; {LANE_B_BATCH} x "
+          f"2-D K1 on a row-major B {LANE_B_BATCH * t['k1_rm']:.4f} ms "
+          f"[{card}]")
+    print(f"time h2 canonical qgemul {list(a3.shape)} @ [{tn}, {tn}] (one K2 "
+          f"launch): {t['h2']:.4f} ms; the 2-D qgemul [{tn}, {tn}] @ [{tn}, "
+          f"{tn}] {t['h2_2d']:.4f} ms; K2 alone at {tn}^3 {t['k2']:.4f} ms "
+          f"[{card}]")
+    print(f"time h3 qgemv [{n}, {n}] @ {list(xv.shape)} (one K1 launch): "
+          f"{t['h3']:.4f} ms [{card}]")
+    for kind in anus_cases():
+        xk, segs = state_h["h4 " + kind]
+        t["h4 qpoly " + kind] = timeit(lambda: qt.qpoly(xk, segs[-1].coeffs),
+                                       runs=3, warmup=1)
+        t["h4 qapprox " + kind] = timeit(lambda: qt.qapprox(xk, segs),
+                                         runs=3, warmup=1)
+        print(f"time h4 {kind} {xk.fmt} {en}x{en}: qpoly (3 coefficients) "
+              f"{t['h4 qpoly ' + kind]:.4f} ms, qapprox (3 segments) "
+              f"{t['h4 qapprox ' + kind]:.4f} ms [{card}]")
+    lane, pair, limb, tree, dst = state_h["h5"]
+    for name in ("qand", "qor", "qxor"):
+        op = getattr(bitwise, name)
+        for xa, xb, what in ((lane, pair, "lane x pair"),
+                             (pair, limb, "pair x limb")):
+            key = f"h5 {name} {what}"
+            t[key] = timeit(lambda: op(xa, xb))
+    for kind, xk in (("lane", lane), ("pair", pair), ("limb", limb)):
+        t["h5 qnot " + kind] = timeit(lambda: bitwise.qnot(xk))
+    t["h5 requant_stats"] = timeit(lambda: qt.requant_stats(lane, dst))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "lanes.npz")
+        t["h5 save"] = timeit(lambda: qt.save(path, tree), runs=1, warmup=0)
+        t["h5 load"] = timeit(lambda: qt.load(path, lane.device), runs=1,
+                              warmup=0)
+    f88 = qt.qformat(8, 8)
+    t["h5 fill"] = timeit(lambda: qt.reference_shuffle(qt.reference_fill(
+        (64, 64), f88, MT19937(1), lane.device), MT19937(2)), runs=3,
+        warmup=1)
+    for key in [k for k in t if k.startswith("h5 q")]:
+        print(f"time {key} {en}x{en}: {t[key]:.4f} ms [{card}]")
+    print(f"time h5 requant_stats {lane.fmt} -> {dst} {en}x{en}: "
+          f"{t['h5 requant_stats']:.4f} ms; checkpoint save "
+          f"{t['h5 save']:.4f} ms, load {t['h5 load']:.4f} ms (lane and pair "
+          f"{en}x{en}, limb [{CKPT_LIMB_ROWS}, {en}]); reference_fill + "
+          f"reference_shuffle (64, 64) {t['h5 fill']:.4f} ms [{card}]")
 
 
 def rq_ops(from_frac, fmt, floored=False, wide=False):
@@ -1898,9 +2220,11 @@ def main() -> int:
     launches_e, chain_rate = phase_chain(dev, state_a)
     launches_f, state_f = phase_pair(dev, chk)
     launches_g, state_g = phase_limb(dev, chk)
+    launches_h, state_h = phase_lanes(dev, chk, state_a)
     t, bounds = phase_times(card, state_a, state_b, state_d, chain_rate,
                             state_f)
     limb_times(card, state_g, t, bounds)
+    lane_times(card, state_h, t)
     for line in resources(report, "tree_gemm_tiled_kernel") + \
             resources(report, "tree_gemm_stream_kernel") + \
             resources(report, "chain_probe_kernel"):
@@ -1921,12 +2245,12 @@ def main() -> int:
         row("fused_int8_gemm", "qublas_tpu_torch/csrc/fused_gemm.cu",
             "qublas_tpu/ops/pallas_gemm.py:83",
             launches_a["fused_int8_gemm"] + launches_d["fused_int8_gemm"]
-            + launches_f["fused_int8_gemm"] + launches_g["fused_int8_gemm"],
-            "k1", "k1_plain", "int_mm"),
+            + launches_f["fused_int8_gemm"] + launches_g["fused_int8_gemm"]
+            + launches_h["fused_int8_gemm"], "k1", "k1_plain", "int_mm"),
         row("tree_gemm", "qublas_tpu_torch/csrc/tree_gemm_tiled.cu",
             "qublas_tpu/ops/tree_gemm.py:362",
-            launches_a["tree_gemm"] + launches_f["tree_gemm"], "k2",
-            "k2_plain", None),
+            launches_a["tree_gemm"] + launches_f["tree_gemm"]
+            + launches_h["tree_gemm"], "k2", "k2_plain", None),
         row("tree_gemm_stream",
             "qublas_tpu_torch/csrc/tree_gemm_stream.cuh",
             "qublas_tpu/ops/tree_gemm.py:457",

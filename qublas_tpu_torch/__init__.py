@@ -10,7 +10,10 @@ elementwise and complex elementwise ops are plain torch ops, on int32
 lanes, int64 (pair storage, 33..64 bits) or stacked 32-bit limbs in int64
 (limb storage, 65..992 bits: ``ops.limbint``); the wide lossless GEMMs run
 as balanced int8 digit dots on K1 (``ops.limbdot``); ``bitstream``
-serializes tensors to the reference's bit strings.
+serializes tensors to the reference's bit strings.  Around them:
+``anus`` (``qpoly``/``qapprox``/``QTable``), ``refrand`` (the reference's
+mt19937 ``fill()``/``shuffle()`` streams), ``bitwise``, ``checkpoint`` and
+``diagnostics``.
 
 The package stands alone: it imports torch and numpy, never JAX and nothing
 of the JAX package ``qublas_tpu``.  It keeps its own copies of the JAX
@@ -25,13 +28,16 @@ plain-torch version instead.  Constructors place tensors on the card unless
 the caller names another device.
 """
 
-from . import bitstream
-from .anus import QTable, build_table, reciprocal_func, rsqrt_func, sqrt_func
+from . import bitstream, bitwise
+from .anus import (QTable, Segment, build_table, qapprox, qpoly, qtable,
+                   reciprocal_func, rsqrt_func, sqrt_func)
+from .checkpoint import dumps_bits, load, loads_bits, save
 from .complex import (QComplexTensor, cadd, cdiv, ceq, cmul, cmul_tf, cneg,
                       complex_from_float, complex_from_parts, complex_from_raw,
                       complex_zeros, cr_add, cr_div, cr_mul, cr_sub, csub,
                       rc_add, rc_div, rc_mul, rc_sub)
 from .convert import complex_from_jax, from_jax, port_format
+from .diagnostics import format_range_report, requant_stats
 from .ops.cgemm import cgemul, cgemv
 from .ops.elementwise import (qabs, qadd, qcast, qcmp, qdiv, qeq, qmul, qneg,
                               qsub)
@@ -48,6 +54,7 @@ from .qformat import (
 )
 from .qtensor import (QTensor, from_double, from_float, from_raw, random_fill,
                       scalar, zeros)
+from .refrand import reference_fill, reference_shuffle
 
 __all__ = [
     "OverflowMode", "QFormat", "RoundMode", "add_merge", "mul_merge",
@@ -61,4 +68,7 @@ __all__ = [
     "complex_from_raw", "complex_zeros", "cmul", "cmul_tf", "cadd", "csub",
     "cneg", "ceq", "rc_mul", "cr_mul", "rc_add", "cr_add", "rc_sub",
     "cr_sub", "cr_div", "cdiv", "rc_div", "cgemul", "cgemv", "bitstream",
+    "qpoly", "qapprox", "Segment", "qtable", "reference_fill",
+    "reference_shuffle", "requant_stats", "format_range_report", "save",
+    "load", "dumps_bits", "loads_bits", "bitwise",
 ]

@@ -1,33 +1,148 @@
-"""Exact lookup tables (ASIC ROMs) on torch tensors.
+"""ANUS — the reference's nonlinear subprograms on torch tensors.
 
-Port of ``qublas_tpu.anus`` lines 210-383: :class:`QTable` maps every input
-bit pattern through a Python-double function and requantizes it into the
-output format with the exact host pipeline (``hostint``), exactly as the JAX
-package builds it.  Applying the table is a mask of the input raws and a
-plain index of the table on the tensor's device: int32 entries for a lane
-output format, int64 for a pair-storage one (33..64 bits), a column of
-stacked limbs for a limb-storage one (65..992 bits).  (The JAX
-package's 63-select packed tree exists only because Mosaic has no 1-D
-gather; torch indexes natively.)  ``qpoly``/``qapprox`` are still to be
-ported (ROADMAP item 6).
+Port of ``qublas_tpu.anus`` (the reference's ``ANUS`` namespace,
+``QuBLAS.h:4829-4897``, and the readme's LUTs, ``readme.md:66-78``):
+
+* :func:`qpoly` — Horner form, each level's multiply and add quantized to
+  that level's leading coefficient format (QuBLAS.h:4836-4851);
+* :func:`qapprox` / :class:`Segment` — the segmented fit: the segment is
+  chosen by the input's *double* value against the breakpoints, resolved
+  exactly on integer raws by a threshold found on the host
+  (:func:`_raw_threshold`), so the device select is a ``torch.where``
+  chain on int32 lanes, int64 pairs or stacked limbs; the result is
+  requantized into the input's format (QuBLAS.h:4854-4884);
+* :class:`QTable` / :func:`qtable` — exact LUTs: every input bit pattern
+  mapped through a Python-double function and requantized into the output
+  format with the exact host pipeline (``hostint``), exactly as the JAX
+  package builds it.  Applying the table is a mask of the input raws and a
+  plain index of the table on the tensor's device: int32 entries for a
+  lane output format, int64 for a pair-storage one (33..64 bits), a column
+  of stacked limbs for a limb-storage one (65..992 bits).  (The JAX
+  package's 63-select packed tree exists only because Mosaic has no 1-D
+  gather; torch indexes natively.)
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import hostint
+from .ops import elementwise as ew
+from .ops import limbint as L
 from .ops.limbint import LimbArray, limbs_from_ints
 from .ops.widths import limb_count, storage_dtype, storage_kind
 from .qformat import QFormat
 from .qtensor import QTensor, host_storage_error
 
-__all__ = ["QTable", "build_table", "rsqrt_func", "reciprocal_func",
-           "sqrt_func"]
+__all__ = ["qpoly", "qapprox", "Segment", "qtable", "QTable", "build_table",
+           "rsqrt_func", "reciprocal_func", "sqrt_func"]
+
+
+# ---------------------------------------------------------------------------
+# Polynomial fitting (copy of qublas_tpu/anus.py:51-203)
+# ---------------------------------------------------------------------------
+
+def qpoly(x: QTensor, coeffs: Sequence[QTensor]) -> QTensor:
+    """Horner evaluation ``a0 + x*(a1 + x*(a2 + ...))`` with per-level
+    quantization typed by each level's leading coefficient
+    (QuBLAS.h:4836-4851): each level computes
+    ``qadd(a_i, qmul(x, inner, to=a_i.fmt), to=a_i.fmt)``.  ``coeffs`` are
+    scalar QTensors ``[a0, a1, ..., an]`` on x's device."""
+    coeffs = list(coeffs)
+    if not coeffs:
+        raise ValueError("qpoly needs at least one coefficient")
+    acc = coeffs[-1]
+    for a in reversed(coeffs[:-1]):
+        acc = ew.qadd(a, ew.qmul(x, acc, to=a.fmt), to=a.fmt)
+    return acc
+
+
+class Segment:
+    """A breakpoint and its polynomial's coefficients (reference
+    ``ANUS::Segment``, QuBLAS.h:4855-4866): applies while
+    ``x.toDouble() < breakpoint``; the last segment also covers everything
+    above its breakpoint."""
+
+    def __init__(self, breakpoint: float, coeffs: Sequence[QTensor]):
+        self.breakpoint = float(breakpoint)
+        self.coeffs = list(coeffs)
+
+
+def _raw_threshold(breakpoint: float, fmt: QFormat, word_bits: int):
+    """Largest raw r of the ``word_bits`` word whose ROUNDED double value
+    satisfies ``raw_to_double(r, fmt) < breakpoint``, or None when none
+    does.  The reference compares ``input.toDouble() < breakpoint``
+    (QuBLAS.h:4878), so a raw of more than 53 significant bits is rounded
+    first; ``raw_to_double`` is monotone in the raw, so the predicate is a
+    prefix and bisection finds its edge."""
+    lo = -(1 << (word_bits - 1))
+    hi = (1 << (word_bits - 1)) - 1
+    if not (hostint.raw_to_double(lo, fmt) < breakpoint):
+        return None
+    if hostint.raw_to_double(hi, fmt) < breakpoint:
+        return hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if hostint.raw_to_double(mid, fmt) < breakpoint:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def qapprox(x: QTensor, segments: Sequence[Segment]) -> QTensor:
+    """Segmented polynomial fit (reference ``ANUS::Qapprox``,
+    QuBLAS.h:4868-4884): per element the first segment whose breakpoint
+    exceeds the value applies (the last catches the rest), and its
+    :func:`qpoly` is requantized into **x's format** (the
+    ``decltype(x){...}`` converting construction).
+
+    Every segment's polynomial is evaluated on all of x; the select walks
+    the breakpoints from the last-but-one down, ``x <= threshold`` on the
+    raw: lanes compared as int32 with an int32 threshold (never the raw
+    int8/int16 lanes with a Python int, which would wrap it), pairs as
+    int64, limbs with the limb compare."""
+    segments = list(segments)
+    if not segments:
+        raise ValueError("qapprox needs at least one segment")
+
+    def bcast(br: QTensor) -> QTensor:
+        # a constant segment evaluates to a 0-d result
+        if br.shape == x.shape:
+            return br
+        return QTensor(br.data.expand(x.shape), br.fmt)
+
+    branches = [bcast(ew.qcast(qpoly(x, s.coeffs), x.fmt))
+                for s in segments]
+    pairs = list(zip(reversed(segments[:-1]), reversed(branches[:-1])))
+    if x.is_limb:
+        K = x.data.nlimbs
+        xl = x.data.limbs
+        result = branches[-1].data.limbs
+        for s, br in pairs:
+            thr = _raw_threshold(s.breakpoint, x.fmt, 32 * K)
+            if thr is None:
+                continue  # breakpoint below every storable x: never taken
+            tl = L.lconst(thr, K, x.shape, x.device)
+            take = L.llt(xl, tl) | L.leq(xl, tl)  # x <= thr
+            result = L.lselect(take, br.data.limbs, result)
+        return QTensor(LimbArray(result), x.fmt)
+    if x.is_pair:
+        xv, word = x.data, 64
+    else:
+        xv, word = x.data.to(torch.int32), 32
+    result = branches[-1].data
+    for s, br in pairs:
+        thr = _raw_threshold(s.breakpoint, x.fmt, word)
+        if thr is None:
+            continue  # breakpoint below every storable x: never taken
+        take = xv <= torch.tensor(thr, dtype=xv.dtype, device=x.device)
+        result = torch.where(take, br.data, result)
+    return QTensor(result, x.fmt)
 
 
 def rsqrt_func(v: float) -> float:
@@ -113,3 +228,9 @@ class QTable:
 def build_table(func, in_fmt: QFormat,
                 out_fmt: Optional[QFormat] = None) -> QTable:
     return QTable(func, in_fmt, out_fmt)
+
+
+def qtable(x: QTensor, func, out_fmt: Optional[QFormat] = None) -> QTensor:
+    """One-shot LUT application (reference ``ANUS::Qtable<func>(q)``,
+    readme.md:66-78).  For repeated use build a :class:`QTable` once."""
+    return QTable(func, x.fmt, out_fmt)(x)

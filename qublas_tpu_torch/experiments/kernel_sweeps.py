@@ -5,6 +5,7 @@ imported by the package).
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps k2s OTHER_CHECKOUT
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps k3 OTHER_CHECKOUT
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps p1 OTHER_CHECKOUT
+    python3 -m qublas_tpu_torch.experiments.kernel_sweeps main OTHER_CHECKOUT
 
 Run on a machine with a CUDA card.  Each part runs in its own process
 under a time limit, so a kernel that hangs ends that part and not the run:
@@ -58,6 +59,14 @@ under a time limit, so a kernel that hangs ends that part and not the run:
   version on the main path's tile and on a ragged one; and the
   ``cuobjdump -sass`` opcode counts of each one's step loop (the SASS
   itself into ``build/qublas_tpu_torch/experiments/p1_sass.txt``).
+
+* ``main`` (given another checkout's root only): the main path's calls end
+  to end, in both trees in turns ((other, this, this, other) three
+  times): the pipeline
+  forward at 4096^3 and the canonical ``qgemul`` at 2048^3
+  (``chip_smoke.py``'s path a, on raws made on the card from a seed), each
+  by CUDA events and by the host's time to enqueue one call, so that a
+  change to ``qgemul``'s dispatch shows in both.
 
 Times are CUDA-event medians (``qublas_tpu_torch.timing.timeit``) and, for
 K1, device time per call from a ``torch.profiler`` trace (without the
@@ -443,6 +452,49 @@ def _k3_times(card):
               flush=True)
 
 
+def _main_times(card):
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.timing import host_us, timeit
+
+    tree = Path(qt.__file__).resolve().parent.parent
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n, tn = 4096, 2048
+    fa, _, mid = qt.pipeline_formats()
+    f88z = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
+
+    def raws(f, shape, dtype):
+        return torch.randint(f.raw_min, f.raw_max + 1, shape, generator=gen,
+                             device=dev, dtype=dtype)
+
+    pipe = qt.QuantPipeline(raws(fa, (n, n), torch.int8),
+                            raws(fa, (n, n), torch.int8))
+    x = raws(fa, (n, n), torch.int8)
+    a = qt.QTensor(raws(f88z, (tn, tn), torch.int32), f88z)
+    b = qt.QTensor(raws(f88z, (tn, tn), torch.int32), f88z)
+    for what, fn, runs in (("pipeline forward 4096^3", lambda: pipe(x), 10),
+                           ("canonical qgemul 2048^3",
+                            lambda: qt.qgemul(a, b, f88z), 5)):
+        ms = timeit(fn, runs=runs)
+        hus = host_us(fn, runs=runs)
+        print(f"main {tree}: {what}: event {ms:.4f} ms, host us per call "
+              f"{hus:.2f} [{card}]", flush=True)
+
+
+def _main_against(card, other: str):
+    """The main path's times in this tree and in the checkout ``other``, in
+    turns: (other, this, this, other) three times, since host times spread
+    widely between processes."""
+    this, other = str(HERE.parent.parent), str(Path(other).resolve())
+    for tree in (other, this, this, other) * 3:
+        env = dict(os.environ, PYTHONPATH=tree)
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "main-times"], env=env, cwd=tree, timeout=900,
+                       check=True)
+
+
 def _k3_against(card, other: str):
     """K3's times in this tree and in the checkout ``other`` (e.g. the
     parent commit), in turns: other, this, this, other."""
@@ -826,6 +878,12 @@ def main() -> int:
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "p1-times":
         _p1_times(card)
+        return 0
+    if len(sys.argv) > 2 and sys.argv[1] == "main":
+        _main_against(card, sys.argv[2])
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "main-times":
+        _main_times(card)
         return 0
     if len(sys.argv) > 1:
         parts[sys.argv[1]](card)

@@ -39,11 +39,11 @@ order is about speed):
    the int32 tree (pair or limb values, layer sums beyond 32 bits); small
    GEMMs take the layered path instead: all products, then ``qreduce``.
 
-Operands with equal leading (batch) dims run the lossless and tree tiers
-once per matrix of the flattened batch (tiers 2 and 3 are 2-D only, as in
-the JAX package).  Broadcast batch dims, and configurations whose values
-need host storage, raise ``NotImplementedError`` (ROADMAP items 4 and
-A4b).
+Leading (batch) dims broadcast, as ``np.broadcast_shapes`` does in the JAX
+package: both operands are expanded to the broadcast batch as views (stride
+0 where a dim broadcasts, no copy).  The four kernel tiers take 2-D
+operands; :func:`qgemul` says how a batch reaches them.  Configurations
+whose values need host storage raise ``NotImplementedError`` (ROADMAP A4b).
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ import torch
 
 from .. import hostops
 from ..qformat import OverflowMode, QFormat, add_merge, mul_merge
-from ..qtensor import QTensor
+from ..qtensor import QTensor, zeros
 from . import elementwise as ew
 from . import limbint as L
 from .fused_gemm import fused_int8_gemm, int_dot
@@ -233,8 +233,27 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     QgemulTransposedA/B.  ``epilogue_lut`` applies a
     :class:`~qublas_tpu_torch.anus.QTable` built for ``out_fmt`` to the
     result.  Operands are QTensors (lane, pair or limb storage) of at least
-    2 dims on one device, with equal leading dims; a CUDA operand runs the
-    tier's kernel, a CPU operand its plain version.
+    2 dims on one device; a CUDA operand runs the tier's kernel, a CPU
+    operand its plain version.
+
+    Leading dims broadcast (batch dims that cannot raise ``ValueError``).
+    Rows of C are independent, so a batch reaches the 2-D tiers in one of
+    two ways, with the bits of one call per matrix:
+
+    * **folded**: when ``b`` is 2-D, or every batch dim of ``b`` is 1 (an
+      activation batch against a shared weight), ``a`` is reshaped to
+      ``[prod(batch)·M, K]`` and the lossless (K1), limb, int64 and tree
+      (K2) tiers make ONE call (a batch of more than ``_FOLD_MAX_ROWS``
+      rows, which K1's and K2's grids cannot hold, a call per that many).  The limb tier's envelope
+      (:func:`limb_dot_plan`) is taken at the folded M; a fold outside it
+      runs the per-matrix loop instead;
+    * **per matrix**: otherwise (``b`` batched, against a 2-D or batched
+      ``a``) each tier runs once per element of the batch, on the expanded
+      views, so a shared ``a`` is not copied.
+    The streaming and layered tiers take the expanded operands whole.  The
+    JAX package's limb and int64 tiers are 2-D only, so it sends a batched
+    wide configuration to the streaming or layered tier; by the tiers'
+    proofs the bits are the same.
     """
     if isinstance(out_fmt, QTensor):
         out_fmt = out_fmt.fmt  # readme-style call shape `Qgemul(C, A, B)`
@@ -253,24 +272,31 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
                          f"{a.shape} @ {b.shape}")
     if a.shape[-1] != b.shape[-2]:
         raise ValueError(f"inner dims mismatch: {a.shape} @ {b.shape}")
-    if a.shape[:-2] != b.shape[:-2]:
-        raise NotImplementedError(
-            "broadcast batch dims are not yet ported (ROADMAP item 4)")
+    batch = a.shape[:-2]
+    if b.shape[:-2] != batch:
+        try:
+            batch = np.broadcast_shapes(batch, b.shape[:-2])
+        except ValueError as e:
+            raise ValueError(f"batch dims do not broadcast: {a.shape} @ "
+                             f"{b.shape}") from e
     k = a.shape[-1]
+    if 0 in batch:
+        return zeros(batch + (a.shape[-2], b.shape[-1]), out_fmt, a.device)
     mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
 
     plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats, k)
     if plan is not None and _device_epilogue_ok(plan, out_fmt):
-        raw = _per_batch(lambda x, y: fused_int8_gemm(
-            x, y, plan.prod_frac, out_fmt), a.data, b.data)
-        return QTensor(raw, out_fmt)
+        return _over_batch(lambda x, y: QTensor(fused_int8_gemm(
+            x.data, y.data, plan.prod_frac, out_fmt), out_fmt), a, b, batch)
     if plan is not None:
         # the dot outgrows int32: the digit dot first, then the int64 dot,
         # in the JAX package's order
-        res = None if "limb" in _TIERS_OFF else \
-            _fast_gemm_limb(a, b, out_fmt, plan)
+        res = None if "limb" in _TIERS_OFF else _over_batch(
+            lambda x, y: _fast_gemm_limb(x, y, out_fmt, plan), a, b, batch)
         if res is None and "wide" not in _TIERS_OFF:
-            res = _fast_gemm_wide(a, b, out_fmt, plan)
+            res = _over_batch(
+                lambda x, y: _fast_gemm_wide(x, y, out_fmt, plan), a, b,
+                batch)
         if res is not None:
             return res
 
@@ -278,10 +304,10 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     if not (a.is_pair or b.is_pair or a.is_limb or b.is_limb):
         tplan = plan_tree(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
         if tplan is not None:
-            raw = _per_batch(lambda x, y: tree_gemm(x, y, tplan, out_fmt),
-                             a.data, b.data)
-            return QTensor(raw, out_fmt)
+            return _over_batch(lambda x, y: QTensor(tree_gemm(
+                x.data, y.data, tplan, out_fmt), out_fmt), a, b, batch)
 
+    a, b = _expand(a, batch), _expand(b, batch)
     res = _stream_gemm_wide(a, b, out_fmt, mul_to, add_formats,
                             mul_full_prec)
     if res is not None:
@@ -291,6 +317,57 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
                    QTensor(b.data[..., None, :, :], b.fmt),
                    to=mul_to, full_prec=mul_full_prec)
     return ew.qcast(qreduce(prod, add_formats, axis=-2), out_fmt)
+
+
+# rows of one folded call: K1's and K2's grids hold at most 65535 blocks
+# along M, of at least 16 rows each
+_FOLD_MAX_ROWS = 65535 * 16
+
+
+def _expand(t: QTensor, batch) -> QTensor:
+    """``t`` with its batch dims broadcast to ``batch``: a view, stride 0
+    along a broadcast dim."""
+    if t.shape[:-2] == batch:
+        return t
+    return QTensor(t.data.expand(batch + t.shape[-2:]), t.fmt)
+
+
+def _over_batch(fn, a: QTensor, b: QTensor, batch) -> Optional[QTensor]:
+    """``fn`` (2-D QTensors -> QTensor, or None outside its envelope) over
+    the matrices of ``a`` and ``b`` broadcast to ``batch``.  When every
+    batch dim of ``b`` is 1, ``a``'s rows go in folded against ``b``'s one
+    matrix, as many a call as ``_FOLD_MAX_ROWS`` hold (one call unless the
+    batch is huge); else, or when ``fn`` declines the fold, one call per
+    batch element on expanded views.  None when ``fn`` declines a
+    matrix."""
+    if not batch:
+        return fn(a, b)
+    m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+    parts = None
+    if all(d == 1 for d in b.shape[:-2]):
+        rows = a.data.reshape(-1, k)
+        b2 = QTensor(b.data.reshape(k, n), b.fmt)
+        step = max(_FOLD_MAX_ROWS // max(m, 1), 1) * m
+        parts = []
+        for s in range(0, rows.shape[0], step):
+            res = fn(QTensor(rows[s:s + step], a.fmt), b2)
+            if res is None:
+                parts = None
+                break
+            parts.append(res)
+    if parts is None:
+        a, b = _expand(a, batch), _expand(b, batch)
+        parts = []
+        for idx in np.ndindex(*batch):
+            res = fn(a[idx], b[idx])
+            if res is None:
+                return None
+            parts.append(res)
+    data = [p.data for p in parts]
+    if len(data) > 1:
+        data = [L.LimbArray(torch.cat([d.limbs for d in data], dim=1))
+                if isinstance(data[0], L.LimbArray) else torch.cat(data)]
+    return QTensor(data[0].reshape(batch + (m, n)), parts[0].fmt)
 
 
 def _per_batch(fn, *xs: torch.Tensor):
@@ -352,13 +429,11 @@ def _fast_gemm_limb(a: QTensor, b: QTensor, out_fmt: QFormat,
     """The lossless limb tier: the exact stacked-limb dot of
     :func:`~qublas_tpu_torch.ops.limbdot.limb_dot_2d` (one K1 launch a
     k-segment on the card) and ONE limb requantize from the raw products'
-    scale into any device storage.  Bit-exact by the losslessness proof, as
-    the int32 tier is.  None for batched operands or outside
+    scale into any device storage, for 2-D operands.  Bit-exact by the
+    losslessness proof, as the int32 tier is.  None outside
     :func:`limb_dot_plan`."""
     from . import limbdot as D
 
-    if a.ndim != 2 or b.ndim != 2:
-        return None
     Kw = limb_dot_plan(a.fmt, b.fmt, out_fmt, plan, a.shape[-1],
                        a.shape[-2], b.shape[-1])
     if Kw is None:
@@ -511,7 +586,17 @@ def qgemv(a: QTensor, x: QTensor, out_fmt: QFormat, mul_to=None,
           add_formats=(), transpose_a: bool = False,
           mul_full_prec: bool = False) -> QTensor:
     """y = op(A) @ x, the matrix-vector case of :func:`qgemul`
-    (``qublas_tpu/ops/gemm.py:705-713``)."""
+    (``qublas_tpu/ops/gemm.py:705-713``).  A batch of vectors ``x``
+    [..., K] against a 2-D A is one GEMM whose columns are the vectors
+    (outputs are independent, so the bits are those of one product per
+    vector): one kernel launch for the batch."""
+    if a.ndim == 2 and x.ndim > 1:
+        xs = QTensor(x.data.reshape(-1, x.shape[-1]), x.fmt)
+        y = qgemul(a, xs, out_fmt, mul_to, add_formats,
+                   transpose_a=transpose_a, transpose_b=True,
+                   mul_full_prec=mul_full_prec)
+        return QTensor(y.data.transpose(-1, -2).reshape(
+            x.shape[:-1] + y.shape[:1]), y.fmt)
     col = QTensor(x.data[..., :, None], x.fmt)
     y = qgemul(a, col, out_fmt, mul_to, add_formats,
                transpose_a=transpose_a, mul_full_prec=mul_full_prec)

@@ -91,6 +91,10 @@ class LimbArray:
             shape = tuple(shape[0])
         return LimbArray(self.limbs.reshape((self.nlimbs,) + tuple(shape)))
 
+    def expand(self, shape) -> "LimbArray":
+        """A view of the element dims broadcast to ``shape``."""
+        return LimbArray(lbroadcast_elem(self.limbs, shape))
+
     def _dim(self, d: int) -> int:
         return d % self.ndim + 1
 

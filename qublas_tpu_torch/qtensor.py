@@ -109,9 +109,39 @@ class QTensor:
             return self.data.to_numpy_ints()
         return self.data.cpu().numpy()
 
+    def raw_list(self):
+        return [int(v) for v in self.raw().reshape(-1)]
+
     def to_double(self) -> np.ndarray:
         """Per-element double value = raw / 2^frac_bits (QuBLAS.h:2413-2416)."""
         return self.raw().astype(np.float64) * (2.0 ** -self.fmt.frac_bits)
+
+    def to_bits(self, tensor_order=None, elem_order=None) -> str:
+        from . import bitstream
+
+        return bitstream.to_bits(self, tensor_order, elem_order)
+
+    def display(self, name: str = "") -> str:
+        """Print and return the reference display()'s content
+        (QuBLAS.h:2418-2431, 2898-2909): the format, then the values."""
+        lines = [f"{name} :"] if name else []
+        f = self.fmt
+        lines.append(f"intBits: {f.int_bits} fracBits: {f.frac_bits} "
+                     f"isSigned: {int(f.signed)}")
+        lines.append(str(self.to_double()))
+        out = "\n".join(lines)
+        print(out)
+        return out
+
+    def to_matlab(self, filename: str):
+        """Text export of Qu_s::toMatlab (QuBLAS.h:2980-3036):
+        whitespace-separated doubles, one matrix row per line."""
+        vals = self.to_double()
+        rows = vals.reshape(-1, vals.shape[-1]) if vals.ndim > 1 \
+            else vals.reshape(1, -1)
+        with open(filename, "w") as fh:
+            for row in rows:
+                fh.write(" ".join(repr(float(v)) for v in row) + "\n")
 
     def astype(self, fmt: QFormat) -> "QTensor":
         """Cross-format conversion: requantize with the destination's modes
@@ -122,6 +152,29 @@ class QTensor:
 
     def __getitem__(self, idx) -> "QTensor":
         return QTensor(self.data[idx], self.fmt)
+
+    def shuffle(self, seed: int = 1) -> "QTensor":
+        """Random permutation of the flattened elements (the reference
+        tensor's ``shuffle()``, QuBLAS.h:2843-2850) from numpy's
+        ``RandomState(seed).permutation``, as the JAX package draws it,
+        applied as an index on the tensor's device.  For the reference's
+        exact ``std::shuffle(gen)`` use :func:`~qublas_tpu_torch.refrand.
+        reference_shuffle`."""
+        return self.take_flat(np.random.RandomState(seed).permutation(
+            self.size))
+
+    def take_flat(self, perm) -> "QTensor":
+        """The tensor whose flat element i is this one's flat element
+        ``perm[i]`` (an index array of ``size`` entries), same shape,
+        indexed on the tensor's own device."""
+        idx = torch.as_tensor(np.asarray(perm, dtype=np.int64),
+                              device=self.device)
+        if self.is_limb:
+            limbs = self.data.limbs
+            flat = limbs.reshape(limbs.shape[0], -1)[:, idx]
+            return QTensor(LimbArray(flat.reshape(limbs.shape)), self.fmt)
+        return QTensor(self.data.reshape(-1)[idx].reshape(self.shape),
+                       self.fmt)
 
     def __repr__(self):
         return (f"QTensor(shape={self.shape}, fmt={self.fmt}, "
@@ -162,7 +215,8 @@ class QTensor:
         return qabs(self)
 
 
-def from_raw(values: Any, fmt: QFormat, device="cuda") -> QTensor:
+def from_raw(values: Any, fmt: QFormat, device="cuda",
+             validate: bool = False) -> QTensor:
     """Build a QTensor from raw storage integers (an integer array, or
     Python ints of any size) on ``device``.
 
@@ -172,7 +226,8 @@ def from_raw(values: Any, fmt: QFormat, device="cuda") -> QTensor:
     holds every value; a pair format takes int64; a limb format its
     ``limb_count`` limbs.  Raws beyond the int32 lane, beyond int64 for a
     pair format or beyond the limb word need host object storage (ROADMAP
-    A4b) and raise.
+    A4b) and raise.  ``validate=True`` raises ``ValueError`` for raws
+    outside the format's range instead.
     """
     kind = _device_storage(fmt)
     arr = np.asarray(values)
@@ -184,6 +239,8 @@ def from_raw(values: Any, fmt: QFormat, device="cuda") -> QTensor:
         vmax = int(arr.max()) if arr.size else 0
     else:
         raise TypeError(f"from_raw takes integer raws, got {arr.dtype}")
+    if validate and arr.size and (vmin < fmt.raw_min or vmax > fmt.raw_max):
+        raise ValueError(f"raw values [{vmin},{vmax}] exceed storage of {fmt}")
     if kind == "limb":
         K = limb_count(fmt)
         word = 1 << (32 * K - 1)

@@ -730,3 +730,91 @@ def test_limb_storage_on_the_card_matches_cpu(cuda):
     _limb_same(got.real, want.real)
     _limb_same(got.imag, want.imag)
 
+
+
+# ---------------------------------------------------------------------------
+# lane completion: broadcast batches on K1 and K2, qapprox and the
+# bitwise ops on the card
+# ---------------------------------------------------------------------------
+
+def test_folded_broadcast_batch_is_one_launch(cuda):
+    """A 3-D activation against a 2-D weight folds into one K1 (lossless)
+    or K2 (tree) launch, equal to the 2-D call on the folded rows; a
+    batched B against a 2-D A launches once a batch element."""
+    x = _raws(20, FA, (4, 64, 96), np.int8).to(cuda)
+    w = _raws(21, FA, (96, 80), np.int8).to(cuda)
+    wb = _raws(22, FA, (3, 96, 80), np.int8).to(cuda)
+    kw = dict(mul_to=WIDE, add_formats=(WIDE,))
+    fused_int8_gemm.launches = 0
+    got = qt.qgemul(qt.QTensor(x, FA), qt.QTensor(w, FA), MID, **kw)
+    torch.cuda.synchronize()
+    assert fused_int8_gemm.launches == 1
+    flat = qt.qgemul(qt.QTensor(x.reshape(-1, 96), FA), qt.QTensor(w, FA),
+                     MID, **kw)
+    assert torch.equal(got.data.reshape(-1, 80), flat.data)
+    fused_int8_gemm.launches = 0
+    per = qt.qgemul(qt.QTensor(x[0], FA), qt.QTensor(wb, FA), MID, **kw)
+    torch.cuda.synchronize()
+    assert fused_int8_gemm.launches == 3
+    for i in range(3):
+        assert torch.equal(per.data[i], qt.qgemul(
+            qt.QTensor(x[0], FA), qt.QTensor(wb[i], FA), MID, **kw).data)
+    a = qt.from_raw(_raws(23, F88Z, (2, 3, 40, 70), np.int32).numpy(), F88Z,
+                    cuda)
+    b = qt.from_raw(_raws(24, F88Z, (70, 50), np.int32).numpy(), F88Z, cuda)
+    tree_gemm.launches = 0
+    c = qt.qgemul(a, b, F88Z)
+    torch.cuda.synchronize()
+    assert tree_gemm.launches == 1
+    c2 = qt.qgemul(qt.QTensor(a.data.reshape(-1, 70), F88Z), b, F88Z)
+    assert torch.equal(c.data.reshape(-1, 50), c2.data)
+    c_cpu = qt.qgemul(a.to("cpu"), b.to("cpu"), F88Z)
+    assert torch.equal(c.data.cpu(), c_cpu.data)
+
+
+def test_batched_qgemv_is_one_launch(cuda):
+    a = qt.from_raw(_raws(25, FA, (200, 96), np.int8).numpy(), FA, cuda)
+    x = qt.from_raw(_raws(26, FA, (2, 8, 96), np.int8).numpy(), FA, cuda)
+    kw = dict(mul_to=WIDE, add_formats=(WIDE,))
+    fused_int8_gemm.launches = 0
+    y = qt.qgemv(a, x, MID, **kw)
+    torch.cuda.synchronize()
+    assert fused_int8_gemm.launches == 1 and y.shape == (2, 8, 200)
+    y_cpu = qt.qgemv(a.to("cpu"), x.to("cpu"), MID, **kw)
+    assert torch.equal(y.data.cpu(), y_cpu.data)
+
+
+@pytest.mark.parametrize("kind", ["lane", "pair", "limb"])
+def test_qapprox_on_the_card_matches_cpu(cuda, kind):
+    fx = {"lane": qt.qformat(3, 4), "pair": qt.qformat(31, 8),
+          "limb": qt.qformat(80, 40)}[kind]
+    fc = {"lane": qt.qformat(6, 6), "pair": qt.qformat(20, 12),
+          "limb": qt.qformat(90, 30)}[kind]
+    x = qt.random_fill((64, 33), fx, seed=27, device=cuda)
+    c = [qt.scalar(v, fc, cuda) for v in (0.75, -1.5, 0.25)]
+    segs = [qt.Segment(-1000.0, c[:1]), qt.Segment(0.0, c[:2]),
+            qt.Segment(1.0, c[2:]), qt.Segment(1e12, c)]
+    got = qt.qapprox(x, segs)
+    segs_cpu = [qt.Segment(s.breakpoint, [t.to("cpu") for t in s.coeffs])
+                for s in segs]
+    want = qt.qapprox(x.to("cpu"), segs_cpu)
+    assert got.device.type == "cuda" and got.fmt == want.fmt
+    assert np.array_equal(got.raw(), want.raw())
+
+
+def test_bitwise_on_the_card_matches_cpu(cuda):
+    """``qnot`` on limbs keeps each limb a 32-bit value; the mixes of lane,
+    pair and limb operands equal the CPU."""
+    u = qt.random_fill((40, 30), qt.qformat(50, 29), seed=28, device=cuda)
+    p = qt.random_fill((40, 30), qt.qformat(30, 9), seed=29, device=cuda)
+    ln = qt.random_fill((40, 30), qt.qformat(3, 4), seed=30, device=cuda)
+    n = qt.bitwise.qnot(u)
+    assert int(n.data.limbs.min()) >= 0
+    assert int(n.data.limbs.max()) <= 0xFFFFFFFF
+    assert np.array_equal(n.raw(), qt.bitwise.qnot(u.to("cpu")).raw())
+    for op in (qt.bitwise.qand, qt.bitwise.qor, qt.bitwise.qxor):
+        for x, y in ((ln, p), (p, u), (ln, u)):
+            got = op(x, y)
+            assert got.device.type == "cuda"
+            assert np.array_equal(got.raw(),
+                                  op(x.to("cpu"), y.to("cpu")).raw())

@@ -119,7 +119,7 @@ def test_int32_edges(name, fmt):
     (ja, jb), (ta, tb) = _pair(rng, fmt, fmt, shape=(40,), zeros=True)
     if fmt.overflow_mode == OverflowMode.WRP_TCPL_SAT:
         # the word-wrap stub holds any int32 raw but INT32_MIN, whose
-        # negation needs host object storage (ROADMAP item 11)
+        # negation needs host object storage (ROADMAP A4b)
         r = np.array([-(1 << 31) + 1, (1 << 31) - 1, 5, -7])
         ja, ta = JQ.from_raw(r, fmt), qt.from_raw(r, P(fmt), "cpu")
     args = ((ja,), (ta,)) if name in ("qneg", "qabs") else \

@@ -7,8 +7,12 @@ converting copy (``requant.json``, skipping the reference's documented
 defects with the port's ``hostint.reference_requant_defect``), the binary
 ops (``mul``/``add``/``sub``), ``qabs``/``qneg`` (``unary``), ``qcmp``/
 ``qeq`` (``cmp``), ``qreduce`` (``reduce``, its vector entry point) and the
-double constructor (``dbl``); and the converting copy's lane records again
-through the 64-bit requantize of the pair route.  Lane, pair and limb
+double constructor (``dbl``); the converting copy's lane records again
+through the 64-bit requantize of the pair route; ANUS ``qpoly`` and
+``qapprox`` (``qpoly``, ``qapprox``); and the reference's mt19937 streams,
+``fill()`` draws of every storage width and the tensor ``shuffle()``
+(``fill``, ``shuffle``, read as ``tests/test_refrand.py`` reads them).
+Every golden file has a reader here.  Lane, pair and limb
 storage are ported; a record whose operands or result need host storage
 (raws beyond the storage word, formats beyond 992 bits) must raise
 ``NotImplementedError`` until ROADMAP A4b ports it (no record does).  There
@@ -23,7 +27,7 @@ import pytest
 import torch
 
 import qublas_tpu_torch as qt
-from qublas_tpu_torch import hostint
+from qublas_tpu_torch import anus, hostint, refrand
 from qublas_tpu_torch.ops import elementwise as ew
 from qublas_tpu_torch.ops.reduce import qreduce
 from qublas_tpu_torch.ops.wideint import requantize_i64
@@ -235,3 +239,55 @@ def test_double_to_fixed_golden(i):
     for g, want, ok in zip(got, rec["out"], keep):
         if ok:  # else a documented defect (REFERENCE_DEFECTS.md D2/D3)
             assert g == int(want), (f, g, want)
+
+
+# ---------------------------------------------------------------------------
+# ANUS and the reference's random streams
+# ---------------------------------------------------------------------------
+
+def test_qpoly_golden():
+    for rec in _load("qpoly"):
+        f = _fmt(rec["fmt"])
+        coeffs = [qt.from_raw(np.array(int(c), dtype=object), f, "cpu")
+                  for c in rec["coeffs"]]
+        got = anus.qpoly(_tensor(rec["in"], f), coeffs)
+        assert _raws(got) == [int(v) for v in rec["out"]]
+
+
+def test_qapprox_golden():
+    for rec in _load("qapprox"):
+        f = _fmt(rec["fmt"])
+        c = [qt.scalar(v, f, "cpu") for v in (1.0, 0.5, -1.0, 2.0)]
+        segs = [anus.Segment(0.0, c[:2]), anus.Segment(1.0, c[2:])]
+        got = anus.qapprox(_tensor(rec["in"], f), segs)
+        assert got.fmt == f
+        assert _raws(got) == [int(v) for v in rec["out"]]
+
+
+@pytest.mark.parametrize("i", range(len(_load("fill"))),
+                         ids=[f"w{r['w']}" for r in _load("fill")])
+def test_fill_golden(i):
+    """mt19937 seed 1 and libstdc++'s uniform_int_distribution, drawn one
+    raw at a time and as a tensor of a format of that storage width (lane,
+    pair or limb storage)."""
+    rec = _load("fill")[i]
+    want = [int(v) for v in rec["out"]]
+    gen = refrand.MT19937(1)
+    assert [refrand.fill_raw(gen, rec["w"]) for _ in want] == want
+    f = QFormat(rec["w"] - 1, 0)
+    assert f.storage_bits == rec["w"]
+    t = refrand.reference_fill((len(want),), f, gen=refrand.MT19937(1),
+                               device="cpu")
+    assert _raws(t) == want
+
+
+@pytest.mark.parametrize("i", range(len(_load("shuffle"))),
+                         ids=[f"n{r['n']}" for r in _load("shuffle")])
+def test_shuffle_golden(i):
+    """std::shuffle(gen) of raws 1000..1000+n-1 from a fresh seed-1
+    stream."""
+    rec = _load("shuffle")[i]
+    src = np.arange(1000, 1000 + rec["n"])
+    got = refrand.reference_shuffle(qt.from_raw(src, QFormat(8, 8), "cpu"),
+                                    gen=refrand.MT19937(1))
+    assert _raws(got) == [int(v) for v in rec["out"]]

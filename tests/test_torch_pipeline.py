@@ -152,6 +152,21 @@ def test_port_runs_without_jax():
         " qt.qformat(152, 20), mul_to=qt.qformat(141, 20),"
         " add_formats=(qt.qformat(152, 20),))\n"
         "assert g.is_limb and g.shape == (3, 2)\n"
+        "bb = gemm.qgemul(qt.random_fill((2, 3, 8), fa, device='cpu'),"
+        " qt.random_fill((8, 5), fa, seed=3, device='cpu'), fa,"
+        " mul_to=qt.qformat(20, 8), add_formats=(qt.qformat(20, 8),))\n"
+        "assert bb.shape == (2, 3, 5)\n"
+        "seg = [qt.Segment(0.0, [qt.scalar(0.5, f, device='cpu')]),"
+        " qt.Segment(1.0, [qt.scalar(-1.0, f, device='cpu'), x[0, 0]])]\n"
+        "assert qt.qapprox(x, seg).shape == (8, 13)\n"
+        "assert qt.bitwise.qxor(x, u[:1, :1]).is_limb\n"
+        "import tempfile, os\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    qt.save(os.path.join(d, 'c.npz'), {'x': x, 'u': u, 'p': p})\n"
+        "    back = qt.load(os.path.join(d, 'c.npz'), device='cpu')\n"
+        "assert back['u'].raw_list() == u.raw_list() and back['p'].is_pair\n"
+        "rf = qt.reference_fill((4, 4), qt.qformat(8, 8), device='cpu')\n"
+        "assert qt.reference_shuffle(rf).shape == (4, 4)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'qublas_tpu' or m.startswith('qublas_tpu.')]\n"
         "assert not bad, bad\n"
