@@ -61,6 +61,21 @@ Phases, each printing its lines:
       4096^2 on lane, pair and limb storage; h5 the bitwise ops, a
       checkpoint round trip, ``requant_stats`` and the reference's
       ``fill()``/``shuffle()`` streams;
+   i. the last two tiers of ``qgemul``: i1 the hybrid tier (the JAX
+      package's prefix-lossless configuration, ``Qu<3,4>`` operands,
+      products ``Qu<7,8>``, four lossless layers and a ``SAT::ZERO`` tail)
+      at 2048^3, one K2h launch, against K2 on ``plan_tree``, the plain
+      version on the card, the CPU on a row block and ``hostops`` on a
+      corner; again at k = 2040 (blocks of 8), k = 176 (an odd block
+      count), with a shift dl > 0 (s = 8, 256 block values) and as a folded
+      [8, 256, 2048] batch; i2 host storage: the native engine built and
+      loaded, ``from_float`` at 4096^2 through it against the Python loop
+      on a row block, a ``Qu<600,600>`` (1,201-bit) tensor through
+      ``qmul``/``qadd``/``qdiv``/``qcast``, ``qreduce``, a ``QTable``
+      into it and a checkpoint round trip against ``hostops``, and the
+      host GEMM (wart raws of a 32-bit lane format at 256^3 on the
+      native engine, ``Qu<600,600>`` and 8,401-bit products) against
+      ``host_qgemul``; host results that fit a lane land on the card;
    every result is checked against the plain versions, and 16x16 corners
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
@@ -72,8 +87,9 @@ Phases, each printing its lines:
    ``vs_serial_chain`` (K2's rate over P1's) and K2′'s rate over P1's, and
    its instantiations' registers; K2 and K2′ on the pair route at 2048^3,
    P1 on it at ``measured_chain_prods``' shapes, the wall times of
-   paths f1-f4 and g1-g6, and path h beside the 2-D calls of the same
-   size.
+   paths f1-f4 and g1-g6, path h beside the 2-D calls of the same
+   size, and K2h (event and device time) beside K2 and K2′ on the same
+   operands.
 
 The second-to-last line is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -108,6 +124,12 @@ TREE_BATCH = 8                    # h2: a2 as [TREE_BATCH, TREE_N / it, TREE_N]
 GEMV_VECS = 64                    # h3: [GEMV_VECS, PIPE_N] vectors
 LANE_BLOCK = 64                   # h2-h5: rows held against the CPU
 CKPT_LIMB_ROWS = 512              # h5: rows of the limb tensor saved
+HYB_N = 2048                      # i1: the hybrid tier at HYB_N^3
+HYB_BATCH = 8                     # i1: A as [HYB_BATCH, HYB_N / it, HYB_N]
+HOST_N = 64                       # i2: Qu<600,600> tensors HOST_N x HOST_N
+HOST_PY_ROWS = 256                # i2: rows of from_float's Python loop
+HOST_GEMM = (256, 256, 256)       # i2: the native host GEMM (m, k, n)
+HOST_WIDE_GEMM = (8, 16, 8)       # i2: Qu<600,600> on the host GEMM
 
 # peak rates of one H100 SXM at its 700 W limit: HBM bytes/s and int8
 # tensor-core ops/s (NVIDIA's data sheet), and int32 ops/s at the rate the
@@ -1773,6 +1795,307 @@ def lane_times(card, state_h, t):
           f"reference_shuffle (64, 64) {t['h5 fill']:.4f} ms [{card}]")
 
 
+def hybrid_config(dl=False):
+    """The JAX package's hybrid configurations (``tests/test_tree_gemm.py:
+    136-145``, and ``:172-181`` for ``dl``, whose lossless prefix shifts):
+    (operand format, mul_to, layers, out)."""
+    import qublas_tpu_torch as qt
+
+    sz = qt.OverflowMode.SAT_ZERO
+    if dl:
+        return (qt.qformat(3, 4), qt.qformat(7, 10),
+                (qt.qformat(8, 11), qt.qformat(9, 12), qt.qformat(10, 12),
+                 qt.qformat(5, 6, overflow_mode=sz)), qt.qformat(5, 5))
+    return (qt.qformat(3, 4), qt.qformat(7, 8),
+            (qt.qformat(8, 8), qt.qformat(9, 8), qt.qformat(10, 8),
+             qt.qformat(11, 8), qt.qformat(6, 4, overflow_mode=sz)),
+            qt.qformat(5, 4))
+
+
+def phase_hybrid(dev, chk):
+    """Phase 3i1: the hybrid tier through ``qgemul``: one K2h launch a
+    call, held to K2 on ``plan_tree`` of the same configuration, to the
+    plain version on the card, to the CPU on a row block and to hostops on
+    a corner."""
+    import numpy as np
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
+    from qublas_tpu_torch.ops.reduce import qreduce_kernel
+    from qublas_tpu_torch.ops.tree_gemm import (k2_modes, plan_hybrid,
+                                                plan_tree, tree_gemm,
+                                                tree_gemm_hybrid,
+                                                tree_gemm_hybrid_plain,
+                                                tree_gemm_stream)
+
+    n, rb, cn = HYB_N, LANE_BLOCK, LIMB_CORNER
+    gen = torch.Generator(device=dev).manual_seed(21)
+    drive = Driver((fused_int8_gemm, tree_gemm, tree_gemm_stream,
+                    qreduce_kernel, tree_gemm_hybrid))
+    state = {}
+    for key, k, dl in (("i1", n, False), ("i1 k2040", n - 8, False),
+                       ("i1 k176", 176, False), ("i1 dl", n, True)):
+        fa, mul, layers, out = hybrid_config(dl)
+        a = qt.QTensor(torch.randint(-128, 128, (n, k), generator=gen,
+                                     device=dev, dtype=torch.int8), fa)
+        b = qt.QTensor(torch.randint(-128, 128, (k, n), generator=gen,
+                                     device=dev, dtype=torch.int8), fa)
+        mul_fmt = qt.mul_merge(fa, fa, mul)
+        hp = plan_hybrid(fa, fa, mul_fmt, layers, k, out)
+        tp = plan_tree(fa, fa, mul_fmt, layers, k, out)
+        assert hp is not None and tp is not None, key
+        c = drive(key, f"hybrid qgemul [{n}, {k}] @ [{k}, {n}] (s = {hp.s}, "
+                  f"L = {hp.level}, dl = {hp.dl}, {k // hp.s} block values)",
+                  lambda: qt.qgemul(a, b, out, mul_to=mul,
+                                    add_formats=layers),
+                  {"tree_gemm_hybrid": 1})
+        assert c.fmt == out and c.shape == (n, n)
+        chk.same("tree_gemm_hybrid", f"{key} == K2 on plan_tree (k2_modes "
+                 f"{k2_modes(tp)})", c.data, tree_gemm(a.data, b.data, tp,
+                                                       out))
+        chk.same("tree_gemm_hybrid", f"{key} == tree_gemm_hybrid_plain on "
+                 "the card", c.data, tree_gemm_hybrid_plain(a.data, b.data,
+                                                            hp, out))
+        same_q(f"{key} rows 0..{rb}, card == CPU", c[:rb],
+               qt.qgemul(a[:rb].to("cpu"), b.to("cpu"), out, mul_to=mul,
+                         add_formats=layers))
+        host = qt.host_qgemul(a[:cn], qt.QTensor(b.data[:, :cn], fa), out,
+                              mul_to=mul, add_formats=layers)
+        assert np.array_equal(c.raw()[:cn, :cn], host), \
+            f"{key} corner vs hostops"
+        print(f"main path {key}: rows 0..{rb} equal the CPU, the {cn}x{cn} "
+              "corner equals hostops.qgemul")
+        state[key] = (a, b, hp, tp, out, mul, layers)
+
+    # the activation batch against the 2-D weight: one launch
+    a, b, hp, tp, out, mul, layers = state["i1"]
+    a3 = qt.QTensor(a.data.reshape(HYB_BATCH, n // HYB_BATCH, n), a.fmt)
+    c3 = drive("i1 batch", f"hybrid qgemul {list(a3.shape)} @ [{n}, {n}] "
+               "(a folded broadcast batch)",
+               lambda: qt.qgemul(a3, b, out, mul_to=mul, add_formats=layers),
+               {"tree_gemm_hybrid": 1})
+    chk.same("tree_gemm_hybrid", "i1 folded batch == the 2-D hybrid qgemul",
+             c3.data.reshape(n, n), tree_gemm_hybrid(a.data, b.data, hp,
+                                                     out))
+    return drive.launches, state
+
+
+def phase_host(dev):
+    """Phase 3i2: host storage on the card's machine: the native engine, a
+    1,201-bit format through the elementwise ops, ``qreduce``, a ``QTable``
+    and a checkpoint, and the host GEMM, against ``hostops``; host results
+    that fit a lane land on the card."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import hostint, hostops, native
+    from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
+    from qublas_tpu_torch.ops.reduce import qreduce_kernel
+    from qublas_tpu_torch.ops.tree_gemm import (tree_gemm, tree_gemm_hybrid,
+                                                tree_gemm_stream)
+
+    assert native.available(), "the native host engine did not build"
+    fl = native.get_fastlimbs()
+    print(f"host: native engine {native.get_lib()._name}; marshalling by "
+          + (f"the C extension {fl.__file__}" if fl is not None else
+             "Python's int.to_bytes loops (no C extension)"))
+    drive = Driver((fused_int8_gemm, tree_gemm, tree_gemm_stream,
+                    qreduce_kernel, tree_gemm_hybrid))
+    rng = np.random.RandomState(22)
+
+    # from_float through the native engine, against the Python loop it
+    # replaces on a row block
+    fa = qt.qformat(3, 4)
+    vals = rng.randn(EW_N, EW_N) * 4
+    t0 = time.perf_counter()
+    xf = drive("i2", f"from_float {fa} {EW_N}x{EW_N} (native double_to_raw)",
+               lambda: qt.from_float(vals, fa, dev), {})
+    t_native = time.perf_counter() - t0
+    blk = vals[:HOST_PY_ROWS].reshape(-1)
+    t0 = time.perf_counter()
+    py = [hostint.double_to_raw(float(v), fa) for v in blk]
+    t_py = time.perf_counter() - t0
+    assert xf.device == dev and not xf.is_host
+    assert xf.raw()[:HOST_PY_ROWS].reshape(-1).tolist() == py, \
+        "from_float: the engine != the Python loop"
+    print(f"time i2 from_float {EW_N}x{EW_N}: {t_native * 1e3:.2f} ms wall "
+          f"on the engine ({EW_N * EW_N / t_native / 1e6:.2f} Melem/s); the "
+          f"Python loop on rows 0..{HOST_PY_ROWS} {t_py * 1e3:.2f} ms "
+          f"({blk.size / t_py / 1e6:.3f} Melem/s), equal there")
+
+    # a 1,201-bit format through the elementwise ops, qreduce and a QTable
+    fh = qt.qformat(600, 600)
+    fo = qt.qformat(20, 8)
+    h1 = qt.random_fill((HOST_N, HOST_N), fh, seed=23, device=dev)
+    h2 = qt.random_fill((HOST_N, HOST_N), fh, seed=24, device=dev)
+    assert h1.is_host and h1.device == dev
+    r1 = h1.raw().reshape(-1)
+    r2 = h2.raw().reshape(-1)
+    cases = {
+        "qmul": (lambda: qt.qmul(h1, h2), lambda x, y: hostops.qmul(x, y)),
+        "qmul full precision": (lambda: qt.qmul(h1, h2, full_prec=True),
+                                lambda x, y: hostops.qmul(x, y,
+                                                          full_prec=True)),
+        "qadd": (lambda: qt.qadd(h1, h2), lambda x, y: hostops.qadd(x, y)),
+        "qdiv": (lambda: qt.qdiv(h1, h2), lambda x, y: hostops.qdiv(x, y)),
+        f"qcast into {fo}": (lambda: qt.qcast(h1, fo),
+                             lambda x, y: hostops.convert(x, fo)),
+    }
+    for name, (fn, ref) in cases.items():
+        got = drive("i2", f"{name} of {fh} {HOST_N}x{HOST_N}", fn, {})
+        want = [ref((int(x), fh), (int(y), fh)) for x, y in zip(r1, r2)]
+        assert got.fmt == want[0][1], (name, got.fmt)
+        assert [int(v) for v in got.raw().reshape(-1)] == \
+            [w[0] for w in want], f"i2 {name} vs hostops"
+        assert got.is_host == (got.fmt.storage_bits > 992), name
+        if not got.is_host:
+            assert got.device == dev, f"i2 {name}: a lane result off the card"
+    red = drive("i2", f"qreduce of {fh} {HOST_N}x{HOST_N} along axis 1",
+                lambda: qt.qreduce(h1, (), axis=1), {})
+    want = [hostops.qreduce_list([(int(v), fh) for v in row], ())[0]
+            for row in h1.raw()]
+    assert red.is_host and [int(v) for v in red.raw()] == want, \
+        "i2 qreduce vs hostops"
+    table = qt.QTable(qt.sqrt_func, fa, fh)
+    xb = qt.QTensor(xf.data[:HOST_N, :HOST_N], fa)
+    tab = drive("i2", f"QTable sqrt {fa} -> {fh} on {HOST_N}x{HOST_N} lanes",
+                lambda: table(xb), {})
+    want = [hostint.double_to_raw(qt.sqrt_func(hostint.raw_to_double(
+        int(r), fa)), fh) for r in xb.raw().reshape(-1)]
+    assert tab.is_host and [int(v) for v in tab.raw().reshape(-1)] == want, \
+        "i2 QTable vs hostint"
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "host.npz")
+        back = drive("i2", f"checkpoint save/load of {fh} {HOST_N}x{HOST_N}",
+                     lambda: (qt.save(path, {"h": h1}),
+                              qt.load(path, dev))[1]["h"], {})
+    assert back.is_host and back.device == dev and back.fmt == fh
+    assert back.raw_list() == h1.raw_list(), "i2 checkpoint round trip"
+    print(f"main path i2: {fh} {HOST_N}x{HOST_N} through qmul, qadd, qdiv, "
+          "qcast (onto the card), qreduce, a QTable and a checkpoint equals "
+          "hostops")
+
+    # the host GEMM: wart raws of a 32-bit lane format (beyond its int32
+    # word) against a lane operand on the card, on the native engine
+    m, k, n = HOST_GEMM
+    f31 = qt.qformat(31, 0)
+    w62 = qt.qformat(62, 0)
+    ar = rng.randint(f31.raw_min, f31.raw_max + 1, (m, k)).astype(object)
+    ar[::7] += 1 << 40
+    a = qt.from_raw(ar, f31, dev)
+    b = qt.from_raw(rng.randint(f31.raw_min, f31.raw_max + 1, (k, n)), f31,
+                    dev)
+    assert a.is_host and not b.is_host
+    g = drive("i2", f"host qgemul [{m}, {k}] @ [{k}, {n}] ({f31} wart raws "
+              "against card lanes, the native engine)",
+              lambda: qt.qgemul(a, b, w62, mul_to=w62, add_formats=(w62,)),
+              {})
+    assert g.device == dev and g.is_pair, "i2 host GEMM: no pair on the card"
+    nat = native.tree_gemm_host(a.raw(), b.raw(), f31, f31, w62, (w62,), w62)
+    assert nat is not None and np.array_equal(g.raw(), nat)
+    cn = LIMB_CORNER
+    host = qt.host_qgemul(a[:cn], qt.QTensor(b.data[:, :cn], f31), w62,
+                          mul_to=w62, add_formats=(w62,))
+    assert np.array_equal(g.raw()[:cn, :cn], host), "i2 host GEMM corner"
+    m, k, n = HOST_WIDE_GEMM
+    f4200 = qt.qformat(4200, 0)
+    wides = {"Qu<600,600>": (h1[:m, :k], h2[:k, :n], fh, {}),
+             "8,401-bit products": (
+                 qt.random_fill((m // 2, k // 2), f4200, 25, dev),
+                 qt.random_fill((k // 2, n // 2), f4200, 26, dev), fh,
+                 {"mul_full_prec": True})}
+    for name, (x, y, out, kw) in wides.items():
+        got = drive("i2", f"host qgemul {list(x.shape)} @ {list(y.shape)} "
+                    f"({name})", lambda: qt.qgemul(x, y, out, **kw), {})
+        mul = qt.mul_merge(x.fmt, y.fmt, None, kw.get("mul_full_prec", False))
+        route = "the native multiword engine" if native.tree_gemm_host(
+            x.raw(), y.raw(), x.fmt, y.fmt, mul, (), out) is not None \
+            else "the Python model"
+        assert np.array_equal(got.raw(), qt.host_qgemul(x, y, out, **kw)), \
+            f"i2 host GEMM {name}"
+        print(f"main path i2: host qgemul {name} on {route} equals "
+              "host_qgemul")
+    return drive.launches
+
+
+def hybrid_bound(hp, out_fmt, m, n, k, in_bytes, out_bytes):
+    """Bound of K2h: the operands and output once, and per output element
+    the k block-dot multiply-adds (one int32 operation each), the shift of
+    each block value (dl > 0), the tail's tree of merges over the k / s
+    block values (drain converts included) and the final requantize."""
+    nb = k // hp.s
+    rqs = [rq_ops(hp.level_fmts[hp.level + j].frac_bits,
+                  hp.merge_fmts[hp.level + j])
+           for j in range(max(nb.bit_length(), 1))]
+    per_out = k + (nb if hp.dl else 0) + \
+        tree_ops(nb, rqs, lambda l: rqs[l]) + \
+        rq_ops(hp.final_fmt.frac_bits, out_fmt)
+    return bound_ms(in_bytes * (m * k + k * n) + out_bytes * m * n,
+                    m * n * per_out, INT32_OPS_S)
+
+
+def hybrid_times(card, state_i, t, bounds, report):
+    """Phase 4, path i: K2h beside K2 and K2′ on the same operands, by
+    CUDA events and device time, its plain version, and ``qgemul`` end to
+    end."""
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops.tree_gemm import (k2s_plan, tree_gemm,
+                                                tree_gemm_hybrid,
+                                                tree_gemm_hybrid_plain,
+                                                tree_gemm_stream)
+    from qublas_tpu_torch.ops.widths import torch_dtype_for
+    from qublas_tpu_torch.timing import device_us, timeit
+
+    for key, suffix in (("i1", ""), ("i1 k2040", "_k2040"),
+                        ("i1 k176", "_k176"), ("i1 dl", "_dl")):
+        a, b, hp, tp, out, mul, layers = state_i[key]
+        m, k = a.shape
+        n = b.shape[1]
+        fn = lambda: tree_gemm_hybrid(a.data, b.data, hp, out)  # noqa: E731
+        t["k2h" + suffix] = timeit(fn)
+        bounds["k2h" + suffix] = hybrid_bound(
+            hp, out, m, n, k, a.data.element_size(),
+            torch_dtype_for(out).itemsize)
+        us = device_us(fn)
+        print(f"time tree_gemm_hybrid [{m}, {k}] @ [{k}, {n}] (s = {hp.s}, "
+              f"dl = {hp.dl}): {t['k2h' + suffix]:.4f} ms, "
+              f"{m * n * k / t['k2h' + suffix] / 1e6:.2f} Gprod/s, device us "
+              f"per call {us} [{card}]")
+        if key != "i1":
+            continue
+        t["k2h_plain"] = timeit(lambda: tree_gemm_hybrid_plain(
+            a.data, b.data, hp, out), runs=3, warmup=1)
+        t["k2h_qgemul"] = timeit(lambda: qt.qgemul(a, b, out, mul_to=mul,
+                                                   add_formats=layers))
+        t["k2h_k2"] = timeit(lambda: tree_gemm(a.data, b.data, tp, out),
+                             runs=3, warmup=1)
+        t["k2h_k2s"] = timeit(lambda: tree_gemm_stream(a.data, b.data, tp,
+                                                       out), runs=3, warmup=1)
+        k2_us = device_us(lambda: tree_gemm(a.data, b.data, tp, out), runs=3)
+        k2s_us = device_us(lambda: tree_gemm_stream(a.data, b.data, tp, out),
+                           runs=3)
+        print(f"time i1 at {k}^3 on the same operands: K2h "
+              f"{t['k2h']:.4f} ms; K2 (plan_tree, modes read at run time) "
+              f"{t['k2h_k2']:.4f} ms, device us per call {k2_us}; K2′ "
+              f"(k2s_plan {k2s_plan(tp)}, every step read at run time) "
+              f"{t['k2h_k2s']:.4f} ms, device us per call {k2s_us}; K2h "
+              f"plain (float64 block matmuls, the tail in torch) "
+              f"{t['k2h_plain']:.4f} ms; hybrid qgemul "
+              f"{t['k2h_qgemul']:.4f} ms; K2h / K2 "
+              f"{t['k2h'] / t['k2h_k2']:.4f} [{card}]")
+    for line in resources(report, "tree_gemm_hybrid_kernel"):
+        print(f"registers {line}")
+    for key in ("k2h", "k2h_k2040", "k2h_k176", "k2h_dl"):
+        ms, by = bounds[key]
+        print(f"bound {key}: {ms:.4f} ms ({by}); measured {t[key]:.4f} ms, "
+              f"{ms / t[key] * 100:.1f}% of the bound [{card}]")
+
+
 def rq_ops(from_frac, fmt, floored=False, wide=False):
     """int32 operations of one requantize from ``from_frac`` into ``fmt``
     on the path csrc/requant.cuh takes for it: the rounding stage (none for
@@ -2221,10 +2544,13 @@ def main() -> int:
     launches_f, state_f = phase_pair(dev, chk)
     launches_g, state_g = phase_limb(dev, chk)
     launches_h, state_h = phase_lanes(dev, chk, state_a)
+    launches_i, state_i = phase_hybrid(dev, chk)
+    phase_host(dev)
     t, bounds = phase_times(card, state_a, state_b, state_d, chain_rate,
                             state_f)
     limb_times(card, state_g, t, bounds)
     lane_times(card, state_h, t)
+    hybrid_times(card, state_i, t, bounds, report)
     for line in resources(report, "tree_gemm_tiled_kernel") + \
             resources(report, "tree_gemm_stream_kernel") + \
             resources(report, "chain_probe_kernel"):
@@ -2262,6 +2588,9 @@ def main() -> int:
             "k3", "k3_plain", None),
         row("chain_probe", "qublas_tpu_torch/csrc/chain_probe.cuh",
             "bench.py:408", launches_e, "p1", "p1_plain", None),
+        row("tree_gemm_hybrid", "qublas_tpu_torch/csrc/tree_gemm_hybrid.cu",
+            "qublas_tpu/ops/tree_gemm.py:620",
+            launches_i["tree_gemm_hybrid"], "k2h", "k2h_plain", None),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

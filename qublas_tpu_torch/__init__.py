@@ -4,13 +4,17 @@ Bit-exact QuBLAS fixed-point semantics on torch tensors, with the kernels of
 the ported paths written by hand for NVIDIA Hopper (``csrc/``): K1, the
 lossless int8 GEMM with a fused requantize epilogue (also the int32 dots of
 the complex GEMM's fast path); K2 and K2′, the order-sensitive tree GEMM on
-its blocked and one-pass schedules; K3, the layered tree reduce (Qreduce);
-and P1, the probe that measures the tree GEMM's per-product work.  The
-elementwise and complex elementwise ops are plain torch ops, on int32
-lanes, int64 (pair storage, 33..64 bits) or stacked 32-bit limbs in int64
-(limb storage, 65..992 bits: ``ops.limbint``); the wide lossless GEMMs run
-as balanced int8 digit dots on K1 (``ops.limbdot``); ``bitstream``
-serializes tensors to the reference's bit strings.  Around them:
+its blocked and one-pass schedules; K2h, the prefix-lossless hybrid tree
+GEMM (exact block dots, then the lossy tail); K3, the layered tree reduce
+(Qreduce); and P1, the probe that measures the tree GEMM's per-product
+work.  The elementwise and complex elementwise ops are plain torch ops, on
+int32 lanes, int64 (pair storage, 33..64 bits) or stacked 32-bit limbs in
+int64 (limb storage, 65..992 bits: ``ops.limbint``); host storage (beyond
+992 bits, or wart raws beyond the storage word) runs on the native host
+engine (``native``, built with ``g++`` at first use) or the exact Python
+model; the wide lossless GEMMs run as balanced int8 digit dots on K1
+(``ops.limbdot``); ``bitstream`` serializes tensors to the reference's bit
+strings.  Around them:
 ``anus`` (``qpoly``/``qapprox``/``QTable``), ``refrand`` (the reference's
 mt19937 ``fill()``/``shuffle()`` streams), ``bitwise``, ``checkpoint`` and
 ``diagnostics``.
@@ -24,8 +28,8 @@ the width proofs of ``ops.widths``), pinned to the originals by
 across by duck typing.
 
 Kernels build at first use (``nvcc``); a CPU tensor takes each kernel's
-plain-torch version instead.  Constructors place tensors on the card unless
-the caller names another device.
+plain-torch version instead.  Constructors place tensors on the card
+unless the caller names another device; host tensors never live on it.
 """
 
 from . import bitstream, bitwise

@@ -19,7 +19,12 @@ Port of ``qublas_tpu.anus`` (the reference's ``ANUS`` namespace,
   lane output format, int64 for a pair-storage one (33..64 bits), a column
   of stacked limbs for a limb-storage one (65..992 bits).  (The JAX
   package's 63-select packed tree exists only because Mosaic has no 1-D
-  gather; torch indexes natively.)
+  gather; torch indexes natively.)  A host-storage output format (beyond
+  992 bits) or a host input looks its raws up on the host, as Python ints.
+
+Host inputs (``is_host``) evaluate :func:`qpoly` on the host routes of the
+elementwise ops, and :func:`qapprox` selects per element by the exact
+double value, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from .ops import limbint as L
 from .ops.limbint import LimbArray, limbs_from_ints
 from .ops.widths import limb_count, storage_dtype, storage_kind
 from .qformat import QFormat
-from .qtensor import QTensor, host_storage_error
+from .qtensor import QTensor, from_raw
 
 __all__ = ["qpoly", "qapprox", "Segment", "qtable", "QTable", "build_table",
            "rsqrt_func", "reciprocal_func", "sqrt_func"]
@@ -114,10 +119,25 @@ def qapprox(x: QTensor, segments: Sequence[Segment]) -> QTensor:
         # a constant segment evaluates to a 0-d result
         if br.shape == x.shape:
             return br
+        if br.is_host:
+            return QTensor(np.broadcast_to(br.data, x.shape), br.fmt,
+                           br.device)
         return QTensor(br.data.expand(x.shape), br.fmt)
 
     branches = [bcast(ew.qcast(qpoly(x, s.coeffs), x.fmt))
                 for s in segments]
+    if x.is_host or any(br.is_host for br in branches):
+        # per element: the first segment whose breakpoint exceeds the
+        # exact double value (JAX qublas_tpu/anus.py:144-159)
+        flats = [br.raw().reshape(-1) for br in branches]
+        out = []
+        for i, r in enumerate(x.raw().reshape(-1)):
+            val = hostint.raw_to_double(int(r), x.fmt)
+            pick = next((j for j, s in enumerate(segments)
+                         if val < s.breakpoint), len(segments) - 1)
+            out.append(int(flats[pick][i]))
+        return from_raw(np.array(out, dtype=object).reshape(x.shape), x.fmt,
+                        x.device)
     pairs = list(zip(reversed(segments[:-1]), reversed(branches[:-1])))
     if x.is_limb:
         K = x.data.nlimbs
@@ -183,8 +203,6 @@ class QTable:
                 f"LUT over a {w}-bit input needs 2^{w} entries; cap is "
                 f"2^{MAX_TABLE_BITS}.  Use qapprox for wide formats.")
         kind = storage_kind(self.out_fmt)
-        if kind is None:
-            raise host_storage_error(f"a table into {self.out_fmt}")
         raws = []
         for p in range(1 << max(w, 0)):
             raw_in = p - (1 << w) if (in_fmt.signed and w > 0
@@ -196,7 +214,10 @@ class QTable:
                 out_val = math.nan
             raws.append(hostint.double_to_raw(out_val, self.out_fmt))
         self._mask = (1 << w) - 1 if w > 0 else 0
-        if kind == "limb":
+        self._raws = raws
+        if kind is None:
+            self.table = None   # host storage: looked up as Python ints
+        elif kind == "limb":
             # [K, entries]: entry p is column p
             self.table = limbs_from_ints(raws, limb_count(self.out_fmt))
         else:
@@ -217,6 +238,11 @@ class QTable:
         if (f.int_bits, f.frac_bits, f.signed) != (t.int_bits, t.frac_bits,
                                                    t.signed):
             raise ValueError(f"QTable built for {self.in_fmt}, got {x.fmt}")
+        if x.is_host or self.table is None:
+            raws = [self._raws[int(r) & self._mask]
+                    for r in x.raw().reshape(-1)]
+            return from_raw(np.array(raws, dtype=object).reshape(x.shape),
+                            self.out_fmt, x.device)
         idx = (x.data.to(torch.int32) & self._mask).long()
         table = self._table_on(x.device)
         if table.ndim == 2:

@@ -3,8 +3,10 @@
 The port's copy of ``qublas_tpu/bitstream.py`` (the reference's
 ``BitStream<orders...>`` converter, ``include/QuBLAS.h:4531-4827``), pinned
 to it by ``tests/test_torch_copies.py``.  Host-side: the raws come to the
-host as numpy, and parsed raws go back to ``device`` through the port's
-``from_raw``, so formats and raws beyond the lanes raise as it does.
+host as numpy (packed by the native engine's ``pack_bits`` where the width
+is at most 64 bits), and parsed raws go back to ``device`` through the
+port's ``from_raw``, which keeps raws beyond the storage word, and formats
+beyond 992 bits, in host storage.
 
 Semantics replicated exactly from the reference:
 
@@ -96,8 +98,8 @@ def _flat_raws(qtensor):
 
 
 def _from_raws(raws, shape, fmt: QFormat, device):
-    """A QTensor of the parsed raws on ``device``; raws beyond the format's
-    storage word raise as the port's ``from_raw`` does."""
+    """A QTensor of the parsed raws on ``device`` (host storage where the
+    port's ``from_raw`` keeps them there)."""
     from .qtensor import from_raw
 
     return from_raw(np.array(raws, dtype=object).reshape(shape), fmt, device)
@@ -108,9 +110,20 @@ def to_bits(qtensor, tensor_order=None, elem_order=None) -> str:
 
     Reference entry points ``BitStream<procT>(scalar)`` and
     ``BitStream<tensorOrd, elemOrd>(tensor)`` (QuBLAS.h:4812-4827).
+    Packing runs in the native engine when the width fits 64 bits.
     """
     width = qtensor.fmt.width
-    strs = [elem_bits(r, width) for r in _flat_raws(qtensor)]
+    raws = _flat_raws(qtensor)
+    strs = None
+    if 0 < width <= 64 and all(-(1 << 63) <= r < (1 << 63) for r in raws):
+        from . import native
+
+        packed = native.pack_bits(raws, width)
+        if packed is not None:
+            strs = [packed[i * width:(i + 1) * width]
+                    for i in range(len(raws))]
+    if strs is None:
+        strs = [elem_bits(r, width) for r in raws]
     strs = ["".join(_reorder(s, elem_order)) for s in strs]
     if qtensor.ndim == 0:
         # scalar path has no tensor-level ordering (QuBLAS.h:4800-4805)

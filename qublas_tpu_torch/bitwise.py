@@ -24,7 +24,8 @@ wart raws keep their bits), pairs (the int64 raw; a lane operand widens),
 limbs (both operands lifted to the result's limb count with
 :func:`~.ops.limbint.lext`, then the op limb by limb; limbs are values in
 ``[0, 2^32)`` held in int64, so ``~`` masks each limb back to 32 bits).
-Formats beyond 992 bits need host storage (ROADMAP A4b).
+Host operands and host-storage result formats (beyond 992 bits) take the
+host route: Python ints, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 from .ops import limbint as L
 from .ops.widths import limb_count, storage_kind, torch_dtype_for
 from .qformat import QFormat
-from .qtensor import QTensor, from_raw
+from .qtensor import QTensor, from_raw, result_device
 
 __all__ = ["qand", "qor", "qxor", "qnot", "from_decimal", "to_decimal"]
 
@@ -58,6 +59,15 @@ def _lift(t: QTensor, K: int) -> torch.Tensor:
 def _bitwise(op, a: QTensor, b: QTensor) -> QTensor:
     fmt = a.fmt if a.fmt.storage_bits >= b.fmt.storage_bits else b.fmt
     kind = storage_kind(fmt)
+    if a.is_host or b.is_host or kind is None:
+        pyop = {torch.bitwise_and: int.__and__, torch.bitwise_or: int.__or__,
+                torch.bitwise_xor: int.__xor__}[op]
+        A, B = np.broadcast_arrays(np.asarray(a.raw(), dtype=object),
+                                   np.asarray(b.raw(), dtype=object))
+        flat = [pyop(int(x), int(y)) for x, y in zip(A.reshape(-1),
+                                                      B.reshape(-1))]
+        return from_raw(np.array(flat, dtype=object).reshape(A.shape), fmt,
+                        result_device(a, b))
     if kind == "lane":
         dt = torch.promote_types(torch.promote_types(a.data.dtype,
                                                      b.data.dtype),
@@ -92,6 +102,10 @@ def qxor(a: QTensor, b: QTensor) -> QTensor:
 def qnot(a: QTensor) -> QTensor:
     """Elementwise raw ``~`` at the operand's own format
     (QuBLAS.h:1964-1978: ``~ArbiInt<N> -> ArbiInt<N>``)."""
+    if a.is_host:
+        flat = [~int(x) for x in a.raw().reshape(-1)]
+        return from_raw(np.array(flat, dtype=object).reshape(a.shape), a.fmt,
+                        a.device)
     if a.is_limb:
         return QTensor(L.LimbArray(~a.data.limbs & L.M32), a.fmt)
     return QTensor(~a.data, a.fmt)

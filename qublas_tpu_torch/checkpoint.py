@@ -5,16 +5,17 @@ saved by one package loads in the other with the same raws and formats:
 
 * :func:`save` / :func:`load` — an ``.npz`` holding one array per tensor
   (keys ``t0``, ``t1``, ...; lane and pair raws as their int8/16/32 or
-  int64 arrays, limb raws as exact decimal text) and a JSON spec of the
-  tree under ``__spec__`` (QTensor, QComplexTensor, dict, list, tuple,
-  scalars and arrays).  ``load`` places every QTensor on ``device``, the
+  int64 arrays, limb and host raws as exact decimal text) and a JSON spec
+  of the tree under ``__spec__`` (QTensor, QComplexTensor, dict, list,
+  tuple, scalars and arrays).  ``load`` places every QTensor on ``device``, the
   card unless the caller names another; plain arrays come back as numpy
   arrays, as in the JAX package.
 * :func:`dumps_bits` / :func:`loads_bits` — the BitStream string as a
   self-describing record (a JSON header line, then the bits).
 
-A record whose raws need host storage (beyond 992 bits, or wart raws beyond
-the storage word) raises ``NotImplementedError`` (ROADMAP A4b).
+Host tensors (beyond 992 bits, or wart raws beyond the storage word) are
+written as exact decimal text, as the JAX package writes them, and load
+back into host storage, with ``device`` as their results' device.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ def _encode(obj, arrays: dict):
     # array keys are a plain counter; the spec records each tensor's key
     if isinstance(obj, QTensor):
         key = f"t{len(arrays)}"
-        if obj.is_limb:
+        if obj.is_limb or obj.is_host:
             # exact decimal text, as the JAX package writes limb and host
             # tensors (the BitStream format keeps only the logical width,
             # which would lose wart raws)

@@ -31,7 +31,8 @@ def port_format(f) -> QFormat:
 def from_jax(t, device) -> QTensor:
     """A port QTensor on ``device`` with the raws and format of ``t``: any
     object with ``.raw()`` and ``.fmt`` (e.g. a ``qublas_tpu.QTensor``).
-    Raws of limb formats, Python ints, become stacked limbs."""
+    Raws of limb formats, Python ints, become stacked limbs; host raws stay
+    in host storage, with ``device`` as their results' device."""
     return from_raw(np.asarray(t.raw()), port_format(t.fmt), device)
 
 

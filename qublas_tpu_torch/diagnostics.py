@@ -52,14 +52,15 @@ def requant_stats(x: QTensor, fmt: QFormat) -> RequantStats:
     tensors whose rounded values stay in int32 (and whose shift is at most
     31) are counted on their device with ``requantize_i32`` under a
     WRP_TCPL_SAT (no-op) overflow, and the four numbers read back once;
-    other tensors take the exact host route on their raws, as in the JAX
-    package.
+    other tensors, host storage included, take the exact host route on
+    their raws, as in the JAX package.
     """
     d = x.fmt.frac_bits - fmt.frac_bits
     lo, hi = _identity_bounds(fmt)
     riv, inters = rounded_interval(fmt_interval(x.fmt), x.fmt.frac_bits, fmt)
-    if d > 31 or not all(v.fits32 for v in inters + [riv]):
-        # beyond int32 (pair and limb formats always are): the host route
+    if x.is_host or d > 31 or not all(v.fits32 for v in inters + [riv]):
+        # host storage, or beyond int32 (pair and limb formats always
+        # are): the host route
         raws = [int(v) for v in np.asarray(x.raw(), dtype=object).reshape(-1)]
         rounded_vals = [hostint.frac_convert(r, x.fmt.frac_bits,
                                              fmt.frac_bits, fmt.round_mode)

@@ -31,7 +31,9 @@ Dispatch, per configuration and before any data is touched:
    part into any device storage.
 2. **Layered path.**  ``cmul``/``cmul_tf`` over the [.., m, k, 1] x
    [.., 1, k, n] broadcast, :func:`~qublas_tpu_torch.ops.reduce.qreduce` per
-   part (kernel K3 on the card), then ``qcast``.
+   part (kernel K3 on the card), then ``qcast``.  Parts in host storage
+   (and host-storage outputs) take this path, on the host routes of the
+   elementwise ops and ``qreduce``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from . import limbdot as D
 from . import limbint as L
 from .fused_gemm import int_dot, kmajor
 from .gemm import (_LIMBDOT_MAX_DOT_ELEMS, _LIMBDOT_MAX_MATMULS,
-                   _lossless_requant, _per_batch, dot_partial_interval,
+                   _lossless_requant, _per_batch, _swap, dot_partial_interval,
                    tree_exact)
 from .reduce import qreduce
 from .wideint import requantize_i32
@@ -443,7 +445,8 @@ def _fast_cgemul(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
     bits, by the proof)."""
     from ..complex import QComplexTensor
 
-    if a.ndim < 2 or a.ndim != b.ndim or a.shape[:-2] != b.shape[:-2]:
+    if a.ndim < 2 or a.ndim != b.ndim or a.shape[:-2] != b.shape[:-2] \
+            or any(t.is_host for t in (a.real, a.imag, b.real, b.imag)):
         return None
     fp = _fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
                     a.shape[-1], (a.shape[-2], b.shape[-1]))
@@ -491,8 +494,15 @@ def _ctranspose(c, flag: bool):
         return c
     from ..complex import QComplexTensor
 
-    return QComplexTensor(QTensor(c.real.data.transpose(-1, -2), c.real.fmt),
-                          QTensor(c.imag.data.transpose(-1, -2), c.imag.fmt))
+    return QComplexTensor(_swap(c.real), _swap(c.imag))
+
+
+def _index(c, idx):
+    """Both parts of ``c`` indexed by ``idx`` (host parts too)."""
+    from ..complex import QComplexTensor
+
+    return QComplexTensor(*(QTensor(t.data[idx], t.fmt, t.device)
+                            for t in (c.real, c.imag)))
 
 
 def cgemul(a, b, out_fmt, algo: str = "basic", add_formats=(),
@@ -520,12 +530,9 @@ def cgemul(a, b, out_fmt, algo: str = "basic", add_formats=(),
         if fast is not None:
             return fast
 
-    pa =QComplexTensor(QTensor(a.real.data[..., :, :, None], a.real.fmt),
-                        QTensor(a.imag.data[..., :, :, None], a.imag.fmt))
-    pb = QComplexTensor(QTensor(b.real.data[..., None, :, :], b.real.fmt),
-                        QTensor(b.imag.data[..., None, :, :], b.imag.fmt))
     mulfn = cmul_tf if algo == "tf" else cmul
-    prod = mulfn(pa, pb, **mul_tags)
+    prod = mulfn(_index(a, (..., slice(None), slice(None), None)),
+                 _index(b, (..., None, slice(None), slice(None))), **mul_tags)
     real = qreduce(prod.real, r_layers, axis=-2)
     imag = qreduce(prod.imag, i_layers, axis=-2)
     return QComplexTensor(ew.qcast(real, orf or real.fmt),
@@ -535,11 +542,6 @@ def cgemul(a, b, out_fmt, algo: str = "basic", add_formats=(),
 def cgemv(a, x, out_fmt, algo: str = "basic", add_formats=(),
           transpose_a: bool = False, **mul_tags):
     """y = op(A) @ x, complex matrix-vector."""
-    from ..complex import QComplexTensor
-
-    col = QComplexTensor(QTensor(x.real.data[..., :, None], x.real.fmt),
-                         QTensor(x.imag.data[..., :, None], x.imag.fmt))
-    y = cgemul(a, col, out_fmt, algo, add_formats,
-               transpose_a=transpose_a, **mul_tags)
-    return QComplexTensor(QTensor(y.real.data[..., 0], y.real.fmt),
-                          QTensor(y.imag.data[..., 0], y.imag.fmt))
+    y = cgemul(a, _index(x, (..., slice(None), None)), out_fmt, algo,
+               add_formats, transpose_a=transpose_a, **mul_tags)
+    return _index(y, (..., 0))

@@ -11,12 +11,17 @@ width proofs of :mod:`.widths`, before any data is touched:
   a lane or a pair-storage result;
 * ``limb``: stacked 32-bit limbs (:mod:`.limbint`, working widths up to
   1,024 bits), from and into any device storage;
-* ``host``: the exact golden model (:mod:`..hostops`), one Python int per
-  element, into lane, pair or limb storage; a result that needs host
-  storage (beyond 992 bits) raises (ROADMAP A4b).
+* ``host``: host operands (``is_host``) and configurations beyond every
+  device route run the exact host model: the native engine
+  (:mod:`..native`) for ``qmul``/``qadd``/``qsub``/``qdiv`` where its
+  envelope holds, else the golden model (:mod:`..hostops`), one Python int
+  per element.  The result takes device storage where its format and
+  raws fit one (on :func:`~qublas_tpu_torch.qtensor.result_device` of the
+  operands), else host storage.
 
-All of them run on the tensors' own device.  They are plain torch ops on
-the card too: the JAX package runs them as XLA ops, not as Pallas kernels.
+The device routes run on the tensors' own device.  They are plain torch
+ops on the card too: the JAX package runs them as XLA ops, not as Pallas
+kernels.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 
 from .. import hostops
 from ..qformat import QFormat, add_merge, mul_merge
-from ..qtensor import QTensor, from_float, from_raw, host_storage_error
+from ..qtensor import QTensor, from_float, from_raw, result_device
 from . import limbint as L
 from .wideint import (
     _overflow_i32,
@@ -66,22 +71,34 @@ def _coerce_pair(a, b):
     return a, b
 
 
+_NATIVE_OPS = {"qmul": ("mul", mul_merge), "qadd": ("add", add_merge),
+               "qsub": ("sub", add_merge), "qdiv": ("div", add_merge)}
+
+
 def _host_binary(fn, a: QTensor, b: QTensor, **kw) -> QTensor:
-    """``fn`` of the golden model per element, into device storage."""
-    _, out_fmt = fn((0, a.fmt), (0, b.fmt), **kw)
-    if storage_kind(out_fmt) is None:
-        raise host_storage_error(f"{fn.__name__} into {out_fmt}")
+    """``fn`` of the golden model on the host: the native engine's op where
+    it covers the configuration, else per element."""
+    fa, fb = a.fmt, b.fmt
+    dev = result_device(a, b)
+    nat = _NATIVE_OPS.get(fn.__name__)
+    if nat is not None:
+        from .. import native
+
+        op, merger = nat
+        out_fmt = merger(fa, fb, kw.get("to"), kw.get("full_prec", False))
+        got = native.binary_op(op, a.raw(), b.raw(), fa, fb, out_fmt)
+        if got is not None:
+            return from_raw(got, out_fmt, dev)
+    _, out_fmt = fn((0, fa), (0, fb), **kw)
     A, B = np.broadcast_arrays(a.raw().astype(object), b.raw().astype(object))
-    raws = [fn((int(x), a.fmt), (int(y), b.fmt), **kw)[0]
+    raws = [fn((int(x), fa), (int(y), fb), **kw)[0]
             for x, y in zip(A.reshape(-1), B.reshape(-1))]
     return from_raw(np.array(raws, dtype=object).reshape(A.shape), out_fmt,
-                    a.device)
+                    dev)
 
 
-def _host_unary(name: str, fn, a: QTensor) -> QTensor:
+def _host_unary(fn, a: QTensor) -> QTensor:
     _, out_fmt = fn((0, a.fmt))
-    if storage_kind(out_fmt) is None:
-        raise host_storage_error(f"{name} into {out_fmt}")
     raws = [fn((int(x), a.fmt))[0] for x in a.raw().reshape(-1)]
     return from_raw(np.array(raws, dtype=object).reshape(a.shape), out_fmt,
                     a.device)
@@ -133,7 +150,7 @@ def qmul(a, b, to=None, full_prec: bool = False) -> QTensor:
     a, b = _coerce_pair(a, b)
     out = mul_merge(a.fmt, b.fmt, to, full_prec)
     route, prod, from_frac = route_mul(a.fmt, b.fmt, out)
-    if route == "host":
+    if a.is_host or b.is_host or route == "host":
         return _host_binary(hostops.qmul, a, b, to=to, full_prec=full_prec)
     if route == "i32":
         raw = requantize_i32(_i32(a) * _i32(b), from_frac, out)
@@ -152,7 +169,7 @@ def _addsub(a, b, to, full_prec, sub: bool) -> QTensor:
     a, b = _coerce_pair(a, b)
     out = add_merge(a.fmt, b.fmt, to, full_prec)
     route, siv, f, ia, ib = route_addsub(a.fmt, b.fmt, out, sub)
-    if route == "host":
+    if a.is_host or b.is_host or route == "host":
         return _host_binary(hostops.qsub if sub else hostops.qadd, a, b,
                             to=to, full_prec=full_prec)
     if route == "limb":
@@ -190,7 +207,7 @@ def qdiv(a, b, to=None, full_prec: bool = False) -> QTensor:
     a, b = _coerce_pair(a, b)
     out = add_merge(a.fmt, b.fmt, to, full_prec)
     route, num, den = route_div(a.fmt, b.fmt, out)
-    if route == "host":
+    if a.is_host or b.is_host or route == "host":
         return _host_binary(hostops.qdiv, a, b, to=to, full_prec=full_prec)
     sb = max(a.fmt.frac_bits - b.fmt.frac_bits, 0)
     s = max(b.fmt.frac_bits - a.fmt.frac_bits, 0) + out.frac_bits
@@ -260,8 +277,8 @@ def qabs(a: QTensor) -> QTensor:
         return a
     out = _neg_out(a.fmt)
     route, bits = _neg_route(a.fmt, out)
-    if route == "host":
-        return _host_unary("qabs", hostops.qabs, a)
+    if a.is_host or route == "host":
+        return _host_unary(hostops.qabs, a)
     if route == "limb":
         x = _load_limb(a, L.bits_to_limbs(bits))
         return _finish(L.store_limbs(L.lselect(L.lis_neg(x), L.lneg(x), x),
@@ -274,8 +291,8 @@ def qneg(a: QTensor) -> QTensor:
     """Negation (QuBLAS.h:3307-3317): widens int_bits by one."""
     out = _neg_out(a.fmt)
     route, bits = _neg_route(a.fmt, out)
-    if route == "host":
-        return _host_unary("qneg", hostops.qneg, a)
+    if a.is_host or route == "host":
+        return _host_unary(hostops.qneg, a)
     if route == "limb":
         x = _load_limb(a, L.bits_to_limbs(bits))
         return _finish(L.store_limbs(L.lneg(x), out), out)
@@ -290,7 +307,7 @@ def _aligned(a: QTensor, b: QTensor):
     sa, sb = f - a.fmt.frac_bits, f - b.fmt.frac_bits
     ia = fmt_interval(a.fmt) << sa
     ib = fmt_interval(b.fmt) << sb
-    if max(ia.bits, ib.bits) > LIMB_INTER_MAX_BITS:
+    if a.is_host or b.is_host or max(ia.bits, ib.bits) > LIMB_INTER_MAX_BITS:
         return None
     if ia.fits32 and ib.fits32:
         return _i32(a) << sa, _i32(b) << sb, "i32"
@@ -304,7 +321,8 @@ def _host_compare(fn, a: QTensor, b: QTensor, dtype) -> torch.Tensor:
     A, B = np.broadcast_arrays(a.raw().astype(object), b.raw().astype(object))
     out = [fn((int(x), a.fmt), (int(y), b.fmt))
            for x, y in zip(A.reshape(-1), B.reshape(-1))]
-    return torch.tensor(out, dtype=dtype).reshape(A.shape).to(a.device)
+    return torch.tensor(out, dtype=dtype).reshape(A.shape).to(
+        result_device(a, b))
 
 
 def qcmp(a, b) -> torch.Tensor:
@@ -336,11 +354,11 @@ def qcast(a: QTensor, fmt: QFormat) -> QTensor:
     reference converting copy ctor (QuBLAS.h:2758-2830).  Equal formats
     return the data unchanged, raws outside the format included."""
     if a.fmt == fmt:
-        return QTensor(a.data, fmt)
+        return QTensor(a.data, fmt, a.device)
     iv = fmt_interval(a.fmt)
     route = route_requant(iv, a.fmt.frac_bits, fmt)
-    if route == "host":
-        return _host_unary("qcast", lambda v: hostops.convert(v, fmt), a)
+    if a.is_host or route == "host":
+        return _host_unary(lambda v: hostops.convert(v, fmt), a)
     if route == "i32":
         raw = requantize_i32(_i32(a), a.fmt.frac_bits, fmt)
     elif route == "pair":

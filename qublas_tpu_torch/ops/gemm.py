@@ -27,23 +27,31 @@ order is about speed):
    int64 products otherwise — and requantize once.
    :func:`force_tiers_off` turns tiers 2 and 3 off by name ("limb",
    "wide"), as the JAX package's switch does.
-4. **Order-sensitive tier** (``plan_tree``): the reference's balanced tree
+4. **Hybrid tier** (``plan_hybrid``): when the product's requantize and
+   the first L >= 3 tree layers are provably lossless, each block of
+   2^L products is an exact integer dot and only the tail from level L up
+   requantizes —
+   :func:`~qublas_tpu_torch.ops.tree_gemm.tree_gemm_hybrid` (kernel K2h),
+   lane operands only.
+5. **Order-sensitive tier** (``plan_tree``): the reference's balanced tree
    with per-product and per-layer requantization —
    :func:`~qublas_tpu_torch.ops.tree_gemm.tree_gemm` (kernel K2), products
-   on the i32, split or 64-bit pair route, lane operands only.  The JAX
-   package's prefix-lossless hybrid tier computes the same bits faster on
-   a TPU; on the card K2 evaluates those configs directly.
-5. **Streaming tier** (:func:`_stream_gemm_wide`): the same tree as a
+   on the i32, split or 64-bit pair route, lane operands only.
+6. **Streaming tier** (:func:`_stream_gemm_wide`): the same tree as a
    binary-carry stream of k-chunks over the elementwise ops and
    :func:`~qublas_tpu_torch.ops.reduce.qreduce`, for configurations outside
    the int32 tree (pair or limb values, layer sums beyond 32 bits); small
    GEMMs take the layered path instead: all products, then ``qreduce``.
 
+Host operands (``is_host``), and configurations whose products need host
+storage, take the exact host model (:func:`_host_gemm`): the native
+engine's tree GEMM for 2-D operands inside its envelope, else
+``hostops.qgemul`` a matrix.
+
 Leading (batch) dims broadcast, as ``np.broadcast_shapes`` does in the JAX
 package: both operands are expanded to the broadcast batch as views (stride
-0 where a dim broadcasts, no copy).  The four kernel tiers take 2-D
-operands; :func:`qgemul` says how a batch reaches them.  Configurations
-whose values need host storage raise ``NotImplementedError`` (ROADMAP A4b).
+0 where a dim broadcasts, no copy).  The kernel tiers take 2-D operands;
+:func:`qgemul` says how a batch reaches them.
 """
 
 from __future__ import annotations
@@ -57,12 +65,18 @@ import torch
 
 from .. import hostops
 from ..qformat import OverflowMode, QFormat, add_merge, mul_merge
-from ..qtensor import QTensor, zeros
+from ..qtensor import QTensor, from_raw, result_device, zeros
 from . import elementwise as ew
 from . import limbint as L
 from .fused_gemm import fused_int8_gemm, int_dot
 from .reduce import layer_format, qreduce
-from .tree_gemm import drain_ops, plan_tree, tree_gemm
+from .tree_gemm import (
+    drain_ops,
+    plan_hybrid,
+    plan_tree,
+    tree_gemm,
+    tree_gemm_hybrid,
+)
 from .wideint import mul_wide, requantize_i64
 from .widths import (
     I32_MAX,
@@ -242,9 +256,10 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
 
     * **folded**: when ``b`` is 2-D, or every batch dim of ``b`` is 1 (an
       activation batch against a shared weight), ``a`` is reshaped to
-      ``[prod(batch)·M, K]`` and the lossless (K1), limb, int64 and tree
-      (K2) tiers make ONE call (a batch of more than ``_FOLD_MAX_ROWS``
-      rows, which K1's and K2's grids cannot hold, a call per that many).  The limb tier's envelope
+      ``[prod(batch)·M, K]`` and the lossless (K1), limb, int64, hybrid
+      (K2h) and tree (K2) tiers make ONE call (a batch of more than
+      ``_FOLD_MAX_ROWS`` rows, which K1's and K2's grids cannot hold, a
+      call per that many).  The limb tier's envelope
       (:func:`limb_dot_plan`) is taken at the folded M; a fold outside it
       runs the per-matrix loop instead;
     * **per matrix**: otherwise (``b`` batched, against a 2-D or batched
@@ -264,9 +279,9 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
         add_formats = (add_formats,)
     add_formats = tuple(add_formats)
     if transpose_a:
-        a = QTensor(a.data.transpose(-1, -2), a.fmt)
+        a = _swap(a)
     if transpose_b:
-        b = QTensor(b.data.transpose(-1, -2), b.fmt)
+        b = _swap(b)
     if a.ndim < 2 or b.ndim < 2:
         raise ValueError(f"qgemul takes operands of at least 2 dims, got "
                          f"{a.shape} @ {b.shape}")
@@ -283,6 +298,8 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     if 0 in batch:
         return zeros(batch + (a.shape[-2], b.shape[-1]), out_fmt, a.device)
     mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
+    if a.is_host or b.is_host:
+        return _host_gemm(a, b, out_fmt, mul_to, add_formats, mul_full_prec)
 
     plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats, k)
     if plan is not None and _device_epilogue_ok(plan, out_fmt):
@@ -302,6 +319,11 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
 
     # the tree kernels take lanes
     if not (a.is_pair or b.is_pair or a.is_limb or b.is_limb):
+        # prefix-lossless hybrid: exact block dots, then the lossy tail
+        hplan = plan_hybrid(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
+        if hplan is not None:
+            return _over_batch(lambda x, y: QTensor(tree_gemm_hybrid(
+                x.data, y.data, hplan, out_fmt), out_fmt), a, b, batch)
         tplan = plan_tree(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
         if tplan is not None:
             return _over_batch(lambda x, y: QTensor(tree_gemm(
@@ -316,7 +338,16 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     prod = ew.qmul(QTensor(a.data[..., :, :, None], a.fmt),
                    QTensor(b.data[..., None, :, :], b.fmt),
                    to=mul_to, full_prec=mul_full_prec)
+    if prod.is_host:
+        return _host_gemm(a, b, out_fmt, mul_to, add_formats, mul_full_prec)
     return ew.qcast(qreduce(prod, add_formats, axis=-2), out_fmt)
+
+
+def _swap(t: QTensor) -> QTensor:
+    """``t`` with its last two dims swapped (a view)."""
+    data = np.swapaxes(t.data, -1, -2) if t.is_host \
+        else t.data.transpose(-1, -2)
+    return QTensor(data, t.fmt, t.device)
 
 
 # rows of one folded call: K1's and K2's grids hold at most 65535 blocks
@@ -559,6 +590,9 @@ def _stream_gemm_wide(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
         prod = ew.qmul(QTensor(a.data[..., :, sl, None], a.fmt),
                        QTensor(b.data[..., None, sl, :], b.fmt),
                        to=mul_to, full_prec=mul_full_prec)
+        if prod.is_host:
+            return _host_gemm(a, b, out_fmt, mul_to, add_formats,
+                              mul_full_prec)
         v = qreduce(prod, add_formats, axis=-2)
         if t == nfull:   # the ragged tail, unpaired up to the chunk level
             for l in range(max(r - 1, 0).bit_length(), in_levels):
@@ -591,16 +625,57 @@ def qgemv(a: QTensor, x: QTensor, out_fmt: QFormat, mul_to=None,
     (outputs are independent, so the bits are those of one product per
     vector): one kernel launch for the batch."""
     if a.ndim == 2 and x.ndim > 1:
-        xs = QTensor(x.data.reshape(-1, x.shape[-1]), x.fmt)
-        y = qgemul(a, xs, out_fmt, mul_to, add_formats,
-                   transpose_a=transpose_a, transpose_b=True,
-                   mul_full_prec=mul_full_prec)
-        return QTensor(y.data.transpose(-1, -2).reshape(
-            x.shape[:-1] + y.shape[:1]), y.fmt)
-    col = QTensor(x.data[..., :, None], x.fmt)
+        xs = QTensor(x.data.reshape(-1, x.shape[-1]), x.fmt, x.device)
+        y = _swap(qgemul(a, xs, out_fmt, mul_to, add_formats,
+                         transpose_a=transpose_a, transpose_b=True,
+                         mul_full_prec=mul_full_prec))
+        return QTensor(y.data.reshape(x.shape[:-1] + y.shape[-1:]), y.fmt,
+                       y.device)
+    col = QTensor(x.data[..., :, None], x.fmt, x.device)
     y = qgemul(a, col, out_fmt, mul_to, add_formats,
                transpose_a=transpose_a, mul_full_prec=mul_full_prec)
-    return QTensor(y.data[..., 0], y.fmt)
+    return QTensor(y.data[..., 0], y.fmt, y.device)
+
+
+def _host_gemm(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to, add_formats,
+               mul_full_prec) -> QTensor:
+    """The exact host golden model (``qublas_tpu/ops/gemm.py:769-799``),
+    batched over broadcast leading dims: 2-D operands through the native
+    engine's tree GEMM where its envelope holds, else ``hostops.qgemul``
+    a matrix.  The result takes device storage where it fits one, on
+    :func:`~qublas_tpu_torch.qtensor.result_device` of the operands."""
+    dev = result_device(a, b)
+    if a.ndim == 2 and b.ndim == 2:
+        from .. import native
+
+        mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
+        got = native.tree_gemm_host(a.raw(), b.raw(), a.fmt, b.fmt, mul_fmt,
+                                    tuple(add_formats), out_fmt)
+        if got is not None:
+            return from_raw(got, out_fmt, dev)
+    A = np.asarray(a.raw(), dtype=object)
+    B = np.asarray(b.raw(), dtype=object)
+    batch = np.broadcast_shapes(A.shape[:-2], B.shape[:-2])
+    A = np.broadcast_to(A, batch + A.shape[-2:])
+    B = np.broadcast_to(B, batch + B.shape[-2:])
+    out = np.empty(batch + (A.shape[-2], B.shape[-1]), dtype=object)
+    for idx in np.ndindex(*batch):
+        out[idx] = _hostops_gemm(A[idx], B[idx], a.fmt, b.fmt, out_fmt,
+                                 mul_to, add_formats, mul_full_prec)
+    return from_raw(out, out_fmt, dev)
+
+
+def _hostops_gemm(A, B, fa: QFormat, fb: QFormat, out_fmt: QFormat, mul_to,
+                  add_formats, mul_full_prec):
+    """``hostops.qgemul`` of the 2-D raw arrays ``A`` and ``B``: a list of
+    rows of Python-int raws."""
+    m, k = A.shape
+    n = B.shape[1]
+    a_rows = [[(int(A[i, p]), fa) for p in range(k)] for i in range(m)]
+    b_rows = [[(int(B[p, j]), fb) for j in range(n)] for p in range(k)]
+    c = hostops.qgemul(a_rows, b_rows, out_fmt, mul_to, add_formats,
+                       mul_full_prec=mul_full_prec)
+    return [[v[0] for v in row] for row in c]
 
 
 def host_qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
@@ -608,12 +683,7 @@ def host_qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     """Raws of the exact host golden model (``qublas_tpu.hostops.qgemul``)
     for the same call: the semantic oracle for checks, one Python-int
     product at a time, so keep the shapes small."""
-    A, B = a.raw(), b.raw()
-    m, k = A.shape
-    n = B.shape[1]
-    a_rows = [[(int(A[i, p]), a.fmt) for p in range(k)] for i in range(m)]
-    b_rows = [[(int(B[p, j]), b.fmt) for j in range(n)] for p in range(k)]
-    c = hostops.qgemul(a_rows, b_rows, out_fmt, mul_to, add_formats,
-                       mul_full_prec=mul_full_prec)
-    dtype = object if storage_kind(out_fmt) == "limb" else np.int64
-    return np.array([[v[0] for v in row] for row in c], dtype=dtype)
+    dtype = object if storage_kind(out_fmt) in (None, "limb") else np.int64
+    return np.array(_hostops_gemm(a.raw(), b.raw(), a.fmt, b.fmt, out_fmt,
+                                  mul_to, add_formats, mul_full_prec),
+                    dtype=dtype)

@@ -24,6 +24,10 @@ Dispatch, per configuration and before any data is touched:
    that needs the host resumes on the host golden model from that layer
    on, as the JAX package's path does for host layers.  K3 stays
    lane-only, as its JAX counterpart does.
+
+A host input (``is_host``) reduces on the host golden model.  Results of
+the host model take device storage where their format and raws fit one,
+else host storage.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import torch
 
 from .. import _build, hostops
 from ..qformat import OverflowMode, QFormat, RoundMode, add_merge
-from ..qtensor import QTensor, from_raw, host_storage_error
+from ..qtensor import QTensor, from_raw
 from .limbint import LimbArray
 from .wideint import requantize_i32
 from .widths import (
@@ -84,7 +88,7 @@ def qreduce_args(values, layer_formats=()) -> QTensor:
             raise ValueError("qreduce_args takes scalar QTensors")
         pairs.append((int(v.raw().reshape(())), v.fmt))
     raw, fmt = hostops.qreduce_args(pairs, _normalize(layer_formats))
-    return from_raw(np.array(raw, dtype=np.int64), fmt, values[0].device)
+    return from_raw(np.array(raw, dtype=object), fmt, values[0].device)
 
 
 # ---------------------------------------------------------------------------
@@ -315,12 +319,15 @@ def qreduce(x: QTensor, layer_formats=(), axis=None) -> QTensor:
     """
     layer_formats = _normalize(layer_formats)
     if axis is None:
-        x = QTensor(x.data.reshape(-1), x.fmt)
+        x = QTensor(x.data.reshape(-1), x.fmt, x.device)
         axis = 0
     axis = axis % max(x.ndim, 1)
     n = x.shape[axis]
     if n == 0:
         raise ValueError("qreduce of empty axis")
+    if x.is_host:
+        return _qreduce_host(QTensor(np.moveaxis(x.data, axis, 0), x.fmt,
+                                     x.device), layer_formats, first_layer=0)
     if n == 1:
         return QTensor(x.data.select(axis, 0), x.fmt)
     plan = plan_reduce(x.fmt, layer_formats, n)
@@ -391,7 +398,5 @@ def _qreduce_host(x: QTensor, layer_formats, first_layer: int) -> QTensor:
         r, out_fmt = hostops.qreduce_list([(int(v), x.fmt) for v in lane],
                                           layer_formats)
         out_raws.append(r)
-    if storage_kind(out_fmt) is None:
-        raise host_storage_error(f"qreduce into {out_fmt}")
     return from_raw(np.array(out_raws, dtype=object).reshape(batch_shape),
                     out_fmt, x.device)

@@ -30,6 +30,15 @@ binary-carry schedule:
 Their plain versions run the same schedules as Python loops on torch
 tensors: products of one block, the in-block tree layers, the slot stack,
 the drain, the final requantize.
+
+The prefix-lossless hybrid (``HybridPlan``, ``plan_hybrid``, copies of
+``qublas_tpu/ops/tree_gemm.py:530-617``) has a kernel of its own,
+:func:`tree_gemm_hybrid` (K2h, ``csrc/tree_gemm_hybrid.cu``, counterpart of
+the JAX package's ``tree_gemm_hybrid``, an XLA einsum and VPU folds): the
+exact int32 dot of each block of ``s`` products, shifted by ``dl``, pushed
+onto the slot stack of tree levels ``L`` and up.  Its plain version
+:func:`tree_gemm_hybrid_plain` forms the block dots as one matmul a block
+and folds the tail layer by layer.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from .wideint import (
 from .widths import (
     LANE_DTYPES,
     Interval,
+    fmt_interval,
     requant_out_interval,
     route_mul,
     route_requant,
@@ -62,7 +72,9 @@ from .widths import (
 __all__ = ["TreePlan", "plan_tree", "level_formats", "drain_ops", "ROUTES",
            "tree_gemm", "tree_gemm_plain", "tree_gemm_stream",
            "tree_gemm_stream_plain", "K2_LOG_BLK", "K2_MODES", "k2_modes",
-           "K2S_LOG_S", "K2S_PLANS", "k2s_plan", "k2s_operand"]
+           "K2S_LOG_S", "K2S_PLANS", "k2s_plan", "k2s_operand",
+           "HybridPlan", "plan_hybrid", "tree_gemm_hybrid",
+           "tree_gemm_hybrid_plain"]
 
 
 @dataclass(frozen=True)
@@ -194,6 +206,96 @@ def plan_tree(fa: QFormat, fb: QFormat, mul_fmt: QFormat, add_formats,
     return TreePlan(k, prod_route, prod_frac, mul_fmt, levels,
                     tuple(level_fmts), tuple(merge_fmts), tuple(drain),
                     final_fmt)
+
+
+@dataclass(frozen=True)
+class HybridPlan:
+    """Proof artifact of the prefix-lossless hybrid evaluation (copy of
+    ``qublas_tpu/ops/tree_gemm.py:HybridPlan``): when the product's
+    requantize and the first ``level`` tree layers only shift left, the
+    value at tree level ``level`` of each ``s = 2**level``-product subtree
+    is the plain integer dot of that k-block shifted left by ``dl``, and
+    only the tail layers round and saturate."""
+
+    s: int                     # block size 2^L
+    level: int                 # first lossy layer index (= L)
+    dl: int                    # left shift from raw-product scale to level L
+    level_fmts: Tuple[QFormat, ...]
+    merge_fmts: Tuple[QFormat, ...]
+    final_fmt: QFormat
+
+    @functools.cached_property
+    def _kernel_cache(self) -> dict:
+        """K2h's parameters by (k, out_fmt), built on first use; not a
+        field."""
+        return {}
+
+
+def plan_hybrid(fa: QFormat, fb: QFormat, mul_fmt: QFormat, add_formats,
+                k: int, out_fmt: QFormat,
+                min_level: int = 3) -> Optional[HybridPlan]:
+    """Prove the longest lossless tree prefix and the routes of the lossy
+    tail (copy of ``qublas_tpu/ops/tree_gemm.py:plan_hybrid``).  None when
+    the prefix is shorter than ``min_level`` layers or any tail step needs
+    a route other than int32."""
+    from .gemm import _lossless_requant
+
+    if k < 2:
+        return None
+    pf = fa.frac_bits + fb.frac_bits
+    prod_iv = fmt_interval(fa) * fmt_interval(fb)
+    iv = _lossless_requant(prod_iv, pf, mul_fmt)
+    if iv is None:
+        return None
+
+    level_fmts, merge_fmts = level_formats(mul_fmt, add_formats, k)
+    cur_fmt = mul_fmt
+    lvl = 0
+    ivs = iv
+    while (1 << (lvl + 1)) <= k and k % (1 << (lvl + 1)) == 0:
+        lf = merge_fmts[lvl]
+        nxt = _lossless_requant(ivs + ivs, cur_fmt.frac_bits, lf)
+        if nxt is None:
+            break
+        ivs, cur_fmt = nxt, lf
+        lvl += 1
+    if lvl < min_level:
+        return None
+    s = 1 << lvl
+    dl = cur_fmt.frac_bits - pf
+    # the raw block dot and every partial sum must fit int32, as must the
+    # shifted level-L value
+    dot_iv = Interval(min(s * prod_iv.lo, prod_iv.lo),
+                      max(s * prod_iv.hi, prod_iv.hi))
+    if not (dot_iv.fits32 and ivs.fits32 and 0 <= dl <= 31):
+        return None
+
+    # tail proof: fold nb block values through layers lvl.. with i32 routes
+    nb = k // s
+    cur_iv, cur = ivs, cur_fmt
+    level = lvl
+    n_vals = nb
+    while n_vals > 1:
+        lf = merge_fmts[level]
+        ssum = cur_iv + cur_iv
+        if not ssum.fits32:
+            return None
+        if route_requant(ssum, cur.frac_bits, lf) != "i32":
+            return None
+        if n_vals % 2 and route_requant(cur_iv, cur.frac_bits, lf) != "i32":
+            return None
+        pair_iv, _ = requant_out_interval(ssum, cur.frac_bits, lf)
+        tail_iv, _ = requant_out_interval(cur_iv, cur.frac_bits, lf)
+        cur_iv = Interval(min(pair_iv.lo, tail_iv.lo),
+                          max(pair_iv.hi, tail_iv.hi))
+        cur = lf
+        level += 1
+        n_vals = (n_vals + 1) // 2
+    if route_requant(cur_iv, cur.frac_bits, out_fmt) != "i32":
+        return None
+    if torch_dtype_for(out_fmt) is None:
+        return None
+    return HybridPlan(s, lvl, dl, tuple(level_fmts), tuple(merge_fmts), cur)
 
 
 def _product(plan: TreePlan, col, row):
@@ -455,3 +557,108 @@ def tree_gemm_stream(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
 
 tree_gemm.launches = 0
 tree_gemm_stream.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2h: the prefix-lossless hybrid
+# ---------------------------------------------------------------------------
+
+def tree_gemm_hybrid_plain(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
+                           out_fmt: QFormat) -> torch.Tensor:
+    """Plain-torch K2h, ``tree_gemm_hybrid``'s evaluation: one matmul a
+    k-block of ``plan.s`` products, shifted by ``dl``, then the tail layer
+    by layer, odd tails converted.  The block dots run in int64 on the CPU
+    (an int8 matmul would wrap in int8 there) and narrow to int32 as the
+    int32 dot wraps; on the card in float64, exact while every partial sum
+    stays below 2^53 (the proof keeps them inside int32 for raws inside the
+    operands' formats)."""
+    m, k = a.shape
+    n = b.shape[1]
+    s = plan.s
+    dt = torch.int64 if a.device.type == "cpu" else torch.float64
+    af, bf = a.to(dt), b.to(dt)
+    vals = torch.empty((k // s, m, n), dtype=torch.int32, device=a.device)
+    for t in range(k // s):
+        dot = af[:, t * s:(t + 1) * s] @ bf[t * s:(t + 1) * s]
+        vals[t] = dot.to(torch.int64).to(torch.int32)
+    if plan.dl:
+        vals = vals << plan.dl
+    level = plan.level
+    while vals.shape[0] > 1:
+        cnt = vals.shape[0]
+        cur, lf = plan.level_fmts[level], plan.merge_fmts[level]
+        pair = requantize_i32(vals[0:cnt - 1:2] + vals[1:cnt:2],
+                              cur.frac_bits, lf)
+        if cnt % 2:
+            tail = requantize_i32(vals[cnt - 1:], cur.frac_bits, lf)
+            pair = torch.cat([pair, tail])
+        vals = pair
+        level += 1
+    raw = requantize_i32(vals[0], plan.final_fmt.frac_bits, out_fmt)
+    return raw.to(torch_dtype_for(out_fmt))
+
+
+def _hybrid_params(plan: HybridPlan, k: int, out_fmt: QFormat):
+    """The plan as ``csrc/tree_gemm_hybrid.cu``'s int32 parameters
+    (``read_hybrid``): level, dl, then the tail over the ``k // s`` block
+    values as a tree of its own (tree level ``level + j`` as its level j:
+    the merges and ``drain_ops(k // s, levels)``), then the final
+    requantize.  Built once per (k, out_fmt) and kept on the plan."""
+    key = (k, out_fmt)
+    if key not in plan._kernel_cache:
+        nb = k // plan.s
+        levels = max(nb.bit_length(), 1)
+        p = [plan.level, plan.dl, levels]
+        for j in range(levels):
+            p += _build.rq_args(plan.level_fmts[plan.level + j].frac_bits,
+                                plan.merge_fmts[plan.level + j])
+        drain = drain_ops(nb, levels)
+        p.append(len(drain))
+        for op, l in drain:
+            p += [_OPS[op], l]
+        p += _build.rq_args(plan.final_fmt.frac_bits, out_fmt)
+        plan._kernel_cache[key] = (ctypes.c_int * len(p))(*p)
+    return plan._kernel_cache[key]
+
+
+def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
+                     out_fmt: QFormat) -> torch.Tensor:
+    """The hybrid tree GEMM ``a`` [M, K] @ ``b`` [K, N] of lane tensors
+    under ``plan``, stored in ``torch_dtype_for(out_fmt)``: the same bits
+    as :func:`tree_gemm` on ``plan_tree`` of the same configuration.
+
+    CPU tensors take the plain version; CUDA tensors launch K2h.
+    ``tree_gemm_hybrid.launches`` counts kernel launches.
+    """
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0] \
+            or a.shape[1] % plan.s:
+        raise ValueError(f"need [M, K] @ [K, N] with {plan.s} | K, got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.dtype not in LANE_DTYPES or b.dtype not in LANE_DTYPES:
+        raise TypeError(f"operands must be int8/int16/int32 lanes, got "
+                        f"{a.dtype} and {b.dtype}")
+    if a.device != b.device:
+        raise ValueError(f"operands on {a.device} and {b.device}")
+    if a.device.type == "cpu":
+        return tree_gemm_hybrid_plain(a, b, plan, out_fmt)
+    if a.device.type != "cuda":
+        raise ValueError(f"tree_gemm_hybrid runs on CUDA or CPU, not "
+                         f"{a.device}")
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=torch_dtype_for(out_fmt), device=a.device)
+    if m == 0 or n == 0:
+        return out
+    a32 = a.to(torch.int32).contiguous()
+    b32 = b.to(torch.int32).contiguous()
+    dev = a.device.index
+    err = _build.lib().qk_tree_gemm_hybrid(
+        dev, a32.data_ptr(), b32.data_ptr(), out.data_ptr(), m, n, k,
+        out.element_size(), _hybrid_params(plan, k, out_fmt),
+        torch._C._cuda_getCurrentRawStream(dev))
+    _build.check(err, "tree_gemm_hybrid")
+    tree_gemm_hybrid.launches += 1
+    return out
+
+
+tree_gemm_hybrid.launches = 0

@@ -342,8 +342,8 @@ def storage_kind(fmt: QFormat):
       pair),
     * ``"limb"`` — stacked 32-bit limbs in int64 (storage 65..992,
       :class:`~qublas_tpu_torch.ops.limbint.LimbArray`),
-    * ``None``  — wider still: host-side Python-int object arrays (not yet
-      ported: ROADMAP A4b).
+    * ``None``  — wider still: host-side Python-int object arrays
+      (``QTensor.is_host``).
 
     For WRP_TCPL_SAT (the reference identity stub) storage is the machine
     word: the int32 word up to 32 bits, the 64-bit pair up to 64 bits, a

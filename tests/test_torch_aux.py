@@ -130,12 +130,19 @@ def test_checkpoint_files_are_the_same_bytes(tmp_path):
 
 
 def test_checkpoint_host_raws_raise(tmp_path):
-    """A JAX checkpoint of a tensor in host storage loads only once host
-    storage is ported (ROADMAP A4b)."""
+    """A JAX checkpoint of a tensor in host storage loads into host storage
+    with its raws; the port's save of it loads in the JAX package."""
     p = str(tmp_path / "host.npz")
-    JC.save(p, JQ.from_raw(np.array([1 << 40], dtype=object), qformat(3, 4)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        TC.load(p, device="cpu")
+    raws = np.array([1 << 40, -3], dtype=object)
+    JC.save(p, JQ.from_raw(raws, qformat(3, 4)))
+    t = TC.load(p, device="cpu")
+    assert t.is_host and t.device == torch.device("cpu")
+    np.testing.assert_array_equal(t.raw(), raws)
+    q = str(tmp_path / "host_port.npz")
+    TC.save(q, t)
+    j = JC.load(q)
+    assert j.is_host
+    np.testing.assert_array_equal(np.asarray(j.raw()), raws)
 
 
 @pytest.mark.parametrize("fmt", [F_LANE, F_PAIR, qformat(59, 40)])

@@ -16,6 +16,7 @@ import torch
 import qublas_tpu_torch as qt
 from qublas_tpu_torch.ops import cgemm
 from qublas_tpu_torch.ops import chain_probe as CP
+from qublas_tpu_torch.ops import tree_gemm as TT
 from qublas_tpu_torch.ops.chain_probe import (G, T1, T2, chain_probe,
                                               chain_probe_plain, p1_plan,
                                               probe_tile)
@@ -818,3 +819,99 @@ def test_bitwise_on_the_card_matches_cpu(cuda):
             assert got.device.type == "cuda"
             assert np.array_equal(got.raw(),
                                   op(x.to("cpu"), y.to("cpu")).raw())
+
+
+# the hybrid tier's configurations: the JAX package's (s = 16 at k = 16t,
+# s = 8 at k = 8 mod 16) and one whose lossless prefix shifts (dl = 2)
+HYB_FA = qt.qformat(3, 4)
+HYBRID = {
+    "base": (qt.qformat(7, 8),
+             (qt.qformat(8, 8), qt.qformat(9, 8), qt.qformat(10, 8),
+              qt.qformat(11, 8),
+              qt.qformat(6, 4, overflow_mode=qt.OverflowMode.SAT_ZERO)),
+             qt.qformat(5, 4)),
+    "dl": (qt.qformat(7, 10),
+           (qt.qformat(8, 11), qt.qformat(9, 12), qt.qformat(10, 12),
+            qt.qformat(5, 6, overflow_mode=qt.OverflowMode.SAT_ZERO)),
+           qt.qformat(5, 5)),
+}
+
+
+def _hybrid_case(config, k):
+    mul, layers, out = HYBRID[config]
+    mul_fmt = qt.mul_merge(HYB_FA, HYB_FA, mul)
+    hp = TT.plan_hybrid(HYB_FA, HYB_FA, mul_fmt, layers, k, out)
+    tp = plan_tree(HYB_FA, HYB_FA, mul_fmt, layers, k, out)
+    assert hp is not None and tp is not None
+    return hp, tp, out
+
+
+@pytest.mark.parametrize("config,k", [("base", 48), ("base", 176),
+                                      ("base", 2040), ("base", 2048),
+                                      ("base", 4096), ("dl", 96)])
+@pytest.mark.parametrize("m,n", [(1, 1), (63, 65), (200, 33)])
+def test_k2h_matches_plain_and_k2(cuda, config, k, m, n):
+    """K2h (up to 256 block values, 8 levels of slots) equals its plain
+    version on the card and on the CPU, and K2 on ``plan_tree`` of the
+    same configuration."""
+    hp, tp, out = _hybrid_case(config, k)
+    a = _raws(m + k, HYB_FA, (m, k), np.int8).to(cuda)
+    b = _raws(n + k, HYB_FA, (k, n), np.int8).to(cuda)
+    TT.tree_gemm_hybrid.launches = 0
+    got = TT.tree_gemm_hybrid(a, b, hp, out)
+    torch.cuda.synchronize()
+    assert TT.tree_gemm_hybrid.launches == 1
+    assert torch.equal(got, TT.tree_gemm_hybrid_plain(a, b, hp, out))
+    assert torch.equal(got.cpu(), TT.tree_gemm_hybrid(a.cpu(), b.cpu(), hp,
+                                                       out))
+    assert torch.equal(got, tree_gemm(a, b, tp, out))
+
+
+def test_hybrid_qgemul_is_one_k2h_launch(cuda):
+    """``qgemul`` on a hybrid configuration launches K2h once and no K2,
+    a folded activation batch too; the results equal the CPU's."""
+    mul, layers, out = HYBRID["base"]
+    a = qt.from_raw(_raws(31, HYB_FA, (2, 40, 176), np.int8).numpy(),
+                    HYB_FA, cuda)
+    b = qt.from_raw(_raws(32, HYB_FA, (176, 50), np.int8).numpy(), HYB_FA,
+                    cuda)
+    for x in (a[0], a):
+        TT.tree_gemm_hybrid.launches = tree_gemm.launches = 0
+        got = qt.qgemul(x, b, out, mul_to=mul, add_formats=layers)
+        torch.cuda.synchronize()
+        assert (TT.tree_gemm_hybrid.launches, tree_gemm.launches) == (1, 0)
+        want = qt.qgemul(x.to("cpu"), b.to("cpu"), out, mul_to=mul,
+                         add_formats=layers)
+        assert torch.equal(got.data.cpu(), want.data)
+
+
+def test_host_storage_on_the_card_machine(cuda):
+    """The native engine builds; host tensors keep the card as their
+    results' device, so a host op whose result fits a lane lands on the
+    card; the host GEMM of wart raws against card lanes returns a pair on
+    the card, equal to the host golden model; ``from_float`` through the
+    engine equals the CPU's."""
+    from qublas_tpu_torch import native
+
+    assert native.available()
+    h = qt.random_fill((8, 8), qt.qformat(600, 600), seed=33, device=cuda)
+    assert h.is_host and h.device == cuda
+    f20 = qt.qformat(20, 8)
+    lane = qt.qcast(h, f20)
+    assert not lane.is_host and lane.device == cuda
+    assert np.array_equal(lane.raw(), qt.qcast(h.to("cpu"), f20).raw())
+    w = qt.qformat(31, 0)
+    ar = np.random.RandomState(34).randint(w.raw_min, w.raw_max + 1,
+                                           (16, 24)).astype(object)
+    ar[::5] += 1 << 40
+    a = qt.from_raw(ar, w, cuda)
+    b = qt.random_fill((24, 8), w, seed=35, device=cuda)
+    out = qt.qformat(62, 0)
+    g = qt.qgemul(a, b, out, mul_to=out, add_formats=(out,))
+    assert a.is_host and g.device == cuda and g.is_pair
+    assert np.array_equal(g.raw(), qt.host_qgemul(a, b, out, mul_to=out,
+                                                  add_formats=(out,)))
+    x = np.random.RandomState(36).randn(64, 64) * 4
+    got = qt.from_float(x, HYB_FA, cuda)
+    assert got.device == cuda
+    assert np.array_equal(got.raw(), qt.from_float(x, HYB_FA, "cpu").raw())

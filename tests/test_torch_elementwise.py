@@ -7,9 +7,10 @@ pair result) in every rounding x overflow mode, signed and unsigned, with
 the reference warts (``SAT::ZERO`` overflow to zero, divide by zero -> 0,
 truncation toward zero) and the int32 edges.  Configurations whose JAX
 route is ``limb`` compute on the port's limb route; results that need host
-storage (beyond 992 bits) raise ``NotImplementedError`` naming ROADMAP
-A4b.  ``tests/test_torch_pair.py`` covers pair storage,
-``tests/test_torch_limb.py`` limb storage.
+storage (beyond 992 bits) compute on the host.
+``tests/test_torch_pair.py`` covers pair storage,
+``tests/test_torch_limb.py`` limb storage, ``tests/test_torch_host.py``
+host storage.
 """
 
 import dataclasses
@@ -54,8 +55,8 @@ def _pair(rng, fa, fb, shape=(6, 7), zeros=False):
 def _same(got, want):
     if hasattr(want, "fmt"):
         assert dataclasses.astuple(got.fmt) == dataclasses.astuple(want.fmt)
-        assert got.is_limb == want.is_limb
-        if got.is_limb:
+        assert (got.is_limb, got.is_host) == (want.is_limb, want.is_host)
+        if got.is_limb or got.is_host:
             np.testing.assert_array_equal(got.raw(), want.raw())
             return
         got, want = got.data, want.raw()
@@ -119,7 +120,7 @@ def test_int32_edges(name, fmt):
     (ja, jb), (ta, tb) = _pair(rng, fmt, fmt, shape=(40,), zeros=True)
     if fmt.overflow_mode == OverflowMode.WRP_TCPL_SAT:
         # the word-wrap stub holds any int32 raw but INT32_MIN, whose
-        # negation needs host object storage (ROADMAP A4b)
+        # negation needs host object storage (test_unported_routes_raise)
         r = np.array([-(1 << 31) + 1, (1 << 31) - 1, 5, -7])
         ja, ta = JQ.from_raw(r, fmt), qt.from_raw(r, P(fmt), "cpu")
     args = ((ja,), (ta,)) if name in ("qneg", "qabs") else \
@@ -131,7 +132,9 @@ def test_unported_routes_raise():
     """The pair route computes (``tests/test_torch_pair.py`` holds it to
     the JAX package), and so do the routes that raised before limb storage
     was ported: the limb route and limb results, Δ=0 against the JAX
-    package.  Results that need host storage still raise."""
+    package.  Results that need host storage compute on the host, Δ=0
+    against the JAX package's host path: a product into 1,801 bits, and
+    the negation of the word-wrap stub's INT32_MIN."""
     f = qformat(15, 16)  # 32-bit storage: products need the pair route
     (ja, jb), (ta, tb) = _pair(np.random.RandomState(1), f, f)
     assert _compare("qmul", (ja, jb), (ta, tb))
@@ -146,8 +149,13 @@ def test_unported_routes_raise():
                     (qt.from_raw([1, -2], P(f70), "cpu"),))
     big = qt.from_raw([1, 2], P(qformat(900, 0)), "cpu")
     assert big.is_limb
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        qt.qmul(big, big, full_prec=True)
+    jbig = JQ.from_raw(np.array([1, 2]), qformat(900, 0))
+    assert _compare("qmul", (jbig, jbig), (big, big), full_prec=True)
+    assert qt.qmul(big, big, full_prec=True).is_host
+    fw = qformat(3, 4, overflow_mode=OverflowMode.WRP_TCPL_SAT)
+    r = np.array([-(1 << 31), 5])
+    assert _compare("qneg", (JQ.from_raw(r, fw),), (qt.from_raw(r, P(fw),
+                                                                "cpu"),))
 
 
 def test_operators_and_scalar_coercion_match_jax():

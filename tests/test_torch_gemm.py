@@ -189,12 +189,17 @@ def test_unported_tiers_raise():
     want = JG.qgemul(jfrom_raw(x.raw(), jw), jfrom_raw(y.raw(), jw), jw)
     np.testing.assert_array_equal(TG.qgemul(x, y, w).raw(),
                                   np.asarray(want.raw()))
-    # one whose products need host storage (1,801 bits) raises
-    h = P(qformat(900, 0))
-    x = from_raw([[1, 2]], h, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        TG.qgemul(x, from_raw([[3], [4]], h, "cpu"), h,
-                  mul_full_prec=True)
+    # one whose products need host storage (1,801 bits) takes the host
+    # tier, as in the JAX package
+    jh = qformat(900, 0)
+    want = JG.qgemul(jfrom_raw(np.array([[1, 2]]), jh),
+                     jfrom_raw(np.array([[3], [4]]), jh), jh,
+                     mul_full_prec=True)
+    got = TG.qgemul(from_raw([[1, 2]], P(jh), "cpu"),
+                    from_raw([[3], [4]], P(jh), "cpu"), P(jh),
+                    mul_full_prec=True)
+    assert got.fmt == P(want.fmt) and got.is_limb == want.is_limb
+    np.testing.assert_array_equal(got.raw(), np.asarray(want.raw()))
 
 
 def test_kernel_wrappers_validate_operands():

@@ -12,11 +12,10 @@ through the 64-bit requantize of the pair route; ANUS ``qpoly`` and
 ``qapprox`` (``qpoly``, ``qapprox``); and the reference's mt19937 streams,
 ``fill()`` draws of every storage width and the tensor ``shuffle()``
 (``fill``, ``shuffle``, read as ``tests/test_refrand.py`` reads them).
-Every golden file has a reader here.  Lane, pair and limb
-storage are ported; a record whose operands or result need host storage
-(raws beyond the storage word, formats beyond 992 bits) must raise
-``NotImplementedError`` until ROADMAP A4b ports it (no record does).  There
-is no ``div.json``.  This file imports no JAX.
+Every golden file has a reader here.  Every storage kind is ported, so
+every record computes, on whatever storage its operands and result take
+(none needs host storage today).  There is no ``div.json``.  This file
+imports no JAX.
 """
 
 import json
@@ -106,10 +105,6 @@ def test_requant_golden(i):
     src, dst = _fmt(rec["from"]), _fmt(rec["to"])
     ins = [int(v) for v in rec["in"]]
     outs = [int(v) for v in rec["out"]]
-    if _requant_needs_host(rec):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-            ew.qcast(_tensor(ins, src), dst)
-        return
     got = ew.qcast(_tensor(ins, src), dst)
     assert got.fmt == dst
     assert got.is_limb == (storage_kind(dst) == "limb")
@@ -160,13 +155,6 @@ def test_binary_op_golden(kind, i):
         out = add_merge(fa, fb, to)
     assert out == res_fmt
     op = {"mul": qt.qmul, "add": qt.qadd, "sub": qt.qsub}[kind]
-    # every device route computes, and the host route into device storage
-    host = storage_kind(res_fmt) is None or not (
-        _on_device(rec["ina"], fa) and _on_device(rec["inb"], fb))
-    if host:
-        with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-            op(_tensor(rec["ina"], fa), _tensor(rec["inb"], fb), to=to)
-        return
     got = op(_tensor(rec["ina"], fa), _tensor(rec["inb"], fb), to=to)
     assert got.fmt == res_fmt
     assert _raws(got) == [int(v) for v in rec["out"]], (kind, fa, fb, to)
@@ -181,10 +169,6 @@ def test_unary_golden(i):
     for op, key in ((qt.qabs, "abs"), (qt.qneg, "neg")):
         res_fmt = _fmt(rec[f"{key}_fmt"])
         want = [int(v) for v in rec[key]]
-        if not _on_device(ins, fa) or not _on_device(want, res_fmt):
-            with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-                op(_tensor(ins, fa))
-            continue
         got = op(_tensor(ins, fa))
         if fa.signed or key == "neg":
             assert got.fmt == res_fmt, (key, fa)
@@ -214,10 +198,6 @@ def test_reduce_golden(i):
     layers = tuple(_fmt(l) for l in rec["layers"])
     res_fmt = _fmt(rec["res_fmt"])
     x = _tensor(rec["in"], elem)
-    if storage_kind(res_fmt) is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-            qreduce(x, layers)
-        return
     got = qreduce(x, layers)
     assert got.fmt == res_fmt
     assert int(got.raw()) == int(rec["out"])
@@ -230,10 +210,6 @@ def test_double_to_fixed_golden(i):
     keep = [not hostint.reference_double_ctor_defect(float(d), f)
             for d in rec["in"]]
     assert any(keep)
-    if storage_kind(f) is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-            qt.from_float(np.array([float(d) for d in rec["in"]]), f, "cpu")
-        return
     got = _raws(qt.from_float(np.array([float(d) for d in rec["in"]]), f,
                               "cpu"))
     for g, want, ok in zip(got, rec["out"], keep):

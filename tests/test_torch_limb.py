@@ -79,7 +79,8 @@ def _same(got, want):
         np.testing.assert_array_equal(got.cpu().numpy(), np.asarray(want))
         return
     assert dataclasses.astuple(got.fmt) == dataclasses.astuple(want.fmt)
-    assert (got.is_limb, got.is_pair) == (want.is_limb, want.is_pair)
+    assert (got.is_limb, got.is_pair, got.is_host) == \
+        (want.is_limb, want.is_pair, want.is_host)
     assert got.shape == tuple(want.shape)
     np.testing.assert_array_equal(
         np.asarray(got.raw(), dtype=object),
@@ -238,9 +239,10 @@ def test_limb_qtensor_matches_jax():
         _same(qt.bitstream.from_bits(bits, P(f), (3, 4),
                                      twos_complement=True, device="cpu"),
               JB.from_bits(bits, f, (3, 4), twos_complement=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        qt.from_raw(np.array([1 << 100], dtype=object), P(qformat(70, 0)),
-                    "cpu")
+    # raws beyond the limb word take host storage, as in the JAX package
+    _same(qt.from_raw(np.array([1 << 100], dtype=object), P(qformat(70, 0)),
+                      "cpu"),
+          JQ.from_raw(np.array([1 << 100], dtype=object), qformat(70, 0)))
     with pytest.raises(TypeError, match="LimbArray"):
         qt.QTensor(TL.LimbArray(torch.zeros(2, 3, dtype=torch.int64)),
                    P(qformat(70, 0)))
@@ -312,8 +314,7 @@ def test_limb_routes_match_jax_992():
     # 1,039-bit storage it needs host storage
     assert route_mul(F512, F512, qformat(300, 199))[0] == "limb"
     _op("qmul", (ja, jb), (ta, tb), to=qformat(300, 199))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        qt.qmul(ta, tb, to=P(qformat(640, 398)))
+    _op("qmul", (ja, jb), (ta, tb), to=qformat(640, 398))
     jw, tw = _both(_ints(rng, 6, 992), F992)
     # 992 x 512 bits outgrows it: the host route, into limb storage
     assert route_mul(F992, F512, qformat(300, 199))[0] == "host"

@@ -72,8 +72,8 @@ def _same(got, want):
     if hasattr(want, "fmt"):
         assert dataclasses.astuple(got.fmt) == dataclasses.astuple(want.fmt)
         assert got.is_pair == want.is_pair
-        assert got.is_limb == want.is_limb
-        if got.is_limb:
+        assert (got.is_limb, got.is_host) == (want.is_limb, want.is_host)
+        if got.is_limb or got.is_host:
             np.testing.assert_array_equal(got.raw(), want.raw())
             return
         got, want = got.data, want.raw()
@@ -221,17 +221,18 @@ def test_from_jax_takes_a_pair_tensor():
 
 def test_beyond_pair_storage_raises():
     """Beyond pair storage: a 71-bit format takes limb storage; raws beyond
-    the storage word and formats beyond 992 bits need host storage and
-    raise."""
+    the storage word and formats beyond 992 bits take host storage, as in
+    the JAX package (an object array of Python ints)."""
     f70 = qformat(70, 0)
     t = qt.from_raw([1, -(1 << 70)], P(f70), "cpu")
     assert t.is_limb and not t.is_pair
     _same(t, JQ.from_raw(np.array([1, -(1 << 70)], dtype=object), f70))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        qt.from_raw(np.array([1 << 70], dtype=object), P(qformat(40, 0)),
-                    "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        qt.from_raw([1], P(qformat(1000, 0)), "cpu")
+    for raws, f in ((np.array([1 << 70], dtype=object), qformat(40, 0)),
+                    (np.array([1], dtype=object), qformat(1000, 0))):
+        t, j = qt.from_raw(raws, P(f), "cpu"), JQ.from_raw(raws, f)
+        assert t.is_host and j.is_host and t.device == torch.device("cpu")
+        assert dataclasses.astuple(t.fmt) == dataclasses.astuple(j.fmt)
+        np.testing.assert_array_equal(t.raw(), j.raw())
     with pytest.raises(TypeError, match="int64"):
         qt.QTensor(torch.zeros(3, dtype=torch.int32), P(qformat(40, 0)))
 

@@ -89,9 +89,11 @@ def test_qtensor_lane_storage():
     np.testing.assert_array_equal(
         t.raw(), np.asarray(jfrom_raw(np.array([1, -(1 << 70)], dtype=object),
                                       qformat(70, 0)).raw()))
-    # raws beyond the storage word need host storage
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        from_raw(np.array([1 << 70], dtype=object), fa, "cpu")
+    # raws beyond the storage word take host storage, as in the JAX package
+    t = from_raw(np.array([1 << 70], dtype=object), fa, "cpu")
+    j = jfrom_raw(np.array([1 << 70], dtype=object), qformat(3, 4))
+    assert t.is_host and j.is_host
+    np.testing.assert_array_equal(t.raw(), np.asarray(j.raw()))
 
 
 def test_cpu_tensors_launch_no_kernel():
@@ -167,6 +169,19 @@ def test_port_runs_without_jax():
         "assert back['u'].raw_list() == u.raw_list() and back['p'].is_pair\n"
         "rf = qt.reference_fill((4, 4), qt.qformat(8, 8), device='cpu')\n"
         "assert qt.reference_shuffle(rf).shape == (4, 4)\n"
+        "from qublas_tpu_torch import native\n"
+        "h = qt.random_fill((2, 3), qt.qformat(600, 600), device='cpu')\n"
+        "assert h.is_host and native.available()\n"
+        "hh = gemm.qgemul(h, qt.random_fill((3, 2), qt.qformat(600, 600),"
+        " device='cpu'), qt.qformat(600, 600))\n"
+        "assert hh.is_host and qt.qreduce(qt.qmul(h, h)).is_host\n"
+        "assert not qt.qcast(h, f).is_host and qt.load is not None\n"
+        "hy = gemm.qgemul(qt.random_fill((3, 48), qt.qformat(3, 4),"
+        " device='cpu'), qt.random_fill((48, 2), qt.qformat(3, 4), seed=4,"
+        " device='cpu'), qt.qformat(5, 4), mul_to=qt.qformat(7, 8),"
+        " add_formats=(qt.qformat(8, 8), qt.qformat(9, 8), qt.qformat(10, 8),"
+        " qt.qformat(11, 8), qt.qformat(6, 4)))\n"
+        "assert hy.shape == (3, 2)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'qublas_tpu' or m.startswith('qublas_tpu.')]\n"
         "assert not bad, bad\n"
