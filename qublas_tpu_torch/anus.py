@@ -38,7 +38,7 @@ import torch
 from . import hostint
 from .ops import elementwise as ew
 from .ops import limbint as L
-from .ops.limbint import LimbArray, limbs_from_ints
+from .ops.limbint import LimbArray, ints_from_limbs, limbs_from_ints
 from .ops.widths import limb_count, storage_dtype, storage_kind
 from .qformat import QFormat
 from .qtensor import QTensor, from_raw
@@ -214,7 +214,9 @@ class QTable:
                 out_val = math.nan
             raws.append(hostint.double_to_raw(out_val, self.out_fmt))
         self._mask = (1 << w) - 1 if w > 0 else 0
-        self._raws = raws
+        # the entries as Python ints, for host lookups: kept here for host
+        # storage, read back from the table on a first host input otherwise
+        self._raws = raws if kind is None else None
         if kind is None:
             self.table = None   # host storage: looked up as Python ints
         elif kind == "limb":
@@ -231,6 +233,13 @@ class QTable:
             t = self._on_device[device] = self.table.to(device)
         return t
 
+    def _host_raws(self) -> list:
+        if self._raws is None:
+            t = self.table
+            self._raws = (list(ints_from_limbs(t)) if t.ndim == 2
+                          else t.tolist())
+        return self._raws
+
     def __call__(self, x: QTensor) -> QTensor:
         # signedness and int_bits change how a bit pattern is interpreted;
         # round/overflow modes do not, so they may differ
@@ -239,7 +248,8 @@ class QTable:
                                                    t.signed):
             raise ValueError(f"QTable built for {self.in_fmt}, got {x.fmt}")
         if x.is_host or self.table is None:
-            raws = [self._raws[int(r) & self._mask]
+            entries = self._host_raws()
+            raws = [entries[int(r) & self._mask]
                     for r in x.raw().reshape(-1)]
             return from_raw(np.array(raws, dtype=object).reshape(x.shape),
                             self.out_fmt, x.device)

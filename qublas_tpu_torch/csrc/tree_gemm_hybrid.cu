@@ -10,20 +10,20 @@
 // dot of that k-block shifted left by dl, and only the tail from level L
 // up rounds and saturates.
 //
-// Here nothing goes to device memory between the dot and the output: K2's
-// tiled layout (tree_gemm_tiled.cu), with k-slices of 16 products of A
-// (transposed) and B arriving by cp.async into two shared-memory buffers,
-// each thread owning a 4 x 2 register micro-tile.  The leaf changes: in
-// place of a requantized product folded through levels 0-3, each output
-// accumulates the exact int32 dot of its current block (one IMAD a
+// Here nothing goes to device memory between the dot and the output: K2's tiled
+// layout (tree_gemm_tiled.cu), with k-slices of 16 products of A (transposed)
+// and B arriving by cp.async into two shared-memory buffers (tile_stage.cuh,
+// shared with K2), each thread owning a 4 x 2 register micro-tile.  The leaf
+// changes: in place of a requantized product folded through levels 0-3, each
+// output accumulates the exact int32 dot of its current block (one IMAD a
 // product; wrapping arithmetic, as XLA's int32 dot wraps raws outside the
-// operands' formats).  A slice is two halves of 8 products, and s >= 8
-// divides k, so a block ends only after a half: there the dots, shifted by
-// dl, go onto the binary-carry slot stack of tree levels L and up (one
-// merge per trailing one-bit of the block's index, the slot the earlier,
-// left operand, as tree_fold.cuh's push).  The plan's drain over the k / s
-// block values (drain_ops(k / s, levels - L), offset by L) finishes the
-// tail's odd edges.  The tail's modes are read at run time.
+// operands' formats).  A slice is two halves of 8 products, and s >= 8 divides
+// k, so a block ends only after a half: there the dots, shifted by dl, go onto
+// the binary-carry slot stack of tree levels L and up (one merge per trailing
+// one-bit of the block's index, the slot the earlier, left operand, as
+// tree_fold.cuh's push).  The plan's drain over the k / s block values
+// (drain_ops(k / s, levels - L), offset by L) finishes the tail's odd
+// edges.  The tail's modes are read at run time.
 //
 // Bound: the M N K multiply-adds at the SMs' int32 issue rate; the tail's
 // M N K / s merges and the operand bytes are far below it.  So the block
@@ -36,6 +36,7 @@
 // inlined run-time requantize each, the push was some 128 copies of the
 // requantize, and the kernel ran at 5% of its bound: PERF.md §6.)
 
+#include "tile_stage.cuh"
 #include "tree_gemm.cuh"
 
 namespace {
@@ -73,15 +74,6 @@ bool read_hybrid(const int* params, HybridParams* p, int* levels) {
   return true;
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const int32_t* src,
-                                          bool valid) {
-  // src-size 0 writes a zero and reads nothing
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
 // A [M, K], B [K, N] int32 row-major, K a multiple of 2^p.level >= 8.
 __global__ void __launch_bounds__(THREADS, MINB)
 tree_gemm_hybrid_kernel(const int32_t* __restrict__ A,
@@ -100,24 +92,10 @@ tree_gemm_hybrid_kernel(const int32_t* __restrict__ A,
   const int m0 = blockIdx.y * TBM;
   const int n0 = blockIdx.x * TBN;
 
-  // copy k-slice s into buffer buf, zero past the matrices' edges
+  // copy k-slice s into buffer buf
   auto stage = [&](int s, int buf) {
-    const int k0 = s * SLICE;
-    for (int e = tid; e < TBM * SLICE; e += THREADS) {
-      const int c = e % SLICE;
-      const int r = e / SLICE;
-      const bool ok = m0 + r < M && k0 + c < K;
-      cp_async4(&As[buf][c][r], ok ? A + (size_t)(m0 + r) * K + k0 + c : A,
-                ok);
-    }
-    for (int e = tid; e < SLICE * TBN; e += THREADS) {
-      const int c = e % TBN;
-      const int r = e / TBN;
-      const bool ok = k0 + r < K && n0 + c < N;
-      cp_async4(&Bs[buf][r][c], ok ? B + (size_t)(k0 + r) * N + n0 + c : B,
-                ok);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    stage_slice<SLICE, TBM, TBN, LDA, THREADS>(As[buf], Bs[buf], A, B, M,
+                                               N, K, m0, n0, s);
   };
 
   int32_t acc[OUTS];  // the running block's dot

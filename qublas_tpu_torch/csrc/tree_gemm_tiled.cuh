@@ -6,6 +6,7 @@
 
 #include <utility>
 
+#include "tile_stage.cuh"
 #include "tree_gemm.cuh"
 
 namespace {
@@ -16,15 +17,6 @@ constexpr int TILED_THREADS = 256;  // 16 x 16, each a TM x TN micro-tile
 
 __host__ __device__ constexpr int trailing_ones(int q) {
   return (q & 1) ? 1 + trailing_ones(q >> 1) : 0;
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const int32_t* src,
-                                          bool valid) {
-  // src-size 0 writes a zero and reads nothing
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
 }
 
 // qk::with_modes (tree_fold.cuh) fixes the modes of each step, ROUTE the
@@ -141,24 +133,10 @@ tree_gemm_tiled_kernel(const int32_t* __restrict__ A,
   const int m0 = blockIdx.y * TBM;
   const int n0 = blockIdx.x * TBN;
 
-  // copy k-slice s into buffer buf, zero past the matrices' edges
+  // copy k-slice s into buffer buf
   auto stage = [&](int s, int buf) {
-    const int k0 = s * BLK;
-    for (int e = tid; e < TBM * BLK; e += TILED_THREADS) {
-      const int c = e % BLK;
-      const int r = e / BLK;
-      const bool ok = m0 + r < M && k0 + c < K;
-      cp_async4(&As[buf][c][r], ok ? A + (size_t)(m0 + r) * K + k0 + c : A,
-                ok);
-    }
-    for (int e = tid; e < BLK * TBN; e += TILED_THREADS) {
-      const int c = e % TBN;
-      const int r = e / TBN;
-      const bool ok = k0 + r < K && n0 + c < N;
-      cp_async4(&Bs[buf][r][c], ok ? B + (size_t)(k0 + r) * N + n0 + c : B,
-                ok);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    stage_slice<BLK, TBM, TBN, LDA, TILED_THREADS>(As[buf], Bs[buf], A, B, M,
+                                                   N, K, m0, n0, s);
   };
 
   int32_t part[OUTS][LOG_BLK];  // levels 0-3 of the running block

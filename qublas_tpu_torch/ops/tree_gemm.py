@@ -231,13 +231,18 @@ class HybridPlan:
         return {}
 
 
+# K2h folds whole half slices of 8 products (csrc/tree_gemm_hybrid.cu HALF),
+# so a block holds at least 2**3 of them
+_HYB_MIN_LEVEL = 3
+
+
 def plan_hybrid(fa: QFormat, fb: QFormat, mul_fmt: QFormat, add_formats,
-                k: int, out_fmt: QFormat,
-                min_level: int = 3) -> Optional[HybridPlan]:
+                k: int, out_fmt: QFormat) -> Optional[HybridPlan]:
     """Prove the longest lossless tree prefix and the routes of the lossy
-    tail (copy of ``qublas_tpu/ops/tree_gemm.py:plan_hybrid``).  None when
-    the prefix is shorter than ``min_level`` layers or any tail step needs
-    a route other than int32."""
+    tail (copy of ``qublas_tpu/ops/tree_gemm.py:plan_hybrid`` at its
+    default ``min_level``).  None when the prefix is shorter than
+    ``_HYB_MIN_LEVEL`` layers or any tail step needs a route other than
+    int32."""
     from .gemm import _lossless_requant
 
     if k < 2:
@@ -259,7 +264,7 @@ def plan_hybrid(fa: QFormat, fb: QFormat, mul_fmt: QFormat, add_formats,
             break
         ivs, cur_fmt = nxt, lf
         lvl += 1
-    if lvl < min_level:
+    if lvl < _HYB_MIN_LEVEL:
         return None
     s = 1 << lvl
     dl = cur_fmt.frac_bits - pf
@@ -649,6 +654,8 @@ def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
     out = torch.empty((m, n), dtype=torch_dtype_for(out_fmt), device=a.device)
     if m == 0 or n == 0:
         return out
+    # K2h stages int32 slices: a widening copy of each operand a call
+    # (ROADMAP B′9), inside the kernel's event-timed time
     a32 = a.to(torch.int32).contiguous()
     b32 = b.to(torch.int32).contiguous()
     dev = a.device.index

@@ -233,9 +233,11 @@ def test_qtable_into_and_from_host_matches_jax():
         jt, tt = JA.QTable(JA.sqrt_func, F34, out), \
             qt.QTable(qt.sqrt_func, P(F34), P(out))
         _same(tt(qt.from_raw(x, P(F34), CPU)), jt(JQ.from_raw(x, F34)))
+    # wart raws into lane, pair and limb tables: read back for the lookup
     jw, tw = _both(_wart(np.random.RandomState(2), F34, (3, 3), 32), F34)
-    _same(qt.QTable(qt.rsqrt_func, P(F34), P(qformat(6, 6)))(tw),
-          JA.QTable(JA.rsqrt_func, F34, qformat(6, 6))(jw))
+    for out in (qformat(6, 6), qformat(20, 20), qformat(70, 70)):
+        _same(qt.QTable(qt.rsqrt_func, P(F34), P(out))(tw),
+              JA.QTable(JA.rsqrt_func, F34, out)(jw))
 
 
 def test_qpoly_qapprox_on_host_match_jax():

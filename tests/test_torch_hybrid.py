@@ -104,6 +104,22 @@ def test_plan_hybrid_matches_jax():
     assert seen > 100
 
 
+def test_plan_hybrid_min_level_is_the_kernels():
+    """The shortest lossless prefix the planner accepts is the one K2h
+    runs: a block spans whole half slices of HALF products, and
+    ``read_hybrid`` refuses a shorter level, so a plan the CPU runs is
+    never one the kernel refuses."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(TT.__file__).parent.parent / "csrc" /
+           "tree_gemm_hybrid.cu").read_text()
+    half = int(re.search(r"constexpr int HALF = (\d+);", src).group(1))
+    least = int(re.search(r"p->level < (\d+)", src).group(1))
+    assert 1 << TT._HYB_MIN_LEVEL == half
+    assert least == TT._HYB_MIN_LEVEL
+
+
 @pytest.mark.parametrize("config,k", [("base", 16), ("base", 48),
                                       ("base", 64), ("base", 80),
                                       ("base", 176), ("base", 2040),
