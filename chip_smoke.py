@@ -64,11 +64,14 @@ Phases, each printing its lines:
    i. the last two tiers of ``qgemul``: i1 the hybrid tier (the JAX
       package's prefix-lossless configuration, ``Qu<3,4>`` operands,
       products ``Qu<7,8>``, four lossless layers and a ``SAT::ZERO`` tail)
-      at 2048^3, one K2h launch, against K2 on ``plan_tree``, the plain
-      version on the card, the CPU on a row block and ``hostops`` on a
-      corner; again at k = 2040 (blocks of 8), k = 176 (an odd block
-      count), with a shift dl > 0 (s = 8, 256 block values) and as a folded
-      [8, 256, 2048] batch; i2 host storage: the native engine built and
+      at 2048^3, one launch of K2h's tensor-core kernel (int8 lanes),
+      against K2 on ``plan_tree``, K2h's IMAD kernel on int16 copies of the
+      operands, the plain version on the card, the CPU on a row block and
+      ``hostops`` on a corner; again at k = 2040 (blocks of 8), k = 176 (an
+      odd block count), with a shift dl > 0 (s = 8, 256 block values) and
+      as a folded [8, 256, 2048] batch; the same datapath on ``Qu<5,6>``
+      operands in int16 lanes at 2048^3, one launch of the IMAD kernel;
+      i2 host storage: the native engine built and
       loaded, ``from_float`` at 4096^2 through it against the Python loop
       on a row block, a ``Qu<600,600>`` (1,201-bit) tensor through
       ``qmul``/``qadd``/``qdiv``/``qcast``, ``qreduce``, a ``QTable``
@@ -88,8 +91,8 @@ Phases, each printing its lines:
    its instantiations' registers; K2 and K2′ on the pair route at 2048^3,
    P1 on it at ``measured_chain_prods``' shapes, the wall times of
    paths f1-f4 and g1-g6, path h beside the 2-D calls of the same
-   size, and K2h (event and device time) beside K2 and K2′ on the same
-   operands.
+   size, and K2h's two kernels in turns on the same operands (event and
+   device time, registers and spills) beside K2 and K2′.
 
 The second-to-last line is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -1795,68 +1798,113 @@ def lane_times(card, state_h, t):
           f"reference_shuffle (64, 64) {t['h5 fill']:.4f} ms [{card}]")
 
 
-def hybrid_config(dl=False):
-    """The JAX package's hybrid configurations (``tests/test_tree_gemm.py:
-    136-145``, and ``:172-181`` for ``dl``, whose lossless prefix shifts):
-    (operand format, mul_to, layers, out)."""
+def hybrid_config(kind="base"):
+    """The hybrid configurations: the JAX package's own
+    (``tests/test_tree_gemm.py:136-145``; ``dl``: ``:172-181``, whose
+    lossless prefix shifts) on int8 lanes, and ``int16``, the same datapath
+    shape on ``Qu<5,6>`` operands in int16 lanes, which take the IMAD
+    kernel: (operand format, mul_to, layers, out)."""
     import qublas_tpu_torch as qt
 
     sz = qt.OverflowMode.SAT_ZERO
-    if dl:
+    if kind == "dl":
         return (qt.qformat(3, 4), qt.qformat(7, 10),
                 (qt.qformat(8, 11), qt.qformat(9, 12), qt.qformat(10, 12),
                  qt.qformat(5, 6, overflow_mode=sz)), qt.qformat(5, 5))
+    if kind == "int16":
+        return (qt.qformat(5, 6), qt.qformat(11, 12),
+                (qt.qformat(12, 12), qt.qformat(13, 12), qt.qformat(14, 12),
+                 qt.qformat(15, 12), qt.qformat(10, 6, overflow_mode=sz)),
+                qt.qformat(7, 6))
     return (qt.qformat(3, 4), qt.qformat(7, 8),
             (qt.qformat(8, 8), qt.qformat(9, 8), qt.qformat(10, 8),
              qt.qformat(11, 8), qt.qformat(6, 4, overflow_mode=sz)),
             qt.qformat(5, 4))
 
 
+class Counter:
+    """A launch count kept on ``owner`` as ``attr``, under ``name``, set
+    to 0 and read like a wrapper's ``launches``: K2h's tensor-core
+    launches are ``tree_gemm_hybrid.mma_launches``, inside
+    ``tree_gemm_hybrid.launches``, which counts both K2h kernels."""
+
+    def __init__(self, name, owner, attr):
+        self.__name__, self._owner, self._attr = name, owner, attr
+
+    @property
+    def launches(self):
+        return getattr(self._owner, self._attr)
+
+    @launches.setter
+    def launches(self, v):
+        setattr(self._owner, self._attr, v)
+
+
 def phase_hybrid(dev, chk):
-    """Phase 3i1: the hybrid tier through ``qgemul``: one K2h launch a
-    call, held to K2 on ``plan_tree`` of the same configuration, to the
-    plain version on the card, to the CPU on a row block and to hostops on
-    a corner."""
+    """Phase 3i1: the hybrid tier through ``qgemul``: on int8 lanes one
+    launch of K2h's tensor-core kernel a call, held to K2 on ``plan_tree``
+    of the same configuration, to the IMAD kernel on int16 copies of the
+    same operands, to the plain version on the card, to the CPU on a row
+    block and to hostops on a corner; on int16 lanes one launch of the IMAD
+    kernel, held the same way."""
     import numpy as np
     import torch
 
     import qublas_tpu_torch as qt
     from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
     from qublas_tpu_torch.ops.reduce import qreduce_kernel
-    from qublas_tpu_torch.ops.tree_gemm import (k2_modes, plan_hybrid,
-                                                plan_tree, tree_gemm,
-                                                tree_gemm_hybrid,
+    from qublas_tpu_torch.ops.tree_gemm import (k2_modes, k2h_route,
+                                                plan_hybrid, plan_tree,
+                                                tree_gemm, tree_gemm_hybrid,
                                                 tree_gemm_hybrid_plain,
                                                 tree_gemm_stream)
 
     n, rb, cn = HYB_N, LANE_BLOCK, LIMB_CORNER
     gen = torch.Generator(device=dev).manual_seed(21)
+    mma = Counter("tree_gemm_hybrid_mma", tree_gemm_hybrid, "mma_launches")
     drive = Driver((fused_int8_gemm, tree_gemm, tree_gemm_stream,
-                    qreduce_kernel, tree_gemm_hybrid))
+                    qreduce_kernel, tree_gemm_hybrid, mma))
     state = {}
-    for key, k, dl in (("i1", n, False), ("i1 k2040", n - 8, False),
-                       ("i1 k176", 176, False), ("i1 dl", n, True)):
-        fa, mul, layers, out = hybrid_config(dl)
-        a = qt.QTensor(torch.randint(-128, 128, (n, k), generator=gen,
-                                     device=dev, dtype=torch.int8), fa)
-        b = qt.QTensor(torch.randint(-128, 128, (k, n), generator=gen,
-                                     device=dev, dtype=torch.int8), fa)
+    for key, k, kind in (("i1", n, "base"), ("i1 k2040", n - 8, "base"),
+                         ("i1 k176", 176, "base"), ("i1 dl", n, "dl"),
+                         ("i1 int16", n, "int16")):
+        fa, mul, layers, out = hybrid_config(kind)
+        dt = torch.int16 if kind == "int16" else torch.int8
+        a = qt.QTensor(torch.randint(fa.raw_min, fa.raw_max + 1, (n, k),
+                                     generator=gen, device=dev, dtype=dt),
+                       fa)
+        b = qt.QTensor(torch.randint(fa.raw_min, fa.raw_max + 1, (k, n),
+                                     generator=gen, device=dev, dtype=dt),
+                       fa)
         mul_fmt = qt.mul_merge(fa, fa, mul)
         hp = plan_hybrid(fa, fa, mul_fmt, layers, k, out)
         tp = plan_tree(fa, fa, mul_fmt, layers, k, out)
         assert hp is not None and tp is not None, key
+        route = k2h_route(a.data, b.data)
+        assert route == ("imad" if kind == "int16" else "mma"), key
+        name = "tree_gemm_hybrid_mma" if route == "mma" else \
+            "tree_gemm_hybrid"
         c = drive(key, f"hybrid qgemul [{n}, {k}] @ [{k}, {n}] (s = {hp.s}, "
-                  f"L = {hp.level}, dl = {hp.dl}, {k // hp.s} block values)",
+                  f"L = {hp.level}, dl = {hp.dl}, {k // hp.s} block values, "
+                  f"{dt} lanes: the {route} kernel)",
                   lambda: qt.qgemul(a, b, out, mul_to=mul,
                                     add_formats=layers),
-                  {"tree_gemm_hybrid": 1})
+                  {"tree_gemm_hybrid": 1, "tree_gemm_hybrid_mma":
+                   int(route == "mma")})
         assert c.fmt == out and c.shape == (n, n)
-        chk.same("tree_gemm_hybrid", f"{key} == K2 on plan_tree (k2_modes "
-                 f"{k2_modes(tp)})", c.data, tree_gemm(a.data, b.data, tp,
-                                                       out))
-        chk.same("tree_gemm_hybrid", f"{key} == tree_gemm_hybrid_plain on "
-                 "the card", c.data, tree_gemm_hybrid_plain(a.data, b.data,
-                                                            hp, out))
+        plain = tree_gemm_hybrid_plain(a.data, b.data, hp, out)
+        chk.same(name, f"{key} == K2 on plan_tree (k2_modes {k2_modes(tp)})",
+                 c.data, tree_gemm(a.data, b.data, tp, out))
+        chk.same(name, f"{key} == tree_gemm_hybrid_plain on the card",
+                 c.data, plain)
+        if route == "mma":
+            # the IMAD kernel on int16 copies of the same operands
+            imad = tree_gemm_hybrid(a.data.to(torch.int16),
+                                    b.data.to(torch.int16), hp, out)
+            chk.same("tree_gemm_hybrid", f"{key}: the IMAD kernel on int16 "
+                     "copies == tree_gemm_hybrid_plain", imad, plain)
+            chk.same(name, f"{key} == the IMAD kernel on int16 copies",
+                     c.data, imad)
         same_q(f"{key} rows 0..{rb}, card == CPU", c[:rb],
                qt.qgemul(a[:rb].to("cpu"), b.to("cpu"), out, mul_to=mul,
                          add_formats=layers))
@@ -1874,10 +1922,10 @@ def phase_hybrid(dev, chk):
     c3 = drive("i1 batch", f"hybrid qgemul {list(a3.shape)} @ [{n}, {n}] "
                "(a folded broadcast batch)",
                lambda: qt.qgemul(a3, b, out, mul_to=mul, add_formats=layers),
-               {"tree_gemm_hybrid": 1})
-    chk.same("tree_gemm_hybrid", "i1 folded batch == the 2-D hybrid qgemul",
-             c3.data.reshape(n, n), tree_gemm_hybrid(a.data, b.data, hp,
-                                                     out))
+               {"tree_gemm_hybrid": 1, "tree_gemm_hybrid_mma": 1})
+    chk.same("tree_gemm_hybrid_mma", "i1 folded batch == the 2-D hybrid "
+             "qgemul", c3.data.reshape(n, n), tree_gemm_hybrid(
+                 a.data, b.data, hp, out))
     return drive.launches, state
 
 
@@ -2023,26 +2071,47 @@ def phase_host(dev):
     return drive.launches
 
 
-def hybrid_bound(hp, out_fmt, m, n, k, in_bytes, out_bytes):
-    """Bound of K2h: the operands and output once, and per output element
-    the k block-dot multiply-adds (one int32 operation each), the shift of
-    each block value (dl > 0), the tail's tree of merges over the k / s
-    block values (drain converts included) and the final requantize."""
+def hybrid_tail_ops(hp, out_fmt, k):
+    """int32 operations of K2h's tail for one output element: the shift of
+    each of the k / s block values (dl > 0), the tail's tree of merges over
+    them (drain converts included) and the final requantize."""
     nb = k // hp.s
     rqs = [rq_ops(hp.level_fmts[hp.level + j].frac_bits,
                   hp.merge_fmts[hp.level + j])
            for j in range(max(nb.bit_length(), 1))]
-    per_out = k + (nb if hp.dl else 0) + \
-        tree_ops(nb, rqs, lambda l: rqs[l]) + \
+    return (nb if hp.dl else 0) + tree_ops(nb, rqs, lambda l: rqs[l]) + \
         rq_ops(hp.final_fmt.frac_bits, out_fmt)
+
+
+def hybrid_bound(hp, out_fmt, m, n, k, in_bytes, out_bytes):
+    """Bound of K2h's IMAD kernel: the operands and output once, and per
+    output element the k block-dot multiply-adds (one int32 operation
+    each) and the tail."""
     return bound_ms(in_bytes * (m * k + k * n) + out_bytes * m * n,
-                    m * n * per_out, INT32_OPS_S)
+                    m * n * (k + hybrid_tail_ops(hp, out_fmt, k)),
+                    INT32_OPS_S)
+
+
+def hybrid_mma_bound(hp, out_fmt, m, n, k, out_bytes):
+    """Bound of K2h's tensor-core kernel, the largest of three times: the
+    int8 operands and the output once at the HBM rate, the block dots
+    (2 m n k int8 operations) at the int8 tensor-core rate, and the tail
+    (per output element, ``hybrid_tail_ops``) at the int32 rate."""
+    t_bytes = (m * k + k * n + out_bytes * m * n) / HBM_BYTES_S
+    t_dots = 2 * m * n * k / INT8_OPS_S
+    t_tail = m * n * hybrid_tail_ops(hp, out_fmt, k) / INT32_OPS_S
+    worst = max(t_bytes, t_dots, t_tail)
+    by = "bytes" if worst == t_bytes else "operations"
+    return worst * 1e3, by
 
 
 def hybrid_times(card, state_i, t, bounds, report):
-    """Phase 4, path i: K2h beside K2 and K2′ on the same operands, by
-    CUDA events and device time, its plain version, and ``qgemul`` end to
-    end."""
+    """Phase 4, path i: K2h's two kernels in turns on the same operands
+    (the tensor-core kernel on the int8 lanes, the IMAD kernel on int16
+    copies of them) by CUDA events and device time, beside K2 and K2′ and
+    its plain version, and ``qgemul`` end to end."""
+    import torch
+
     import qublas_tpu_torch as qt
     from qublas_tpu_torch.ops.tree_gemm import (k2s_plan, tree_gemm,
                                                 tree_gemm_hybrid,
@@ -2056,16 +2125,24 @@ def hybrid_times(card, state_i, t, bounds, report):
         a, b, hp, tp, out, mul, layers = state_i[key]
         m, k = a.shape
         n = b.shape[1]
-        fn = lambda: tree_gemm_hybrid(a.data, b.data, hp, out)  # noqa: E731
-        t["k2h" + suffix] = timeit(fn)
-        bounds["k2h" + suffix] = hybrid_bound(
-            hp, out, m, n, k, a.data.element_size(),
-            torch_dtype_for(out).itemsize)
-        us = device_us(fn)
+        a16, b16 = a.data.to(torch.int16), b.data.to(torch.int16)
+        mma = lambda: tree_gemm_hybrid(a.data, b.data, hp, out)  # noqa: E731
+        imad = lambda: tree_gemm_hybrid(a16, b16, hp, out)  # noqa: E731
+        turns = [timeit(f) for f in (mma, imad, imad, mma)]
+        t["k2h" + suffix] = (turns[0] + turns[3]) / 2
+        t["k2h_imad" + suffix] = (turns[1] + turns[2]) / 2
+        ob = torch_dtype_for(out).itemsize
+        bounds["k2h" + suffix] = hybrid_mma_bound(hp, out, m, n, k, ob)
+        bounds["k2h_imad" + suffix] = hybrid_bound(hp, out, m, n, k, 2, ob)
+        us, us_imad = device_us(mma), device_us(imad)
         print(f"time tree_gemm_hybrid [{m}, {k}] @ [{k}, {n}] (s = {hp.s}, "
-              f"dl = {hp.dl}): {t['k2h' + suffix]:.4f} ms, "
-              f"{m * n * k / t['k2h' + suffix] / 1e6:.2f} Gprod/s, device us "
-              f"per call {us} [{card}]")
+              f"dl = {hp.dl}), in turns: tensor-core kernel (int8) "
+              f"{turns[0]:.4f}, {turns[3]:.4f} ms, "
+              f"{m * n * k / t['k2h' + suffix] / 1e6:.2f} Gprod/s, device "
+              f"us per call {us}; IMAD kernel (int16 copies, its int32 "
+              f"copies included) {turns[1]:.4f}, {turns[2]:.4f} ms, device "
+              f"us per call {us_imad}; tensor-core / IMAD "
+              f"{t['k2h' + suffix] / t['k2h_imad' + suffix]:.4f} [{card}]")
         if key != "i1":
             continue
         t["k2h_plain"] = timeit(lambda: tree_gemm_hybrid_plain(
@@ -2088,9 +2165,17 @@ def hybrid_times(card, state_i, t, bounds, report):
               f"{t['k2h_plain']:.4f} ms; hybrid qgemul "
               f"{t['k2h_qgemul']:.4f} ms; K2h / K2 "
               f"{t['k2h'] / t['k2h_k2']:.4f} [{card}]")
-    for line in resources(report, "tree_gemm_hybrid_kernel"):
+    a, b, hp, tp, out, mul, layers = state_i["i1 int16"]
+    t["k2h_int16_qgemul"] = timeit(lambda: qt.qgemul(
+        a, b, out, mul_to=mul, add_formats=layers))
+    print(f"time i1 int16: hybrid qgemul {list(a.shape)} @ {list(b.shape)} "
+          f"on int16 lanes (the IMAD kernel) {t['k2h_int16_qgemul']:.4f} ms "
+          f"[{card}]")
+    for line in resources(report, "tree_gemm_hybrid_kernel") + \
+            resources(report, "tree_gemm_hybrid_mma_kernel"):
         print(f"registers {line}")
-    for key in ("k2h", "k2h_k2040", "k2h_k176", "k2h_dl"):
+    for key in ("k2h", "k2h_k2040", "k2h_k176", "k2h_dl", "k2h_imad",
+                "k2h_imad_k2040", "k2h_imad_k176", "k2h_imad_dl"):
         ms, by = bounds[key]
         print(f"bound {key}: {ms:.4f} ms ({by}); measured {t[key]:.4f} ms, "
               f"{ms / t[key] * 100:.1f}% of the bound [{card}]")
@@ -2588,9 +2673,15 @@ def main() -> int:
             "k3", "k3_plain", None),
         row("chain_probe", "qublas_tpu_torch/csrc/chain_probe.cuh",
             "bench.py:408", launches_e, "p1", "p1_plain", None),
+        row("tree_gemm_hybrid_mma",
+            "qublas_tpu_torch/csrc/tree_gemm_hybrid_mma.cu",
+            "qublas_tpu/ops/tree_gemm.py:620",
+            launches_i["tree_gemm_hybrid_mma"], "k2h", "k2h_plain", None),
         row("tree_gemm_hybrid", "qublas_tpu_torch/csrc/tree_gemm_hybrid.cu",
             "qublas_tpu/ops/tree_gemm.py:620",
-            launches_i["tree_gemm_hybrid"], "k2h", "k2h_plain", None),
+            launches_i["tree_gemm_hybrid"]
+            - launches_i["tree_gemm_hybrid_mma"], "k2h_imad", "k2h_plain",
+            None),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,7 @@
-// K2h: the prefix-lossless hybrid tree GEMM, for qgemul's hybrid tier.
+// K2h: the prefix-lossless hybrid tree GEMM, for qgemul's hybrid tier:
+// the IMAD kernel, for int16 and int32 lanes (int8 x int8 operands take the
+// tensor-core kernel, tree_gemm_hybrid_mma.cu; the tensor cores take no
+// s16 or s32 operand).
 //
 // Replaces qublas_tpu/ops/tree_gemm.py:tree_gemm_hybrid, which the JAX
 // package runs as an XLA einsum (the exact int32 dot of every block of
@@ -23,7 +26,9 @@
 // one-bit of the block's index, the slot the earlier, left operand, as
 // tree_fold.cuh's push).  The plan's drain over the k / s block values
 // (drain_ops(k / s, levels - L), offset by L) finishes the tail's odd
-// edges.  The tail's modes are read at run time.
+// edges.  The tail's modes are read at run time, its merges inlined.  The
+// parameters, the push and the drain are hybrid_tail.cuh's, shared with
+// the tensor-core kernel.
 //
 // Bound: the M N K multiply-adds at the SMs' int32 issue rate; the tail's
 // M N K / s merges and the operand bytes are far below it.  So the block
@@ -36,43 +41,26 @@
 // inlined run-time requantize each, the push was some 128 copies of the
 // requantize, and the kernel ran at 5% of its bound: PERF.md §6.)
 
+#include "hybrid_tail.cuh"
 #include "tile_stage.cuh"
-#include "tree_gemm.cuh"
 
 namespace {
 
 constexpr int SLICE = 16;    // products a k-slice
-constexpr int HALF = 8;      // products a half slice: s >= 8 divides k
+constexpr int HALF = 1 << HYB_MIN_LEVEL;  // products a half slice: s >= 8
 constexpr int THREADS = 256; // 16 x 16, each a TM x TN micro-tile
 constexpr int TM = 4;
 constexpr int TN = 2;
 constexpr int MINB = 4;      // blocks an SM
 
-// The hybrid plan as the kernel reads it (read_hybrid): the block size
-// s = 2^level, the shift dl of a block dot to tree level `level`, and the
-// tail's steps with tree level `level + j` as the fold's level j.
-struct HybridParams {
-  int level;
-  int dl;
-  qk::Fold fold;
-  qk::Rq fin;  // final_fmt -> out_fmt
+// The slot stack of tree levels p.level and up, in local memory: indexed
+// at run time and touched once a block.
+template <int OUTS>
+struct LocalSlots {
+  int32_t v[OUTS][qk::MAXL];
+  __device__ int32_t get(int o, int l) const { return v[o][l]; }
+  __device__ void set(int o, int l, int32_t x) { v[o][l] = x; }
 };
-
-// params (host int32), as qublas_tpu_torch/ops/tree_gemm.py:_hybrid_params
-// writes them: level, dl, levels, merge[levels][5], ndrain,
-// (op, level)[ndrain], fin[5].  Returns false outside the kernel's range.
-bool read_hybrid(const int* params, HybridParams* p, int* levels) {
-  p->level = params[0];
-  p->dl = params[1];
-  *levels = params[2];
-  const int* q = qk::read_fold(params + 2, &p->fold);
-  if (q == nullptr || p->level < 3 || p->level > 30 || p->dl < 0 ||
-      p->dl > 31) {
-    return false;
-  }
-  p->fin = qk::read_rq(q);
-  return true;
-}
 
 // A [M, K], B [K, N] int32 row-major, K a multiple of 2^p.level >= 8.
 __global__ void __launch_bounds__(THREADS, MINB)
@@ -99,10 +87,7 @@ tree_gemm_hybrid_kernel(const int32_t* __restrict__ A,
   };
 
   int32_t acc[OUTS];  // the running block's dot
-  // The slot stack of tree levels p.level and up: every slot is written by
-  // a push before a push or the drain reads it (drain_ops reads only the
-  // levels of the block count's one-bits).
-  int32_t slot[OUTS][qk::MAXL];
+  LocalSlots<OUTS> slot;
 #pragma unroll
   for (int o = 0; o < OUTS; ++o) acc[o] = 0;
 
@@ -140,45 +125,18 @@ tree_gemm_hybrid_kernel(const int32_t* __restrict__ A,
         }
       }
       if (((k0 + (h + 1) * HALF) & bmask) == 0) {  // a block ends: push
-        const int cnt = __ffs(~t) - 1;  // trailing one-bits of t
+        hybrid_shift(acc, p.dl);
+        hybrid_push<qk::ANY, qk::ANY, true>(slot, acc, 0, t, p.fold);
 #pragma unroll
-        for (int o = 0; o < OUTS; ++o) acc[o] = qk::shl(acc[o], p.dl);
-#pragma unroll 1
-        for (int l = 0; l < cnt; ++l) {
-#pragma unroll
-          for (int o = 0; o < OUTS; ++o) {
-            acc[o] = qk::merge(p.fold, l, slot[o][l], acc[o]);
-          }
-        }
-#pragma unroll
-        for (int o = 0; o < OUTS; ++o) {
-          slot[o][cnt] = acc[o];
-          acc[o] = 0;
-        }
+        for (int o = 0; o < OUTS; ++o) acc[o] = 0;
         ++t;
       }
     }
     __syncthreads();  // buf is refilled by the next iteration's copies
   }
 
-  // the drain (tree_fold.cuh's, the levels offset by p.level)
-  int32_t carry[OUTS];
-#pragma unroll
-  for (int o = 0; o < OUTS; ++o) carry[o] = 0;
-  const qk::Fold& f = p.fold;
-  for (int d = 0; d < f.ndrain; ++d) {
-    const int l = f.drain_lvl[d];
-    const int op = f.drain_op[d];
-#pragma unroll
-    for (int o = 0; o < OUTS; ++o) {
-      if (op == qk::CONVERT) {
-        carry[o] = qk::requant(carry[o], f.merge[l]);
-      } else {
-        carry[o] = op == qk::SEED ? slot[o][l]
-                                  : qk::merge(f, l, slot[o][l], carry[o]);
-      }
-    }
-  }
+  int32_t res[OUTS];
+  hybrid_drain<true>(slot, res, p);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = m0 + ty * TM + i;
@@ -186,8 +144,7 @@ tree_gemm_hybrid_kernel(const int32_t* __restrict__ A,
     for (int j = 0; j < TN; ++j) {
       const int c = n0 + tx * TN + j;
       if (r < M && c < N) {
-        qk::store_lane(C, (size_t)r * N + c,
-                       qk::requant(carry[i * TN + j], p.fin), out_bytes);
+        qk::store_lane(C, (size_t)r * N + c, res[i * TN + j], out_bytes);
       }
     }
   }
@@ -195,21 +152,16 @@ tree_gemm_hybrid_kernel(const int32_t* __restrict__ A,
 
 }  // namespace
 
-// K2h on int32 A [m, k] and B [k, n], C [m, n] in out_bytes lanes; params
-// as read_hybrid reads them.  Returns a cudaError_t, or -1 for arguments
-// outside the kernel's range.
+// K2h's IMAD kernel on int32 A [m, k] and B [k, n], C [m, n] in out_bytes
+// lanes; params as read_hybrid reads them.  Returns a cudaError_t, or -1
+// for arguments outside the kernel's range.
 extern "C" int qk_tree_gemm_hybrid(int device, const void* a, const void* b,
                                    void* c, int m, int n, int k,
                                    int out_bytes, const int* params,
                                    void* stream) {
   HybridParams p{};
   int levels;
-  if (!read_hybrid(params, &p, &levels) || k < 1 || m < 1 || n < 1 ||
-      (k & ((1 << p.level) - 1)) != 0 ||
-      levels != bit_length(k >> p.level) ||
-      (out_bytes != 1 && out_bytes != 2 && out_bytes != 4)) {
-    return -1;
-  }
+  if (!read_hybrid(params, m, n, k, out_bytes, &p, &levels)) return -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + 16 * TN - 1) / (16 * TN),

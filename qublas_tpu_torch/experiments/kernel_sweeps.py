@@ -1,11 +1,13 @@
-"""Design measurements for K1, K2, K2′, K3 and P1 on the card (not
+"""Design measurements for K1, K2, K2′, K3, P1 and K2h on the card (not
 imported by the package).
 
-    python3 -m qublas_tpu_torch.experiments.kernel_sweeps [k1|k2|k2s|k3|k3v|p1]
+    python3 -m qublas_tpu_torch.experiments.kernel_sweeps [PART]
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps k2s OTHER_CHECKOUT
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps k3 OTHER_CHECKOUT
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps p1 OTHER_CHECKOUT
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps main OTHER_CHECKOUT
+
+PART is one of k1, k2, k2s, k3, k3v, p1 and k2h; all of them when left out.
 
 Run on a machine with a CUDA card.  Each part runs in its own process
 under a time limit, so a kernel that hangs ends that part and not the run:
@@ -59,6 +61,19 @@ under a time limit, so a kernel that hangs ends that part and not the run:
   version on the main path's tile and on a ragged one; and the
   ``cuobjdump -sass`` opcode counts of each one's step loop (the SASS
   itself into ``build/qublas_tpu_torch/experiments/p1_sass.txt``).
+
+* ``k2h``: K2h at ``chip_smoke.py``'s i1 shapes (2048^3 with s = 16;
+  k = 2040 and the dl configuration with s = 8): the tensor-core kernel
+  (its compiled-modes instantiation) and the IMAD kernel (on int16 copies
+  of the operands) in turns; the tensor-core kernel with its modes read at
+  run time and its variants (``k2h_variants.cu``: the block dots without
+  the tail, the pairs' requantize without the push, the k16 steps rolled,
+  the dots on cache-resident operand rows, the dots at the occupancy of
+  the stages' shared memory alone),
+  by event and device time, checked against the package where they compute
+  its function; and the ``cuobjdump -sass`` opcode counts of each one's
+  longest loop (the SASS itself into
+  ``build/qublas_tpu_torch/experiments/k2h_sass.txt``).
 
 * ``main`` (given another checkout's root only): the main path's calls end
   to end, in both trees in turns ((other, this, this, other) three
@@ -849,6 +864,95 @@ def _p1(card):
     _p1_variants(card)
 
 
+# (variant, what it leaves out or changes, whether it computes K2h's
+# function on plans with TRN::TCPL, SAT::ZERO tail merges)
+K2H_VARIANTS = ((1, "the block dots alone (the tail an xor)", False),
+                (2, "the pairs' requantize without the push", False),
+                (3, "the compiled modes with the k16 steps rolled", True),
+                (4, "the block dots alone, every operand row its first "
+                 "(cache-resident stages)", False),
+                (5, "the block dots alone in the stages' shared memory "
+                 "only (more blocks an SM), no drain", False))
+
+
+def _k2h(card):
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import _build
+    from qublas_tpu_torch.ops import tree_gemm as TT
+    from qublas_tpu_torch.timing import device_us, timeit
+
+    sys.path.insert(0, str(HERE.parent.parent))
+    from chip_smoke import hybrid_config
+
+    lib = _experiment_lib("k2h_variants")
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.k2h_variant.argtypes = (I, P, L, P, L, P, I, I, I, I, P)
+    lib.k2h_variant.restype = I
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n = 2048
+    for kind, k in (("base", 2048), ("base", 2040), ("dl", 2048)):
+        fa, mul, layers, out = hybrid_config(kind)
+        a = torch.randint(-128, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        a16, b16 = a.to(torch.int16), b.to(torch.int16)
+        hp = TT.plan_hybrid(fa, fa, qt.mul_merge(fa, fa, mul), layers, k,
+                            out)
+        params = TT._hybrid_params(hp, k, out)
+        modes = TT.k2h_modes(hp, k)
+        want = TT.tree_gemm_hybrid(a, b, hp, out)
+        assert torch.equal(want, TT.tree_gemm_hybrid_plain(a, b, hp, out))
+        got = torch.empty_like(want)
+        tag = f"{kind} {k} (s = {hp.s}, dl = {hp.dl})"
+
+        def package(m=modes):
+            _build.check(_build.lib().qk_tree_gemm_hybrid_mma(
+                0, a.data_ptr(), k, b.data_ptr(), n, got.data_ptr(), n, n, k,
+                got.element_size(), params, m, None), "tree_gemm_hybrid")
+        imad = lambda: TT.tree_gemm_hybrid(a16, b16, hp, out)  # noqa: E731
+        turns = [timeit(f, runs=5, warmup=1)
+                 for f in (package, imad, imad, package)]
+        print(f"k2h {tag}: tensor-core kernel (modes instantiation {modes}) "
+              f"{turns[0]:.4f}, {turns[3]:.4f} ms, device us "
+              f"{sum(device_us(package, runs=5).values()):.1f}; IMAD kernel "
+              f"on int16 copies {turns[1]:.4f}, {turns[2]:.4f} ms, device "
+              f"us {device_us(imad, runs=5)} [{card}]", flush=True)
+        runs = [("the package's kernel, modes read at run time",
+                 lambda: package(0), True)]
+        for v, label, exact in K2H_VARIANTS:
+            def run(v=v):
+                _build.check(lib.k2h_variant(
+                    v, a.data_ptr(), k, b.data_ptr(), n, got.data_ptr(), n,
+                    n, k, got.element_size(), params), "k2h_variant")
+            runs.append((label, run, exact and modes == 1))
+        for label, run, exact in runs:
+            got.zero_()
+            run()
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            assert same or not exact, (tag, label)
+            ms = timeit(run, runs=5, warmup=1)
+            dus = sum(device_us(run, runs=5).values())
+            print(f"k2hv {tag} {label}: event {ms:.4f} ms, device "
+                  f"{dus:.1f} us per call"
+                  + (", == the package's kernel" if same else "")
+                  + f" [{card}]", flush=True)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"k2h SM clock after the timings, and its maximum: {clocks} "
+          f"[{card}]", flush=True)
+    _sass_dump(("tree_gemm_hybrid_mma_kernel", "tree_gemm_hybrid_kernel"),
+               (_build.library_path(),
+                _build.BUILD_DIR / "experiments" / "libk2h_variants.so"),
+               "k2hv", "k2h_sass.txt")
+
+
 def main() -> int:
     import torch
 
@@ -861,7 +965,7 @@ def main() -> int:
     _build.lib()
     card = card_line()
     parts = {"k1": _k1, "k2": _k2, "k2s": _k2s, "k3": _k3_times,
-             "k3v": _k3_variants, "p1": _p1}
+             "k3v": _k3_variants, "p1": _p1, "k2h": _k2h}
     if len(sys.argv) > 2 and sys.argv[1] == "k3":
         _k3_against(card, sys.argv[2])
         return 0

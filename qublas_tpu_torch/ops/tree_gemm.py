@@ -74,7 +74,8 @@ __all__ = ["TreePlan", "plan_tree", "level_formats", "drain_ops", "ROUTES",
            "tree_gemm_stream_plain", "K2_LOG_BLK", "K2_MODES", "k2_modes",
            "K2S_LOG_S", "K2S_PLANS", "k2s_plan", "k2s_operand",
            "HybridPlan", "plan_hybrid", "tree_gemm_hybrid",
-           "tree_gemm_hybrid_plain"]
+           "tree_gemm_hybrid_plain", "k2h_route", "K2H_MODES",
+           "k2h_modes"]
 
 
 @dataclass(frozen=True)
@@ -231,8 +232,9 @@ class HybridPlan:
         return {}
 
 
-# K2h folds whole half slices of 8 products (csrc/tree_gemm_hybrid.cu HALF),
-# so a block holds at least 2**3 of them
+# K2h's least block (csrc/hybrid_tail.cuh HYB_MIN_LEVEL): the IMAD kernel
+# folds whole half slices of 8 products, the tensor-core kernel half an
+# m16n8k16 fragment, so a block holds at least 2**3 products
 _HYB_MIN_LEVEL = 3
 
 
@@ -604,8 +606,8 @@ def tree_gemm_hybrid_plain(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
 
 
 def _hybrid_params(plan: HybridPlan, k: int, out_fmt: QFormat):
-    """The plan as ``csrc/tree_gemm_hybrid.cu``'s int32 parameters
-    (``read_hybrid``): level, dl, then the tail over the ``k // s`` block
+    """The plan as K2h's int32 parameters (``csrc/hybrid_tail.cuh``:
+    ``read_hybrid``): level, dl, then the tail over the ``k // s`` block
     values as a tree of its own (tree level ``level + j`` as its level j:
     the merges and ``drain_ops(k // s, levels)``), then the final
     requantize.  Built once per (k, out_fmt) and kept on the plan."""
@@ -626,14 +628,65 @@ def _hybrid_params(plan: HybridPlan, k: int, out_fmt: QFormat):
     return plan._kernel_cache[key]
 
 
+# The tail modes that K2h's tensor-core kernel has compiled instantiations
+# for, in csrc/tree_gemm_hybrid_mma.cuh's K2H_MODES order after its
+# run-time entry 0: (round mode of every tail merge, overflow mode of tree
+# level L's merge, overflow mode of the merges above).  The first is the JAX
+# package's hybrid configurations at k = 16t (every tail layer
+# TRN::TCPL, SAT::ZERO); the second theirs at k = 8 mod 16 (s = 8: level
+# L = 3 is the SAT::TCPL layer Qu<11,8>).
+K2H_MODES = ((RoundMode.TRN_TCPL, OverflowMode.SAT_ZERO,
+              OverflowMode.SAT_ZERO),
+             (RoundMode.TRN_TCPL, OverflowMode.SAT_TCPL,
+              OverflowMode.SAT_ZERO))
+
+
+def k2h_modes(plan: HybridPlan, k: int) -> int:
+    """The tensor-core K2h instantiation for ``plan`` at ``k``: 1 + the
+    index in :data:`K2H_MODES` of the entry whose modes the tail's merges
+    over the ``k // s`` block values have (tree level L's, then the levels
+    above), or 0 (modes read at run time).  The drain's converts and the
+    final requantize read their modes at run time in every
+    instantiation."""
+    levels = max((k // plan.s).bit_length(), 1)
+    fmts = plan.merge_fmts[plan.level:plan.level + levels]
+    for i, (rm, ovf0, ovf) in enumerate(K2H_MODES):
+        if all(f.round_mode == rm for f in fmts) \
+                and fmts[0].overflow_mode == ovf0 \
+                and all(f.overflow_mode == ovf for f in fmts[1:]):
+            return i + 1
+    return 0
+
+
+def k2h_route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """Which K2h kernel takes ``a`` @ ``b`` on the card: "mma" (the
+    tensor-core kernel, ``csrc/tree_gemm_hybrid_mma.cu``) for int8 x int8
+    lanes, "imad" (``csrc/tree_gemm_hybrid.cu``, on int32 copies of both
+    operands) when either lane is wider: the tensor cores take no s16 or
+    s32 operand."""
+    return "mma" if a.dtype == b.dtype == torch.int8 else "imad"
+
+
+def _row_pitch(t: torch.Tensor):
+    """``(tensor, row pitch in elements)`` with its rows contiguous: ``t``
+    itself when they are, else a contiguous copy."""
+    rows, cols = t.shape
+    if (cols <= 1 or t.stride(1) == 1) and (rows <= 1
+                                            or t.stride(0) >= cols):
+        return t, t.stride(0) if rows > 1 else cols
+    return t.contiguous(), cols
+
+
 def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
                      out_fmt: QFormat) -> torch.Tensor:
     """The hybrid tree GEMM ``a`` [M, K] @ ``b`` [K, N] of lane tensors
     under ``plan``, stored in ``torch_dtype_for(out_fmt)``: the same bits
     as :func:`tree_gemm` on ``plan_tree`` of the same configuration.
 
-    CPU tensors take the plain version; CUDA tensors launch K2h.
-    ``tree_gemm_hybrid.launches`` counts kernel launches.
+    CPU tensors take the plain version; CUDA tensors launch the K2h kernel
+    of :func:`k2h_route`, and raise if it refuses them.
+    ``tree_gemm_hybrid.launches`` counts launches of either kernel,
+    ``tree_gemm_hybrid.mma_launches`` those of the tensor-core kernel.
     """
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0] \
             or a.shape[1] % plan.s:
@@ -654,18 +707,34 @@ def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
     out = torch.empty((m, n), dtype=torch_dtype_for(out_fmt), device=a.device)
     if m == 0 or n == 0:
         return out
-    # K2h stages int32 slices: a widening copy of each operand a call
-    # (ROADMAP B′9), inside the kernel's event-timed time
-    a32 = a.to(torch.int32).contiguous()
-    b32 = b.to(torch.int32).contiguous()
     dev = a.device.index
-    err = _build.lib().qk_tree_gemm_hybrid(
-        dev, a32.data_ptr(), b32.data_ptr(), out.data_ptr(), m, n, k,
-        out.element_size(), _hybrid_params(plan, k, out_fmt),
-        torch._C._cuda_getCurrentRawStream(dev))
-    _build.check(err, "tree_gemm_hybrid")
+    lib = _build.lib()
+    params = _hybrid_params(plan, k, out_fmt)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if k2h_route(a, b) == "mma":
+        a8, lda = _row_pitch(a)
+        b8, ldb = _row_pitch(b)
+        key = ("k2h_modes", k)
+        if key not in plan._kernel_cache:
+            plan._kernel_cache[key] = k2h_modes(plan, k)
+        err = lib.qk_tree_gemm_hybrid_mma(
+            dev, a8.data_ptr(), lda, b8.data_ptr(), ldb, out.data_ptr(), m,
+            n, k, out.element_size(), params, plan._kernel_cache[key],
+            stream)
+        _build.check(err, "tree_gemm_hybrid (tensor-core kernel)")
+        tree_gemm_hybrid.mma_launches += 1
+    else:
+        # the IMAD kernel stages int32 slices: a widening copy of each
+        # operand a call, inside the kernel's event-timed time
+        a32 = a.to(torch.int32).contiguous()
+        b32 = b.to(torch.int32).contiguous()
+        err = lib.qk_tree_gemm_hybrid(
+            dev, a32.data_ptr(), b32.data_ptr(), out.data_ptr(), m, n, k,
+            out.element_size(), params, stream)
+        _build.check(err, "tree_gemm_hybrid (IMAD kernel)")
     tree_gemm_hybrid.launches += 1
     return out
 
 
 tree_gemm_hybrid.launches = 0
+tree_gemm_hybrid.mma_launches = 0

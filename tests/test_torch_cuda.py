@@ -822,18 +822,23 @@ def test_bitwise_on_the_card_matches_cpu(cuda):
 
 
 # the hybrid tier's configurations: the JAX package's (s = 16 at k = 16t,
-# s = 8 at k = 8 mod 16) and one whose lossless prefix shifts (dl = 2)
+# s = 8 at k = 8 mod 16), one whose lossless prefix shifts (dl = 2, s = 8)
+# and one with a fifth lossless layer (s = 32)
 HYB_FA = qt.qformat(3, 4)
+HYB_SZ = qt.qformat(6, 4, overflow_mode=qt.OverflowMode.SAT_ZERO)
 HYBRID = {
     "base": (qt.qformat(7, 8),
              (qt.qformat(8, 8), qt.qformat(9, 8), qt.qformat(10, 8),
-              qt.qformat(11, 8),
-              qt.qformat(6, 4, overflow_mode=qt.OverflowMode.SAT_ZERO)),
+              qt.qformat(11, 8), HYB_SZ),
              qt.qformat(5, 4)),
     "dl": (qt.qformat(7, 10),
            (qt.qformat(8, 11), qt.qformat(9, 12), qt.qformat(10, 12),
             qt.qformat(5, 6, overflow_mode=qt.OverflowMode.SAT_ZERO)),
            qt.qformat(5, 5)),
+    "s32": (qt.qformat(7, 8),
+            (qt.qformat(8, 8), qt.qformat(9, 8), qt.qformat(10, 8),
+             qt.qformat(11, 8), qt.qformat(12, 8), HYB_SZ),
+            qt.qformat(5, 4)),
 }
 
 
@@ -846,25 +851,75 @@ def _hybrid_case(config, k):
     return hp, tp, out
 
 
-@pytest.mark.parametrize("config,k", [("base", 48), ("base", 176),
-                                      ("base", 2040), ("base", 2048),
-                                      ("base", 4096), ("dl", 96)])
-@pytest.mark.parametrize("m,n", [(1, 1), (63, 65), (200, 33)])
-def test_k2h_matches_plain_and_k2(cuda, config, k, m, n):
-    """K2h (up to 256 block values, 8 levels of slots) equals its plain
-    version on the card and on the CPU, and K2 on ``plan_tree`` of the
-    same configuration."""
-    hp, tp, out = _hybrid_case(config, k)
-    a = _raws(m + k, HYB_FA, (m, k), np.int8).to(cuda)
-    b = _raws(n + k, HYB_FA, (k, n), np.int8).to(cuda)
-    TT.tree_gemm_hybrid.launches = 0
+def _k2h_both(a, b, hp, tp, out):
+    """K2h on int8 ``a``, ``b`` (one launch of the tensor-core kernel),
+    held to its plain version, to the IMAD kernel on int16 copies of the
+    same operands and to K2 on ``plan_tree``."""
+    TT.tree_gemm_hybrid.launches = TT.tree_gemm_hybrid.mma_launches = 0
     got = TT.tree_gemm_hybrid(a, b, hp, out)
     torch.cuda.synchronize()
-    assert TT.tree_gemm_hybrid.launches == 1
+    assert (TT.tree_gemm_hybrid.launches,
+            TT.tree_gemm_hybrid.mma_launches) == (1, 1)
+    assert TT.k2h_route(a, b) == "mma"
     assert torch.equal(got, TT.tree_gemm_hybrid_plain(a, b, hp, out))
+    a16, b16 = a.to(torch.int16), b.to(torch.int16)
+    assert TT.k2h_route(a16, b16) == "imad"
+    imad = TT.tree_gemm_hybrid(a16, b16, hp, out)
+    torch.cuda.synchronize()
+    assert (TT.tree_gemm_hybrid.launches,
+            TT.tree_gemm_hybrid.mma_launches) == (2, 1)
+    assert torch.equal(got, imad)
+    assert torch.equal(got, tree_gemm(a, b, tp, out))
+    return got
+
+
+@pytest.mark.parametrize("config,k,s", [
+    ("base", 48, 16), ("base", 176, 16), ("base", 2040, 8),
+    ("base", 2048, 16), ("base", 4096, 16), ("dl", 96, 8), ("dl", 2048, 8),
+    ("s32", 96, 32), ("s32", 2048, 32)])
+@pytest.mark.parametrize("m,n", [(1, 1), (63, 65), (200, 33)])
+def test_k2h_matches_plain_and_k2(cuda, config, k, s, m, n):
+    """K2h's tensor-core kernel (s = 8, 16 and 32, dl > 0, up to 256 block
+    values, 9 levels of slots, ragged tiles and unaligned B rows) equals
+    its plain version on the card and on the CPU, the IMAD kernel on int16
+    copies of the same operands, and K2 on ``plan_tree`` of the same
+    configuration."""
+    hp, tp, out = _hybrid_case(config, k)
+    assert hp.s == s and (hp.dl > 0) == (config == "dl")
+    a = _raws(m + k, HYB_FA, (m, k), np.int8).to(cuda)
+    b = _raws(n + k, HYB_FA, (k, n), np.int8).to(cuda)
+    got = _k2h_both(a, b, hp, tp, out)
     assert torch.equal(got.cpu(), TT.tree_gemm_hybrid(a.cpu(), b.cpu(), hp,
                                                        out))
-    assert torch.equal(got, tree_gemm(a, b, tp, out))
+
+
+@pytest.mark.parametrize("config,k", [("base", 2048), ("base", 2040),
+                                      ("dl", 2048), ("s32", 2048)])
+def test_k2h_every_raw_at_the_int8_minimum(cuda, config, k):
+    """Every raw at -128: the largest block dots (s 2^14) and the tail's
+    saturation, on both kernels and K2."""
+    hp, tp, out = _hybrid_case(config, k)
+    a = torch.full((70, k), -128, dtype=torch.int8, device=cuda)
+    b = torch.full((k, 40), -128, dtype=torch.int8, device=cuda)
+    _k2h_both(a, b, hp, tp, out)
+
+
+def test_k2h_mma_pitched_and_unaligned_operands(cuda):
+    """The tensor-core kernel reads row-pitched views in place and stages
+    operands whose base or pitch is off 16, 8 or 4 bytes (narrower copies,
+    then byte loads): all equal the plain version."""
+    hp, _, out = _hybrid_case("base", 176)
+    big_a = _raws(1, HYB_FA, (90, 200), np.int8).to(cuda)
+    big_b = _raws(2, HYB_FA, (180, 77), np.int8).to(cuda)
+    for a, b in ((big_a[:, :176], big_b[:176, :64]),     # pitched
+                 (big_a[3:, 1:177], big_b[2:178, 3:40]),  # off 1 byte
+                 (big_a[:, 8:184], big_b[:176, 4:68]),    # off 8 and 4
+                 (big_a[:64, :176].t().contiguous().t(), big_b[:176, :5])):
+        TT.tree_gemm_hybrid.mma_launches = 0
+        got = TT.tree_gemm_hybrid(a, b, hp, out)
+        torch.cuda.synchronize()
+        assert TT.tree_gemm_hybrid.mma_launches == 1
+        assert torch.equal(got, TT.tree_gemm_hybrid_plain(a, b, hp, out))
 
 
 def test_hybrid_qgemul_is_one_k2h_launch(cuda):
@@ -883,6 +938,58 @@ def test_hybrid_qgemul_is_one_k2h_launch(cuda):
         want = qt.qgemul(x.to("cpu"), b.to("cpu"), out, mul_to=mul,
                          add_formats=layers)
         assert torch.equal(got.data.cpu(), want.data)
+
+
+def test_hybrid_qgemul_int8_is_one_mma_launch_and_no_copy(cuda):
+    """An int8 ``qgemul`` on the hybrid tier runs one kernel on the card:
+    the tensor-core K2h, with no widening or transposing copy of either
+    operand (the profiler's kernel list)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mul, layers, out = HYBRID["base"]
+    a = qt.from_raw(_raws(33, HYB_FA, (256, 512), np.int8).numpy(), HYB_FA,
+                    cuda)
+    b = qt.from_raw(_raws(34, HYB_FA, (512, 256), np.int8).numpy(), HYB_FA,
+                    cuda)
+    qt.qgemul(a, b, out, mul_to=mul, add_formats=layers)  # build, warm up
+    torch.cuda.synchronize()
+    TT.tree_gemm_hybrid.launches = TT.tree_gemm_hybrid.mma_launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = qt.qgemul(a, b, out, mul_to=mul, add_formats=layers)
+        torch.cuda.synchronize()
+    assert (TT.tree_gemm_hybrid.launches,
+            TT.tree_gemm_hybrid.mma_launches) == (1, 1)
+    kernels = [e.key for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0]
+    assert len(kernels) == 1 and "tree_gemm_hybrid_mma_kernel" in \
+        kernels[0], kernels
+    want = qt.qgemul(a.to("cpu"), b.to("cpu"), out, mul_to=mul,
+                     add_formats=layers)
+    assert torch.equal(got.data.cpu(), want.data)
+
+
+def test_hybrid_qgemul_int16_takes_the_imad_kernel(cuda):
+    """A hybrid configuration on int16 lanes (``Qu<5,6>`` operands) takes
+    the IMAD kernel, once, equal to the CPU and to K2."""
+    sz = qt.OverflowMode.SAT_ZERO
+    fa = qt.qformat(5, 6)
+    mul = qt.qformat(11, 12)
+    layers = (qt.qformat(12, 12), qt.qformat(13, 12), qt.qformat(14, 12),
+              qt.qformat(15, 12), qt.qformat(10, 6, overflow_mode=sz))
+    out = qt.qformat(7, 6)
+    a = qt.from_raw(_raws(35, fa, (100, 176), np.int16).numpy(), fa, cuda)
+    b = qt.from_raw(_raws(36, fa, (176, 70), np.int16).numpy(), fa, cuda)
+    assert a.data.dtype == torch.int16
+    TT.tree_gemm_hybrid.launches = TT.tree_gemm_hybrid.mma_launches = 0
+    got = qt.qgemul(a, b, out, mul_to=mul, add_formats=layers)
+    torch.cuda.synchronize()
+    assert (TT.tree_gemm_hybrid.launches,
+            TT.tree_gemm_hybrid.mma_launches) == (1, 0)
+    want = qt.qgemul(a.to("cpu"), b.to("cpu"), out, mul_to=mul,
+                     add_formats=layers)
+    assert torch.equal(got.data.cpu(), want.data)
+    tp = plan_tree(fa, fa, qt.mul_merge(fa, fa, mul), layers, 176, out)
+    assert torch.equal(got.data, tree_gemm(a.data, b.data, tp, out))
 
 
 def test_host_storage_on_the_card_machine(cuda):
