@@ -1183,23 +1183,28 @@ class Driver:
     and summed over the phase in ``launches``."""
 
     def __init__(self, counters):
-        self.counters = counters
-        self.launches = {c.__name__: 0 for c in counters}
+        # a wrapper, counted by its ``launches`` under its name, or a
+        # (name, owner, attribute) triple: a count of one kernel of a
+        # wrapper that launches two
+        self.counters = [c if isinstance(c, tuple) else
+                         (c.__name__, c, "launches") for c in counters]
+        self.launches = {name: 0 for name, _, _ in self.counters}
 
     def __call__(self, key, label, fn, expect):
         import torch
 
         torch.cuda.synchronize()
-        for c in self.counters:
-            c.launches = 0
+        for _, owner, attr in self.counters:
+            setattr(owner, attr, 0)
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = {c.__name__: c.launches for c in self.counters}
+        got = {name: getattr(owner, attr)
+               for name, owner, attr in self.counters}
         print(f"main path {key}: {label} in {wall * 1e3:.3f} ms wall (first "
               f"call), launches {got}")
-        want = {c.__name__: 0 for c in self.counters}
+        want = {name: 0 for name, _, _ in self.counters}
         want.update(expect)
         check_launches(f"main path {key}", got, want)
         for name, v in got.items():
@@ -1822,24 +1827,6 @@ def hybrid_config(kind="base"):
             qt.qformat(5, 4))
 
 
-class Counter:
-    """A launch count kept on ``owner`` as ``attr``, under ``name``, set
-    to 0 and read like a wrapper's ``launches``: K2h's tensor-core
-    launches are ``tree_gemm_hybrid.mma_launches``, inside
-    ``tree_gemm_hybrid.launches``, which counts both K2h kernels."""
-
-    def __init__(self, name, owner, attr):
-        self.__name__, self._owner, self._attr = name, owner, attr
-
-    @property
-    def launches(self):
-        return getattr(self._owner, self._attr)
-
-    @launches.setter
-    def launches(self, v):
-        setattr(self._owner, self._attr, v)
-
-
 def phase_hybrid(dev, chk):
     """Phase 3i1: the hybrid tier through ``qgemul``: on int8 lanes one
     launch of K2h's tensor-core kernel a call, held to K2 on ``plan_tree``
@@ -1861,9 +1848,11 @@ def phase_hybrid(dev, chk):
 
     n, rb, cn = HYB_N, LANE_BLOCK, LIMB_CORNER
     gen = torch.Generator(device=dev).manual_seed(21)
-    mma = Counter("tree_gemm_hybrid_mma", tree_gemm_hybrid, "mma_launches")
     drive = Driver((fused_int8_gemm, tree_gemm, tree_gemm_stream,
-                    qreduce_kernel, tree_gemm_hybrid, mma))
+                    qreduce_kernel,
+                    ("tree_gemm_hybrid", tree_gemm_hybrid, "imad_launches"),
+                    ("tree_gemm_hybrid_mma", tree_gemm_hybrid,
+                     "mma_launches")))
     state = {}
     for key, k, kind in (("i1", n, "base"), ("i1 k2040", n - 8, "base"),
                          ("i1 k176", 176, "base"), ("i1 dl", n, "dl"),
@@ -1889,8 +1878,8 @@ def phase_hybrid(dev, chk):
                   f"{dt} lanes: the {route} kernel)",
                   lambda: qt.qgemul(a, b, out, mul_to=mul,
                                     add_formats=layers),
-                  {"tree_gemm_hybrid": 1, "tree_gemm_hybrid_mma":
-                   int(route == "mma")})
+                  {"tree_gemm_hybrid": int(route == "imad"),
+                   "tree_gemm_hybrid_mma": int(route == "mma")})
         assert c.fmt == out and c.shape == (n, n)
         plain = tree_gemm_hybrid_plain(a.data, b.data, hp, out)
         chk.same(name, f"{key} == K2 on plan_tree (k2_modes {k2_modes(tp)})",
@@ -1922,7 +1911,7 @@ def phase_hybrid(dev, chk):
     c3 = drive("i1 batch", f"hybrid qgemul {list(a3.shape)} @ [{n}, {n}] "
                "(a folded broadcast batch)",
                lambda: qt.qgemul(a3, b, out, mul_to=mul, add_formats=layers),
-               {"tree_gemm_hybrid": 1, "tree_gemm_hybrid_mma": 1})
+               {"tree_gemm_hybrid_mma": 1})
     chk.same("tree_gemm_hybrid_mma", "i1 folded batch == the 2-D hybrid "
              "qgemul", c3.data.reshape(n, n), tree_gemm_hybrid(
                  a.data, b.data, hp, out))
@@ -2071,16 +2060,23 @@ def phase_host(dev):
     return drive.launches
 
 
-def hybrid_tail_ops(hp, out_fmt, k):
+def hybrid_tail_ops(hp, out_fmt, k, pairs=False):
     """int32 operations of K2h's tail for one output element: the shift of
     each of the k / s block values (dl > 0), the tail's tree of merges over
-    them (drain converts included) and the final requantize."""
+    them (drain converts included) and the final requantize.  ``pairs``:
+    the tensor-core kernel's count, which sums each pair of blocks in the
+    MMAs' accumulator, so tree level L's merges are their requantizes
+    alone (the adds are among the 2 m n k dot operations) and a pair, or
+    an odd last block, is shifted once."""
     nb = k // hp.s
     rqs = [rq_ops(hp.level_fmts[hp.level + j].frac_bits,
                   hp.merge_fmts[hp.level + j])
            for j in range(max(nb.bit_length(), 1))]
-    return (nb if hp.dl else 0) + tree_ops(nb, rqs, lambda l: rqs[l]) + \
+    ops = tree_ops(nb, rqs, lambda l: rqs[l]) + \
         rq_ops(hp.final_fmt.frac_bits, out_fmt)
+    if pairs:
+        return ops - nb // 2 + ((nb + 1) // 2 if hp.dl else 0)
+    return ops + (nb if hp.dl else 0)
 
 
 def hybrid_bound(hp, out_fmt, m, n, k, in_bytes, out_bytes):
@@ -2096,10 +2092,12 @@ def hybrid_mma_bound(hp, out_fmt, m, n, k, out_bytes):
     """Bound of K2h's tensor-core kernel, the largest of three times: the
     int8 operands and the output once at the HBM rate, the block dots
     (2 m n k int8 operations) at the int8 tensor-core rate, and the tail
-    (per output element, ``hybrid_tail_ops``) at the int32 rate."""
+    (per output element, ``hybrid_tail_ops`` of pairs of blocks) at the
+    int32 rate."""
     t_bytes = (m * k + k * n + out_bytes * m * n) / HBM_BYTES_S
     t_dots = 2 * m * n * k / INT8_OPS_S
-    t_tail = m * n * hybrid_tail_ops(hp, out_fmt, k) / INT32_OPS_S
+    t_tail = m * n * hybrid_tail_ops(hp, out_fmt, k, pairs=True) / \
+        INT32_OPS_S
     worst = max(t_bytes, t_dots, t_tail)
     by = "bytes" if worst == t_bytes else "operations"
     return worst * 1e3, by
@@ -2679,9 +2677,7 @@ def main() -> int:
             launches_i["tree_gemm_hybrid_mma"], "k2h", "k2h_plain", None),
         row("tree_gemm_hybrid", "qublas_tpu_torch/csrc/tree_gemm_hybrid.cu",
             "qublas_tpu/ops/tree_gemm.py:620",
-            launches_i["tree_gemm_hybrid"]
-            - launches_i["tree_gemm_hybrid_mma"], "k2h_imad", "k2h_plain",
-            None),
+            launches_i["tree_gemm_hybrid"], "k2h_imad", "k2h_plain", None),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

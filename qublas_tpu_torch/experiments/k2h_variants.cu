@@ -1,15 +1,15 @@
-// Variants of K2h's tensor-core kernel (csrc/tree_gemm_hybrid_mma.cuh,
-// included here), timed by experiments/kernel_sweeps.py (part k2h) to see
-// what bounds it: the block dots without the tail, the pairs' requantize
-// without the push, and the compiled instantiation with its k16 steps
-// rolled.  Not part of the package's kernels.
+// The block dots of K2h's tensor-core kernel without its tail
+// (csrc/tree_gemm_hybrid_mma.cuh, included here), timed by
+// experiments/kernel_sweeps.py (part k2h) to see what bounds the dots: as
+// the kernel reads its operands, on cache-resident operand rows, and at
+// the occupancy of the stages' shared memory alone.  Not part of the
+// package's kernels.
 
 #include "tree_gemm_hybrid_mma.cuh"
 
 namespace {
 
 using k2h::OUTS;
-using Compiled = k2h::Modes<qk::TRN_TCPL, qk::SAT_ZERO, qk::SAT_ZERO>;
 
 // The block dots alone: a pair's sums pass as they are, the merges are
 // xors, the push an xor into the registers of stack level 0; no requantize
@@ -33,51 +33,21 @@ struct DotsOnly {
   }
 };
 
-// The pairs' requantize (TRN::TCPL, SAT::ZERO compiled in) without the
-// merges above it: xors, and the push an xor into the registers of stack
-// level 0.
-struct PairOnly {
-  static constexpr bool UNROLL = true;
-  static __device__ __forceinline__ void pair(const qk::Fold& f,
-                                              int32_t (&v)[OUTS]) {
-    Compiled::pair(f, v);
-  }
-  template <int l>
-  static __device__ __forceinline__ void merge(const qk::Fold& f,
-                                               const int32_t (&slot)[OUTS],
-                                               int32_t (&v)[OUTS]) {
-    DotsOnly::merge<l>(f, slot, v);
-  }
-  template <class Slots>
-  static __device__ __forceinline__ void push(Slots& s, int32_t (&v)[OUTS],
-                                              int t, const qk::Fold& f) {
-    DotsOnly::push(s, v, t, f);
-  }
-};
-
-// The package's compiled instantiation with the stage's k16 steps rolled,
-// each step's fragments read in it.
-struct Rolled : Compiled {
-  static constexpr bool UNROLL = false;
-};
-
-template <class Tail>
-int run(const void* a, long long lda, const void* b, long long ldb, void* c,
-        int m, int n, int k, int out_bytes, int levels,
-        const HybridParams& p) {
-  return k2h::launch<Tail>(0, a, lda, b, ldb, c, m, n, k, out_bytes, levels,
-                           p, nullptr);
+int dots(const void* a, long long lda, const void* b, long long ldb, void* c,
+         int m, int n, int k, int out_bytes, int levels,
+         const HybridParams& p) {
+  return k2h::launch<DotsOnly>(0, a, lda, b, ldb, c, m, n, k, out_bytes,
+                               levels, p, nullptr);
 }
 
 }  // namespace
 
-// Variant 1: the dots alone; 2: the pairs' requantize without the push;
-// 3: the package's instantiation for TRN::TCPL, SAT::ZERO with the k16
-// steps rolled; 4: the dots alone with every row of A and of B read from
-// their first rows (row pitch 0: the stages' copies hit the caches); 5: the
-// dots alone with the shared memory of the stages only and no drain (the
-// blocks an SM that the stack's shared memory costs).  On device 0 and the
-// default stream; -1 for arguments outside the kernel's range.
+// Variant 1: the dots alone; 2: the dots alone with every row of A and of
+// B read from their first rows (row pitch 0: the stages' copies hit the
+// caches); 3: the dots alone with the shared memory of the stages only and
+// no drain (the blocks an SM that the stack's shared memory costs).  On
+// device 0 and the default stream; -1 for arguments outside the kernel's
+// range.
 extern "C" int k2h_variant(int variant, const void* a, long long lda,
                            const void* b, long long ldb, void* c, int m,
                            int n, int k, int out_bytes, const int* params) {
@@ -86,16 +56,12 @@ extern "C" int k2h_variant(int variant, const void* a, long long lda,
   if (!read_hybrid(params, m, n, k, out_bytes, &p, &levels)) return -1;
   switch (variant) {
     case 1:
-      return run<DotsOnly>(a, lda, b, ldb, c, m, n, k, out_bytes, levels, p);
+      return dots(a, lda, b, ldb, c, m, n, k, out_bytes, levels, p);
     case 2:
-      return run<PairOnly>(a, lda, b, ldb, c, m, n, k, out_bytes, levels, p);
+      return dots(a, 0, b, 0, c, m, n, k, out_bytes, levels, p);
     case 3:
-      return run<Rolled>(a, lda, b, ldb, c, m, n, k, out_bytes, levels, p);
-    case 4:
-      return run<DotsOnly>(a, 0, b, 0, c, m, n, k, out_bytes, levels, p);
-    case 5:
       p.fold.ndrain = 0;
-      return run<DotsOnly>(a, lda, b, ldb, c, m, n, k, out_bytes, 1, p);
+      return dots(a, lda, b, ldb, c, m, n, k, out_bytes, 1, p);
     default:
       return -1;
   }

@@ -66,10 +66,9 @@ under a time limit, so a kernel that hangs ends that part and not the run:
   k = 2040 and the dl configuration with s = 8): the tensor-core kernel
   (its compiled-modes instantiation) and the IMAD kernel (on int16 copies
   of the operands) in turns; the tensor-core kernel with its modes read at
-  run time and its variants (``k2h_variants.cu``: the block dots without
-  the tail, the pairs' requantize without the push, the k16 steps rolled,
-  the dots on cache-resident operand rows, the dots at the occupancy of
-  the stages' shared memory alone),
+  run time and its dots without the tail (``k2h_variants.cu``: as the
+  kernel reads its operands, on cache-resident operand rows, at the
+  occupancy of the stages' shared memory alone),
   by event and device time, checked against the package where they compute
   its function; and the ``cuobjdump -sass`` opcode counts of each one's
   longest loop (the SASS itself into
@@ -864,15 +863,12 @@ def _p1(card):
     _p1_variants(card)
 
 
-# (variant, what it leaves out or changes, whether it computes K2h's
-# function on plans with TRN::TCPL, SAT::ZERO tail merges)
-K2H_VARIANTS = ((1, "the block dots alone (the tail an xor)", False),
-                (2, "the pairs' requantize without the push", False),
-                (3, "the compiled modes with the k16 steps rolled", True),
-                (4, "the block dots alone, every operand row its first "
-                 "(cache-resident stages)", False),
-                (5, "the block dots alone in the stages' shared memory "
-                 "only (more blocks an SM), no drain", False))
+# (variant, what it leaves out or changes); none computes K2h's function
+K2H_VARIANTS = ((1, "the block dots alone (the tail an xor)"),
+                (2, "the block dots alone, every operand row its first "
+                 "(cache-resident stages)"),
+                (3, "the block dots alone in the stages' shared memory "
+                 "only (more blocks an SM), no drain"))
 
 
 def _k2h(card):
@@ -923,12 +919,12 @@ def _k2h(card):
               f"us {device_us(imad, runs=5)} [{card}]", flush=True)
         runs = [("the package's kernel, modes read at run time",
                  lambda: package(0), True)]
-        for v, label, exact in K2H_VARIANTS:
+        for v, label in K2H_VARIANTS:
             def run(v=v):
                 _build.check(lib.k2h_variant(
                     v, a.data_ptr(), k, b.data_ptr(), n, got.data_ptr(), n,
                     n, k, got.element_size(), params), "k2h_variant")
-            runs.append((label, run, exact and modes == 1))
+            runs.append((label, run, False))
         for label, run, exact in runs:
             got.zero_()
             run()

@@ -686,7 +686,8 @@ def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
     CPU tensors take the plain version; CUDA tensors launch the K2h kernel
     of :func:`k2h_route`, and raise if it refuses them.
     ``tree_gemm_hybrid.launches`` counts launches of either kernel,
-    ``tree_gemm_hybrid.mma_launches`` those of the tensor-core kernel.
+    ``tree_gemm_hybrid.mma_launches`` those of the tensor-core kernel and
+    ``tree_gemm_hybrid.imad_launches`` those of the IMAD kernel.
     """
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0] \
             or a.shape[1] % plan.s:
@@ -732,9 +733,11 @@ def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
             dev, a32.data_ptr(), b32.data_ptr(), out.data_ptr(), m, n, k,
             out.element_size(), params, stream)
         _build.check(err, "tree_gemm_hybrid (IMAD kernel)")
+        tree_gemm_hybrid.imad_launches += 1
     tree_gemm_hybrid.launches += 1
     return out
 
 
 tree_gemm_hybrid.launches = 0
 tree_gemm_hybrid.mma_launches = 0
+tree_gemm_hybrid.imad_launches = 0

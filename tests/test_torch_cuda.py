@@ -822,10 +822,17 @@ def test_bitwise_on_the_card_matches_cpu(cuda):
 
 
 # the hybrid tier's configurations: the JAX package's (s = 16 at k = 16t,
-# s = 8 at k = 8 mod 16), one whose lossless prefix shifts (dl = 2, s = 8)
-# and one with a fifth lossless layer (s = 32)
+# s = 8 at k = 8 mod 16), one whose lossless prefix shifts (dl = 2, s = 8),
+# one with a fifth lossless layer (s = 32), and the JAX package's with a
+# top layer that rounds (RND::CONV), saturates (SAT::TCPL) or wraps
+# (WRP::TCPL), whose tail modes no instantiation compiles in
 HYB_FA = qt.qformat(3, 4)
 HYB_SZ = qt.qformat(6, 4, overflow_mode=qt.OverflowMode.SAT_ZERO)
+HYB_TOPS = {
+    "conv": qt.qformat(6, 4, round_mode=qt.RoundMode.RND_CONV,
+                       overflow_mode=qt.OverflowMode.SAT_ZERO),
+    "sat": qt.qformat(6, 4, overflow_mode=qt.OverflowMode.SAT_TCPL),
+    "wrap": qt.qformat(6, 4, overflow_mode=qt.OverflowMode.WRP_TCPL)}
 HYBRID = {
     "base": (qt.qformat(7, 8),
              (qt.qformat(8, 8), qt.qformat(9, 8), qt.qformat(10, 8),
@@ -840,6 +847,9 @@ HYBRID = {
              qt.qformat(11, 8), qt.qformat(12, 8), HYB_SZ),
             qt.qformat(5, 4)),
 }
+HYBRID.update({name: (qt.qformat(7, 8), HYBRID["base"][1][:4] + (top,),
+                      qt.qformat(5, 4))
+               for name, top in HYB_TOPS.items()})
 
 
 def _hybrid_case(config, k):
@@ -856,18 +866,19 @@ def _k2h_both(a, b, hp, tp, out):
     held to its plain version, to the IMAD kernel on int16 copies of the
     same operands and to K2 on ``plan_tree``."""
     TT.tree_gemm_hybrid.launches = TT.tree_gemm_hybrid.mma_launches = 0
+    TT.tree_gemm_hybrid.imad_launches = 0
     got = TT.tree_gemm_hybrid(a, b, hp, out)
     torch.cuda.synchronize()
-    assert (TT.tree_gemm_hybrid.launches,
-            TT.tree_gemm_hybrid.mma_launches) == (1, 1)
+    assert (TT.tree_gemm_hybrid.launches, TT.tree_gemm_hybrid.mma_launches,
+            TT.tree_gemm_hybrid.imad_launches) == (1, 1, 0)
     assert TT.k2h_route(a, b) == "mma"
     assert torch.equal(got, TT.tree_gemm_hybrid_plain(a, b, hp, out))
     a16, b16 = a.to(torch.int16), b.to(torch.int16)
     assert TT.k2h_route(a16, b16) == "imad"
     imad = TT.tree_gemm_hybrid(a16, b16, hp, out)
     torch.cuda.synchronize()
-    assert (TT.tree_gemm_hybrid.launches,
-            TT.tree_gemm_hybrid.mma_launches) == (2, 1)
+    assert (TT.tree_gemm_hybrid.launches, TT.tree_gemm_hybrid.mma_launches,
+            TT.tree_gemm_hybrid.imad_launches) == (2, 1, 1)
     assert torch.equal(got, imad)
     assert torch.equal(got, tree_gemm(a, b, tp, out))
     return got
@@ -876,16 +887,20 @@ def _k2h_both(a, b, hp, tp, out):
 @pytest.mark.parametrize("config,k,s", [
     ("base", 48, 16), ("base", 176, 16), ("base", 2040, 8),
     ("base", 2048, 16), ("base", 4096, 16), ("dl", 96, 8), ("dl", 2048, 8),
-    ("s32", 96, 32), ("s32", 2048, 32)])
+    ("s32", 96, 32), ("s32", 2048, 32), ("conv", 2040, 8),
+    ("conv", 2048, 16), ("sat", 2040, 8), ("sat", 2048, 16),
+    ("wrap", 2040, 8), ("wrap", 2048, 16)])
 @pytest.mark.parametrize("m,n", [(1, 1), (63, 65), (200, 33)])
 def test_k2h_matches_plain_and_k2(cuda, config, k, s, m, n):
     """K2h's tensor-core kernel (s = 8, 16 and 32, dl > 0, up to 256 block
-    values, 9 levels of slots, ragged tiles and unaligned B rows) equals
-    its plain version on the card and on the CPU, the IMAD kernel on int16
-    copies of the same operands, and K2 on ``plan_tree`` of the same
-    configuration."""
+    values, 9 levels of slots, ragged tiles and unaligned B rows; the tail's
+    modes compiled in, or read at run time where the top layer rounds,
+    saturates or wraps otherwise) equals its plain version on the card and
+    on the CPU, the IMAD kernel on int16 copies of the same operands, and
+    K2 on ``plan_tree`` of the same configuration."""
     hp, tp, out = _hybrid_case(config, k)
     assert hp.s == s and (hp.dl > 0) == (config == "dl")
+    assert (TT.k2h_modes(hp, k) == 0) == (config in HYB_TOPS)
     a = _raws(m + k, HYB_FA, (m, k), np.int8).to(cuda)
     b = _raws(n + k, HYB_FA, (k, n), np.int8).to(cuda)
     got = _k2h_both(a, b, hp, tp, out)
@@ -981,10 +996,11 @@ def test_hybrid_qgemul_int16_takes_the_imad_kernel(cuda):
     b = qt.from_raw(_raws(36, fa, (176, 70), np.int16).numpy(), fa, cuda)
     assert a.data.dtype == torch.int16
     TT.tree_gemm_hybrid.launches = TT.tree_gemm_hybrid.mma_launches = 0
+    TT.tree_gemm_hybrid.imad_launches = 0
     got = qt.qgemul(a, b, out, mul_to=mul, add_formats=layers)
     torch.cuda.synchronize()
-    assert (TT.tree_gemm_hybrid.launches,
-            TT.tree_gemm_hybrid.mma_launches) == (1, 0)
+    assert (TT.tree_gemm_hybrid.launches, TT.tree_gemm_hybrid.mma_launches,
+            TT.tree_gemm_hybrid.imad_launches) == (1, 0, 1)
     want = qt.qgemul(a.to("cpu"), b.to("cpu"), out, mul_to=mul,
                      add_formats=layers)
     assert torch.equal(got.data.cpu(), want.data)

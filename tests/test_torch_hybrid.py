@@ -60,6 +60,14 @@ OUT_DL = qformat(5, 5)
 LAYERS_S32 = LAYERS[:4] + (qformat(12, 8),) + LAYERS[4:]
 CONFIGS = {"base": (MUL, LAYERS, OUT), "dl": (MUL_DL, LAYERS_DL, OUT_DL),
            "s32": (MUL, LAYERS_S32, OUT)}
+# the top layer rounding, saturating or wrapping otherwise: tail modes that
+# no tensor-core instantiation compiles in (read at run time)
+TOPS = {"conv": qformat(6, 4, round_mode=RoundMode.RND_CONV,
+                        overflow_mode=OverflowMode.SAT_ZERO),
+        "sat": qformat(6, 4, overflow_mode=OverflowMode.SAT_TCPL),
+        "wrap": qformat(6, 4, overflow_mode=OverflowMode.WRP_TCPL)}
+CONFIGS.update({name: (MUL, LAYERS[:4] + (top,), OUT)
+                for name, top in TOPS.items()})
 
 
 def P(f):
@@ -467,13 +475,15 @@ def test_k2h_schedule_matches_plain(config, k):
     ("base", 16, 16), ("base", 48, 16), ("base", 80, 16), ("base", 176, 16),
     ("base", 2040, 8), ("base", 2048, 16), ("base", 8, 8), ("base", 24, 8),
     ("dl", 32, 8), ("dl", 96, 8), ("dl", 104, 8), ("s32", 96, 32),
-    ("s32", 2048, 32)])
+    ("s32", 2048, 32), ("conv", 2040, 8), ("conv", 2048, 16),
+    ("sat", 2040, 8), ("sat", 2048, 16), ("wrap", 2040, 8),
+    ("wrap", 2048, 16)])
 @pytest.mark.parametrize("m,n", [(5, 6), (33, 17)])
 def test_k2h_mma_schedule_matches_jax(config, k, s, m, n):
     """The tensor-core kernel's replay equals the JAX package's
     ``tree_gemm_hybrid`` and the port's plain version, Δ=0: s = 8 (an odd
     last block at k = 8 mod 16), 16 and 32, dl > 0, odd block counts,
-    ragged tiles."""
+    ragged tiles, tails that round, saturate or wrap."""
     import jax.numpy as jnp
 
     mul, layers, out = CONFIGS[config]
@@ -529,11 +539,15 @@ def test_k2h_schedule_replay_sees_a_wrong_parameter(field, replay):
 
 @pytest.mark.parametrize("config,k,want", [
     ("base", 2048, 1), ("base", 176, 1), ("base", 48, 1), ("base", 2040, 2),
-    ("dl", 2048, 1), ("dl", 96, 1), ("s32", 2048, 1), ("base", 16, 1)])
+    ("dl", 2048, 1), ("dl", 96, 1), ("s32", 2048, 1), ("base", 16, 1),
+    ("conv", 2040, 0), ("conv", 2048, 0), ("sat", 2040, 0),
+    ("sat", 2048, 0), ("wrap", 2040, 0), ("wrap", 2048, 0)])
 def test_k2h_modes_of_the_hybrid_configurations(config, k, want):
     """The JAX package's hybrid configurations take the tensor-core
     kernel's compiled tail modes: every tail merge TRN::TCPL, SAT::ZERO,
-    or at k = 8 mod 16 (s = 8) tree level L's SAT::TCPL layer below them."""
+    or at k = 8 mod 16 (s = 8) tree level L's SAT::TCPL layer below them;
+    a top layer that rounds, saturates or wraps otherwise reads them at
+    run time (0), as the card tests' run-time cases do."""
     mul, layers, out = CONFIGS[config]
     _, tp = _plans(FA, FA, mul, layers, k, out)
     assert TT.k2h_modes(tp, k) == want
