@@ -79,6 +79,22 @@ Phases, each printing its lines:
       host GEMM (wart raws of a 32-bit lane format at 256^3 on the
       native engine, ``Qu<600,600>`` and 8,401-bit products) against
       ``host_qgemul``; host results that fit a lane land on the card;
+   j. the sharded surface (``qublas_tpu_torch.parallel``) in worlds of
+      ranks spawned by this script: j1 the dry-run sequence (the port of
+      ``__graft_entry__.dryrun_multichip``) in a world of 1 on NCCL; j2 the
+      same in a Gloo world of 4 ranks that share the card (meshes (2, 2)
+      and (1, 4)); j3 in that world at full width: the pipeline's first
+      GEMM at 4096^3 by ``sharded_qgemul_k`` (psum, reduce-scatter) and
+      its ring (one K1 launch a rank, four for the ring), the canonical
+      tree at 2048^3 by mn on (2, 2) and by k_tree on (1, 4) with and
+      without the butterfly (one K2 launch a rank, and K3 for the
+      gathered top fold), config 2's ``qreduce`` batch-sharded (K3 a
+      rank), the hybrid configuration i1 through ``shard_qgemul(auto)``,
+      2-D and as a batch (one K2h launch a rank); each case equal to the
+      single-device call on every rank and held to the launches it must
+      make on every rank, its collective bytes and rank 0's wall time
+      beside the single-device time (Gloo through host memory: not an
+      NVLink figure); no rank may import JAX;
    every result is checked against the plain versions, and 16x16 corners
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
@@ -133,6 +149,10 @@ HOST_N = 64                       # i2: Qu<600,600> tensors HOST_N x HOST_N
 HOST_PY_ROWS = 256                # i2: rows of from_float's Python loop
 HOST_GEMM = (256, 256, 256)       # i2: the native host GEMM (m, k, n)
 HOST_WIDE_GEMM = (8, 16, 8)       # i2: Qu<600,600> on the host GEMM
+SHARD_WORLD = 4                   # j2, j3: ranks of the Gloo world
+SHARD_PIPE_N = 4096               # j3: the pipeline's first GEMM, N^3
+SHARD_TREE_N = 2048               # j3: canonical and hybrid GEMMs, N^3
+SHARD_TIMEOUT = 400               # seconds a world may take, spawn included
 
 # peak rates of one H100 SXM at its 700 W limit: HBM bytes/s and int8
 # tensor-core ops/s (NVIDIA's data sheet), and int32 ops/s at the rate the
@@ -2060,6 +2080,259 @@ def phase_host(dev):
     return drive.launches
 
 
+# ---------------------------------------------------------------------------
+# path j: the sharded surface (qublas_tpu_torch.parallel) in worlds of ranks
+# ---------------------------------------------------------------------------
+
+MULTI_RANK = ("Gloo through host memory, 4 ranks on one card: not an "
+              "NVLink figure")
+
+
+def j_counters():
+    """(name, owner, attribute) of each kernel's launch count."""
+    from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
+    from qublas_tpu_torch.ops.reduce import qreduce_kernel
+    from qublas_tpu_torch.ops.tree_gemm import (tree_gemm, tree_gemm_hybrid,
+                                                tree_gemm_stream)
+
+    return (("K1", fused_int8_gemm, "launches"),
+            ("K2", tree_gemm, "launches"),
+            ("K2'", tree_gemm_stream, "launches"),
+            ("K2h", tree_gemm_hybrid, "mma_launches"),
+            ("K2h imad", tree_gemm_hybrid, "imad_launches"),
+            ("K3", qreduce_kernel, "launches"))
+
+
+def j_operands(dev, sizes):
+    """j3's global operands, the same on every rank (a seeded generator on
+    the device): the pipeline's first GEMM at n^3, the canonical tree and
+    the hybrid configuration at tn^3, config 2's qreduce input (``sizes``:
+    n, tn, the reduce shape, the hybrid batch)."""
+    import torch
+
+    import qublas_tpu_torch as qt
+
+    fa, wide, mid = qt.pipeline_formats()
+    f88z, f44, config2 = formats()
+    hfa, hmul, hlayers, hout = hybrid_config()
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def lanes(fmt, shape, dtype):
+        # raws of the format that the lane holds (config 2's int8 lanes
+        # hold Qu<4,4> raws in [-128, 127], as bench.py feeds them)
+        info = torch.iinfo(dtype)
+        return qt.QTensor(torch.randint(max(fmt.raw_min, info.min),
+                                        min(fmt.raw_max, info.max) + 1,
+                                        shape, generator=gen, device=dev,
+                                        dtype=dtype), fmt)
+
+    n, tn, reduce_shape, _ = sizes
+    return {"a": lanes(fa, (n, n), torch.int8),
+            "b": lanes(fa, (n, n), torch.int8),
+            "a2": lanes(f88z, (tn, tn), torch.int32),
+            "b2": lanes(f88z, (tn, tn), torch.int32),
+            "x": lanes(f44, reduce_shape, torch.int8),
+            "ah": lanes(hfa, (tn, tn), torch.int8),
+            "bh": lanes(hfa, (tn, tn), torch.int8),
+            "gemm": (mid, dict(mul_to=wide, add_formats=(wide,))),
+            "tree": f88z, "config2": config2,
+            "hybrid": (hout, dict(mul_to=hmul, add_formats=hlayers))}
+
+
+def sharded_rank(world: int, device: str, sizes) -> dict:
+    """Path j on one rank of a world (every rank runs it): the dry-run
+    sequence on each mesh of the world, then, given ``sizes`` (see
+    ``j_operands``), j3's cases at those sizes, each held Δ=0 to the
+    single-device call and, on the card, to the launches it must make on
+    this rank.  Returns this rank's record."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.parallel import (choose_strategy, make_mesh,
+                                           shard_qgemul,
+                                           sharded_qgemul_k,
+                                           sharded_qgemul_k_pipelined,
+                                           sharded_qgemul_k_tree,
+                                           sharded_qgemul_mn,
+                                           sharded_qreduce)
+    from qublas_tpu_torch.parallel.dryrun import dryrun_rank
+    from qublas_tpu_torch.parallel.sharding import _k_tree_split
+    from qublas_tpu_torch.timing import timeit
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev.index or 0)
+    rank = dist.get_rank()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+        dist.barrier()
+
+    meshes = {s: make_mesh(s[0], s[1], dev)
+              for s in ([(1, 1)] if world == 1 else [(2, 2), (1, 4)])}
+    rec = {"rank": rank, "backend": dist.get_backend(), "dry": [],
+           "cases": [], "launches": {}}
+    for shape, mesh in meshes.items():
+        sync()
+        t0 = time.perf_counter()
+        names = dryrun_rank(mesh)
+        sync()
+        rec["dry"].append((shape, len(names), time.perf_counter() - t0))
+    counters = j_counters()
+    rec["launches"] = {name: 0 for name, _, _ in counters}
+    if sizes:
+        m22, m14 = meshes[(2, 2)], meshes[(1, 4)]
+        o = j_operands(dev, sizes)
+        a, b, a2, b2, x, ah, bh = (o[k] for k in ("a", "b", "a2", "b2", "x",
+                                                  "ah", "bh"))
+        mid, gk = o["gemm"]
+        f88z, config2 = o["tree"], o["config2"]
+        hout, hk = o["hybrid"]
+        ah3 = qt.QTensor(ah.data.reshape(sizes[3], -1, ah.shape[1]),
+                         ah.fmt)
+        picks = {"i1 auto": choose_strategy(ah, bh, hout, m22, **hk),
+                 "i1 batch auto": choose_strategy(ah3, bh, hout, m22, **hk)}
+        rec["picks"] = picks
+        single = {
+            "gemm": lambda: qt.qgemul(a, b, mid, **gk),
+            "tree": lambda: qt.qgemul(a2, b2, f88z),
+            "reduce": lambda: qt.qreduce(x, config2, axis=1),
+            "hybrid": lambda: qt.qgemul(ah, bh, hout, **hk),
+            "hybrid batch": lambda: qt.qgemul(ah3, bh, hout, **hk)}
+        refs = {k: f() for k, f in single.items()}
+        n, tn, reduce_shape, _ = sizes
+        cases = [
+            ("k psum", f"sharded_qgemul_k (1, 4), {n}^3", "gemm",
+             lambda: sharded_qgemul_k(a, b, mid, m14, **gk), {"K1": 1}),
+            ("k reduce-scatter", f"sharded_qgemul_k reduce_scatter (1, 4), "
+             f"{n}^3", "gemm", lambda: sharded_qgemul_k(
+                 a, b, mid, m14, reduce_scatter=True, **gk), {"K1": 1}),
+            ("k pipelined", f"sharded_qgemul_k_pipelined (1, 4), {n}^3",
+             "gemm", lambda: sharded_qgemul_k_pipelined(a, b, mid, m14,
+                                                        **gk), {"K1": 4}),
+            ("mn canonical", f"sharded_qgemul_mn (2, 2), {tn}^3", "tree",
+             lambda: sharded_qgemul_mn(a2, b2, f88z, m22), {"K2": 1}),
+            ("k_tree butterfly", f"sharded_qgemul_k_tree (1, 4), {tn}^3, "
+             f"s = {_k_tree_split(tn, 4)[0]}, two butterfly rounds", "tree",
+             lambda: sharded_qgemul_k_tree(a2, b2, f88z, m14), {"K2": 1}),
+            ("k_tree gather", f"sharded_qgemul_k_tree butterfly=False "
+             f"(1, 4), {tn}^3", "tree", lambda: sharded_qgemul_k_tree(
+                 a2, b2, f88z, m14, butterfly=False), {"K2": 1, "K3": 1}),
+            ("qreduce", f"sharded_qreduce config 2 {list(reduce_shape)} "
+             "(2, 2)", "reduce", lambda: sharded_qreduce(
+                 x, config2, axis=1, mesh=m22), {"K3": 1}),
+            ("hybrid auto", f"shard_qgemul(auto) i1 (2, 2), {tn}^3, chose "
+             f"{picks['i1 auto']}", "hybrid",
+             lambda: shard_qgemul(ah, bh, hout, m22, **hk), {"K2h": 1}),
+            ("hybrid batch auto", f"shard_qgemul(auto) i1 "
+             f"{list(ah3.shape)} (2, 2), chose {picks['i1 batch auto']}",
+             "hybrid batch", lambda: shard_qgemul(ah3, bh, hout, m22, **hk),
+             {"K2h": 1}),
+        ]
+        for key, label, ref_key, fn, expect in cases:
+            sync()
+            for _, owner, attr in counters:
+                setattr(owner, attr, 0)
+            moved = m14.stats["bytes"] + m22.stats["bytes"]
+            t0 = time.perf_counter()
+            got = fn()
+            sync()
+            first = time.perf_counter() - t0
+            moved = m14.stats["bytes"] + m22.stats["bytes"] - moved
+            launches = {name: getattr(owner, attr)
+                        for name, owner, attr in counters}
+            want = {name: 0 for name, _, _ in counters}
+            want.update(expect)
+            if on_card:
+                check_launches(f"path j3 {key} rank {rank}", launches, want)
+            for name, v in launches.items():
+                rec["launches"][name] += v
+            ref = refs[ref_key]
+            assert got.fmt == ref.fmt and got.shape == ref.shape, key
+            assert torch.equal(got.data, ref.data), \
+                f"path j3 {key}: rank {rank} != the single-device call"
+            walls = []
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                walls.append(time.perf_counter() - t0)
+            sync()
+            single_ms = timeit(single[ref_key], runs=5, warmup=1) \
+                if rank == 0 and on_card else None
+            sync()
+            rec["cases"].append({
+                "key": key, "label": label, "launches": launches,
+                "first_ms": first * 1e3,
+                "ms": statistics.median(walls) * 1e3,
+                "single_ms": single_ms, "bytes": moved})
+    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+           or m == "qublas_tpu" or m.startswith("qublas_tpu.")]
+    assert not bad, f"rank {rank} imported {bad}"
+    return rec
+
+
+def phase_sharded(card):
+    """Phase 3j: ``qublas_tpu_torch.parallel`` on the card: j1 the dry-run
+    sequence in a world of 1 on NCCL (mesh (1, 1)); j2 the same in a Gloo
+    world of 4 ranks sharing the card (meshes (2, 2) and (1, 4), the
+    butterfly at tp = 4); j3 in that world at full width (the pipeline's
+    first GEMM at SHARD_PIPE_N^3 by k, its reduce-scatter and its ring;
+    the canonical tree at SHARD_TREE_N^3 by mn and k_tree with and without
+    the butterfly; config 2's qreduce batch-sharded; the hybrid
+    configuration through shard_qgemul(auto), 2-D and batched), each Δ=0
+    to the single-device call, each rank's K1, K2, K2h and K3 launches
+    held to what the case must launch.  A failed rank, a mismatch or a
+    timeout fails the run."""
+    from qublas_tpu_torch.parallel.launch import run_world
+
+    t0 = time.perf_counter()
+    (r1,) = run_world(1, "nccl", sharded_rank, (1, "cuda", None),
+                      timeout=SHARD_TIMEOUT)
+    t1 = time.perf_counter()
+    for shape, count, sec in r1["dry"]:
+        print(f"path j1: dry run on a world of 1 ({r1['backend']}), mesh "
+              f"{shape}: {count} calls equal to the single-device port, "
+              f"{sec:.3f} s [{card}]")
+    print(f"path j1: the world of 1 in {t1 - t0:.1f} s wall, spawn "
+          f"included [{card}]")
+    sizes = (SHARD_PIPE_N, SHARD_TREE_N, REDUCE_SHAPE, HYB_BATCH)
+    ranks = run_world(SHARD_WORLD, "gloo", sharded_rank,
+                      (SHARD_WORLD, "cuda", sizes), timeout=SHARD_TIMEOUT)
+    t2 = time.perf_counter()
+    for r in ranks:
+        for shape, count, sec in r["dry"]:
+            assert count == ranks[0]["dry"][0][1], (r["rank"], shape, count)
+    for shape, count, sec in ranks[0]["dry"]:
+        print(f"path j2: dry run on a world of {SHARD_WORLD} "
+              f"({ranks[0]['backend']}, every rank on cuda:0), mesh {shape}:"
+              f" {count} calls equal to the single-device port on every "
+              f"rank, {sec:.3f} s on rank 0 [{MULTI_RANK}] [{card}]")
+    print(f"path j3: shard_qgemul(auto) chose {ranks[0]['picks']}")
+    for i, c in enumerate(ranks[0]["cases"]):
+        print(f"path j3 {c['key']}: {c['label']}: Δ=0 to the single-device "
+              f"call on all {SHARD_WORLD} ranks; rank 0 "
+              f"{c['ms']:.3f} ms a call (median of 3, first call "
+              f"{c['first_ms']:.3f} ms), single-device "
+              f"{c['single_ms']:.4f} ms; {c['bytes']} collective bytes a "
+              f"rank; launches a rank "
+              f"{[r['cases'][i]['launches'] for r in ranks]} [{MULTI_RANK}]"
+              f" [{card}]")
+    for r in ranks:
+        print(f"path j launches rank {r['rank']}: {r['launches']}")
+    for name in ("K1", "K2", "K2h", "K3"):
+        assert all(r["launches"][name] > 0 for r in ranks), name
+    print(f"path j: the world of {SHARD_WORLD} in {t2 - t1:.1f} s wall, "
+          f"spawn included; no rank imported JAX [{MULTI_RANK}] [{card}]")
+    return ranks
+
+
 def hybrid_tail_ops(hp, out_fmt, k, pairs=False):
     """int32 operations of K2h's tail for one output element: the shift of
     each of the k / s block values (dl > 0), the tail's tree of merges over
@@ -2629,6 +2902,7 @@ def main() -> int:
     launches_h, state_h = phase_lanes(dev, chk, state_a)
     launches_i, state_i = phase_hybrid(dev, chk)
     phase_host(dev)
+    phase_sharded(card)
     t, bounds = phase_times(card, state_a, state_b, state_d, chain_rate,
                             state_f)
     limb_times(card, state_g, t, bounds)

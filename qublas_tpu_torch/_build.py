@@ -6,14 +6,15 @@ which is loaded with ``ctypes``.  Each ``.cu`` file compiles in its own
 ``nvcc`` process, all at once, and one more links them.  The library lands
 in ``build/qublas_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, so an edit to a source rebuilds it and an unchanged tree
-reuses it.  The compiler's report (``-Xptxas -v``: registers, shared
-memory, spills) and each step's seconds are kept beside it as
-``<library>.log``.
+reuses it; a file lock lets one process build it while the others wait.
+The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
+and each step's seconds are kept beside it as ``<library>.log``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -135,7 +136,13 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         so = library_path()
         if not so.exists():
-            _compile(so)
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # one process builds while the others (ranks, test workers
+            # started together) wait for its library
+            with open(BUILD_DIR / "kernels.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if not so.exists():
+                    _compile(so)
         handle = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)

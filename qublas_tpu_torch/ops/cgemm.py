@@ -346,17 +346,19 @@ def _fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags, k,
     return fp if fp is not None else limb_plan()
 
 
-def _limb_run(lp: _LimbPlan, a, b):
+def _limb_run(lp: _LimbPlan, a, b, reduce=None):
     """The raws of both output parts in the limb domain
     (``qublas_tpu/ops/cgemm.py:limb_path``): the dots on
-    :func:`~qublas_tpu_torch.ops.limbdot.limb_dot_2d`, the exact limb
+    :func:`~qublas_tpu_torch.ops.limbdot.limb_dot_2d`, each passed through
+    ``reduce`` when one is given (the K-sharding hook), the exact limb
     shift/combine and one limb requantize a part, into any device
     storage."""
     Kw, fr, fi = lp.Kw, lp.fin_r.frac_bits, lp.fin_i.frac_bits
     ar, ai, br, bi = a.real.data, a.imag.data, b.real.data, b.imag.data
 
     def dot(x, y, spec):
-        return D.limb_dot_2d(x, y, spec[0], spec[1], Kw)
+        d = D.limb_dot_2d(x, y, spec[0], spec[1], Kw)
+        return d if reduce is None else reduce(d)
 
     if lp.algo == "tf":
         def tolimb(x, shift):
@@ -382,10 +384,13 @@ def _limb_run(lp: _LimbPlan, a, b):
             L.requantize_limb(im, fi, lp.oif))
 
 
-def _fast_run(fp: _FastPlan, ar, ai, br, bi):
+def _fast_run(fp: _FastPlan, ar, ai, br, bi, reduce=None):
     """The raws of both output parts from the 2-D lane tensors of the four
     operand parts (``qublas_tpu/ops/cgemm.py:286-359``): the integer dots on
-    :func:`int_dot`, the exact shift/add combine and the two requantizes."""
+    :func:`int_dot`, each TF dot term (dA, dB, dC) or Basic dot passed
+    through ``reduce`` when one is given (the K-sharding hook), the exact
+    shift/add combine and the two requantizes."""
+    red = (lambda d: d) if reduce is None else reduce
     fr, fi = fp.fin_r.frac_bits, fp.fin_i.frac_bits
     if fp.form != "tf3" and all(t.dtype == torch.int8
                                 for t in (ar, ai, br, bi)):
@@ -417,9 +422,10 @@ def _fast_run(fp: _FastPlan, ar, ai, br, bi):
         dC = int_dot(S3, bi)
     if fp.form == "basic":
         sac, sbd, sad, sbc = fp.shifts
-        re = (int_dot(ar, br) << sac) - (int_dot(ai, bi) << sbd)
-        im = (int_dot(ar, bi) << sad) + (int_dot(ai, br) << sbc)
+        re = (red(int_dot(ar, br)) << sac) - (red(int_dot(ai, bi)) << sbd)
+        im = (red(int_dot(ar, bi)) << sad) + (red(int_dot(ai, br)) << sbc)
     else:
+        dA, dB, dC = red(dA), red(dB), red(dC)
         re = (dA << (fr - fA)) - (dB << (fr - fB))
         im = (dB << (fi - fB)) - (dC << (fi - fC))
     raw_r = requantize_i32(re, fr, fp.orf).to(torch_dtype_for(fp.orf))
@@ -433,11 +439,21 @@ def _int8_parts(a, b) -> bool:
 
 
 def _fast_cgemul(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
-                 info=None):
+                 dot_reduce=None, k_total=None, limb_dot_reduce=None,
+                 cap_mn=None, info=None):
     """The fast-path result, or None when the proof fails
     (``qublas_tpu/ops/cgemm.py:_fast_cgemul``).  ``info["domain"]`` is set
     to ``"i32"`` or ``"limb"`` where it computes, as the JAX package sets
     it.
+
+    The K-sharding hooks, as in the JAX package: with operands that hold a
+    slice of the contraction dim, ``dot_reduce`` (int32 dots) and
+    ``limb_dot_reduce`` (limb dots) sum each partial dot over the slices
+    before the combine, ``k_total`` is the whole contraction length the
+    proof runs at, and ``cap_mn`` the output's rows and columns for the
+    limb envelope (so a 1x1 probe decides as the whole call does).  A
+    caller with ``dot_reduce`` but no ``limb_dot_reduce`` gets None where
+    the limb domain would compute.
 
     Operands with equal leading dims run one int32 plan per element of the
     flattened batch, as the JAX package vmaps its 2-D fast path; batched
@@ -448,20 +464,25 @@ def _fast_cgemul(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
     if a.ndim < 2 or a.ndim != b.ndim or a.shape[:-2] != b.shape[:-2] \
             or any(t.is_host for t in (a.real, a.imag, b.real, b.imag)):
         return None
-    fp = _fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
-                    a.shape[-1], (a.shape[-2], b.shape[-1]))
+    k = a.shape[-1] if k_total is None else k_total
+    mn = (a.shape[-2], b.shape[-1]) if cap_mn is None else tuple(cap_mn)
+    fp = _fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags, k,
+                    mn)
     if fp is None or (isinstance(fp, _LimbPlan) and a.ndim != 2):
         return None
     if isinstance(fp, _LimbPlan):
+        if dot_reduce is not None and limb_dot_reduce is None:
+            return None
         if info is not None:
             info["domain"] = "limb"
-        raw_r, raw_i = _limb_run(fp, a, b)
+        raw_r, raw_i = _limb_run(fp, a, b, limb_dot_reduce)
         return QComplexTensor(ew._finish(raw_r, fp.orf),
                               ew._finish(raw_i, fp.oif))
     if info is not None:
         info["domain"] = "i32"
-    raw_r, raw_i = _per_batch(lambda *p: _fast_run(fp, *p), a.real.data,
-                              a.imag.data, b.real.data, b.imag.data)
+    raw_r, raw_i = _per_batch(lambda *p: _fast_run(fp, *p, dot_reduce),
+                              a.real.data, a.imag.data, b.real.data,
+                              b.imag.data)
     return QComplexTensor(QTensor(raw_r, fp.orf), QTensor(raw_i, fp.oif))
 
 

@@ -65,7 +65,7 @@ import torch
 
 from .. import hostops
 from ..qformat import OverflowMode, QFormat, add_merge, mul_merge
-from ..qtensor import QTensor, from_raw, result_device, zeros
+from ..qtensor import QTensor, from_raw, host_route, result_device, zeros
 from . import elementwise as ew
 from . import limbint as L
 from .fused_gemm import fused_int8_gemm, int_dot
@@ -644,6 +644,7 @@ def _host_gemm(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to, add_formats,
     engine's tree GEMM where its envelope holds, else ``hostops.qgemul``
     a matrix.  The result takes device storage where it fits one, on
     :func:`~qublas_tpu_torch.qtensor.result_device` of the operands."""
+    host_route("qgemul")
     dev = result_device(a, b)
     if a.ndim == 2 and b.ndim == 2:
         from .. import native

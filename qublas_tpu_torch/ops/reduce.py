@@ -40,7 +40,7 @@ import torch
 
 from .. import _build, hostops
 from ..qformat import OverflowMode, QFormat, RoundMode, add_merge
-from ..qtensor import QTensor, from_raw
+from ..qtensor import QTensor, from_raw, host_route
 from .limbint import LimbArray
 from .wideint import requantize_i32
 from .widths import (
@@ -387,6 +387,7 @@ def _qreduce_host(x: QTensor, layer_formats, first_layer: int) -> QTensor:
     """Exact host path: per-lane golden-model reduction of ``x`` along its
     first axis, resuming the tree at layer ``first_layer`` (TypeAt indexes
     the original layer number, so consumed formats stay consumed)."""
+    host_route("qreduce")
     if first_layer and layer_formats:
         layer_formats = tuple(
             layer_format(layer_formats, first_layer + i)

@@ -1038,3 +1038,54 @@ def test_host_storage_on_the_card_machine(cuda):
     got = qt.from_float(x, HYB_FA, cuda)
     assert got.device == cuda
     assert np.array_equal(got.raw(), qt.from_float(x, HYB_FA, "cpu").raw())
+
+
+def _shard_cases(world):
+    """mn, k (psum and reduce-scatter) and k_tree over a (1, world) mesh,
+    as ``parallel.dryrun.run_cases`` takes them, and each one's
+    single-device call."""
+    rng = np.random.RandomState(40 + world)
+
+    def raws(fmt, shape):
+        return rng.randint(fmt.raw_min, fmt.raw_max + 1, size=shape)
+
+    a, b = raws(FA, (64, 64 * world)), raws(FA, (64 * world, 32 * world))
+    c, d = raws(F88Z, (48, 64)), raws(F88Z, (64, 16 * world))
+    e, f = raws(F88Z, (40, 128 * world)), raws(F88Z, (128 * world, 24))
+    gk = dict(mul_to=WIDE, add_formats=(WIDE,))
+    tk = dict(add_formats=(F88Z,))
+    return [
+        ("sharded_qgemul_mn", ("q", c, F88Z), ("q", d, F88Z), F88Z, {}),
+        ("sharded_qgemul_k", ("q", a, FA), ("q", b, FA), MID, gk),
+        ("sharded_qgemul_k", ("q", a, FA), ("q", b, FA), MID,
+         dict(gk, reduce_scatter=True)),
+        ("sharded_qgemul_k_tree", ("q", e, F88Z), ("q", f, F88Z), F88Z, tk),
+        ("sharded_qgemul_k_tree", ("q", e, F88Z), ("q", f, F88Z), F88Z,
+         dict(tk, butterfly=False)),
+    ]
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_sharded_gemm_on_the_card(cuda, world, backend):
+    """A world of one on NCCL, and a Gloo world of two ranks on the one
+    card: mn, k and k_tree with its kernels on every rank, equal on every
+    rank to the single-device call."""
+    from qublas_tpu_torch.parallel.dryrun import run_cases
+    from qublas_tpu_torch.parallel.launch import run_world
+
+    cases = _shard_cases(world)
+    shard = [(fn, (1, world), (x, y, out), kw)
+             for fn, x, y, out, kw in cases]
+    ranks = run_world(world, backend, run_cases, (shard, "cuda"),
+                      timeout=300)
+    for i, (fn, x, y, out, kw) in enumerate(cases):
+        kw = {k: v for k, v in kw.items()
+              if k not in ("reduce_scatter", "butterfly")}
+        ref = qt.qgemul(qt.from_raw(x[1], x[2], cuda),
+                        qt.from_raw(y[1], y[2], cuda), out, **kw)
+        for r, res in enumerate(ranks):
+            status, got = res[i]
+            assert status == "ok", (fn, r, got)
+            _, fmt, raw, _, _ = got
+            assert fmt == ref.fmt and np.array_equal(
+                raw.astype(np.int64), ref.raw().astype(np.int64)), (fn, r)

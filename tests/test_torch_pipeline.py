@@ -182,6 +182,18 @@ def test_port_runs_without_jax():
         " add_formats=(qt.qformat(8, 8), qt.qformat(9, 8), qt.qformat(10, 8),"
         " qt.qformat(11, 8), qt.qformat(6, 4)))\n"
         "assert hy.shape == (3, 2)\n"
+        "import torch.distributed as dist\n"
+        "from qublas_tpu_torch import parallel as par\n"
+        "assert par.init_distributed(backend='gloo') == 1\n"
+        "mesh = par.make_mesh(1, 1, 'cpu')\n"
+        "sa = qt.random_fill((4, 8), qt.qformat(3, 4), device='cpu')\n"
+        "sb = qt.random_fill((8, 4), qt.qformat(3, 4), seed=5, device='cpu')\n"
+        "sk = par.sharded_qgemul_k(sa, sb, qt.qformat(3, 4), mesh,"
+        " mul_to=qt.qformat(20, 8), add_formats=(qt.qformat(20, 8),))\n"
+        "sm = par.shard_qgemul(sa, sb, qt.qformat(3, 4), mesh,"
+        " strategy='mn')\n"
+        "assert sk.shape == sm.shape == (4, 4)\n"
+        "dist.destroy_process_group()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'qublas_tpu' or m.startswith('qublas_tpu.')]\n"
         "assert not bad, bad\n"
