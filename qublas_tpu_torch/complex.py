@@ -23,13 +23,14 @@ import numpy as np
 
 from . import hostops
 from .ops import elementwise as ew
-from .qformat import QFormat
+from .ops.widths import route_addsub, route_mul
+from .qformat import QFormat, add_merge, mul_merge
 from .qtensor import QTensor, from_float, from_raw, zeros
 
 __all__ = [
     "QComplexTensor", "complex_from_parts", "complex_from_float",
     "complex_from_raw", "complex_zeros",
-    "cmul", "cmul_tf", "cadd", "csub", "cneg", "ceq",
+    "cmul", "cmul_tf", "cmul_formats", "cadd", "csub", "cneg", "ceq",
     "rc_mul", "cr_mul", "rc_add", "cr_add", "rc_sub", "cr_sub", "cr_div",
     "cdiv", "rc_div",
 ]
@@ -178,14 +179,9 @@ def cmul(a: QComplexTensor, b: QComplexTensor, ac=None, bd=None, ad=None,
     per-step formats (reference BasicComplexMul, QuBLAS.h:3376-3446, the
     default algorithm for complex ``Qmul``).  Omitted step formats follow
     ``hostops.single_tag_default``."""
-    fb = hostops.single_tag_default(ac, bd, ad, bc, acbd, adbc)
-    ac, bd, ad, bc, acbd, adbc = (x if x is not None else fb
-                                  for x in (ac, bd, ad, bc, acbd, adbc))
-    real = ew.qsub(ew.qmul(a.real, b.real, to=ac),
-                   ew.qmul(a.imag, b.imag, to=bd), to=acbd)
-    imag = ew.qadd(ew.qmul(a.real, b.imag, to=ad),
-                   ew.qmul(a.imag, b.real, to=bc), to=adbc)
-    return QComplexTensor(real, imag)
+    return QComplexTensor(*_basic_steps(
+        _TensorSteps, a.real, a.imag, b.real, b.imag, ac=ac, bd=bd, ad=ad,
+        bc=bc, acbd=acbd, adbc=adbc))
 
 
 def cmul_tf(a: QComplexTensor, b: QComplexTensor, ab=None, cd=None, ba=None,
@@ -200,13 +196,80 @@ def cmul_tf(a: QComplexTensor, b: QComplexTensor, ab=None, cd=None, ba=None,
     it applies to its own step when supplied but, lacking ``::list``
     (QuBLAS.h:3515), never inherits the single-tag fallback when absent.
     """
+    return QComplexTensor(*_tf_steps(
+        _TensorSteps, a.real, a.imag, b.real, b.imag, ab=ab, cd=cd, ba=ba,
+        abc=abc, cdb=cdb, bad=bad, AB=AB, BC=BC))
+
+
+def cmul_formats(far: QFormat, fai: QFormat, fbr: QFormat, fbi: QFormat,
+                 algo: str = "basic", **tags):
+    """The part formats of :func:`cmul` (``algo="basic"``) or
+    :func:`cmul_tf` (``"tf"``) of operands of these formats when every step
+    runs on a device route of the elementwise ops; None when a step takes
+    the host route.  The same steps, on formats: nothing is computed."""
+    steps = _tf_steps if algo == "tf" else _basic_steps
+    re, im = steps(_FormatSteps, far, fai, fbr, fbi, **tags)
+    return None if re is None or im is None else (re, im)
+
+
+def _basic_steps(ops, ar, ai, br, bi, ac=None, bd=None, ad=None, bc=None,
+                 acbd=None, adbc=None):
+    fb = hostops.single_tag_default(ac, bd, ad, bc, acbd, adbc)
+    ac, bd, ad, bc, acbd, adbc = (x if x is not None else fb
+                                  for x in (ac, bd, ad, bc, acbd, adbc))
+    real = ops.sub(ops.mul(ar, br, ac), ops.mul(ai, bi, bd), acbd)
+    imag = ops.add(ops.mul(ar, bi, ad), ops.mul(ai, br, bc), adbc)
+    return real, imag
+
+
+def _tf_steps(ops, ar, ai, br, bi, ab=None, cd=None, ba=None, abc=None,
+              cdb=None, bad=None, AB=None, BC=None):
     fb = hostops.single_tag_default(ab, cd, ba, abc, cdb, bad, AB, BC)
     ab, cd, abc, cdb, bad, AB, BC = (x if x is not None else fb
                                      for x in (ab, cd, abc, cdb, bad, AB, BC))
-    A = ew.qmul(ew.qadd(a.real, a.imag, to=ab), b.real, to=abc)
-    B = ew.qmul(ew.qadd(b.real, b.imag, to=cd), a.imag, to=bad)
-    C = ew.qmul(ew.qsub(a.imag, a.real, to=ba), b.imag, to=cdb)
-    return QComplexTensor(ew.qsub(A, B, to=AB), ew.qsub(B, C, to=BC))
+    A = ops.mul(ops.add(ar, ai, ab), br, abc)
+    B = ops.mul(ops.add(br, bi, cd), ai, bad)
+    C = ops.mul(ops.sub(ai, ar, ba), bi, cdb)
+    return ops.sub(A, B, AB), ops.sub(B, C, BC)
+
+
+class _TensorSteps:
+    """The steps on QTensors: the elementwise ops."""
+
+    @staticmethod
+    def mul(x, y, to):
+        return ew.qmul(x, y, to=to)
+
+    @staticmethod
+    def add(x, y, to):
+        return ew.qadd(x, y, to=to)
+
+    @staticmethod
+    def sub(x, y, to):
+        return ew.qsub(x, y, to=to)
+
+
+class _FormatSteps:
+    """The steps on formats: the result's format where the elementwise op
+    takes a device route, else None (a None operand gives None)."""
+
+    @staticmethod
+    def mul(x, y, to):
+        if x is None or y is None:
+            return None
+        out = mul_merge(x, y, to)
+        return None if route_mul(x, y, out)[0] == "host" else out
+
+    @staticmethod
+    def add(x, y, to, sub=False):
+        if x is None or y is None:
+            return None
+        out = add_merge(x, y, to)
+        return None if route_addsub(x, y, out, sub)[0] == "host" else out
+
+    @staticmethod
+    def sub(x, y, to):
+        return _FormatSteps.add(x, y, to, sub=True)
 
 
 def cadd(a: QComplexTensor, b: QComplexTensor, real_to=None,

@@ -54,13 +54,13 @@ from .fused_gemm import int_dot, kmajor
 from .gemm import (_LIMBDOT_MAX_DOT_ELEMS, _LIMBDOT_MAX_MATMULS,
                    _lossless_requant, _per_batch, _swap, dot_partial_interval,
                    tree_exact)
-from .reduce import qreduce
+from .reduce import qreduce, reduce_format
 from .wideint import requantize_i32
 from .widths import (LIMB_INTER_MAX_BITS, Interval, fmt_interval,
                      requant_work_bits, route_requant, storage_kind,
                      torch_dtype_for)
 
-__all__ = ["cgemul", "cgemv", "force_fast_off"]
+__all__ = ["cgemul", "cgemv", "force_fast_off", "cgemul_on_device"]
 
 _FAST_OFF = False
 
@@ -438,6 +438,49 @@ def _int8_parts(a, b) -> bool:
                for t in (a.real, a.imag, b.real, b.imag))
 
 
+def fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags, k, mn):
+    """The plan the fast path runs for operands of ``a``'s and ``b``'s
+    formats, storage and dims at contraction length ``k`` and output
+    ``mn``: a :class:`_FastPlan`, a :class:`_LimbPlan` (2-D operands
+    only), or None where the layered path computes."""
+    if a.ndim < 2 or a.ndim != b.ndim or a.shape[:-2] != b.shape[:-2] \
+            or any(t.is_host for t in (a.real, a.imag, b.real, b.imag)):
+        return None
+    fp = _fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags, k,
+                    mn)
+    if isinstance(fp, _LimbPlan) and a.ndim != 2:
+        return None
+    return fp
+
+
+def cgemul_on_device(a, b, out_fmt, algo: str = "basic", add_formats=(),
+                     **mul_tags) -> bool:
+    """Whether :func:`cgemul` of one row of ``a`` and one column of ``b``
+    (their formats, storage and batch dims, ``a``'s K) runs on device
+    routes only: the dispatch of :func:`cgemul` on formats, nothing
+    computed."""
+    from ..complex import cmul_formats
+
+    if any(t.is_host for t in (a.real, a.imag, b.real, b.imag)):
+        return False
+    orf, oif = _part_formats(out_fmt)
+    r_layers, i_layers = _split_layers(add_formats)
+    k = a.shape[-1]
+    if not _FAST_OFF and fast_plan(a, b, orf, oif, algo, r_layers, i_layers,
+                                   mul_tags, k, (1, 1)) is not None:
+        return True
+    prods = cmul_formats(a.real.fmt, a.imag.fmt, b.real.fmt, b.imag.fmt,
+                         algo, **mul_tags)
+    if prods is None:
+        return False
+    for pf, layers, of in zip(prods, (r_layers, i_layers), (orf, oif)):
+        fin = reduce_format(pf, layers, k)
+        if fin is None or (of not in (None, fin) and route_requant(
+                fmt_interval(fin), fin.frac_bits, of) == "host"):
+            return False
+    return True
+
+
 def _fast_cgemul(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
                  dot_reduce=None, k_total=None, limb_dot_reduce=None,
                  cap_mn=None, info=None):
@@ -451,7 +494,7 @@ def _fast_cgemul(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
     ``limb_dot_reduce`` (limb dots) sum each partial dot over the slices
     before the combine, ``k_total`` is the whole contraction length the
     proof runs at, and ``cap_mn`` the output's rows and columns for the
-    limb envelope (so a 1x1 probe decides as the whole call does).  A
+    limb envelope (so a rank's block decides as the whole call does).  A
     caller with ``dot_reduce`` but no ``limb_dot_reduce`` gets None where
     the limb domain would compute.
 
@@ -461,14 +504,10 @@ def _fast_cgemul(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
     bits, by the proof)."""
     from ..complex import QComplexTensor
 
-    if a.ndim < 2 or a.ndim != b.ndim or a.shape[:-2] != b.shape[:-2] \
-            or any(t.is_host for t in (a.real, a.imag, b.real, b.imag)):
-        return None
     k = a.shape[-1] if k_total is None else k_total
     mn = (a.shape[-2], b.shape[-1]) if cap_mn is None else tuple(cap_mn)
-    fp = _fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags, k,
-                    mn)
-    if fp is None or (isinstance(fp, _LimbPlan) and a.ndim != 2):
+    fp = fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags, k, mn)
+    if fp is None:
         return None
     if isinstance(fp, _LimbPlan):
         if dot_reduce is not None and limb_dot_reduce is None:

@@ -31,7 +31,7 @@ import torch
 
 from .. import hostops
 from ..qformat import QFormat, add_merge, mul_merge
-from ..qtensor import QTensor, from_float, from_raw, host_route, result_device
+from ..qtensor import QTensor, from_float, from_raw, result_device
 from . import limbint as L
 from .wideint import (
     _overflow_i32,
@@ -78,7 +78,6 @@ _NATIVE_OPS = {"qmul": ("mul", mul_merge), "qadd": ("add", add_merge),
 def _host_binary(fn, a: QTensor, b: QTensor, **kw) -> QTensor:
     """``fn`` of the golden model on the host: the native engine's op where
     it covers the configuration, else per element."""
-    host_route(fn.__name__)
     fa, fb = a.fmt, b.fmt
     dev = result_device(a, b)
     nat = _NATIVE_OPS.get(fn.__name__)
@@ -99,7 +98,6 @@ def _host_binary(fn, a: QTensor, b: QTensor, **kw) -> QTensor:
 
 
 def _host_unary(fn, a: QTensor) -> QTensor:
-    host_route(getattr(fn, "__name__", "a unary op"))
     _, out_fmt = fn((0, a.fmt))
     raws = [fn((int(x), a.fmt))[0] for x in a.raw().reshape(-1)]
     return from_raw(np.array(raws, dtype=object).reshape(a.shape), out_fmt,
@@ -320,7 +318,6 @@ def _aligned(a: QTensor, b: QTensor):
 
 
 def _host_compare(fn, a: QTensor, b: QTensor, dtype) -> torch.Tensor:
-    host_route(fn.__name__)
     A, B = np.broadcast_arrays(a.raw().astype(object), b.raw().astype(object))
     out = [fn((int(x), a.fmt), (int(y), b.fmt))
            for x, y in zip(A.reshape(-1), B.reshape(-1))]

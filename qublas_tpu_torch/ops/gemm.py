@@ -65,11 +65,11 @@ import torch
 
 from .. import hostops
 from ..qformat import OverflowMode, QFormat, add_merge, mul_merge
-from ..qtensor import QTensor, from_raw, host_route, result_device, zeros
+from ..qtensor import QTensor, from_raw, result_device, zeros
 from . import elementwise as ew
 from . import limbint as L
 from .fused_gemm import fused_int8_gemm, int_dot
-from .reduce import layer_format, qreduce
+from .reduce import layer_format, qreduce, reduce_format
 from .tree_gemm import (
     drain_ops,
     plan_hybrid,
@@ -84,6 +84,7 @@ from .widths import (
     Interval,
     fmt_interval,
     requant_work_bits,
+    route_mul,
     route_requant,
     storage_dtype,
     storage_kind,
@@ -92,7 +93,7 @@ from .widths import (
 
 __all__ = ["qgemul", "qgemv", "exact_plan", "ExactPlan", "host_qgemul",
            "wide_dot_ok", "pair_dot_2d", "stream_gate", "force_tiers_off",
-           "limb_dot_plan"]
+           "limb_dot_plan", "gemm_on_device"]
 
 _TIERS_OFF: frozenset = frozenset()   # subset of {"wide", "limb"}
 _STREAM_GATE_OVERRIDE: Optional[int] = None
@@ -490,8 +491,12 @@ def wide_dot_ok(a: QTensor, b: QTensor, out_fmt: QFormat,
     2-D lane or pair operands, the dot (and so every partial sum and
     product) in the signed 64-bit domain, and an epilogue that runs there
     too, into lane or pair storage."""
-    if a.ndim != 2 or b.ndim != 2:
-        return False
+    return a.ndim == 2 and b.ndim == 2 and _wide_epilogue_ok(plan, out_fmt)
+
+
+def _wide_epilogue_ok(plan: ExactPlan, out_fmt: QFormat) -> bool:
+    """The int64 dot's formats: the dot in the signed 64-bit domain and its
+    requantize there too, into lane or pair storage."""
     if not plan.dot_interval.fits64:
         return False
     if storage_kind(out_fmt) not in ("lane", "pair"):
@@ -551,6 +556,43 @@ def _fast_gemm_wide(a: QTensor, b: QTensor, out_fmt: QFormat,
 _STREAM_MIN_ELEMS = 1 << 22
 _STREAM_CHUNK = 64
 _STREAM_MAX_CHUNKS = 1024
+
+
+def gemm_on_device(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
+                   add_formats=(), mul_full_prec: bool = False) -> bool:
+    """Whether :func:`qgemul` of one row of ``a`` and one column of ``b``
+    (their formats and storage, ``a``'s K) runs on device routes only: the
+    tier dispatch of :func:`qgemul` on formats, nothing computed.  A call
+    of more rows and columns takes the same routes: the streaming tier
+    runs the layered path's multiplies, layer adds and casts."""
+    if isinstance(add_formats, QFormat):
+        add_formats = (add_formats,)
+    add_formats = tuple(add_formats)
+    if a.is_host or b.is_host:
+        return False
+    k = a.shape[-1]
+    mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
+    plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats, k)
+    if plan is not None and (
+            _device_epilogue_ok(plan, out_fmt)
+            or ("limb" not in _TIERS_OFF and limb_dot_plan(
+                a.fmt, b.fmt, out_fmt, plan, k, 1, 1) is not None)
+            or ("wide" not in _TIERS_OFF
+                and _wide_epilogue_ok(plan, out_fmt))):
+        return True
+    if not (a.is_pair or b.is_pair or a.is_limb or b.is_limb) and (
+            plan_hybrid(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
+            is not None
+            or plan_tree(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
+            is not None):
+        return True
+    if route_mul(a.fmt, b.fmt, mul_fmt)[0] == "host":
+        return False
+    fin = reduce_format(mul_fmt, add_formats, k)
+    return fin is not None and (
+        fin == out_fmt
+        or route_requant(fmt_interval(fin), fin.frac_bits, out_fmt)
+        != "host")
 
 
 def _stream_gemm_wide(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
@@ -644,7 +686,6 @@ def _host_gemm(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to, add_formats,
     engine's tree GEMM where its envelope holds, else ``hostops.qgemul``
     a matrix.  The result takes device storage where it fits one, on
     :func:`~qublas_tpu_torch.qtensor.result_device` of the operands."""
-    host_route("qgemul")
     dev = result_device(a, b)
     if a.ndim == 2 and b.ndim == 2:
         from .. import native

@@ -40,7 +40,7 @@ import torch
 
 from .. import _build, hostops
 from ..qformat import OverflowMode, QFormat, RoundMode, add_merge
-from ..qtensor import QTensor, from_raw, host_route
+from ..qtensor import QTensor, from_raw
 from .limbint import LimbArray
 from .wideint import requantize_i32
 from .widths import (
@@ -56,7 +56,7 @@ from .widths import (
 
 __all__ = ["qreduce", "qreduce_args", "layer_format", "qreduce_kernel",
            "qreduce_plain", "ReducePlan", "K3_MODES", "k3_modes",
-           "k3_lanes", "k3_route"]
+           "k3_lanes", "k3_route", "reduce_format"]
 
 
 def layer_format(layer_formats, layer: int):
@@ -336,6 +336,30 @@ def qreduce(x: QTensor, layer_formats=(), axis=None) -> QTensor:
     return _qreduce_layered(x, layer_formats, axis)
 
 
+def reduce_format(fmt: QFormat, layer_formats, n: int):
+    """The format of :func:`qreduce`'s result over ``n`` values of ``fmt``
+    when every layer runs on a device route (K3, or the layered program's
+    ``i32``, ``pair`` and ``limb`` routes); None when the tree takes the
+    host route at some layer.  The dispatch of :func:`qreduce` on formats:
+    nothing is computed."""
+    layer_formats = _normalize(layer_formats)
+    if storage_kind(fmt) is None:
+        return None
+    if n <= 1:
+        return fmt
+    plan = plan_reduce(fmt, layer_formats, n)
+    if plan is not None:
+        return plan.final_fmt
+    cur, m, layer = fmt, n, 0
+    while m > 1:
+        lf = layer_format(layer_formats, layer)
+        if not _layer_on_device(cur, lf, m):
+            return None
+        cur = add_merge(cur, cur, lf)
+        m, layer = (m + 1) // 2, layer + 1
+    return cur
+
+
 def _layer_on_device(cur_fmt: QFormat, fmt, m: int) -> bool:
     """Layer ``Qadd`` of two ``cur_fmt`` values into ``fmt`` (and, for odd
     m, the tail's cast) stays on the device routes of the elementwise ops:
@@ -387,7 +411,6 @@ def _qreduce_host(x: QTensor, layer_formats, first_layer: int) -> QTensor:
     """Exact host path: per-lane golden-model reduction of ``x`` along its
     first axis, resuming the tree at layer ``first_layer`` (TypeAt indexes
     the original layer number, so consumed formats stay consumed)."""
-    host_route("qreduce")
     if first_layer and layer_formats:
         layer_formats = tuple(
             layer_format(layer_formats, first_layer + i)

@@ -185,18 +185,11 @@ def psum(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     """Sum of ``x`` over the ranks of this rank's line along ``axes``
     (int32 sums wrap mod 2^32, int64 mod 2^64)."""
     g, _ = mesh.group(axes)
-    y = _out(mesh, _sum_payload(x)).clone()
+    y = _sum_payload(x)
+    y = y.cpu() if mesh.staged else y.clone()   # all_reduce sums in place
     _count(mesh, y)
     dist.all_reduce(y, group=g)
     return _back(mesh, y, x)
-
-
-# the single-tensor collectives under their current names where torch has
-# them (older releases have only the names it now deprecates)
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
-_all_gather = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
 
 
 def psum_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
@@ -216,7 +209,7 @@ def psum_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
     _count(mesh, src)
-    _reduce_scatter(out, src, group=g)
+    dist.reduce_scatter_tensor(out, src, group=g)
     return _back(mesh, out.reshape(shape), x)
 
 
@@ -229,7 +222,7 @@ def _gather_bytes(x: torch.Tensor, mesh: Mesh, axes) -> list:
     out = torch.empty((n * flat.numel(),), dtype=torch.uint8,
                       device=flat.device)
     _count(mesh, flat)
-    _all_gather(out, flat, group=g)
+    dist.all_gather_into_tensor(out, flat, group=g)
     out = _back(mesh, out, x).view(x.dtype).reshape((n,) + tuple(x.shape))
     return list(out.unbind(0))
 

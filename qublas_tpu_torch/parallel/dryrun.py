@@ -278,10 +278,11 @@ def _encode(res):
     return res
 
 
-def run_cases(cases, device="cpu") -> list:
+def run_cases(cases, device) -> list:
     """Run each case ``(fn_name, (dp, tp), args, kwargs)`` of
     :mod:`.sharding` on this rank (every rank of the world runs the same
-    list) and return, a case each, ``("ok", encoded result)`` or
+    list), its operands on ``device`` (``"cuda"`` or ``"cpu"``), and
+    return, a case each, ``("ok", encoded result)`` or
     ``("raise", exception class names, message)``.  An exception is
     recorded and the next case runs: every gate the cases exercise raises
     before any collective, on every rank alike.  Raises ``RuntimeError`` if

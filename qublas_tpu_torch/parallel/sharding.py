@@ -28,12 +28,14 @@ Strategies (``qublas_tpu/parallel/sharding.py``'s module docstring):
   butterfly), the top layers fold with ``qreduce`` (K3).
 * ``"dp"``: batch over the whole mesh, one ``qgemul`` a rank.
 
-The JAX package checks at trace time that a configuration never takes a
-host route inside ``shard_map``; here the same 1-row x 1-col probe runs
-eagerly on CPU copies under :func:`~qublas_tpu_torch.qtensor.device_only`,
-and each rank's own compute runs under it too, so a host route raises the
-same ``ValueError``.  There is nothing to compile in eager torch, so the
-JAX package's program cache has no counterpart.
+The JAX package checks at trace time, on a 1-row x 1-col probe, that a
+configuration never takes a host route inside ``shard_map``; here the
+ops' own dispatch on formats decides it (:func:`~qublas_tpu_torch.ops.gemm.
+gemm_on_device`, :func:`~qublas_tpu_torch.ops.cgemm.cgemul_on_device`,
+:func:`~qublas_tpu_torch.ops.reduce.reduce_format`: nothing is computed),
+and such a configuration raises the same ``ValueError``.  There is
+nothing to compile in eager torch, so the JAX package's program cache has
+no counterpart.
 """
 
 from __future__ import annotations
@@ -45,12 +47,12 @@ import torch
 from ..ops import elementwise as ew
 from ..ops import limbint as L
 from ..ops.fused_gemm import int_dot
-from ..ops.gemm import _swap, exact_plan, pair_dot_2d, qgemul
-from ..ops.reduce import layer_format, qreduce
+from ..ops.gemm import _swap, exact_plan, gemm_on_device, pair_dot_2d, qgemul
+from ..ops.reduce import layer_format, qreduce, reduce_format
 from ..ops.wideint import requantize_i32, requantize_i64
 from ..ops.widths import Interval, fmt_interval, storage_kind, torch_dtype_for
 from ..qformat import QFormat, add_merge, mul_merge
-from ..qtensor import HostRouteError, QTensor, device_only
+from ..qtensor import QTensor
 from . import collectives as C
 from .collectives import Mesh, init_distributed, make_mesh
 
@@ -121,36 +123,32 @@ def _whole(t: QTensor, mesh: Mesh, spec) -> QTensor:
     return _wrap(C.unshard(leaf, mesh, _spec(spec, t.ndim), lead), t)
 
 
-def _cpu(t: QTensor) -> QTensor:
-    return t if t.is_host else t.to("cpu")
-
-
 # ---------------------------------------------------------------------------
-# the host-route probes (the JAX package's trace-time checks)
+# the host-route gates (the JAX package's trace-time checks)
 # ---------------------------------------------------------------------------
 
-def _check_traceable(pa: QTensor, pb: QTensor, out_fmt, mul_to, add_formats,
-                     kw, who: str) -> None:
-    """The JAX package's probe on 1-element slices: a configuration whose
-    routes fall off the device raises ``ValueError``.  Skipped for all-lane
-    configurations (lane operands and every explicit format lane-stored),
-    whose products and sums stay in the pair and limb envelopes.  The
-    probe is the port's own dispatch, on CPU copies, under
-    :func:`~qublas_tpu_torch.qtensor.device_only`."""
+def _traceable(a: QTensor, b: QTensor, out_fmt, mul_to, add_formats,
+               mul_full_prec: bool) -> bool:
+    """The JAX package's trace-time check: whether the configuration's
+    routes stay on the device.  All-lane configurations (lane operands and
+    every explicit format lane-stored) pass unchecked, as there: their
+    products and sums stay in the pair and limb envelopes.  Decided by
+    :func:`~qublas_tpu_torch.ops.gemm.gemm_on_device`."""
     fmts = [out_fmt] + ([mul_to] if mul_to is not None else []) \
         + list(add_formats)
-    if not (pa.is_pair or pb.is_pair or pa.is_limb or pb.is_limb
-            or pa.is_host or pb.is_host
+    if not (a.is_pair or b.is_pair or a.is_limb or b.is_limb
+            or a.is_host or b.is_host
             or any(storage_kind(f) != "lane" for f in fmts)):
-        return
-    if pa.is_host or pb.is_host:
+        return True
+    return gemm_on_device(a, b, out_fmt, mul_to, add_formats, mul_full_prec)
+
+
+def _check_traceable(a: QTensor, b: QTensor, out_fmt, mul_to, add_formats,
+                     kw, who: str) -> None:
+    """``ValueError`` for a configuration that takes a host route."""
+    if not _traceable(a, b, out_fmt, mul_to, add_formats,
+                      kw.get("mul_full_prec", False)):
         raise ValueError(_HOST_MSG.format(who=who))
-    try:
-        with device_only(who):
-            qgemul(_cpu(pa), _cpu(pb), out_fmt, mul_to=mul_to,
-                   add_formats=add_formats, **kw)
-    except HostRouteError as e:
-        raise ValueError(_HOST_MSG.format(who=who)) from e
 
 
 def _gemm_kw(kw: dict) -> dict:
@@ -198,15 +196,9 @@ def choose_strategy(a: QTensor, b: QTensor, out_fmt: QFormat, mesh_shape,
     m_, n_, k_ = a.shape[0], b.shape[-1], a.shape[-1]
     mn_ok = m_ % shape["dp"] == 0 and n_ % tp == 0
     s, _q, _E, _nn = _k_tree_split(k_, tp)
-    if s >= 3 and (not mn_ok or k_ >= 8 * max(m_, n_)):
-        try:
-            _check_traceable(a[0:1, :], b[:, 0:1], out_fmt, mul_to,
-                             add_formats,
-                             dict(mul_full_prec=mul_full_prec),
-                             "shard_qgemul auto k_tree")
-            return "k_tree"
-        except ValueError:
-            pass
+    if s >= 3 and (not mn_ok or k_ >= 8 * max(m_, n_)) and _traceable(
+            a, b, out_fmt, mul_to, add_formats, mul_full_prec):
+        return "k_tree"
     return "mn"
 
 
@@ -243,13 +235,12 @@ def sharded_qgemul_mn(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
     for its output block, so any accumulation config stays bit-exact.
     Configurations that take a host route raise ``ValueError``."""
     kw = _gemm_kw(kw)
-    _check_traceable(a[0:1, :], b[:, 0:1], out_fmt, mul_to, add_formats, kw,
+    _check_traceable(a, b, out_fmt, mul_to, add_formats, kw,
                      "sharded_qgemul_mn")
     la = _block(a, mesh, ("dp", None))
     lb = _block(b, mesh, (None, "tp"))
-    with device_only("sharded_qgemul_mn"):
-        c = qgemul(la, lb, out_fmt, mul_to=mul_to, add_formats=add_formats,
-                   **kw)
+    c = qgemul(la, lb, out_fmt, mul_to=mul_to, add_formats=add_formats,
+               **kw)
     return _whole(c, mesh, ("dp", "tp"))
 
 
@@ -308,14 +299,13 @@ def sharded_qgemul_k(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
     out_dtype = _k_gates(plan, out_fmt)
     la = _block(a, mesh, (None, "tp"))
     lb = _block(b, mesh, ("tp", None))
-    with device_only("sharded_qgemul_k"):
-        partial_dot = int_dot(la.data, lb.data)
-        if reduce_scatter:
-            dot = C.psum_scatter(partial_dot, mesh, "tp", dim=1)
-        else:
-            dot = C.psum(partial_dot, mesh, "tp")
-        res = _k_epilogue(dot, plan.prod_frac, out_fmt, out_dtype,
-                          epilogue_lut)
+    partial_dot = int_dot(la.data, lb.data)
+    if reduce_scatter:
+        dot = C.psum_scatter(partial_dot, mesh, "tp", dim=1)
+    else:
+        dot = C.psum(partial_dot, mesh, "tp")
+    res = _k_epilogue(dot, plan.prod_frac, out_fmt, out_dtype,
+                      epilogue_lut)
     return _whole(res, mesh, (None, "tp")) if reduce_scatter else res
 
 
@@ -349,16 +339,15 @@ def sharded_qgemul_k_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
     la = _block(a, mesh, (None, "tp"))
     lb = _block(b, mesh, ("tp", None))
     idx = mesh.get_local_rank("tp")
-    with device_only("sharded_qgemul_k_pipelined"):
-        x, y = la.data, lb.data
-        acc = torch.zeros((x.shape[0], bn), dtype=torch.int32,
-                          device=x.device)
-        for i in range(tp):
-            blk = (idx + tp - 1 - i) % tp
-            p = int_dot(x, y[:, blk * bn:(blk + 1) * bn])
-            acc = C.ppermute(acc, mesh, "tp", _ring(tp)) + p
-        res = _k_epilogue(acc, plan.prod_frac, out_fmt, out_dtype,
-                          epilogue_lut)
+    x, y = la.data, lb.data
+    acc = torch.zeros((x.shape[0], bn), dtype=torch.int32,
+                      device=x.device)
+    for i in range(tp):
+        blk = (idx + tp - 1 - i) % tp
+        p = int_dot(x, y[:, blk * bn:(blk + 1) * bn])
+        acc = C.ppermute(acc, mesh, "tp", _ring(tp)) + p
+    res = _k_epilogue(acc, plan.prod_frac, out_fmt, out_dtype,
+                      epilogue_lut)
     return _whole(res, mesh, (None, "tp"))
 
 
@@ -483,7 +472,7 @@ def sharded_qgemul_k_tree(a: QTensor, b: QTensor, out_fmt: QFormat,
     and has no counterpart here."""
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError("k_tree shards 2-D GEMMs (use dp for batches)")
-    _check_traceable(a[0:1, :], b[:, 0:1], out_fmt, mul_to, add_formats,
+    _check_traceable(a, b, out_fmt, mul_to, add_formats,
                      dict(mul_full_prec=mul_full_prec),
                      "sharded_qgemul_k_tree")
     k = a.shape[-1]
@@ -497,32 +486,31 @@ def sharded_qgemul_k_tree(a: QTensor, b: QTensor, out_fmt: QFormat,
     la = _block(_pad_k(a, 1, pad), mesh, (None, "tp"))
     lb = _block(_pad_k(b, 0, pad), mesh, ("tp", None))
     m, n = a.shape[0], b.shape[-1]
-    with device_only("sharded_qgemul_k_tree"):
-        if s == 0:
-            # nodes are the quantized products themselves
-            prod = ew.qmul(_unsqueeze_last(la), _unsqueeze0(lb), to=mul_to,
-                           full_prec=mul_full_prec)
-            nodes = _moveaxis(prod, 1, 0)
-        elif q == 1:
-            # the rank's span is ONE complete subtree: the local fold is a
-            # single-device qgemul whose tree ends in node_fmt
-            one = qgemul(la, lb, node_fmt, mul_to=mul_to,
-                         add_formats=add_formats,
-                         mul_full_prec=mul_full_prec)
-            if use_bf:
-                res = ew.qcast(_butterfly_fold(one, add_formats, s, mesh),
-                               out_fmt)
-                return res if epilogue_lut is None else epilogue_lut(res)
-            nodes = _unsqueeze0(one)
-        else:
-            # q complete subtrees: all at once, layered ([m, q, 2^s, n])
-            ca = _unsqueeze_last(_reshape(la, (m, q, 1 << s)))
-            rb = _reshape(lb, (q, 1 << s, n))
-            prod = ew.qmul(ca, rb, to=mul_to, full_prec=mul_full_prec)
-            nodes = _moveaxis(qreduce(prod, add_formats, axis=-2), 1, 0)
-        real = _gather_nodes(nodes, mesh)[0:n_nodes]   # drop pad nodes
-        res = ew.qcast(qreduce(real, top_layers, axis=0), out_fmt)
-        return res if epilogue_lut is None else epilogue_lut(res)
+    if s == 0:
+        # nodes are the quantized products themselves
+        prod = ew.qmul(_unsqueeze_last(la), _unsqueeze0(lb), to=mul_to,
+                       full_prec=mul_full_prec)
+        nodes = _moveaxis(prod, 1, 0)
+    elif q == 1:
+        # the rank's span is ONE complete subtree: the local fold is a
+        # single-device qgemul whose tree ends in node_fmt
+        one = qgemul(la, lb, node_fmt, mul_to=mul_to,
+                     add_formats=add_formats,
+                     mul_full_prec=mul_full_prec)
+        if use_bf:
+            res = ew.qcast(_butterfly_fold(one, add_formats, s, mesh),
+                           out_fmt)
+            return res if epilogue_lut is None else epilogue_lut(res)
+        nodes = _unsqueeze0(one)
+    else:
+        # q complete subtrees: all at once, layered ([m, q, 2^s, n])
+        ca = _unsqueeze_last(_reshape(la, (m, q, 1 << s)))
+        rb = _reshape(lb, (q, 1 << s, n))
+        prod = ew.qmul(ca, rb, to=mul_to, full_prec=mul_full_prec)
+        nodes = _moveaxis(qreduce(prod, add_formats, axis=-2), 1, 0)
+    real = _gather_nodes(nodes, mesh)[0:n_nodes]   # drop pad nodes
+    res = ew.qcast(qreduce(real, top_layers, axis=0), out_fmt)
+    return res if epilogue_lut is None else epilogue_lut(res)
 
 
 def _reshape(t: QTensor, shape) -> QTensor:
@@ -620,10 +608,9 @@ def sharded_qgemul_k_wide(a: QTensor, b: QTensor, out_fmt: QFormat,
             f"shards the output's N dim)")
     la = _block(a, mesh, (None, "tp"))
     lb = _block(b, mesh, ("tp", None))
-    with device_only("sharded_qgemul_k_wide"):
-        p = pair_dot_2d(la.data, lb.data, plan.prod_interval)
-        res = _pair_epilogue(_psum_pair(p, mesh, reduce_scatter),
-                             plan.prod_frac, out_fmt, epilogue_lut)
+    p = pair_dot_2d(la.data, lb.data, plan.prod_interval)
+    res = _pair_epilogue(_psum_pair(p, mesh, reduce_scatter),
+                         plan.prod_frac, out_fmt, epilogue_lut)
     return _whole(res, mesh, (None, "tp")) if reduce_scatter else res
 
 
@@ -658,15 +645,14 @@ def sharded_qgemul_k_wide_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
     la = _block(a, mesh, (None, "tp"))
     lb = _block(b, mesh, ("tp", None))
     idx = mesh.get_local_rank("tp")
-    with device_only("sharded_qgemul_k_wide_pipelined"):
-        acc = torch.zeros((la.shape[0], bn), dtype=torch.int64,
-                          device=mesh.device)
-        for i in range(tp):
-            blk = (idx + tp - 1 - i) % tp
-            p = pair_dot_2d(la.data, _slice_n(lb, blk * bn, bn).data,
-                            plan.prod_interval)
-            acc = C.ppermute(acc, mesh, "tp", _ring(tp)) + p
-        res = _pair_epilogue(acc, plan.prod_frac, out_fmt, epilogue_lut)
+    acc = torch.zeros((la.shape[0], bn), dtype=torch.int64,
+                      device=mesh.device)
+    for i in range(tp):
+        blk = (idx + tp - 1 - i) % tp
+        p = pair_dot_2d(la.data, _slice_n(lb, blk * bn, bn).data,
+                        plan.prod_interval)
+        acc = C.ppermute(acc, mesh, "tp", _ring(tp)) + p
+    res = _pair_epilogue(acc, plan.prod_frac, out_fmt, epilogue_lut)
     return _whole(res, mesh, (None, "tp"))
 
 
@@ -760,10 +746,9 @@ def sharded_qgemul_k_limb(a: QTensor, b: QTensor, out_fmt: QFormat,
     iva, ivb = fmt_interval(a.fmt), fmt_interval(b.fmt)
     la = _block(a, mesh, (None, "tp"))
     lb = _block(b, mesh, ("tp", None))
-    with device_only("sharded_qgemul_k_limb"):
-        acc = limb_dot_2d(la.data, lb.data, iva, ivb, Kw)
-        res = _limb_epilogue(_psum_limbs(acc, mesh, reduce_scatter),
-                             plan.prod_frac, out_fmt, epilogue_lut)
+    acc = limb_dot_2d(la.data, lb.data, iva, ivb, Kw)
+    res = _limb_epilogue(_psum_limbs(acc, mesh, reduce_scatter),
+                         plan.prod_frac, out_fmt, epilogue_lut)
     return _whole(res, mesh, (None, "tp")) if reduce_scatter else res
 
 
@@ -793,15 +778,14 @@ def sharded_qgemul_k_limb_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
     la = _block(a, mesh, (None, "tp"))
     lb = _block(b, mesh, ("tp", None))
     idx = mesh.get_local_rank("tp")
-    with device_only("sharded_qgemul_k_limb_pipelined"):
-        acc = torch.zeros((Kw, la.shape[0], bn), dtype=torch.int64,
-                          device=mesh.device)
-        for i in range(tp):
-            blk = (idx + tp - 1 - i) % tp
-            p = limb_dot_2d(la.data, _slice_n(lb, blk * bn, bn).data, iva,
-                            ivb, Kw)
-            acc = L.ladd(C.ppermute(acc, mesh, "tp", _ring(tp)), p)
-        res = _limb_epilogue(acc, plan.prod_frac, out_fmt, epilogue_lut)
+    acc = torch.zeros((Kw, la.shape[0], bn), dtype=torch.int64,
+                      device=mesh.device)
+    for i in range(tp):
+        blk = (idx + tp - 1 - i) % tp
+        p = limb_dot_2d(la.data, _slice_n(lb, blk * bn, bn).data, iva,
+                        ivb, Kw)
+        acc = L.ladd(C.ppermute(acc, mesh, "tp", _ring(tp)), p)
+    res = _limb_epilogue(acc, plan.prod_frac, out_fmt, epilogue_lut)
     return _whole(res, mesh, (None, "tp"))
 
 
@@ -817,16 +801,13 @@ def sharded_qgemul_dp(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
     if a.ndim < 3:
         raise ValueError("dp strategy needs a batched LHS [batch, m, k]")
     kw = _gemm_kw(kw)
-    pa = a[(0,) * (a.ndim - 2)][0:1, :]
-    pb = (b[(0,) * (b.ndim - 2)] if b.ndim > 2 else b)[:, 0:1]
-    _check_traceable(pa, pb, out_fmt, mul_to, add_formats, kw,
+    _check_traceable(a, b, out_fmt, mul_to, add_formats, kw,
                      "sharded_qgemul_dp")
     spec_a = (("dp", "tp"),)
     spec_b = spec_a if b.ndim == a.ndim else ()
     la, lb = _block(a, mesh, spec_a), _block(b, mesh, spec_b)
-    with device_only("sharded_qgemul_dp"):
-        c = qgemul(la, lb, out_fmt, mul_to=mul_to, add_formats=add_formats,
-                   **kw)
+    c = qgemul(la, lb, out_fmt, mul_to=mul_to, add_formats=add_formats,
+               **kw)
     return _whole(c, mesh, spec_a)
 
 
@@ -876,52 +857,26 @@ def _stack_complex(cs):
                     _stack_qt([c.imag for c in cs]))
 
 
-def _crow(c, i):
-    """1-row complex slice (the proof and format probe's operand)."""
-    return _complex(c.real[i:i + 1, :], c.imag[i:i + 1, :])
+def _check_ctraceable(a, b, out_fmt, algo, add_formats, mul_tags,
+                      who: str) -> None:
+    """The JAX package's trace-time check of a complex GEMM: ``ValueError``
+    for a configuration that takes a host route, decided by
+    :func:`~qublas_tpu_torch.ops.cgemm.cgemul_on_device`."""
+    from ..ops.cgemm import cgemul_on_device
 
-
-def _ccol(c, j):
-    """1-column complex slice."""
-    return _complex(c.real[:, j:j + 1], c.imag[:, j:j + 1])
-
-
-def _ccpu(c):
-    return _complex(_cpu(c.real), _cpu(c.imag))
-
-
-def _cgemul_probe(a, b, out_fmt, algo, add_formats, mul_tags, who: str):
-    """The JAX package's probe of a 1-row x 1-col complex GEMM with the
-    global K: raises ``ValueError`` for a configuration that takes a host
-    route, and returns the output part formats (inferred where ``out_fmt``
-    leaves them open).  Runs the port's ``cgemul`` on CPU copies under
-    :func:`~qublas_tpu_torch.qtensor.device_only`."""
-    from ..ops.cgemm import cgemul
-
-    if any(t.is_host for t in (a.real, a.imag, b.real, b.imag)):
+    if not cgemul_on_device(a, b, out_fmt, algo, add_formats, **mul_tags):
         raise ValueError(_CHOST_MSG.format(who=who))
-    pa = _complex(a.real[..., :1, :], a.imag[..., :1, :])
-    pb = _complex(b.real[..., :, :1], b.imag[..., :, :1])
-    try:
-        with device_only(who):
-            c = cgemul(_ccpu(pa), _ccpu(pb), out_fmt, algo=algo,
-                       add_formats=add_formats, **mul_tags)
-    except HostRouteError as e:
-        raise ValueError(_CHOST_MSG.format(who=who)) from e
-    return c.real.fmt, c.imag.fmt
 
 
-def _cfast_ok(a, b, out_fmt, algo, add_formats, mul_tags) -> bool:
-    """Whether the complex fast path's proof admits the whole call (a
-    1-row x 1-col probe with the global K and the whole output's caps)."""
-    from ..ops.cgemm import _fast_cgemul, _part_formats, _split_layers
+def _cfast_plan(a, b, out_fmt, algo, add_formats, mul_tags):
+    """The complex fast path's plan for the whole call (the global K and
+    the whole output's caps), or None where its proof fails."""
+    from ..ops.cgemm import _part_formats, _split_layers, fast_plan
 
     orf, oif = _part_formats(out_fmt)
     r_layers, i_layers = _split_layers(add_formats)
-    return _fast_cgemul(_ccpu(_crow(a, 0)), _ccpu(_ccol(b, 0)), orf, oif,
-                        algo, r_layers, i_layers, mul_tags,
-                        k_total=a.shape[-1],
-                        cap_mn=(a.shape[0], b.shape[-1])) is not None
+    return fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
+                     a.shape[-1], (a.shape[-2], b.shape[-1]))
 
 
 def choose_cgemul_strategy(a, b, out_fmt, mesh_shape, algo: str = "basic",
@@ -933,23 +888,21 @@ def choose_cgemul_strategy(a, b, out_fmt, mesh_shape, algo: str = "basic",
     output or the shape is K-dominated.  Batched operands: ``"dp"`` when
     the batch splits over the mesh, else ``"per_element"`` (2-D auto a
     batch element)."""
+    from ..ops.cgemm import cgemul_on_device
+
     shape = getattr(mesh_shape, "shape", mesh_shape)
     if a.real.ndim > 2:
         n_dev = shape["dp"] * shape["tp"]
         return "dp" if a.real.shape[0] % n_dev == 0 else "per_element"
-    if _cfast_ok(a, b, out_fmt, algo, add_formats, mul_tags) \
+    if _cfast_plan(a, b, out_fmt, algo, add_formats, mul_tags) is not None \
             and a.shape[-1] % shape["tp"] == 0:
         return "k"
     m_, n_, k_ = a.shape[0], b.shape[-1], a.shape[-1]
     mn_ok = m_ % shape["dp"] == 0 and n_ % shape["tp"] == 0
     s, _q, _E, _nn = _k_tree_split(k_, shape["tp"])
-    if s >= 3 and (not mn_ok or k_ >= 8 * max(m_, n_)):
-        try:
-            _cgemul_probe(a, b, out_fmt, algo, add_formats, mul_tags,
-                          "sharded_cgemul auto k_tree")
-            return "k_tree"
-        except ValueError:
-            pass
+    if s >= 3 and (not mn_ok or k_ >= 8 * max(m_, n_)) and \
+            cgemul_on_device(a, b, out_fmt, algo, add_formats, **mul_tags):
+        return "k_tree"
     return "mn"
 
 
@@ -995,12 +948,13 @@ def sharded_cgemul_k_tree(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
     """
     from ..complex import cmul, cmul_tf
     from ..hostops import complex_mul_basic, complex_mul_tf
-    from ..ops.cgemm import _split_layers, cgemul
+    from ..ops.cgemm import _part_formats, _split_layers, cgemul
 
     if a.real.ndim != 2 or b.real.ndim != 2:
         raise ValueError("k_tree shards 2-D complex GEMMs (dp for batches)")
-    orf, oif = _cgemul_probe(a, b, out_fmt, algo, add_formats, mul_tags,
-                             "sharded_cgemul_k_tree")
+    _check_ctraceable(a, b, out_fmt, algo, add_formats, mul_tags,
+                      "sharded_cgemul_k_tree")
+    orf, oif = _part_formats(out_fmt)
     k = a.shape[-1]
     tp = mesh.shape["tp"]
     s, q, E, n_nodes = _k_tree_split(k, tp)
@@ -1023,39 +977,38 @@ def sharded_cgemul_k_tree(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
     lb = _complex(*(_block(_pad_k(t, 0, pad), mesh, ("tp", None))
                     for t in _cparts(b)))
     m, n = a.real.shape[0], b.real.shape[-1]
-    with device_only("sharded_cgemul_k_tree"):
-        if q == 1 and s >= 1:
-            loc = cgemul(la, lb, (node_r, node_i), algo=algo,
-                         add_formats=add_formats, **mul_tags)
+    if q == 1 and s >= 1:
+        loc = cgemul(la, lb, (node_r, node_i), algo=algo,
+                     add_formats=add_formats, **mul_tags)
 
-            def fold_one(t, layers, top, of):
-                if use_bf:
-                    topv = _butterfly_fold(t, layers, s, mesh)
-                else:
-                    nodes = _gather_nodes(_unsqueeze0(t), mesh)[0:n_nodes]
-                    topv = qreduce(nodes, top, axis=0)
-                return ew.qcast(topv, of or topv.fmt)
-
-            return _complex(fold_one(loc.real, r_layers, top_r, orf),
-                            fold_one(loc.imag, i_layers, top_i, oif))
-        mulfn = cmul_tf if algo == "tf" else cmul
-        pa = _complex(*(_unsqueeze_last(t) for t in _cparts(la)))
-        pb = _complex(*(_unsqueeze0(t) for t in _cparts(lb)))
-        prod = mulfn(pa, pb, **mul_tags)         # [m, E, n] a part
-
-        def fold(t, layers, top, of):
-            if s == 0:
-                nodes = _moveaxis(t, 1, 0)
+        def fold_one(t, layers, top, of):
+            if use_bf:
+                topv = _butterfly_fold(t, layers, s, mesh)
             else:
-                sub = qreduce(_reshape(t, (m, q, 1 << s, n)), layers,
-                              axis=-2)            # [m, q, n]
-                nodes = _moveaxis(sub, 1, 0)
-            real_nodes = _gather_nodes(nodes, mesh)[0:n_nodes]
-            topv = qreduce(real_nodes, top, axis=0)
+                nodes = _gather_nodes(_unsqueeze0(t), mesh)[0:n_nodes]
+                topv = qreduce(nodes, top, axis=0)
             return ew.qcast(topv, of or topv.fmt)
 
-        return _complex(fold(prod.real, r_layers, top_r, orf),
-                        fold(prod.imag, i_layers, top_i, oif))
+        return _complex(fold_one(loc.real, r_layers, top_r, orf),
+                        fold_one(loc.imag, i_layers, top_i, oif))
+    mulfn = cmul_tf if algo == "tf" else cmul
+    pa = _complex(*(_unsqueeze_last(t) for t in _cparts(la)))
+    pb = _complex(*(_unsqueeze0(t) for t in _cparts(lb)))
+    prod = mulfn(pa, pb, **mul_tags)         # [m, E, n] a part
+
+    def fold(t, layers, top, of):
+        if s == 0:
+            nodes = _moveaxis(t, 1, 0)
+        else:
+            sub = qreduce(_reshape(t, (m, q, 1 << s, n)), layers,
+                          axis=-2)            # [m, q, n]
+            nodes = _moveaxis(sub, 1, 0)
+        real_nodes = _gather_nodes(nodes, mesh)[0:n_nodes]
+        topv = qreduce(real_nodes, top, axis=0)
+        return ew.qcast(topv, of or topv.fmt)
+
+    return _complex(fold(prod.real, r_layers, top_r, orf),
+                    fold(prod.imag, i_layers, top_i, oif))
 
 
 def sharded_cgemul_dp(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
@@ -1067,7 +1020,7 @@ def sharded_cgemul_dp(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
 
     if a.real.ndim < 3:
         raise ValueError("dp strategy needs a batched LHS [batch, m, k]")
-    _cgemul_probe(a, b, out_fmt, algo, add_formats, mul_tags,
+    _check_ctraceable(a, b, out_fmt, algo, add_formats, mul_tags,
                   "sharded_cgemul_dp")
     n_dev = mesh.shape["dp"] * mesh.shape["tp"]
     if a.real.shape[0] % n_dev:
@@ -1076,9 +1029,8 @@ def sharded_cgemul_dp(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
     spec_a = (("dp", "tp"),)
     spec_b = spec_a if b.real.ndim == a.real.ndim else ()
     la, lb = _cblock(a, mesh, spec_a), _cblock(b, mesh, spec_b)
-    with device_only("sharded_cgemul_dp"):
-        c = cgemul(la, lb, out_fmt, algo=algo, add_formats=add_formats,
-                   **mul_tags)
+    c = cgemul(la, lb, out_fmt, algo=algo, add_formats=add_formats,
+               **mul_tags)
     return _cwhole(c, mesh, spec_a)
 
 
@@ -1088,13 +1040,12 @@ def sharded_cgemul_mn(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
     for its block: bit-exact for every config."""
     from ..ops.cgemm import cgemul
 
-    _cgemul_probe(a, b, out_fmt, algo, add_formats, mul_tags,
+    _check_ctraceable(a, b, out_fmt, algo, add_formats, mul_tags,
                   "sharded_cgemul_mn")
     la = _cblock(a, mesh, ("dp", None))
     lb = _cblock(b, mesh, (None, "tp"))
-    with device_only("sharded_cgemul_mn"):
-        c = cgemul(la, lb, out_fmt, algo=algo, add_formats=add_formats,
-                   **mul_tags)
+    c = cgemul(la, lb, out_fmt, algo=algo, add_formats=add_formats,
+               **mul_tags)
     return _cwhole(c, mesh, ("dp", "tp"))
 
 
@@ -1107,7 +1058,8 @@ def sharded_cgemul_k(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
     with ``reduce_scatter=True``) before the exact shift/combine epilogue.
     Dots beyond int32 run as limb dots and sum with the carry-correct limb
     psum.  Requires the fast path's proof (``ValueError`` otherwise)."""
-    from ..ops.cgemm import _fast_cgemul, _part_formats, _split_layers
+    from ..ops.cgemm import _fast_cgemul, _LimbPlan, _part_formats, \
+        _split_layers
 
     k = a.shape[-1]
     tp = mesh.shape["tp"]
@@ -1119,18 +1071,14 @@ def sharded_cgemul_k(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
             f"shards the output's N dim)")
     orf, oif = _part_formats(out_fmt)
     r_layers, i_layers = _split_layers(add_formats)
-    # 1-row x 1-col probe with the GLOBAL k and the whole output's caps:
-    # the proof and the domain, decided as the whole call decides them
+    # the proof and the domain at the GLOBAL k and the whole output's caps
     cap = (a.shape[0], b.shape[-1])
-    pinfo = {}
-    probe = _fast_cgemul(_ccpu(_crow(a, 0)), _ccpu(_ccol(b, 0)), orf, oif,
-                         algo, r_layers, i_layers, mul_tags, k_total=k,
-                         cap_mn=cap, info=pinfo)
-    if probe is None:
+    fp = _cfast_plan(a, b, out_fmt, algo, add_formats, mul_tags)
+    if fp is None:
         raise ValueError(
             "K-sharded cgemul needs the lossless fast-path proof; this "
             "config is order-sensitive - use strategy='mn'")
-    if pinfo.get("domain") == "limb":
+    if isinstance(fp, _LimbPlan):
         # the JAX package's limb hook sums 16-bit columns: the same bound
         _check_psum_tp(mesh)
     if reduce_scatter:
@@ -1147,10 +1095,9 @@ def sharded_cgemul_k(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
             return _psum_limbs(d, mesh, False)
     la = _cblock(a, mesh, (None, "tp"))
     lb = _cblock(b, mesh, ("tp", None))
-    with device_only("sharded_cgemul_k"):
-        c = _fast_cgemul(la, lb, orf, oif, algo, r_layers, i_layers,
-                         mul_tags, dot_reduce=red, limb_dot_reduce=lred,
-                         k_total=k, cap_mn=cap)
+    c = _fast_cgemul(la, lb, orf, oif, algo, r_layers, i_layers,
+                     mul_tags, dot_reduce=red, limb_dot_reduce=lred,
+                     k_total=k, cap_mn=cap)
     if c is None:
         raise ValueError(
             "K-sharded cgemul needs the lossless fast-path proof; this "
@@ -1188,19 +1135,12 @@ def sharded_qreduce(x: QTensor, layer_formats=(), axis: int = -1,
     spec = [None] * x.ndim
     spec[batch_axis % x.ndim] = ("dp", "tp")
     out_spec = [s for i, s in enumerate(spec) if i != red_axis]
-    # the probe of one lane: a reduction that takes a host route raises
-    if x.is_host:
+    # a reduction that takes a host route raises
+    if x.is_host or reduce_format(x.fmt, layer_formats,
+                                  x.shape[red_axis]) is None:
         raise ValueError(_RHOST_MSG.format(who="sharded_qreduce"))
-    lane = x[tuple(slice(0, 1) if i != red_axis else slice(None)
-                   for i in range(x.ndim))]
-    try:
-        with device_only("sharded_qreduce"):
-            qreduce(_cpu(lane), layer_formats, axis=red_axis)
-    except HostRouteError as e:
-        raise ValueError(_RHOST_MSG.format(who="sharded_qreduce")) from e
     lx = _block(x, mesh, spec)
-    with device_only("sharded_qreduce"):
-        r = qreduce(lx, layer_formats, axis=red_axis)
+    r = qreduce(lx, layer_formats, axis=red_axis)
     return _whole(r, mesh, out_spec)
 
 
@@ -1265,22 +1205,21 @@ def sharded_qreduce_k(x: QTensor, layer_formats=(),
                 "the requantize epilogue outgrows int32 lanes for this "
                 "config - use the batch-sharded form")
     lx = _block(x, mesh, ("tp",))
-    with device_only("sharded_qreduce_k"):
-        if regime == "i32":
-            tot = C.psum(lx.data.to(torch.int32).sum(dim=0, keepdim=True,
-                                                     dtype=torch.int32),
-                         mesh, "tp")
-            raw = requantize_i32(tot, frac, final_fmt).to(out_dtype)
-            return QTensor(raw[0], final_fmt)
-        if regime == "limb":
-            part = limb_axis_sum(to_limbs_any(lx.data, limb_k), 0)
-            tot = _psum_limbs(part.reshape(limb_k, 1), mesh, False)
-            raw = L.requantize_limb(tot, frac, final_fmt)
-            return ew._finish(raw, final_fmt)[0]
-        tot = C.psum(lx.data.to(torch.int64).sum(dim=0, keepdim=True),
+    if regime == "i32":
+        tot = C.psum(lx.data.to(torch.int32).sum(dim=0, keepdim=True,
+                                                 dtype=torch.int32),
                      mesh, "tp")
-        return ew._finish(requantize_i64(tot, frac, final_fmt),
-                          final_fmt)[0]
+        raw = requantize_i32(tot, frac, final_fmt).to(out_dtype)
+        return QTensor(raw[0], final_fmt)
+    if regime == "limb":
+        part = limb_axis_sum(to_limbs_any(lx.data, limb_k), 0)
+        tot = _psum_limbs(part.reshape(limb_k, 1), mesh, False)
+        raw = L.requantize_limb(tot, frac, final_fmt)
+        return ew._finish(raw, final_fmt)[0]
+    tot = C.psum(lx.data.to(torch.int64).sum(dim=0, keepdim=True),
+                 mesh, "tp")
+    return ew._finish(requantize_i64(tot, frac, final_fmt),
+                      final_fmt)[0]
 
 
 def sharded_qreduce_k_tree(x: QTensor, layer_formats=(),
@@ -1303,22 +1242,17 @@ def sharded_qreduce_k_tree(x: QTensor, layer_formats=(),
     n = x.shape[0]
     tp = mesh.shape["tp"]
     s, q, E, n_nodes = _k_tree_split(n, tp)
-    try:
-        with device_only("sharded_qreduce_k_tree"):
-            qreduce(_cpu(x), layer_formats)
-    except HostRouteError as e:
-        raise ValueError(
-            _RHOST_MSG.format(who="sharded_qreduce_k_tree")) from e
+    if reduce_format(x.fmt, layer_formats, n) is None:
+        raise ValueError(_RHOST_MSG.format(who="sharded_qreduce_k_tree"))
     top_layers = _shift_layers(layer_formats, s)
     use_bf = _bf_ok(q, s, tp, n_nodes, butterfly)
     lx = _block(_pad_k(x, 0, tp * E - n), mesh, ("tp",))
-    with device_only("sharded_qreduce_k_tree"):
-        if s == 0:
-            nodes = lx                                   # [E] raw elements
-        else:
-            nodes = qreduce(_reshape(lx, (q, 1 << s)), layer_formats,
-                            axis=1)                      # [q]
-        if use_bf:
-            return _butterfly_fold(nodes, layer_formats, s, mesh)[0]
-        real = _gather_nodes(nodes, mesh)[0:n_nodes]
-        return qreduce(real, top_layers, axis=0)
+    if s == 0:
+        nodes = lx                                   # [E] raw elements
+    else:
+        nodes = qreduce(_reshape(lx, (q, 1 << s)), layer_formats,
+                        axis=1)                      # [q]
+    if use_bf:
+        return _butterfly_fold(nodes, layer_formats, s, mesh)[0]
+    real = _gather_nodes(nodes, mesh)[0:n_nodes]
+    return qreduce(real, top_layers, axis=0)
