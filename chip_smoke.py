@@ -95,6 +95,18 @@ Phases, each printing its lines:
       make on every rank, its collective bytes and rank 0's wall time
       beside the single-device time (Gloo through host memory: not an
       NVLink figure); no rank may import JAX;
+   k. the card differential (``qublas_tpu_torch.fuzz``, the port of the
+      JAX package's ``tools/deep_fuzz.py`` and ``tools/tpu_differential.py``):
+      every family at the trial counts of ``DIFF_TRIALS``, each trial held
+      to the host oracle and each kernel launch of the kernel families
+      (K1, K2, K2′, K2h, K3, P1 at random lossless, tree, hybrid and reduce
+      plans, every mode pair, each instantiation, shapes to the tile edges
+      and transposed, strided and offset views) to its plain version on
+      CPU copies; the coverage gate (every kernel row launched at least 20
+      times, K2's six instantiations, 10 mode pairs on K1's epilogue, K2's
+      run-time instantiations and K3); the three examples'
+      ``main("cuda")``; its launches on a line of their own, in no row of
+      the kernels line;
    every result is checked against the plain versions, and 16x16 corners
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
@@ -153,6 +165,12 @@ SHARD_WORLD = 4                   # j2, j3: ranks of the Gloo world
 SHARD_PIPE_N = 4096               # j3: the pipeline's first GEMM, N^3
 SHARD_TREE_N = 2048               # j3: canonical and hybrid GEMMs, N^3
 SHARD_TIMEOUT = 400               # seconds a world may take, spawn included
+# phase k: the card differential's trials a family (qublas_tpu_torch.fuzz)
+DIFF_TRIALS = {"routes": 1, "routes_sharded": 1, "elementwise": 120,
+               "cast": 200, "reduce": 100, "gemm": 100, "gemm_limbwide": 60,
+               "complex": 100, "cgemul": 60, "anus": 60, "bitstream": 200,
+               "bitwise": 60, "sharded": 30, "sharded_ktree": 30, "k1": 48,
+               "k2": 48, "k2s": 48, "k2h": 48, "k3": 48, "p1": 48}
 
 # peak rates of one H100 SXM at its 700 W limit: HBM bytes/s and int8
 # tensor-core ops/s (NVIDIA's data sheet), and int32 ops/s at the rate the
@@ -2333,6 +2351,43 @@ def phase_sharded(card):
     return ranks
 
 
+def phase_differential(card):
+    """Phase 3k: the card differential (``qublas_tpu_torch.fuzz``): every
+    family at ``DIFF_TRIALS`` trials, the curated route cases and the
+    sharded families in a spawned Gloo world of 2, each trial held to the
+    host oracle and, in the kernel families, each kernel launch to its
+    plain version on CPU copies; then the coverage gate (each of the seven
+    kernel rows launched at least ``fuzz.MIN_LAUNCHES`` times, K2's six
+    instantiations launched, ``fuzz.MIN_PAIRS`` mode pairs on K1's
+    epilogue, K2's run-time instantiations and K3), and the three examples'
+    ``main("cuda")``.  A mismatch, a crash or a gate finding fails the
+    run; these launches count in no row of the kernels line."""
+    from qublas_tpu_torch import _build, fuzz
+    from qublas_tpu_torch.examples import (asic_datapath_sim,
+                                           sharded_deployment,
+                                           wide_formats_and_sharding)
+
+    t0 = time.perf_counter()
+    res = fuzz.run(DIFF_TRIALS, "cuda")  # a line a family and a kernel
+    print("path k launches " + json.dumps(
+        {r["name"]: {"launches": r["launches"],
+                     "mode_pairs": r["mode_pairs"]}
+         for r in res["kernels"]}))
+    assert res["fails"] == 0, f"path k: {res['fails']} mismatches"
+    assert not res["gate"], f"path k gate: {res['gate']}"
+    t1 = time.perf_counter()
+    ckpt = _build.BUILD_DIR / "examples"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    asic_datapath_sim.main("cuda", str(ckpt / "datapath_ckpt.npz"))
+    wide_formats_and_sharding.main("cuda")
+    sharded_deployment.main("cuda", str(ckpt / "deployment_ckpt.npz"))
+    t2 = time.perf_counter()
+    print(f"path k: the examples on the card in {t2 - t1:.1f} s wall, "
+          f"their worlds' spawns included [{card}]")
+    print(f"path k: {res['trials']} trials, 0 mismatches, the gate met, "
+          f"{t2 - t0:.1f} s wall [{card}]")
+
+
 def hybrid_tail_ops(hp, out_fmt, k, pairs=False):
     """int32 operations of K2h's tail for one output element: the shift of
     each of the k / s block values (dl > 0), the tail's tree of merges over
@@ -2903,6 +2958,7 @@ def main() -> int:
     launches_i, state_i = phase_hybrid(dev, chk)
     phase_host(dev)
     phase_sharded(card)
+    phase_differential(card)
     t, bounds = phase_times(card, state_a, state_b, state_d, chain_rate,
                             state_f)
     limb_times(card, state_g, t, bounds)

@@ -25,7 +25,7 @@ from typing import Optional
 
 from .qformat import QFormat
 
-__all__ = ["lib", "check", "rq_args", "library_path"]
+__all__ = ["lib", "check", "rq_args", "library_path", "record"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "qublas_tpu_torch"
@@ -163,3 +163,13 @@ def rq_args(from_frac: int, fmt: QFormat):
     ``Rq`` fields: shift, round mode, overflow mode, width, signedness."""
     return (from_frac - fmt.frac_bits, int(fmt.round_mode),
             int(fmt.overflow_mode), fmt.storage_bits, int(fmt.signed))
+
+
+def record(wrapper, instance: str, fmts=()):
+    """Note one launch of ``wrapper``'s kernel in ``wrapper.seen``, a
+    ``Counter`` keyed by (instantiation, the (round, overflow) pairs of the
+    formats ``fmts`` that its requantize steps write): what a sweep reads
+    to tell which variants of a kernel it reached."""
+    pairs = tuple(sorted({(f.round_mode.name, f.overflow_mode.name)
+                          for f in fmts}))
+    wrapper.seen[(instance, pairs)] += 1

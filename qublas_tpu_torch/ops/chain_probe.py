@@ -23,6 +23,8 @@ that of 67M independent chains each T steps deep, not of one serial chain.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import torch
 
@@ -65,7 +67,7 @@ def p1_plan(plan: TreePlan) -> int:
     step is layer 0's, or 0 (every step read at run time).  P1 reads no
     other level, so the upper levels' steps do not matter, as they do for
     K2′'s ``k2s_plan``."""
-    route = ROUTES[plan.prod_route]
+    route = ROUTES.get(plan.prod_route)
     prod = _build.rq_args(plan.prod_frac, plan.mul_fmt)
     merge0 = _build.rq_args(plan.level_fmts[0].frac_bits, plan.merge_fmts[0])
     for i, entry in enumerate(K2S_PLANS):
@@ -101,7 +103,8 @@ def chain_probe(x: torch.Tensor, y: torch.Tensor, plan: TreePlan,
 
     CPU tensors take the plain version; CUDA tensors launch P1, the
     instantiation of :func:`p1_plan`.
-    ``chain_probe.launches`` counts kernel launches.
+    ``chain_probe.launches`` counts kernel launches, ``chain_probe.seen``
+    (``_build.record``) each launch's instantiation and its steps' modes.
     """
     if x.shape != y.shape:
         raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} differ")
@@ -122,10 +125,13 @@ def chain_probe(x: torch.Tensor, y: torch.Tensor, plan: TreePlan,
     out = _launch(x, y, plan, steps, programs, plan._kernel_cache["p1"])
     if out.numel():
         chain_probe.launches += 1
+        _build.record(chain_probe, f"plan_{plan._kernel_cache['p1']}",
+                      (plan.mul_fmt, plan.merge_fmts[0]))
     return out
 
 
 chain_probe.launches = 0
+chain_probe.seen = Counter()
 
 
 def probe_tile(fmt: QFormat, device):

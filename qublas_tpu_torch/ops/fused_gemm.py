@@ -23,6 +23,8 @@ int32 dot that the complex GEMM's fast path combines (the JAX package's
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from .. import _build
@@ -78,9 +80,11 @@ def k1_operand(t: torch.Tensor) -> torch.Tensor:
     return buf[:, :k]
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor, rq, out_dtype) -> torch.Tensor:
+def _launch(a: torch.Tensor, b: torch.Tensor, rq, out_dtype,
+            out_fmt=None) -> torch.Tensor:
     """Launch K1 on CUDA operands with the requantize ``rq``
-    (``csrc/requant.cuh``'s ``Rq`` fields)."""
+    (``csrc/requant.cuh``'s ``Rq`` fields) into ``out_fmt``, or the
+    identity epilogue of :func:`int_dot` where ``out_fmt`` is None."""
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
@@ -91,11 +95,13 @@ def _launch(a: torch.Tensor, b: torch.Tensor, rq, out_dtype) -> torch.Tensor:
     if a.dtype == torch.int8 and b.dtype == torch.int8:
         a8 = k1_operand(a)
         bt = k1_operand(b.t())  # [N, K]
+        instance = f"s8/{k1_route(a)}/{k1_route(b.t())}"
         err = lib.qk_fused_gemm_s8(a.device.index, a8.data_ptr(), a8.stride(0),
                                    bt.data_ptr(), bt.stride(0),
                                    out.data_ptr(), m, n, k,
                                    out.element_size(), *rq, stream)
     else:
+        instance = "s32"
         a32 = a.to(torch.int32).contiguous()
         b32 = b.to(torch.int32).contiguous()
         err = lib.qk_fused_gemm_s32(a.device.index, a32.data_ptr(),
@@ -103,6 +109,10 @@ def _launch(a: torch.Tensor, b: torch.Tensor, rq, out_dtype) -> torch.Tensor:
                                     out.element_size(), *rq, stream)
     _build.check(err, "fused_int8_gemm")
     fused_int8_gemm.launches += 1
+    if out_fmt is None:
+        _build.record(fused_int8_gemm, "int_dot/" + instance)
+    else:
+        _build.record(fused_int8_gemm, "gemm/" + instance, (out_fmt,))
     return out
 
 
@@ -125,7 +135,9 @@ def fused_int8_gemm(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
     ``a`` [M, K] and ``b`` [K, N], stored in ``torch_dtype_for(out_fmt)``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
-    ``fused_int8_gemm.launches`` counts kernel launches.
+    ``fused_int8_gemm.launches`` counts kernel launches, and
+    ``fused_int8_gemm.seen`` (``_build.record``) each launch's route and
+    epilogue modes.
     """
     _check_operands("fused_int8_gemm", a, b)
     out_dtype = torch_dtype_for(out_fmt)
@@ -133,7 +145,8 @@ def fused_int8_gemm(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
         raise ValueError(f"{out_fmt} has no lane storage")
     if a.device.type == "cpu":
         return fused_int8_gemm_plain(a, b, prod_frac, out_fmt)
-    return _launch(a, b, _build.rq_args(prod_frac, out_fmt), out_dtype)
+    return _launch(a, b, _build.rq_args(prod_frac, out_fmt), out_dtype,
+                   out_fmt)
 
 
 # K1's identity epilogue: requant.cuh returns y unchanged for d = 0 under
@@ -166,3 +179,4 @@ def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 fused_int8_gemm.launches = 0
+fused_int8_gemm.seen = Counter()

@@ -71,6 +71,7 @@ from . import limbint as L
 from .fused_gemm import fused_int8_gemm, int_dot
 from .reduce import layer_format, qreduce, reduce_format
 from .tree_gemm import (
+    ROUTES,
     drain_ops,
     plan_hybrid,
     plan_tree,
@@ -326,7 +327,10 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
             return _over_batch(lambda x, y: QTensor(tree_gemm_hybrid(
                 x.data, y.data, hplan, out_fmt), out_fmt), a, b, batch)
         tplan = plan_tree(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
-        if tplan is not None:
+        # K2 requantizes products on the int32 and 64-bit routes; a plan
+        # whose product needs wider working bits ("limb") takes the tiers
+        # below, whose products run on limbs
+        if tplan is not None and tplan.prod_route in ROUTES:
             return _over_batch(lambda x, y: QTensor(tree_gemm(
                 x.data, y.data, tplan, out_fmt), out_fmt), a, b, batch)
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 
 import numpy as np
 import torch
@@ -271,7 +272,9 @@ def qreduce_kernel(x: torch.Tensor, axis: int, plan: ReducePlan):
 
     CPU tensors take the plain version; CUDA tensors launch K3, the kernel
     of :func:`k3_route` with the modes of :func:`k3_modes`.
-    ``qreduce_kernel.launches`` counts kernel launches.
+    ``qreduce_kernel.launches`` counts kernel launches,
+    ``qreduce_kernel.seen`` (``_build.record``) each launch's kernel, S,
+    instantiation and lane bytes and its layers' modes.
     """
     if x.dtype not in LANE_DTYPES:
         raise TypeError(f"qreduce_kernel takes int8/int16/int32 lanes, got "
@@ -292,7 +295,7 @@ def qreduce_kernel(x: torch.Tensor, axis: int, plan: ReducePlan):
     outer = math.prod(shape[:axis])
     inner = math.prod(shape[axis + 1:])
     x = x.contiguous()  # read in place as [outer, n, inner]
-    _, lanes = k3_route(x, axis, plan)
+    route, lanes = k3_route(x, axis, plan)
     dev = x.device.index
     err = _build.lib().qk_qreduce(
         dev, x.data_ptr(), out.data_ptr(), outer, plan.n, inner,
@@ -300,10 +303,14 @@ def qreduce_kernel(x: torch.Tensor, axis: int, plan: ReducePlan):
         plan.modes, lanes, torch._C._cuda_getCurrentRawStream(dev))
     _build.check(err, "qreduce_kernel")
     qreduce_kernel.launches += 1
+    _build.record(qreduce_kernel,
+                  f"{route}_{lanes}/modes_{plan.modes}/{x.element_size()}",
+                  plan.merge_fmts)
     return out
 
 
 qreduce_kernel.launches = 0
+qreduce_kernel.seen = Counter()
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -72,7 +73,7 @@ from .widths import (
 __all__ = ["TreePlan", "plan_tree", "level_formats", "drain_ops", "ROUTES",
            "tree_gemm", "tree_gemm_plain", "tree_gemm_stream",
            "tree_gemm_stream_plain", "K2_LOG_BLK", "K2_MODES", "k2_modes",
-           "K2S_LOG_S", "K2S_PLANS", "k2s_plan", "k2s_operand",
+           "K2S_LOG_S", "K2S_PLANS", "k2s_plan", "k2s_operand", "k2s_route",
            "HybridPlan", "plan_hybrid", "tree_gemm_hybrid",
            "tree_gemm_hybrid_plain", "k2h_route", "K2H_MODES",
            "k2h_modes"]
@@ -401,6 +402,9 @@ def _kernel_params(plan: TreePlan, out_fmt: QFormat, log_blk: int):
 
 
 def _build_params(plan: TreePlan, out_fmt: QFormat, log_blk: int):
+    if plan.prod_route not in ROUTES:
+        raise ValueError(f"the tree kernels take products on the routes "
+                         f"{tuple(ROUTES)}, not {plan.prod_route!r}")
     p = [ROUTES[plan.prod_route], log_blk,
          *_build.rq_args(plan.prod_frac, plan.mul_fmt),
          plan.levels]
@@ -458,7 +462,7 @@ def k2s_plan(plan: TreePlan) -> int:
     merge step every tree merge (the drain's converts included) has, or 0
     (every step read at run time).  The final requantize into the output
     format always reads its step at run time."""
-    route = ROUTES[plan.prod_route]
+    route = ROUTES.get(plan.prod_route)
     prod = _build.rq_args(plan.prod_frac, plan.mul_fmt)
     merges = {_build.rq_args(plan.level_fmts[l].frac_bits, plan.merge_fmts[l])
               for l in range(plan.levels)}
@@ -468,16 +472,24 @@ def k2s_plan(plan: TreePlan) -> int:
     return 0
 
 
+def k2s_route(t32: torch.Tensor) -> str:
+    """How K2′'s TMA reads the 2-D int32 tensor ``t32``: "direct" when its
+    rows are contiguous, its pitch a multiple of 4 elements and its base
+    16-byte aligned, else "pitched" (a copy, :func:`k2s_operand`)."""
+    if t32.stride(1) == 1 and t32.stride(0) % 4 == 0 \
+            and t32.stride(0) >= t32.shape[1] and t32.data_ptr() % 16 == 0:
+        return "direct"
+    return "pitched"
+
+
 def k2s_operand(t: torch.Tensor):
     """``(tensor, row pitch in elements)`` as K2′'s TMA reads the int32
-    lanes of the 2-D ``t``: ``t`` itself ("direct") when its rows are
-    contiguous, its pitch a multiple of 4 elements and its base 16-byte
-    aligned, else a copy whose pitch is rounded up to 4 ("pitched"); the
+    lanes of the 2-D ``t``: ``t`` itself where :func:`k2s_route` says
+    "direct", else a copy whose pitch is rounded up to 4 ("pitched"); the
     columns past ``t``'s are zero and never read as products."""
     t32 = t.to(torch.int32)
     rows, cols = t32.shape
-    if t32.stride(1) == 1 and t32.stride(0) % 4 == 0 \
-            and t32.stride(0) >= cols and t32.data_ptr() % 16 == 0:
+    if k2s_route(t32) == "direct":
         return t32, t32.stride(0)
     pitch = -(-cols // 4) * 4
     buf = torch.zeros((rows, pitch), dtype=torch.int32, device=t.device)
@@ -485,10 +497,17 @@ def k2s_operand(t: torch.Tensor):
     return buf, pitch
 
 
+def _step_fmts(plan: TreePlan, out_fmt: QFormat):
+    """The formats that the requantize steps of ``plan`` into ``out_fmt``
+    write (the product, every tree merge, the final requantize), for
+    ``_build.record``."""
+    return (plan.mul_fmt, *plan.merge_fmts, out_fmt)
+
+
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
             out_fmt: QFormat):
     """Check the operands; None for CPU tensors, else the output of the
-    kernel ``name`` launched on them."""
+    kernel ``name`` launched on them and its instantiation's name."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0] \
             or a.shape[1] != plan.k:
         raise ValueError(f"need [M, {plan.k}] @ [{plan.k}, N], got "
@@ -506,20 +525,27 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
     n = b.shape[1]
     out = torch.empty((m, n), dtype=torch_dtype_for(out_fmt), device=a.device)
     if m == 0 or n == 0:
-        return out
+        return out, None
     lib = _build.lib()
     dev = a.device.index
     stream = torch._C._cuda_getCurrentRawStream(dev)
     if name == "tree_gemm":
         a32 = a.to(torch.int32).contiguous()
         b32 = b.to(torch.int32).contiguous()
+        modes = k2_modes(plan)
         err = lib.qk_tree_gemm(dev, a32.data_ptr(), b32.data_ptr(),
                                out.data_ptr(), m, n, k, out.element_size(),
                                _kernel_params(plan, out_fmt, K2_LOG_BLK),
-                               k2_modes(plan), stream)
+                               modes, stream)
+        # csrc/tree_gemm_tiled.cu's instantiations: an 8-level slot stack
+        # below k = 4096, 32 levels from there
+        top = 8 if (k >> K2_LOG_BLK).bit_length() <= 8 else 32
+        instance = f"tiled_{top}_{modes}"
     else:
-        a32, lda = k2s_operand(a)
-        b32, ldb = k2s_operand(b)
+        a32, b32 = a.to(torch.int32), b.to(torch.int32)
+        routes = f"{k2s_route(a32)}/{k2s_route(b32)}"
+        a32, lda = k2s_operand(a32)
+        b32, ldb = k2s_operand(b32)
         if "k2s" not in plan._kernel_cache:
             plan._kernel_cache["k2s"] = k2s_plan(plan)
         err = lib.qk_tree_gemm_stream(dev, a32.data_ptr(), lda,
@@ -527,8 +553,9 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
                                       m, n, k, out.element_size(),
                                       _kernel_params(plan, out_fmt, 0),
                                       plan._kernel_cache["k2s"], stream)
+        instance = f"plan_{plan._kernel_cache['k2s']}/{routes}"
     _build.check(err, name)
-    return out
+    return out, instance
 
 
 def tree_gemm(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
@@ -537,12 +564,16 @@ def tree_gemm(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
     ``plan``, stored in ``torch_dtype_for(out_fmt)``.
 
     CPU tensors take the plain version; CUDA tensors launch K2.
-    ``tree_gemm.launches`` counts kernel launches.
+    ``tree_gemm.launches`` counts kernel launches, ``tree_gemm.seen``
+    (``_build.record``) each launch's instantiation and its steps' modes.
     """
-    out = _launch("tree_gemm", a, b, plan, out_fmt)
-    if out is None:
+    res = _launch("tree_gemm", a, b, plan, out_fmt)
+    if res is None:
         return tree_gemm_plain(a, b, plan, out_fmt)
-    tree_gemm.launches += 1
+    out, instance = res
+    if instance is not None:
+        tree_gemm.launches += 1
+        _build.record(tree_gemm, instance, _step_fmts(plan, out_fmt))
     return out
 
 
@@ -553,17 +584,24 @@ def tree_gemm_stream(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
 
     CPU tensors take the plain version; CUDA tensors launch K2′, the
     instantiation of :func:`k2s_plan`.
-    ``tree_gemm_stream.launches`` counts kernel launches.
+    ``tree_gemm_stream.launches`` counts kernel launches,
+    ``tree_gemm_stream.seen`` each launch's instantiation and operand
+    routes (:func:`k2s_route`) and its steps' modes.
     """
-    out = _launch("tree_gemm_stream", a, b, plan, out_fmt)
-    if out is None:
+    res = _launch("tree_gemm_stream", a, b, plan, out_fmt)
+    if res is None:
         return tree_gemm_stream_plain(a, b, plan, out_fmt)
-    tree_gemm_stream.launches += 1
+    out, instance = res
+    if instance is not None:
+        tree_gemm_stream.launches += 1
+        _build.record(tree_gemm_stream, instance, _step_fmts(plan, out_fmt))
     return out
 
 
 tree_gemm.launches = 0
+tree_gemm.seen = Counter()
 tree_gemm_stream.launches = 0
+tree_gemm_stream.seen = Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -687,7 +725,9 @@ def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
     of :func:`k2h_route`, and raise if it refuses them.
     ``tree_gemm_hybrid.launches`` counts launches of either kernel,
     ``tree_gemm_hybrid.mma_launches`` those of the tensor-core kernel and
-    ``tree_gemm_hybrid.imad_launches`` those of the IMAD kernel.
+    ``tree_gemm_hybrid.imad_launches`` those of the IMAD kernel;
+    ``tree_gemm_hybrid.seen`` (``_build.record``) each launch's kernel and
+    instantiation and its tail's modes.
     """
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0] \
             or a.shape[1] % plan.s:
@@ -724,6 +764,7 @@ def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
             stream)
         _build.check(err, "tree_gemm_hybrid (tensor-core kernel)")
         tree_gemm_hybrid.mma_launches += 1
+        instance = f"mma_{plan._kernel_cache[key]}"
     else:
         # the IMAD kernel stages int32 slices: a widening copy of each
         # operand a call, inside the kernel's event-timed time
@@ -734,10 +775,15 @@ def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
             out.element_size(), params, stream)
         _build.check(err, "tree_gemm_hybrid (IMAD kernel)")
         tree_gemm_hybrid.imad_launches += 1
+        instance = "imad"
     tree_gemm_hybrid.launches += 1
+    levels = max((k // plan.s).bit_length(), 1)
+    _build.record(tree_gemm_hybrid, instance,
+                  (*plan.merge_fmts[plan.level:plan.level + levels], out_fmt))
     return out
 
 
 tree_gemm_hybrid.launches = 0
 tree_gemm_hybrid.mma_launches = 0
 tree_gemm_hybrid.imad_launches = 0
+tree_gemm_hybrid.seen = Counter()

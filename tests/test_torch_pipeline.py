@@ -194,6 +194,13 @@ def test_port_runs_without_jax():
         " strategy='mn')\n"
         "assert sk.shape == sm.shape == (4, 4)\n"
         "dist.destroy_process_group()\n"
+        "from qublas_tpu_torch import fuzz\n"
+        "from qublas_tpu_torch.examples import asic_datapath_sim, "
+        "sharded_deployment, wide_formats_and_sharding\n"
+        "sw = fuzz.Sweep('cpu', echo=False)\n"
+        "fuzz.sweep_k2(sw, 1)\n"
+        "fuzz.sweep_cast(sw, 1)\n"
+        "assert sw.fails == 0, sw.lines\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'qublas_tpu' or m.startswith('qublas_tpu.')]\n"
         "assert not bad, bad\n"
