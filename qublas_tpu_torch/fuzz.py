@@ -80,6 +80,7 @@ __all__ = ["Sweep", "rng_for", "rand_fmt", "rand_raws", "trial_counts",
 WORLD = 2             # ranks of the world that runs the sharded families
 MIN_LAUNCHES = 20     # launches each kernel must see in a sweep on the card
 MIN_PAIRS = 10        # distinct (round, overflow) pairs the gate asks for
+P1_MAX_PAST = 0.10    # share of P1's sampled chains that may leave the proof
 ORACLE_PRODUCTS = 4096  # products of a GEMM trial checked whole by hostops
 TILE_EDGES = (1, 63, 64, 65, 127, 128, 129)
 MODES = [(r, o) for r in RoundMode for o in OverflowMode]
@@ -97,6 +98,9 @@ class Sweep:
         self.crashes = 0
         self.refusals = 0   # clean ValueErrors of the sharded strategies
         self.lines = []
+        self.notes = {}     # family -> what its line adds
+        # P1's sampled chains: held to hostint, or past the proof (no oracle)
+        self.p1_held = self.p1_past = 0
 
     def fail(self, *msg):
         self.fails += 1
@@ -109,6 +113,24 @@ class Sweep:
 
     def q(self, raws, fmt) -> QTensor:
         return from_raw(raws, fmt, device=self.device)
+
+
+class NoCase(Exception):
+    """A kernel family's generator found no configuration in its envelope."""
+
+
+def draw(sw: Sweep, tag, t, gen):
+    """Trial ``t`` of family ``tag``: ``gen(t)``, or None once a failure
+    with its repro is counted, where the generator found no case or
+    raised."""
+    try:
+        return gen(t)
+    except NoCase as e:
+        sw.fail(f"{tag}[{t}]", "the generator found no case:", str(e))
+    except Exception as e:  # noqa: BLE001
+        sw.fail("CRASH", f"{tag}[{t}] drawing its case", type(e).__name__,
+                str(e)[:200])
+    return None
 
 
 def rng_for(tag, t):
@@ -1118,6 +1140,8 @@ def k1_case(t):
                 and G.limb_dot_plan(fa, fb, out, plan, k, 3, 3) is not None
         if ok:
             break
+    if plan is None:
+        raise NoCase("no exact_plan plan in 400 draws")
     if t % 12 == 1:
         m, n = rand_dim(rng, 200), rand_dim(rng, 200)
     else:
@@ -1150,9 +1174,6 @@ def k1_check(sw: Sweep, case, t):
                             case["B"])
     plan = case["plan"]
     what = f"k1[{t}] {kind} {fa} {fb} {out} {layers} {A.shape}@{B.shape}"
-    if plan is None:
-        sw.fail(what, "the generator found no lossless plan")
-        return
     try:
         m, k = A.shape
         n = B.shape[1]
@@ -1195,7 +1216,9 @@ def k1_check(sw: Sweep, case, t):
 
 def sweep_k1(sw: Sweep, trials):
     for t in range(trials):
-        k1_check(sw, k1_case(t), t)
+        case = draw(sw, "k1", t, k1_case)
+        if case is not None:
+            k1_check(sw, case, t)
     return trials
 
 
@@ -1256,6 +1279,8 @@ def k2_case(t, tag="k2"):
         best = (fa, fb, mul_to, layers, out, plan, k)
         if TG.k2_modes(plan) == modes:
             break
+    if best is None:
+        raise NoCase("no plan_tree plan in 400 draws")
     fa, fb, mul_to, layers, out, plan, k = best
     if top == 32:
         m, n = int(rng.randint(1, 7)), int(rng.randint(1, 7))
@@ -1280,11 +1305,14 @@ def k2s_case(t):
         f = qformat(8, 8, True, *MODES[rng.randint(0, len(MODES))])
         z = qformat(8, 8, True, *TZ)
         k = rand_k(rng, 32, 2100)
-        plan = None
-        while plan is None:
+        for _ in range(400):
             out = lane_fmt(rng, 2, 31)
             plan = TG.plan_tree(f, f, mul_merge(f, f, z, False), (z,), k,
                                 out)
+            if plan is not None:
+                break
+        else:
+            raise NoCase("no plan_tree plan in 400 draws")
         m, n = rand_dim(rng, 64), rand_dim(rng, 64)
         return dict(fa=f, fb=f, mul_to=z, layers=(z,), out=out, plan=plan,
                     A=raws_array(rng, f, (m, k)), B=raws_array(rng, f, (k, n)),
@@ -1321,16 +1349,20 @@ def _tree_check(sw: Sweep, case, t, kernel, name):
         sw.fail("CRASH", what, type(e).__name__, str(e)[:200])
 
 
-def sweep_k2(sw: Sweep, trials):
+def _sweep_tree(sw: Sweep, trials, tag, gen, kernel):
     for t in range(trials):
-        _tree_check(sw, k2_case(t), t, TG.tree_gemm, "k2")
+        case = draw(sw, tag, t, gen)
+        if case is not None:
+            _tree_check(sw, case, t, kernel, tag)
     return trials
+
+
+def sweep_k2(sw: Sweep, trials):
+    return _sweep_tree(sw, trials, "k2", k2_case, TG.tree_gemm)
 
 
 def sweep_k2s(sw: Sweep, trials):
-    for t in range(trials):
-        _tree_check(sw, k2s_case(t), t, TG.tree_gemm_stream, "k2s")
-    return trials
+    return _sweep_tree(sw, trials, "k2s", k2s_case, TG.tree_gemm_stream)
 
 
 # -- K2h ----------------------------------------------------------------------
@@ -1389,6 +1421,8 @@ def k2h_case(t):
         best = (fa, fb, mul_to, layers, out, hp, k)
         if not mma or TG.k2h_modes(hp, k) == (t // 2) % 3:
             break
+    if best is None:
+        raise NoCase("no plan_hybrid plan in 400 draws")
     fa, fb, mul_to, layers, out, hp, k = best
     m, n = (rand_dim(rng, 160), rand_dim(rng, 160)) if t % 8 == 3 \
         else (rand_dim(rng, 40), rand_dim(rng, 40))
@@ -1400,9 +1434,7 @@ def k2h_case(t):
 
 
 def sweep_k2h(sw: Sweep, trials):
-    for t in range(trials):
-        _tree_check(sw, k2h_case(t), t, TG.tree_gemm_hybrid, "k2h")
-    return trials
+    return _sweep_tree(sw, trials, "k2h", k2h_case, TG.tree_gemm_hybrid)
 
 
 # -- K3 ---------------------------------------------------------------------
@@ -1444,6 +1476,8 @@ def k3_case(t):
         plan = plan_reduce(fmt, layers, n)
         if plan is not None and (tails is None or plan.modes):
             break
+    if plan is None:
+        raise NoCase("no plan_reduce lane plan in 400 draws")
     rows = int(rng.randint(1, 65))
     inner = int(rng.randint(2, 9)) if route == "columns" else 1
     view = "offset16" if route == "warp" and rng.randint(0, 3) == 0 \
@@ -1509,9 +1543,6 @@ def k3_check(sw: Sweep, case, t):
         return
     fmt, layers, plan, X = case["fmt"], case["layers"], case["plan"], case["X"]
     what = f"k3[{t}] {fmt} {layers} {X.shape} {case['view']}"
-    if plan is None:
-        sw.fail(what, "the generator found no lane plan")
-        return
     try:
         xc, axis = k3_operand(case, "cpu")
         cpu = qreduce_kernel(xc, axis, plan)
@@ -1534,7 +1565,9 @@ def k3_check(sw: Sweep, case, t):
 
 def sweep_k3(sw: Sweep, trials):
     for t in range(trials):
-        k3_check(sw, k3_case(t), t)
+        case = draw(sw, "k3", t, k3_case)
+        if case is not None:
+            k3_check(sw, case, t)
     return trials
 
 
@@ -1565,6 +1598,8 @@ def p1_case(t):
                             (layer0,), int(rng.randint(2, 64)), layer0)
         if plan is not None and plan.prod_route in TG.ROUTES:
             break
+    else:
+        raise NoCase("no plan_tree plan on a lane route in 400 draws")
     shape = (128, 256) if t % 10 == 9 else (int(rng.randint(1, 70)),
                                             int(rng.randint(1, 70)))
     return dict(fa=fa, fb=fb, plan=plan, steps=P1_STEPS[(t // 3) % 6],
@@ -1614,7 +1649,9 @@ def p1_check(sw: Sweep, case, t):
             want = p1_oracle(plan, int(flat_x[i]), int(flat_y[i]), steps,
                              x_iv)
             if want is None:
+                sw.p1_past += 1
                 continue
+            sw.p1_held += 1
             if any(int(got[p, i]) != want for p in range(programs)):
                 sw.fail(what, "plain != hostint at", i, int(got[0, i]), want)
     except Exception as e:  # noqa: BLE001
@@ -1622,8 +1659,20 @@ def p1_check(sw: Sweep, case, t):
 
 
 def sweep_p1(sw: Sweep, trials):
+    """P1's trials; fails where more than :data:`P1_MAX_PAST` of the
+    sampled chains left the proof, which would leave the plain version
+    without its oracle."""
+    held, past = sw.p1_held, sw.p1_past
     for t in range(trials):
-        p1_check(sw, p1_case(t), t)
+        case = draw(sw, "p1", t, p1_case)
+        if case is not None:
+            p1_check(sw, case, t)
+    held, past = sw.p1_held - held, sw.p1_past - past
+    sw.notes["p1"] = (f"{held} chains held to hostint, {past} past the "
+                      f"proof")
+    if past > P1_MAX_PAST * (held + past):
+        sw.fail(f"p1[0:{trials}]", f"{past} of {held + past} sampled "
+                f"chains left the proof (more than {P1_MAX_PAST:.0%})")
     return trials
 
 
@@ -1796,9 +1845,10 @@ def run(counts: dict, device, timeout: float = 1800.0) -> dict:
         done = counts[name] if done is None else done
         stats[name] = (done, sw.fails - f0, sw.crashes - c0,
                        time.perf_counter() - t0)
+        note = f"; {sw.notes[name]}" if name in sw.notes else ""
         print(f"family {name}: {done} trials, {stats[name][1]} mismatches "
               f"and crashes ({stats[name][2]} crashes), "
-              f"{stats[name][3]:.2f} s", flush=True)
+              f"{stats[name][3]:.2f} s{note}", flush=True)
     if world is not None:
         try:
             ranks = world.join()

@@ -24,6 +24,7 @@ int32 dot that the complex GEMM's fast path combines (the JAX package's
 from __future__ import annotations
 
 from collections import Counter
+from typing import Optional
 
 import torch
 
@@ -65,11 +66,12 @@ def k1_route(t: torch.Tensor) -> str:
     return "copy" if t.shape[1] % 16 == 0 else "padded"
 
 
-def k1_operand(t: torch.Tensor) -> torch.Tensor:
+def k1_operand(t: torch.Tensor, route: Optional[str] = None) -> torch.Tensor:
     """``t`` [R, K] as the tensor-core route reads it: itself, or a view of
     the first K columns of a fresh K-major [R, K'] tensor, K' = K rounded up
-    to 16, zero beyond K (zero products add 0 to every partial sum)."""
-    route = k1_route(t)
+    to 16, zero beyond K (zero products add 0 to every partial sum).
+    ``route`` is ``k1_route(t)``, computed here when None."""
+    route = k1_route(t) if route is None else route
     if route == "direct":
         return t
     r, k = t.shape
@@ -93,9 +95,10 @@ def _launch(a: torch.Tensor, b: torch.Tensor, rq, out_dtype,
     lib = _build.lib()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     if a.dtype == torch.int8 and b.dtype == torch.int8:
-        a8 = k1_operand(a)
-        bt = k1_operand(b.t())  # [N, K]
-        instance = f"s8/{k1_route(a)}/{k1_route(b.t())}"
+        ra, rb = k1_route(a), k1_route(b.t())
+        a8 = k1_operand(a, ra)
+        bt = k1_operand(b.t(), rb)  # [N, K]
+        instance = f"s8/{ra}/{rb}"
         err = lib.qk_fused_gemm_s8(a.device.index, a8.data_ptr(), a8.stride(0),
                                    bt.data_ptr(), bt.stride(0),
                                    out.data_ptr(), m, n, k,

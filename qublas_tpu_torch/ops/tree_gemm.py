@@ -482,14 +482,15 @@ def k2s_route(t32: torch.Tensor) -> str:
     return "pitched"
 
 
-def k2s_operand(t: torch.Tensor):
+def k2s_operand(t: torch.Tensor, route: Optional[str] = None):
     """``(tensor, row pitch in elements)`` as K2′'s TMA reads the int32
     lanes of the 2-D ``t``: ``t`` itself where :func:`k2s_route` says
     "direct", else a copy whose pitch is rounded up to 4 ("pitched"); the
-    columns past ``t``'s are zero and never read as products."""
+    columns past ``t``'s are zero and never read as products.  ``route``
+    is ``k2s_route`` of ``t``'s int32 lanes, computed here when None."""
     t32 = t.to(torch.int32)
     rows, cols = t32.shape
-    if k2s_route(t32) == "direct":
+    if (k2s_route(t32) if route is None else route) == "direct":
         return t32, t32.stride(0)
     pitch = -(-cols // 4) * 4
     buf = torch.zeros((rows, pitch), dtype=torch.int32, device=t.device)
@@ -543,9 +544,9 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
         instance = f"tiled_{top}_{modes}"
     else:
         a32, b32 = a.to(torch.int32), b.to(torch.int32)
-        routes = f"{k2s_route(a32)}/{k2s_route(b32)}"
-        a32, lda = k2s_operand(a32)
-        b32, ldb = k2s_operand(b32)
+        ra, rb = k2s_route(a32), k2s_route(b32)
+        a32, lda = k2s_operand(a32, ra)
+        b32, ldb = k2s_operand(b32, rb)
         if "k2s" not in plan._kernel_cache:
             plan._kernel_cache["k2s"] = k2s_plan(plan)
         err = lib.qk_tree_gemm_stream(dev, a32.data_ptr(), lda,
@@ -553,7 +554,7 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
                                       m, n, k, out.element_size(),
                                       _kernel_params(plan, out_fmt, 0),
                                       plan._kernel_cache["k2s"], stream)
-        instance = f"plan_{plan._kernel_cache['k2s']}/{routes}"
+        instance = f"plan_{plan._kernel_cache['k2s']}/{ra}/{rb}"
     _build.check(err, name)
     return out, instance
 

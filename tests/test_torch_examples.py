@@ -2,7 +2,9 @@
 CPU, as subprocesses with a timeout, as ``tests/test_examples.py`` runs the
 JAX package's; the ASIC datapath example prints the same GEMM output,
 diagnostics and BitStream record lines as the JAX package's example for
-the same seed."""
+the same seed.  The JAX example writes its checkpoint to a fixed name under
+``/tmp``; here it runs with ``qublas_tpu.save``/``load`` pointed at a file
+of the test's own directory, so no other run shares that file."""
 
 import os
 import subprocess
@@ -19,6 +21,19 @@ def _run(*args):
                           env=env)
 
 
+# run the JAX example as a script, its checkpoint (step 7) redirected to the
+# file argv[1]
+_JAX_EXAMPLE = """
+import runpy, sys
+import qublas_tpu as q
+target, script = sys.argv[1:]
+save, load = q.save, q.load
+q.save = lambda path, tree: save(target, tree)
+q.load = lambda path: load(target)
+runpy.run_path(script, run_name="__main__")
+"""
+
+
 def _port(name, *args):
     return _run("-m", f"qublas_tpu_torch.examples.{name}", "--device", "cpu",
                 *args)
@@ -30,8 +45,11 @@ def test_asic_datapath_example_matches_the_jax_example(tmp_path):
     assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-2000:]
     assert ckpt.exists()
     assert "sharded over 2 rank(s) (gloo): bit-identical" in p.stdout
-    j = _run(str(ROOT / "examples" / "asic_datapath_sim.py"))
+    jax_ckpt = tmp_path / "jax_datapath.npz"
+    j = _run("-c", _JAX_EXAMPLE, str(jax_ckpt),
+             str(ROOT / "examples" / "asic_datapath_sim.py"))
     assert j.returncode == 0, j.stdout[-2000:] + j.stderr[-2000:]
+    assert jax_ckpt.exists()
 
     def lines(out):
         keep = ("GEMM out:", "requant act", "range report:",

@@ -400,3 +400,38 @@ def test_p1_chains_outside_the_proof_follow_the_jax_chain(t):
     assert None in stops
     sw = _run_trial("p1", t)
     assert sw.fails == 0, sw.lines
+
+
+def test_a_generator_without_a_case_counts_as_a_failure(monkeypatch):
+    """A generator that finds no configuration in its envelope, or raises,
+    is a counted failure with its repro line, and the sweep goes on."""
+    def none_found(t):
+        raise fuzz.NoCase("no plan_tree plan in 400 draws")
+
+    def broken(t):
+        raise KeyError(t)
+
+    monkeypatch.setattr(fuzz, "k2_case", none_found)
+    monkeypatch.setattr(fuzz, "k3_case", broken)
+    sw = fuzz.Sweep("cpu", echo=False)
+    assert fuzz.sweep_k2(sw, 3) == 3 and fuzz.sweep_k3(sw, 2) == 2
+    assert sw.fails == 5 and sw.crashes == 2
+    assert sw.lines[0] == ("FAIL k2[0] the generator found no case: no "
+                           "plan_tree plan in 400 draws")
+    assert sw.lines[3].startswith("FAIL CRASH k3[0] drawing its case KeyError")
+
+
+def test_p1_sweep_counts_the_chains_past_the_proof(monkeypatch):
+    """sweep_p1 reports how many sampled chains it held to hostint and how
+    many left the proof, and fails when too many left it."""
+    sw = fuzz.Sweep("cpu", echo=False)
+    fuzz.sweep_p1(sw, 6)
+    assert sw.fails == 0, sw.lines
+    assert sw.p1_held > 0
+    assert sw.notes["p1"] == (f"{sw.p1_held} chains held to hostint, "
+                              f"{sw.p1_past} past the proof")
+    monkeypatch.setattr(fuzz, "p1_oracle", lambda *a: None)
+    sw = fuzz.Sweep("cpu", echo=False)
+    fuzz.sweep_p1(sw, 3)
+    assert sw.p1_held == 0 and sw.p1_past > 0
+    assert sw.fails == 1 and "chains left the proof" in sw.lines[0], sw.lines
