@@ -107,6 +107,20 @@ Phases, each printing its lines:
       run-time instantiations and K3); the three examples'
       ``main("cuda")``; its launches on a line of their own, in no row of
       the kernels line;
+   l. the paths as compiled programs: Inductor builds each program with
+      ``fullgraph=True`` and ``dynamic=False``, in the default mode and in
+      ``"reduce-overhead"`` (CUDA graphs): the pipeline at 4096^3 (K1
+      twice), the canonical ``qgemul`` at 2048^3 with a ``qreduce`` of its
+      rows and K2′ on its operands, config 2's ``qreduce``, i1 on int8 and
+      int16 lanes (both K2h kernels), config 5's TF ``cgemul`` (K1 four
+      times), P1 at ``measured_chain_prods``' shapes, and the lane
+      (with ``qapprox``), pair and limb elementwise chains at 4096^2; each
+      compiled call equal to eager, eager to the plain versions and to
+      ``hostops`` on a corner, its launches counted (every kernel row
+      launches from inside a compiled graph; these launches count in no
+      row of the kernels line); each CUDA graph replayed on fresh inputs
+      equal to eager, with no counted launch (a replay runs no Python);
+      the compile seconds and the eager, compiled and replayed times;
    every result is checked against the plain versions, and 16x16 corners
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
@@ -2388,6 +2402,361 @@ def phase_differential(card):
           f"{t2 - t0:.1f} s wall [{card}]")
 
 
+COMPILE_BACKEND = "inductor"     # l: rehearse on the CPU with "aot_eager"
+COMPILE_MODES = ("default", "reduce-overhead")
+
+
+def l_programs(dev, state_a, state_b):
+    """Path l's programs, each ``(name, fn, args, fresh, expect, check)``:
+    ``fn`` the function compiled, ``args`` its inputs, ``fresh(seed)`` new
+    inputs of the same shapes for the CUDA graph's replays, ``expect`` the
+    launches one compiled call must make, ``check(out, args)`` the plain
+    versions and the host corners that hold the eager result on ``args``."""
+    import numpy as np
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import bitwise, hostops
+    from qublas_tpu_torch.ops.chain_probe import (G, T1, chain_probe,
+                                                  chain_probe_plain,
+                                                  probe_tile)
+    from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm_plain
+    from qublas_tpu_torch.ops.reduce import qreduce_plain
+    from qublas_tpu_torch.ops.tree_gemm import (plan_hybrid,
+                                                tree_gemm_hybrid_plain,
+                                                tree_gemm_plain)
+
+    cn = CORNER
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def rand(fmt, shape, dtype, seed=None):
+        g = gen if seed is None else \
+            torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(max(fmt.raw_min, torch.iinfo(dtype).min),
+                             min(fmt.raw_max, torch.iinfo(dtype).max) + 1,
+                             shape, generator=g, device=dev, dtype=dtype)
+
+    def host_corner(what, got, a, b, out, **kw):
+        host = qt.host_qgemul(a[:cn], qt.QTensor(b.data[:, :cn], b.fmt),
+                              out, **kw)
+        assert np.array_equal(got.cpu().numpy()[:cn, :cn].astype(object),
+                              host), f"path l {what}: corner vs hostops"
+
+    progs = []
+
+    # the pipeline at the main path's full width: K1 twice
+    x, pipe, plan1, mid = state_a[:4]
+    fa, wide = pipe.fa, pipe.wide
+
+    def pipe_check(y, args):
+        h1 = qt.QTensor(fused_int8_gemm_plain(args[0], pipe.w1,
+                                              plan1.prod_frac, mid), mid)
+        h = pipe.table(h1).astype(fa)
+        same_q("path l pipeline == plain", y, fused_int8_gemm_plain(
+            h.data, pipe.w2, plan1.prod_frac, mid))
+        host_corner("pipeline", y, h, qt.QTensor(pipe.w2, fa), mid,
+                    mul_to=wide, add_formats=(wide,))
+    progs.append((f"pipeline {PIPE_N}^3", pipe, (x,),
+                  lambda s: (rand(fa, (PIPE_N, PIPE_N), torch.int8, s),),
+                  {"fused_int8_gemm": 2}, pipe_check))
+
+    # the canonical tree at 2048^3, qreduce of its rows, K2′ on the same
+    # operands: K2, K3 and K2′ once each
+    a2, b2, tplan, f88z = state_a[4:8]
+    lay = (qt.qformat(10, 6),)
+    r_plan = qt.ops.reduce.plan_reduce(f88z, lay, TREE_N)
+
+    def tree(a, b):
+        c = qt.qgemul(qt.QTensor(a, f88z), qt.QTensor(b, f88z), f88z)
+        return (c.data, qt.qreduce(c, lay, axis=1).data,
+                qt.ops.tree_gemm.tree_gemm_stream(a, b, tplan, f88z))
+
+    def tree_check(out, args):
+        c = tree_gemm_plain(args[0], args[1], tplan, f88z)
+        same_q("path l canonical qgemul == plain", out[0], c)
+        same_q("path l qreduce of its rows == plain", out[1],
+               qreduce_plain(c, 1, r_plan))
+        same_q("path l K2′ == K2", out[2], c)
+        host_corner("canonical", out[0], qt.QTensor(args[0], f88z),
+                    qt.QTensor(args[1], f88z), f88z)
+    progs.append((f"canonical qgemul {TREE_N}^3, qreduce, K2′", tree,
+                  (a2.data, b2.data),
+                  lambda s: (rand(f88z, (TREE_N, TREE_N), torch.int32, s),
+                             rand(f88z, (TREE_N, TREE_N), torch.int32,
+                                  s + 100)),
+                  {"tree_gemm": 1, "qreduce_kernel": 1,
+                   "tree_gemm_stream": 1}, tree_check))
+
+    # BASELINE config 2's qreduce: K3 once
+    xr, c2_plan = state_b[:2]
+    f44, config2 = formats()[1:]
+
+    def reduce2(x):
+        return qt.qreduce(qt.QTensor(x, f44), config2, axis=1).data
+
+    def reduce_check(r, args):
+        same_q("path l config 2 qreduce == plain", r,
+               qreduce_plain(args[0], 1, c2_plan))
+        rows = args[0][:cn].cpu().numpy()
+        for i in range(cn):
+            raw, _ = hostops.qreduce_list([(int(v), f44) for v in rows[i]],
+                                          config2)
+            assert raw == int(r[i]), ("path l config 2 row", i)
+    progs.append((f"config 2 qreduce {list(REDUCE_SHAPE)}", reduce2,
+                  (xr.data,),
+                  lambda s: (rand(f44, REDUCE_SHAPE, torch.int8, s),),
+                  {"qreduce_kernel": 1}, reduce_check))
+
+    # i1 on both K2h kernels: int8 lanes (tensor cores), int16 (IMAD)
+    hfa, hmul, hlay, hout = hybrid_config()
+    hp = plan_hybrid(hfa, hfa, qt.mul_merge(hfa, hfa, hmul), hlay, HYB_N,
+                     hout)
+
+    def hybrid(a, b):
+        def one(x, y):
+            return qt.qgemul(qt.QTensor(x, hfa), qt.QTensor(y, hfa), hout,
+                             mul_to=hmul, add_formats=hlay).data
+        return one(a, b), one(a.to(torch.int16), b.to(torch.int16))
+
+    def hybrid_check(out, args):
+        plain = tree_gemm_hybrid_plain(args[0], args[1], hp, hout)
+        same_q("path l i1 (tensor-core kernel) == plain", out[0], plain)
+        same_q("path l i1 (IMAD kernel) == plain", out[1], plain)
+        host_corner("i1", out[0], qt.QTensor(args[0], hfa),
+                    qt.QTensor(args[1], hfa), hout, mul_to=hmul,
+                    add_formats=hlay)
+
+    def hybrid_args(s):
+        return (rand(hfa, (HYB_N, HYB_N), torch.int8, s),
+                rand(hfa, (HYB_N, HYB_N), torch.int8, s + 100))
+    progs.append((f"i1 hybrid qgemul {HYB_N}^3, int8 and int16 lanes",
+                  hybrid, hybrid_args(41), hybrid_args,
+                  {"tree_gemm_hybrid_mma": 1, "tree_gemm_hybrid": 1},
+                  hybrid_check))
+
+    # config 5's TF cgemul: K1 four times
+    cf, cwide, cout, tf_kw, _ = config5()
+
+    def cgemul(ar, ai, br, bi):
+        c = qt.cgemul(qt.complex_from_parts(qt.QTensor(ar, cf),
+                                            qt.QTensor(ai, cf)),
+                      qt.complex_from_parts(qt.QTensor(br, cf),
+                                            qt.QTensor(bi, cf)),
+                      cout, algo="tf", add_formats=(cwide,), **tf_kw)
+        return c.real.data, c.imag.data
+
+    def cgemul_check(out, args):
+        with plain_dots():
+            ref = cgemul(*args)
+        same_q("path l config 5 real == plain dots", out[0], ref[0])
+        same_q("path l config 5 imag == plain dots", out[1], ref[1])
+
+    def cgemul_args(s):
+        return tuple(rand(cf, (CPLX_N, CPLX_N), torch.int8, s + i)
+                     for i in range(4))
+    progs.append((f"config 5 TF cgemul {CPLX_N}^3", cgemul,
+                  cgemul_args(51), cgemul_args, {"fused_int8_gemm": 4},
+                  cgemul_check))
+
+    # P1 at measured_chain_prods' shapes: one launch
+    xp, yp = probe_tile(f88z, dev)
+
+    def probe(x, y):
+        return chain_probe(x, y, tplan, T1, G)
+
+    def probe_check(out, args):
+        same_q("path l P1 == plain", out,
+               chain_probe_plain(args[0], args[1], tplan, T1, G))
+    progs.append((f"P1 T={T1}, {G} programs", probe, (xp, yp),
+                  lambda s: (rand(f88z, xp.shape, torch.int32, s),
+                             rand(f88z, xp.shape, torch.int32, s + 100)),
+                  {"chain_probe": 1}, probe_check))
+
+    n = EW_N
+    # the lane chain and qapprox on lanes (phase h4's segments)
+    fx, fc = anus_cases()["lane"]
+    segs = anus_segments(fc, dev)
+    to53 = qt.qformat(5, 3)
+
+    def lanes(a, b):
+        x, y = qt.QTensor(a, fx), qt.QTensor(b, fx)
+        return (qt.qadd(qt.qmul(x, y), x, to=to53).data,
+                qt.qapprox(x, segs).data)
+
+    def lanes_check(out, args):
+        a, b = (t[:cn, :cn].cpu().numpy() for t in args)
+        for i in range(cn):
+            for j in range(cn):
+                u, v = (int(a[i, j]), fx), (int(b[i, j]), fx)
+                want = hostops.qadd(hostops.qmul(u, v), u, to=to53)[0]
+                assert want == int(out[0][i, j]), ("path l lanes", i, j)
+                assert host_qapprox(int(a[i, j]), fx, segs) == \
+                    int(out[1][i, j]), ("path l qapprox", i, j)
+    progs.append((f"lane chain and qapprox {n}^2", lanes,
+                  (rand(fx, (n, n), torch.int8, 61),
+                   rand(fx, (n, n), torch.int8, 62)),
+                  lambda s: (rand(fx, (n, n), torch.int8, s),
+                             rand(fx, (n, n), torch.int8, s + 100)),
+                  {}, lanes_check))
+
+    # pair storage: qadd, qxor with an int32 lane, qdiv
+    f40, f32 = qt.qformat(30, 9), qt.qformat(15, 10)
+    to_add, to_div = qt.qformat(44, 12), qt.qformat(33, 4)
+
+    def pairs(p, q, w):
+        x, y = qt.QTensor(p, f40), qt.QTensor(q, f40)
+        return (qt.qadd(x, y, to=to_add).data,
+                bitwise.qxor(x, qt.QTensor(w, f32)).data,
+                qt.qdiv(x, y, to=to_div).data)
+
+    def pair_args(s):
+        return (rand(f40, (n, n), torch.int64, s),
+                rand(f40, (n, n), torch.int64, s + 100),
+                rand(f32, (n, n), torch.int32, s + 200))
+
+    def pairs_check(out, args):
+        p, q, w = (t[:cn, :cn].cpu().numpy() for t in args)
+        for i in range(cn):
+            for j in range(cn):
+                u, v = (int(p[i, j]), f40), (int(q[i, j]), f40)
+                assert hostops.qadd(u, v, to=to_add)[0] == \
+                    int(out[0][i, j]), ("path l pair qadd", i, j)
+                assert int(p[i, j]) ^ int(w[i, j]) == int(out[1][i, j]), \
+                    ("path l pair qxor", i, j)
+                assert hostops.qdiv(u, v, to=to_div)[0] == \
+                    int(out[2][i, j]), ("path l pair qdiv", i, j)
+    progs.append((f"pair chain {n}^2", pairs, pair_args(71), pair_args, {},
+                  pairs_check))
+
+    # limb storage: qmul and qadd on three limbs (121- and 91-bit operands
+    # took 47 s a compile; the bit-serial qdiv's graph is left to the CPU
+    # tests: PERF.md)
+    fl1, fl2, to_l = qt.qformat(50, 29), qt.qformat(40, 30), \
+        qt.qformat(60, 30)
+
+    def limbs(a, b):
+        x = qt.QTensor(qt.ops.limbint.LimbArray(a), fl1)
+        y = qt.QTensor(qt.ops.limbint.LimbArray(b), fl2)
+        return (qt.qmul(x, y, to=to_l).data.limbs,
+                qt.qadd(x, y, to=to_l).data.limbs)
+
+    def limb_args(s):
+        return tuple(rand_limbs(torch.Generator(device=dev).manual_seed(
+            s + i), f, (n, n), dev).limbs
+            for i, f in enumerate((fl1, fl2)))
+
+    def limbs_check(out, args):
+        from qublas_tpu_torch.ops.limbint import ints_from_limbs
+
+        a, b = (ints_from_limbs(t[:, :cn, :cn].cpu()) for t in args)
+        got = [ints_from_limbs(t[:, :cn, :cn].cpu()) for t in out]
+        for i in range(cn):
+            for j in range(cn):
+                u, v = (int(a[i, j]), fl1), (int(b[i, j]), fl2)
+                assert hostops.qmul(u, v, to=to_l)[0] == int(got[0][i, j]), \
+                    ("path l limb qmul", i, j)
+                assert hostops.qadd(u, v, to=to_l)[0] == int(got[1][i, j]), \
+                    ("path l limb qadd", i, j)
+    progs.append((f"limb chain {n}^2", limbs, limb_args(81), limb_args, {},
+                  limbs_check))
+    return progs
+
+
+def phase_compiled(dev, card, state_a, state_b):
+    """Phase 3l: the port's paths as compiled programs.  Each program of
+    :func:`l_programs` is compiled by Inductor (``fullgraph=True``,
+    ``dynamic=False``) in the default mode and in ``"reduce-overhead"``
+    (CUDA graphs).  The default-mode graph's call is held Δ=0 to the eager
+    call, which is held to the plain versions and to hostops on a corner,
+    and its launches are counted: every kernel of the program launches
+    from inside the graph.  The CUDA graph is replayed on fresh inputs,
+    copied into its static inputs, and held Δ=0 to eager on them; a replay
+    runs no Python, so it launches no counted kernel.  Prints each
+    program's compile seconds and the CUDA-event medians of its eager,
+    compiled and replayed calls.  Returns the launches from compiled graphs
+    by kernel row; they count in no row of the kernels line."""
+    import os
+
+    import torch
+
+    from qublas_tpu_torch import _build
+    from qublas_tpu_torch.ops.chain_probe import chain_probe
+    from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
+    from qublas_tpu_torch.ops.reduce import qreduce_kernel
+    from qublas_tpu_torch.ops.tree_gemm import (tree_gemm, tree_gemm_hybrid,
+                                                tree_gemm_stream)
+    from qublas_tpu_torch.timing import timeit
+
+    # Inductor's and Triton's caches inside the checkout
+    cache = _build.BUILD_DIR.parent / "inductor"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(cache))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(cache / "triton"))
+    counters = (fused_int8_gemm, tree_gemm, tree_gemm_stream, qreduce_kernel,
+                chain_probe,
+                ("tree_gemm_hybrid", tree_gemm_hybrid, "imad_launches"),
+                ("tree_gemm_hybrid_mma", tree_gemm_hybrid, "mma_launches"))
+    drive = Driver(counters)
+    flat = torch.utils._pytree.tree_leaves
+
+    def same_out(what, got, ref):
+        for i, (g, r) in enumerate(zip(flat(got), flat(ref), strict=True)):
+            same_q(f"{what} [{i}]", g, r)
+
+    def counts():
+        return {name: getattr(owner, attr)
+                for name, owner, attr in drive.counters}
+
+    t_phase = time.perf_counter()
+    for name, fn, args, fresh, expect, check in l_programs(dev, state_a,
+                                                           state_b):
+        torch._dynamo.reset()
+        eager = fn(*args)
+        check(eager, args)
+        secs, ms = {}, {"eager": timeit(lambda: fn(*args))}
+        for mode in COMPILE_MODES:
+            cf = torch.compile(fn, fullgraph=True, dynamic=False,
+                               backend=COMPILE_BACKEND,
+                               mode=None if mode == "default" else mode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cf(*args)
+            torch.cuda.synchronize()
+            secs[mode] = time.perf_counter() - t0
+            if mode == "default":
+                out = drive(f"l {name}", f"{name}, compiled",
+                            lambda: cf(*args), expect)
+                same_out(f"path l {name}: compiled == eager", out, eager)
+                ms["compiled"] = timeit(lambda: cf(*args))
+                continue
+            for _ in range(3):          # warm-up, record, replay
+                cf(*args)
+            for seed in (1001, 1002):
+                new = fresh(seed)
+                torch.cuda.synchronize()
+                before = counts()
+                got = [t.clone() for t in flat(cf(*new))]
+                torch.cuda.synchronize()
+                assert counts() == before, \
+                    f"path l {name}: a replay ran Python (re-recorded?)"
+                same_out(f"path l {name}: replay on fresh inputs == eager",
+                         got, fn(*new))
+            ms["replayed"] = timeit(lambda: cf(*args))
+            del cf
+        print(f"path l {name}: compile {secs['default']:.1f} s (default), "
+              f"{secs['reduce-overhead']:.1f} s (reduce-overhead); eager "
+              f"{ms['eager']:.4f} ms, compiled {ms['compiled']:.4f} ms, "
+              f"CUDA graph replayed {ms['replayed']:.4f} ms [{card}]")
+    torch._dynamo.reset()
+    launched = {k: v for k, v in drive.launches.items()}
+    print("path l launches from compiled graphs " + json.dumps(launched))
+    idle = [k for k, v in launched.items() if not v]
+    assert not idle, f"path l: no launch from a compiled graph of {idle}"
+    print(f"path l: {time.perf_counter() - t_phase:.1f} s wall, every "
+          f"kernel row launched from a compiled graph, every CUDA graph "
+          f"replay on fresh inputs equal to eager [{card}]")
+    return launched
+
+
 def hybrid_tail_ops(hp, out_fmt, k, pairs=False):
     """int32 operations of K2h's tail for one output element: the shift of
     each of the k / s block values (dl > 0), the tail's tree of merges over
@@ -2959,6 +3328,7 @@ def main() -> int:
     phase_host(dev)
     phase_sharded(card)
     phase_differential(card)
+    phase_compiled(dev, card, state_a, state_b)
     t, bounds = phase_times(card, state_a, state_b, state_d, chain_rate,
                             state_f)
     limb_times(card, state_g, t, bounds)

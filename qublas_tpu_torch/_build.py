@@ -170,6 +170,7 @@ def record(wrapper, instance: str, fmts=()):
     ``Counter`` keyed by (instantiation, the (round, overflow) pairs of the
     formats ``fmts`` that its requantize steps write): what a sweep reads
     to tell which variants of a kernel it reached."""
-    pairs = tuple(sorted({(f.round_mode.name, f.overflow_mode.name)
-                          for f in fmts}))
+    # names of the distinct pairs only: an enum's name costs a lookup
+    pairs = tuple(sorted((r.name, o.name) for r, o in
+                         {(f.round_mode, f.overflow_mode) for f in fmts}))
     wrapper.seen[(instance, pairs)] += 1

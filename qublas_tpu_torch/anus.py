@@ -108,9 +108,11 @@ def qapprox(x: QTensor, segments: Sequence[Segment]) -> QTensor:
 
     Every segment's polynomial is evaluated on all of x; the select walks
     the breakpoints from the last-but-one down, ``x <= threshold`` on the
-    raw: lanes compared as int32 with an int32 threshold (never the raw
-    int8/int16 lanes with a Python int, which would wrap it), pairs as
-    int64, limbs with the limb compare."""
+    raw: lanes widened to int32 and compared with the threshold, a Python
+    int inside the int32 word (never the raw int8/int16 lanes, whose word
+    would wrap it), pairs as int64, limbs with the limb compare.  No
+    tensor is made from the threshold, so a CUDA graph captures the
+    select."""
     segments = list(segments)
     if not segments:
         raise ValueError("qapprox needs at least one segment")
@@ -160,7 +162,8 @@ def qapprox(x: QTensor, segments: Sequence[Segment]) -> QTensor:
         thr = _raw_threshold(s.breakpoint, x.fmt, word)
         if thr is None:
             continue  # breakpoint below every storable x: never taken
-        take = xv <= torch.tensor(thr, dtype=xv.dtype, device=x.device)
+        # thr lies inside xv's word: a Python int compares in xv's dtype
+        take = xv <= thr
         result = torch.where(take, br.data, result)
     return QTensor(result, x.fmt)
 
@@ -227,7 +230,20 @@ class QTable:
                 raws, dtype=np.int64 if kind == "pair" else np.int32))
         self._on_device = {}
 
+    def to(self, device) -> "QTable":
+        """Place the entries on ``device`` (in place; returns the table):
+        inputs there index them with no copy.  A caller that runs the
+        lookup in a CUDA graph places the table first, or passes entries
+        it has placed itself (``__call__``'s ``table``), since an input on
+        another device copies the entries there on its first lookup."""
+        if self.table is not None:
+            self.table = self.table.to(device)
+        self._on_device = {}
+        return self
+
     def _table_on(self, device: torch.device) -> torch.Tensor:
+        if self.table.device == device:
+            return self.table
         t = self._on_device.get(device)
         if t is None:
             t = self._on_device[device] = self.table.to(device)
@@ -240,7 +256,11 @@ class QTable:
                           else t.tolist())
         return self._raws
 
-    def __call__(self, x: QTensor) -> QTensor:
+    def __call__(self, x: QTensor, table: Optional[torch.Tensor] = None
+                 ) -> QTensor:
+        """The lookup of ``x``.  ``table``: these entries (``self.table``
+        placed on ``x``'s device, e.g. a module's buffer) instead of the
+        table's own."""
         # signedness and int_bits change how a bit pattern is interpreted;
         # round/overflow modes do not, so they may differ
         f, t = x.fmt, self.in_fmt
@@ -254,7 +274,8 @@ class QTable:
             return from_raw(np.array(raws, dtype=object).reshape(x.shape),
                             self.out_fmt, x.device)
         idx = (x.data.to(torch.int32) & self._mask).long()
-        table = self._table_on(x.device)
+        if table is None:
+            table = self._table_on(x.device)
         if table.ndim == 2:
             return QTensor(LimbArray(table[:, idx]), self.out_fmt)
         return QTensor(table[idx].to(storage_dtype(self.out_fmt)),

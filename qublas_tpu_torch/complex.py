@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch.utils._pytree as pytree
 
 from . import hostops
 from .ops import elementwise as ew
@@ -133,6 +134,20 @@ class QComplexTensor:
         if isinstance(other, QComplexTensor):
             return cdiv(self, other)  # raises, as the reference does
         return cr_div(self, other)
+
+
+# A pytree node, as the JAX package's QComplexTensor is: its two parts.
+def _complex_unflatten(children, _ctx) -> QComplexTensor:
+    out = object.__new__(QComplexTensor)
+    out.real, out.imag = children
+    return out
+
+
+pytree.register_pytree_node(
+    QComplexTensor,
+    lambda c: ([c.real, c.imag], None),
+    _complex_unflatten,
+    serialized_type_name="qublas_tpu_torch.complex.QComplexTensor")
 
 
 # ---------------------------------------------------------------------------

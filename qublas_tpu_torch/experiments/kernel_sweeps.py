@@ -192,6 +192,7 @@ def _k2(card):
 
     import qublas_tpu_torch as qt
     from qublas_tpu_torch import _build
+    from qublas_tpu_torch.ops import library
     from qublas_tpu_torch.ops import tree_gemm as TT
     from qublas_tpu_torch.ops.chain_probe import (BM, BN, G, T1, chain_probe,
                                                   probe_tile)
@@ -209,16 +210,11 @@ def _k2(card):
     a, b = raws(), raws()
     plan = TT.plan_tree(f, f, qt.mul_merge(f, f), (), n, f)
     want = TT.tree_gemm_plain(a, b, plan, f)
-    lib = _build.lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     params = TT._kernel_params(plan, f, TT.K2_LOG_BLK)
 
     def tiled(modes):
-        out = torch.empty((n, n), dtype=torch.int32, device=dev)
-        _build.check(lib.qk_tree_gemm(0, a.data_ptr(), b.data_ptr(),
-                                      out.data_ptr(), n, n, n, 4, params,
-                                      modes, stream), "tree_gemm")
-        return out
+        # the package's K2 op with its instantiation forced
+        return torch.ops.qublas.tree_gemm(a, b, list(params), modes, 4)
 
     rate = {}
     for modes, label in ((1, "modes fixed (TRN::TCPL, SAT::ZERO)"),
@@ -241,7 +237,8 @@ def _k2(card):
             def run():
                 _build.check(tlib.k2_tiled_variant(
                     tm, tn, minb, modes, a.data_ptr(), b.data_ptr(),
-                    out.data_ptr(), n, n, n, params), "k2_tiled_variant")
+                    out.data_ptr(), n, n, n, library.c_ints(params)),
+                    "k2_tiled_variant")
             run()
             torch.cuda.synchronize()
             assert torch.equal(out, want), (tm, tn, minb, modes)
@@ -366,6 +363,7 @@ def _k2s_variants(card):
     import torch
 
     from qublas_tpu_torch import _build
+    from qublas_tpu_torch.ops import library
     from qublas_tpu_torch.ops import tree_gemm as TT
     from qublas_tpu_torch.timing import device_us, timeit
 
@@ -384,21 +382,21 @@ def _k2s_variants(card):
         for label, v in runs:
             if label.startswith("the package"):
                 def run(plan_index=v):
-                    _build.check(_build.lib().qk_tree_gemm_stream(
-                        0, a.data_ptr(), n, b.data_ptr(), n, out.data_ptr(),
-                        n, n, n, 4, params, plan_index, None),
-                        "tree_gemm_stream")
+                    # the package's K2′ op with its instantiation forced
+                    return torch.ops.qublas.tree_gemm_stream(
+                        a, b, list(params), plan_index, 4)
             else:
                 fn = getattr(lib, f"k2s_variant_{v}")
 
                 def run(fn=fn):
                     _build.check(fn(a.data_ptr(), n, b.data_ptr(), n,
-                                    out.data_ptr(), n, n, n, params),
-                                 "k2s_variant")
+                                    out.data_ptr(), n, n, n,
+                                    library.c_ints(params)), "k2s_variant")
+                    return out
             out.zero_()
-            run()
+            res = run()
             torch.cuda.synchronize()
-            assert torch.equal(out, want), (n, label)
+            assert torch.equal(res, want), (n, label)
             ms = timeit(run, runs=5 if n > 512 else 10, warmup=1)
             dus = sum(device_us(run, runs=5).values())
             print(f"k2sv {n}^3 {label}: event {ms:.4f} ms, device "
@@ -622,6 +620,7 @@ def _k3_variants(card):
 
     import qublas_tpu_torch as qt
     from qublas_tpu_torch import _build
+    from qublas_tpu_torch.ops import library
     from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
                                              qreduce_plain)
     from qublas_tpu_torch.timing import device_us, timeit
@@ -647,7 +646,8 @@ def _k3_variants(card):
             def run():
                 _build.check(lib.k3_warp_variant(
                     v, x.data_ptr(), out.data_ptr(), rows, 1024,
-                    out.element_size(), params), "k3_warp_variant")
+                    out.element_size(), library.c_ints(params)),
+                    "k3_warp_variant")
             run()
             torch.cuda.synchronize()
             same = torch.equal(out, want)
@@ -666,19 +666,18 @@ def _k3_variants(card):
     f88z = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
     prod = torch.randint(f88z.raw_min, f88z.raw_max + 1, (512, 512, 512),
                          generator=gen, device=dev, dtype=torch.int32)
-    for what, x, p, outer, inner, lanes in (
-            ("warp [131072, 1024]", x, plan, 131072, 1, 32),
+    for what, x, p in (
+            ("warp [131072, 1024]", x, plan),
             ("columns [512, 512, 512] axis 1", prod,
-             plan_reduce(qt.mul_merge(f88z, f88z), (), 512), 512, 512, 0)):
+             plan_reduce(qt.mul_merge(f88z, f88z), (), 512))):
         want = qreduce_plain(x, 1, p)
-        out = torch.empty_like(want)
         for modes in (p.modes, 0):
             def run():
-                _build.check(_build.lib().qk_qreduce(
-                    0, x.data_ptr(), out.data_ptr(), outer, p.n, inner,
-                    x.element_size(), out.element_size(), p.kernel_params(),
-                    modes, lanes, None), "qk_qreduce")
-            run()
+                # the package's K3 op with its instantiation forced
+                return torch.ops.qublas.qreduce(
+                    x, 1, list(p.kernel_params()), p.tails, modes,
+                    want.element_size())
+            out = run()
             torch.cuda.synchronize()
             assert torch.equal(out, want), (what, modes)
             dus = sum(device_us(run).values())
@@ -801,6 +800,7 @@ def _p1_variants(card):
 
     import qublas_tpu_torch as qt
     from qublas_tpu_torch import _build
+    from qublas_tpu_torch.ops import library
     from qublas_tpu_torch.ops import chain_probe as CP
     from qublas_tpu_torch.ops import tree_gemm as TT
     from qublas_tpu_torch.timing import device_us, timeit
@@ -836,7 +836,8 @@ def _p1_variants(card):
                 out = torch.empty((programs,) + tuple(a.shape),
                                   dtype=torch.int32, device=dev)
                 _build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                a.numel(), programs, steps, params),
+                                a.numel(), programs, steps,
+                                library.c_ints(params)),
                              "p1_variant")
                 return out
         got = run()
@@ -876,6 +877,7 @@ def _k2h(card):
 
     import qublas_tpu_torch as qt
     from qublas_tpu_torch import _build
+    from qublas_tpu_torch.ops import library
     from qublas_tpu_torch.ops import tree_gemm as TT
     from qublas_tpu_torch.timing import device_us, timeit
 
@@ -906,9 +908,9 @@ def _k2h(card):
         tag = f"{kind} {k} (s = {hp.s}, dl = {hp.dl})"
 
         def package(m=modes):
-            _build.check(_build.lib().qk_tree_gemm_hybrid_mma(
-                0, a.data_ptr(), k, b.data_ptr(), n, got.data_ptr(), n, n, k,
-                got.element_size(), params, m, None), "tree_gemm_hybrid")
+            # the package's tensor-core K2h op with its instantiation forced
+            return torch.ops.qublas.tree_gemm_hybrid_mma(
+                a, b, list(params), m, got.element_size())
         imad = lambda: TT.tree_gemm_hybrid(a16, b16, hp, out)  # noqa: E731
         turns = [timeit(f, runs=5, warmup=1)
                  for f in (package, imad, imad, package)]
@@ -923,13 +925,15 @@ def _k2h(card):
             def run(v=v):
                 _build.check(lib.k2h_variant(
                     v, a.data_ptr(), k, b.data_ptr(), n, got.data_ptr(), n,
-                    n, k, got.element_size(), params), "k2h_variant")
+                    n, k, got.element_size(), library.c_ints(params)),
+                    "k2h_variant")
+                return got
             runs.append((label, run, False))
         for label, run, exact in runs:
             got.zero_()
-            run()
+            res = run()
             torch.cuda.synchronize()
-            same = torch.equal(got, want)
+            same = torch.equal(res, want)
             assert same or not exact, (tag, label)
             ms = timeit(run, runs=5, warmup=1)
             dus = sum(device_us(run, runs=5).values())

@@ -78,21 +78,11 @@ def p1_plan(plan: TreePlan) -> int:
 
 def _launch(x: torch.Tensor, y: torch.Tensor, plan: TreePlan, steps: int,
             programs: int, instance: int) -> torch.Tensor:
-    """P1's kernel on CUDA tensors, instantiation ``instance`` (``p1_plan``'s
-    index, or 0 for any plan); raises if it does not launch."""
-    out = torch.empty((programs,) + tuple(x.shape), dtype=torch.int32,
-                      device=x.device)
-    if out.numel() == 0:
-        return out
-    x32 = x.to(torch.int32).contiguous()
-    y32 = y.to(torch.int32).contiguous()
-    dev = x.device.index
-    err = _build.lib().qk_chain_probe(
-        dev, x32.data_ptr(), y32.data_ptr(), out.data_ptr(), x32.numel(),
-        programs, steps, _kernel_params(plan, plan.final_fmt, 0), instance,
-        torch._C._cuda_getCurrentRawStream(dev))
-    _build.check(err, "chain_probe")
-    return out
+    """P1's custom op ``qublas::chain_probe`` on ``x`` and ``y``,
+    instantiation ``instance`` (``p1_plan``'s index, or 0 for any plan)."""
+    return torch.ops.qublas.chain_probe(
+        x, y, _kernel_params(plan, plan.final_fmt, 0), steps,
+        programs, instance)
 
 
 def chain_probe(x: torch.Tensor, y: torch.Tensor, plan: TreePlan,
@@ -101,6 +91,7 @@ def chain_probe(x: torch.Tensor, y: torch.Tensor, plan: TreePlan,
     against ``y`` (same shape, lane dtypes), as a [programs, *x.shape] int32
     tensor.
 
+    One call of the custom op ``qublas::chain_probe`` (:mod:`.library`):
     CPU tensors take the plain version; CUDA tensors launch P1, the
     instantiation of :func:`p1_plan`.
     ``chain_probe.launches`` counts kernel launches, ``chain_probe.seen``
@@ -116,18 +107,11 @@ def chain_probe(x: torch.Tensor, y: torch.Tensor, plan: TreePlan,
     if steps < 0 or programs < 0:
         raise ValueError(f"steps {steps} and programs {programs} must be "
                          ">= 0")
-    if x.device.type == "cpu":
-        return chain_probe_plain(x, y, plan, steps, programs)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"chain_probe runs on CUDA or CPU, not {x.device}")
     if "p1" not in plan._kernel_cache:
         plan._kernel_cache["p1"] = p1_plan(plan)
-    out = _launch(x, y, plan, steps, programs, plan._kernel_cache["p1"])
-    if out.numel():
-        chain_probe.launches += 1
-        _build.record(chain_probe, f"plan_{plan._kernel_cache['p1']}",
-                      (plan.mul_fmt, plan.merge_fmts[0]))
-    return out
+    return _launch(x, y, plan, steps, programs, plan._kernel_cache["p1"])
 
 
 chain_probe.launches = 0

@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 
 from .. import _build
-from ..qformat import OverflowMode, QFormat, RoundMode
+from ..qformat import QFormat
 from .wideint import requantize_i32
 from .widths import LANE_DTYPES, torch_dtype_for
 
@@ -82,43 +82,6 @@ def k1_operand(t: torch.Tensor, route: Optional[str] = None) -> torch.Tensor:
     return buf[:, :k]
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor, rq, out_dtype,
-            out_fmt=None) -> torch.Tensor:
-    """Launch K1 on CUDA operands with the requantize ``rq``
-    (``csrc/requant.cuh``'s ``Rq`` fields) into ``out_fmt``, or the
-    identity epilogue of :func:`int_dot` where ``out_fmt`` is None."""
-    m, k = a.shape
-    n = b.shape[1]
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    if m == 0 or n == 0:
-        return out
-    lib = _build.lib()
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    if a.dtype == torch.int8 and b.dtype == torch.int8:
-        ra, rb = k1_route(a), k1_route(b.t())
-        a8 = k1_operand(a, ra)
-        bt = k1_operand(b.t(), rb)  # [N, K]
-        instance = f"s8/{ra}/{rb}"
-        err = lib.qk_fused_gemm_s8(a.device.index, a8.data_ptr(), a8.stride(0),
-                                   bt.data_ptr(), bt.stride(0),
-                                   out.data_ptr(), m, n, k,
-                                   out.element_size(), *rq, stream)
-    else:
-        instance = "s32"
-        a32 = a.to(torch.int32).contiguous()
-        b32 = b.to(torch.int32).contiguous()
-        err = lib.qk_fused_gemm_s32(a.device.index, a32.data_ptr(),
-                                    b32.data_ptr(), out.data_ptr(), m, n, k,
-                                    out.element_size(), *rq, stream)
-    _build.check(err, "fused_int8_gemm")
-    fused_int8_gemm.launches += 1
-    if out_fmt is None:
-        _build.record(fused_int8_gemm, "int_dot/" + instance)
-    else:
-        _build.record(fused_int8_gemm, "gemm/" + instance, (out_fmt,))
-    return out
-
-
 def _check_operands(name: str, a: torch.Tensor, b: torch.Tensor):
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"need [M, K] @ [K, N], got {tuple(a.shape)} @ "
@@ -137,7 +100,9 @@ def fused_int8_gemm(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
     """``requantize_i32(a @ b, prod_frac, out_fmt)`` for 2-D lane tensors
     ``a`` [M, K] and ``b`` [K, N], stored in ``torch_dtype_for(out_fmt)``.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    One call of the custom op ``qublas::fused_gemm_s8`` (int8 operands)
+    or ``qublas::fused_gemm_s32`` (:mod:`.library`): CPU tensors take the
+    plain version; CUDA tensors launch the kernel.
     ``fused_int8_gemm.launches`` counts kernel launches, and
     ``fused_int8_gemm.seen`` (``_build.record``) each launch's route and
     epilogue modes.
@@ -146,16 +111,16 @@ def fused_int8_gemm(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
     out_dtype = torch_dtype_for(out_fmt)
     if out_dtype is None:
         raise ValueError(f"{out_fmt} has no lane storage")
-    if a.device.type == "cpu":
-        return fused_int8_gemm_plain(a, b, prod_frac, out_fmt)
-    return _launch(a, b, _build.rq_args(prod_frac, out_fmt), out_dtype,
-                   out_fmt)
+    return _op(a, b)(a, b, _build.rq_args(prod_frac, out_fmt),
+                     out_dtype.itemsize)
 
 
-# K1's identity epilogue: requant.cuh returns y unchanged for d = 0 under
-# WRP_TCPL at a signed width of 32 (shift, round mode, overflow mode, width,
-# signedness)
-_IDENTITY_RQ = (0, int(RoundMode.TRN_TCPL), int(OverflowMode.WRP_TCPL), 32, 1)
+def _op(a: torch.Tensor, b: torch.Tensor):
+    """K1's custom op for the operands' lanes: the tensor-core
+    instantiation for int8 x int8, the int32 one otherwise."""
+    if a.dtype == torch.int8 and b.dtype == torch.int8:
+        return torch.ops.qublas.fused_gemm_s8
+    return torch.ops.qublas.fused_gemm_s32
 
 
 def int_dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -172,13 +137,12 @@ def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     instantiation, int16/int32 operands the int32 one, so every raw keeps its
     value whatever its format (no narrowing by interval).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel and
-    add one to ``fused_int8_gemm.launches``.
+    The same custom ops as :func:`fused_int8_gemm`, with no requantize
+    step: CPU tensors take the plain version; CUDA tensors launch the
+    kernel and add one to ``fused_int8_gemm.launches``.
     """
     _check_operands("int_dot", a, b)
-    if a.device.type == "cpu":
-        return int_dot_plain(a, b)
-    return _launch(a, b, _IDENTITY_RQ, torch.int32)
+    return _op(a, b)(a, b, (), 4)
 
 
 fused_int8_gemm.launches = 0

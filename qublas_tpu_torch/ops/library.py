@@ -1,0 +1,569 @@
+"""The Hopper kernels as ``torch.library`` custom ops (``qublas::*``).
+
+One op for each C entry point of ``_build._SIGNATURES``, so that a kernel
+launch is one node that ``torch.compile`` traces and a CUDA graph captures:
+
+==========================  ==================================  ==========
+op                          C entry point                       kernel
+==========================  ==================================  ==========
+``fused_gemm_s8``           ``qk_fused_gemm_s8``                K1
+``fused_gemm_s32``          ``qk_fused_gemm_s32``               K1
+``tree_gemm``               ``qk_tree_gemm``                    K2
+``tree_gemm_stream``        ``qk_tree_gemm_stream``             K2′
+``tree_gemm_hybrid``        ``qk_tree_gemm_hybrid``             K2h (IMAD)
+``tree_gemm_hybrid_mma``    ``qk_tree_gemm_hybrid_mma``         K2h (MMA)
+``qreduce``                 ``qk_qreduce``                      K3
+``chain_probe``             ``qk_chain_probe``                  P1
+==========================  ==================================  ==========
+
+An op takes tensors, ints and lists of ints only: a requantize step as the
+five ints of ``_build.rq_args``, a plan as the int32 parameters its kernel
+reads (``tree_gemm._kernel_params``, ``_hybrid_params``,
+``ReducePlan.kernel_params``), the instantiation and the output's lane
+bytes as ints.  The public wrappers (``fused_int8_gemm``, ``int_dot``,
+``tree_gemm``, ``tree_gemm_stream``, ``tree_gemm_hybrid``,
+``qreduce_kernel``, ``chain_probe``) turn formats and plans into these
+ints, which are static under ``torch.compile``, and call the op.
+
+Each op has three parts:
+
+* the CUDA implementation launches the kernel through ``ctypes``.  It alone
+  reads ``data_ptr()``: the operand routes (``k1_route``, ``k2s_route``,
+  ``k3_route``, ``k2h_route``) and the ``ctypes`` launch run on real
+  tensors at run time, never on a traced one.  It adds one to the
+  wrapper's ``launches`` and notes the launch in its ``seen``
+  (``_build.record``);
+* the CPU implementation is the kernel's plain version, on the plan read
+  back from the same ints (:func:`rq_format`, :func:`tree_plan`,
+  :func:`hybrid_plan`, :func:`reduce_plan`);
+* the fake implementation gives the output's shape and dtype.
+
+The ops are declared with ``torch.library.Library`` (a schema, a kernel a
+device, a fake), not with ``torch.library.custom_op``, whose Python
+wrapper around every call (an autograd layer and an aliasing check) costs
+about 50 µs of host time a launch: no op has a gradient (its tensors are
+integers), and every output is a new tensor that aliases no input, which
+``torch.library.opcheck`` checks in the tests.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from dataclasses import dataclass
+from typing import Sequence, Tuple
+
+import torch
+
+from .. import _build
+from ..qformat import OverflowMode, QFormat, RoundMode
+
+__all__ = ["rq_format", "tree_plan", "hybrid_plan", "reduce_plan",
+           "lane_dtype", "c_ints", "OPS"]
+
+# lane dtype by its bytes: the ops' ``out_bytes`` argument
+_LANE = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+
+def lane_dtype(out_bytes: int) -> torch.dtype:
+    """The int8/int16/int32 lane of ``out_bytes`` bytes."""
+    return _LANE[out_bytes]
+
+
+@functools.lru_cache(maxsize=1024)
+def c_ints(params: Tuple[int, ...]):
+    """``params`` (a tuple) as the C int array a kernel reads, built once a
+    plan (the entry points copy it into their kernel's arguments before
+    they return, so a captured launch keeps no pointer to it)."""
+    return (ctypes.c_int * len(params))(*params)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+# ---------------------------------------------------------------------------
+# Plans read back from their kernel parameters (the CPU implementations)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1024)
+def rq_format(rq: Tuple[int, ...]) -> Tuple[int, QFormat]:
+    """The requantize step ``rq`` (``_build.rq_args``: shift, round mode,
+    overflow mode, width, signedness) as a ``(from_frac, fmt)`` pair that
+    ``requantize_i32``/``requantize_i64``/``requantize_split_mul`` read as
+    the same step: they read ``from_frac - fmt.frac_bits``, the storage
+    width, the signedness and the two modes, and nothing else."""
+    d, rnd, ovf, width, signed = rq
+    return d, QFormat(width - 1, 0, bool(signed), RoundMode(rnd),
+                      OverflowMode(ovf))
+
+
+def _frac(d: int) -> QFormat:
+    """A format whose fraction bits are ``d``: a merge's input format as
+    ``_merge`` and ``_drain`` read it (its fraction bits only)."""
+    return QFormat(max(-d, 0), d)
+
+
+class _Reader:
+    """Reads a kernel parameter list front to back."""
+
+    def __init__(self, params: Sequence[int]):
+        self.p, self.i = params, 0
+
+    def ints(self, n: int):
+        out = self.p[self.i:self.i + n]
+        self.i += n
+        return out
+
+    def int(self) -> int:
+        return self.ints(1)[0]
+
+    def steps(self, levels: int):
+        """``levels`` requantize steps: their input fractions and formats."""
+        st = [rq_format(self.ints(5)) for _ in range(levels)]
+        return tuple(_frac(d) for d, _ in st), tuple(f for _, f in st)
+
+    def drain(self):
+        n = self.int()
+        return tuple((_DRAIN_OPS[op], l) for op, l in
+                     (self.ints(2) for _ in range(n)))
+
+
+_DRAIN_OPS = ("seed", "convert", "add")    # tree_gemm._OPS, inverted
+_ROUTES = ("i32", "split", "pair")         # tree_gemm.ROUTES, inverted
+
+
+@functools.lru_cache(maxsize=1024)
+def tree_plan(params: Tuple[int, ...], k: int):
+    """``(plan, out_fmt)`` read back from K2's, K2′'s or P1's parameters
+    (``tree_gemm._kernel_params``, a tuple): a ``TreePlan`` whose steps
+    requantize as the original's do, its formats those of
+    :func:`rq_format`."""
+    from .tree_gemm import TreePlan
+
+    r = _Reader(params)
+    route, _log_blk = r.ints(2)
+    prod_frac, mul_fmt = rq_format(r.ints(5))
+    levels = r.int()
+    level_fmts, merge_fmts = r.steps(levels)
+    drain = r.drain()
+    final_frac, out_fmt = rq_format(r.ints(5))
+    plan = TreePlan(k, _ROUTES[route], prod_frac, mul_fmt, levels,
+                    level_fmts, merge_fmts, drain, _frac(final_frac))
+    return plan, out_fmt
+
+
+@functools.lru_cache(maxsize=1024)
+def hybrid_plan(params: Tuple[int, ...]):
+    """``(plan, out_fmt)`` read back from K2h's parameters
+    (``tree_gemm._hybrid_params``, a tuple): a ``HybridPlan`` whose tail
+    levels ``level..`` requantize as the original's do (the levels below
+    it are never read)."""
+    from .tree_gemm import HybridPlan
+
+    r = _Reader(params)
+    level, dl, levels = r.ints(3)
+    level_fmts, merge_fmts = r.steps(levels)
+    r.drain()
+    final_frac, out_fmt = rq_format(r.ints(5))
+    pad = (QFormat(),) * level
+    plan = HybridPlan(1 << level, level, dl, pad + level_fmts,
+                      pad + merge_fmts, _frac(final_frac))
+    return plan, out_fmt
+
+
+@dataclass(frozen=True)
+class _ReduceSteps:
+    """The part of a ``ReducePlan`` that ``qreduce_plain`` and ``k3_route``
+    read: n, the layer schedule ``(cur_fmt, merge_fmt, m)`` and the final
+    format, and the merges' formats, which ``_build.record`` reads."""
+
+    n: int
+    sched: Tuple[Tuple[QFormat, QFormat, int], ...]
+    final_fmt: QFormat
+    merge_fmts: Tuple[QFormat, ...]
+
+
+@functools.lru_cache(maxsize=1024)
+def reduce_plan(params: Tuple[int, ...], tails: Tuple[int, ...], n: int,
+                out_bytes: int) -> _ReduceSteps:
+    """K3's plan read back from its parameters
+    (``ReducePlan.kernel_params``) and ``tails`` (``ReducePlan.tails``:
+    per layer, 1 where its odd tail converts, 0 where the formats are equal
+    and it is copied), both tuples: the layered schedule of
+    ``qreduce_plain``, where a copied tail's ``cur_fmt`` is its
+    ``merge_fmt``."""
+    r = _Reader(params)
+    r.int()
+    levels = r.int()
+    st = [rq_format(r.ints(5)) for _ in range(levels)]
+    sched, m = [], n
+    for l, convert in enumerate(tails):
+        d, lf = st[l]
+        # a converting tail's format has d fraction bits and a storage
+        # width unlike lf's, so that qreduce_plain sees them differ
+        cur = QFormat(lf.storage_bits + max(-d, 0), d) if convert else lf
+        sched.append((cur, lf, m))
+        m = (m + 1) // 2
+    final = QFormat(8 * out_bytes - 1, 0)
+    return _ReduceSteps(n, tuple(sched), final, tuple(f for _, f in st))
+
+
+# ---------------------------------------------------------------------------
+# The op declarations
+# ---------------------------------------------------------------------------
+
+_LIB = torch.library.Library("qublas", "DEF")
+
+
+def _declare(schema: str, cpu, cuda, fake):
+    """Declare ``qublas::<schema>`` with its CPU, CUDA and fake
+    implementations; its default overload."""
+    name = schema.split("(")[0]
+    _LIB.define(schema)
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"qublas::{name}", fake, lib=_LIB)
+    return getattr(torch.ops.qublas, name).default
+
+
+def _gemm_fake(a, b, *args):
+    # the output's lane bytes are every GEMM op's last argument
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=lane_dtype(args[-1]))
+
+
+def _gemm_out(a, b, out_bytes):
+    """The [M, N] output of ``a`` @ ``b`` in the lane of ``out_bytes``."""
+    return torch.empty((a.shape[0], b.shape[1]), dtype=lane_dtype(out_bytes),
+                       device=a.device)
+
+
+# ---------------------------------------------------------------------------
+# K1: fused_gemm_s8 / fused_gemm_s32
+# ---------------------------------------------------------------------------
+
+# K1's identity epilogue (int_dot): requant.cuh returns y unchanged for
+# d = 0 under WRP_TCPL at a signed width of 32
+_IDENTITY_RQ = (0, int(RoundMode.TRN_TCPL), int(OverflowMode.WRP_TCPL), 32, 1)
+
+
+def _k1_plain(a, b, rq, out_bytes):
+    """K1's plain version: ``rq`` the requantize step, none for
+    ``int_dot``'s identity epilogue."""
+    from .fused_gemm import fused_int8_gemm_plain, int_dot_plain
+
+    if not rq:
+        return int_dot_plain(a, b)
+    d, fmt = rq_format(tuple(rq))
+    return fused_int8_gemm_plain(a, b, d, fmt).to(lane_dtype(out_bytes))
+
+
+def _k1_record(instance: str, rq):
+    from .fused_gemm import fused_int8_gemm
+
+    fused_int8_gemm.launches += 1
+    if rq:
+        _build.record(fused_int8_gemm, "gemm/" + instance,
+                      (rq_format(tuple(rq))[1],))
+    else:
+        _build.record(fused_int8_gemm, "int_dot/" + instance)
+
+
+def _k1_s8(a, b, rq, out_bytes):
+    from .fused_gemm import k1_operand, k1_route
+
+    out = _gemm_out(a, b, out_bytes)
+    if out.numel() == 0:
+        return out
+    m, k = a.shape
+    ra, rb = k1_route(a), k1_route(b.t())
+    a8 = k1_operand(a, ra)
+    bt = k1_operand(b.t(), rb)  # [N, K]
+    err = _build.lib().qk_fused_gemm_s8(
+        a.device.index, a8.data_ptr(), a8.stride(0), bt.data_ptr(),
+        bt.stride(0), out.data_ptr(), m, out.shape[1], k, out_bytes,
+        *(rq or _IDENTITY_RQ), _stream(a))
+    _build.check(err, "fused_int8_gemm")
+    _k1_record(f"s8/{ra}/{rb}", rq)
+    return out
+
+
+def _k1_s32(a, b, rq, out_bytes):
+    out = _gemm_out(a, b, out_bytes)
+    if out.numel() == 0:
+        return out
+    m, k = a.shape
+    a32 = a.to(torch.int32).contiguous()
+    b32 = b.to(torch.int32).contiguous()
+    err = _build.lib().qk_fused_gemm_s32(
+        a.device.index, a32.data_ptr(), b32.data_ptr(), out.data_ptr(), m,
+        out.shape[1], k, out_bytes, *(rq or _IDENTITY_RQ), _stream(a))
+    _build.check(err, "fused_int8_gemm")
+    _k1_record("s32", rq)
+    return out
+
+
+# K1's tensor-core instantiation: a [M, K] @ b [K, N] of int8 lanes,
+# requantized by rq (none: int_dot's identity epilogue)
+fused_gemm_s8 = _declare(
+    "fused_gemm_s8(Tensor a, Tensor b, int[] rq, int out_bytes) -> Tensor",
+    _k1_plain, _k1_s8, _gemm_fake)
+# K1's int32 instantiation, operands of any lane widened to int32
+fused_gemm_s32 = _declare(
+    "fused_gemm_s32(Tensor a, Tensor b, int[] rq, int out_bytes) -> Tensor",
+    _k1_plain, _k1_s32, _gemm_fake)
+
+
+# ---------------------------------------------------------------------------
+# K2 and K2′
+# ---------------------------------------------------------------------------
+
+def _tree_record(wrapper, instance: str, params, k: int):
+    from .tree_gemm import _step_fmts
+
+    wrapper.launches += 1
+    _build.record(wrapper, instance, _step_fmts(*tree_plan(params, k)))
+
+
+def _k2_plain(a, b, params, modes, out_bytes):
+    from .tree_gemm import tree_gemm_plain
+
+    plan, out_fmt = tree_plan(tuple(params), a.shape[1])
+    return tree_gemm_plain(a, b, plan, out_fmt).to(lane_dtype(out_bytes))
+
+
+def _k2(a, b, params, modes, out_bytes):
+    from . import tree_gemm as TG
+
+    out = _gemm_out(a, b, out_bytes)
+    if out.numel() == 0:
+        return out
+    m, k = a.shape
+    params = tuple(params)
+    a32 = a.to(torch.int32).contiguous()
+    b32 = b.to(torch.int32).contiguous()
+    err = _build.lib().qk_tree_gemm(
+        a.device.index, a32.data_ptr(), b32.data_ptr(), out.data_ptr(), m,
+        out.shape[1], k, out_bytes, c_ints(params), modes, _stream(a))
+    _build.check(err, "tree_gemm")
+    # csrc/tree_gemm_tiled.cu's instantiations: an 8-level slot stack
+    # below k = 4096, 32 levels from there
+    top = 8 if (k >> TG.K2_LOG_BLK).bit_length() <= 8 else 32
+    _tree_record(TG.tree_gemm, f"tiled_{top}_{modes}", params, k)
+    return out
+
+
+def _k2s_plain(a, b, params, plan, out_bytes):
+    from .tree_gemm import tree_gemm_stream_plain
+
+    tplan, out_fmt = tree_plan(tuple(params), a.shape[1])
+    return tree_gemm_stream_plain(a, b, tplan, out_fmt).to(
+        lane_dtype(out_bytes))
+
+
+def _k2s(a, b, params, plan, out_bytes):
+    from . import tree_gemm as TG
+
+    out = _gemm_out(a, b, out_bytes)
+    if out.numel() == 0:
+        return out
+    m, k = a.shape
+    params = tuple(params)
+    a32, b32 = a.to(torch.int32), b.to(torch.int32)
+    ra, rb = TG.k2s_route(a32), TG.k2s_route(b32)
+    a32, lda = TG.k2s_operand(a32, ra)
+    b32, ldb = TG.k2s_operand(b32, rb)
+    err = _build.lib().qk_tree_gemm_stream(
+        a.device.index, a32.data_ptr(), lda, b32.data_ptr(), ldb,
+        out.data_ptr(), m, out.shape[1], k, out_bytes, c_ints(params), plan,
+        _stream(a))
+    _build.check(err, "tree_gemm_stream")
+    _tree_record(TG.tree_gemm_stream, f"plan_{plan}/{ra}/{rb}", params, k)
+    return out
+
+
+# K2 on a [M, K] @ b [K, N] under the plan params (_kernel_params at
+# K2_LOG_BLK), instantiation modes (k2_modes)
+tree_gemm = _declare(
+    "tree_gemm(Tensor a, Tensor b, int[] params, int modes, int out_bytes)"
+    " -> Tensor", _k2_plain, _k2, _gemm_fake)
+# K2′ on the same, params at 0, instantiation plan (k2s_plan)
+tree_gemm_stream = _declare(
+    "tree_gemm_stream(Tensor a, Tensor b, int[] params, int plan, "
+    "int out_bytes) -> Tensor", _k2s_plain, _k2s, _gemm_fake)
+
+
+# ---------------------------------------------------------------------------
+# K2h: the IMAD kernel and the tensor-core kernel
+# ---------------------------------------------------------------------------
+
+def _k2h_plain(a, b, params, *args):
+    from .tree_gemm import tree_gemm_hybrid_plain
+
+    plan, out_fmt = hybrid_plan(tuple(params))
+    return tree_gemm_hybrid_plain(a, b, plan, out_fmt).to(
+        lane_dtype(args[-1]))
+
+
+def _k2h_record(kind: str, instance: str, params, k: int):
+    from .tree_gemm import tree_gemm_hybrid as wrapper
+
+    plan, out_fmt = hybrid_plan(params)
+    levels = max((k // plan.s).bit_length(), 1)
+    setattr(wrapper, kind, getattr(wrapper, kind) + 1)
+    wrapper.launches += 1
+    _build.record(wrapper, instance,
+                  (*plan.merge_fmts[plan.level:plan.level + levels], out_fmt))
+
+
+def _k2h_imad(a, b, params, out_bytes):
+    out = _gemm_out(a, b, out_bytes)
+    if out.numel() == 0:
+        return out
+    m, k = a.shape
+    params = tuple(params)
+    # the IMAD kernel stages int32 slices: a widening copy of each operand
+    # a call, inside the kernel's event-timed time
+    a32 = a.to(torch.int32).contiguous()
+    b32 = b.to(torch.int32).contiguous()
+    err = _build.lib().qk_tree_gemm_hybrid(
+        a.device.index, a32.data_ptr(), b32.data_ptr(), out.data_ptr(), m,
+        out.shape[1], k, out_bytes, c_ints(params), _stream(a))
+    _build.check(err, "tree_gemm_hybrid (IMAD kernel)")
+    _k2h_record("imad_launches", "imad", params, k)
+    return out
+
+
+def _k2h_mma(a, b, params, modes, out_bytes):
+    from .tree_gemm import _row_pitch
+
+    out = _gemm_out(a, b, out_bytes)
+    if out.numel() == 0:
+        return out
+    m, k = a.shape
+    params = tuple(params)
+    a8, lda = _row_pitch(a)
+    b8, ldb = _row_pitch(b)
+    err = _build.lib().qk_tree_gemm_hybrid_mma(
+        a.device.index, a8.data_ptr(), lda, b8.data_ptr(), ldb,
+        out.data_ptr(), m, out.shape[1], k, out_bytes, c_ints(params),
+        modes, _stream(a))
+    _build.check(err, "tree_gemm_hybrid (tensor-core kernel)")
+    _k2h_record("mma_launches", f"mma_{modes}", params, k)
+    return out
+
+
+# K2h's IMAD kernel (any lanes, on int32 copies) under the plan params
+# (_hybrid_params)
+tree_gemm_hybrid = _declare(
+    "tree_gemm_hybrid(Tensor a, Tensor b, int[] params, int out_bytes) -> "
+    "Tensor", _k2h_plain, _k2h_imad, _gemm_fake)
+# K2h's tensor-core kernel (int8 x int8 lanes), instantiation modes
+# (k2h_modes)
+tree_gemm_hybrid_mma = _declare(
+    "tree_gemm_hybrid_mma(Tensor a, Tensor b, int[] params, int modes, "
+    "int out_bytes) -> Tensor", _k2h_plain, _k2h_mma, _gemm_fake)
+
+
+# ---------------------------------------------------------------------------
+# K3
+# ---------------------------------------------------------------------------
+
+def _k3_plain(x, axis, params, tails, modes, out_bytes):
+    from .reduce import qreduce_plain
+
+    plan = reduce_plan(tuple(params), tuple(tails), x.shape[axis],
+                       out_bytes)
+    return qreduce_plain(x, axis, plan)
+
+
+def _k3(x, axis, params, tails, modes, out_bytes):
+    from .reduce import k3_route, qreduce_kernel
+
+    shape = tuple(x.shape)
+    out = torch.empty(shape[:axis] + shape[axis + 1:],
+                      dtype=lane_dtype(out_bytes), device=x.device)
+    if out.numel() == 0:
+        return out
+    params = tuple(params)
+    plan = reduce_plan(params, tuple(tails), shape[axis], out_bytes)
+    x = x.contiguous()  # read in place as [outer, n, inner]
+    route, lanes = k3_route(x, axis, plan)
+    err = _build.lib().qk_qreduce(
+        x.device.index, x.data_ptr(), out.data_ptr(),
+        math.prod(shape[:axis]), plan.n, math.prod(shape[axis + 1:]),
+        x.element_size(), out_bytes, c_ints(params), modes, lanes,
+        _stream(x))
+    _build.check(err, "qreduce_kernel")
+    qreduce_kernel.launches += 1
+    _build.record(qreduce_kernel,
+                  f"{route}_{lanes}/modes_{modes}/{x.element_size()}",
+                  plan.merge_fmts)
+    return out
+
+
+def _k3_fake(x, axis, params, tails, modes, out_bytes):
+    shape = tuple(x.shape)
+    return x.new_empty(shape[:axis] + shape[axis + 1:],
+                       dtype=lane_dtype(out_bytes))
+
+
+# K3: x reduced along axis under the plan params (ReducePlan.kernel_params)
+# with the odd tails tails (ReducePlan.tails), instantiation modes
+# (k3_modes)
+qreduce = _declare(
+    "qreduce(Tensor x, int axis, int[] params, int[] tails, int modes, "
+    "int out_bytes) -> Tensor", _k3_plain, _k3, _k3_fake)
+
+
+# ---------------------------------------------------------------------------
+# P1
+# ---------------------------------------------------------------------------
+
+def _p1_plain(x, y, params, steps, programs, plan):
+    from .chain_probe import chain_probe_plain
+
+    tplan, _ = tree_plan(tuple(params), 1)
+    out = chain_probe_plain(x, y, tplan, steps, programs)
+    # no steps and one program: the plain version's result is x's own int32
+    # lanes, which an op's output must not alias
+    return out.clone() if steps == 0 else out
+
+
+def _p1(x, y, params, steps, programs, plan):
+    from . import chain_probe as CP
+
+    out = torch.empty((programs,) + tuple(x.shape), dtype=torch.int32,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    params = tuple(params)
+    x32 = x.to(torch.int32).contiguous()
+    y32 = y.to(torch.int32).contiguous()
+    err = _build.lib().qk_chain_probe(
+        x.device.index, x32.data_ptr(), y32.data_ptr(), out.data_ptr(),
+        x32.numel(), programs, steps, c_ints(params), plan, _stream(x))
+    _build.check(err, "chain_probe")
+    tplan, _ = tree_plan(params, 1)
+    CP.chain_probe.launches += 1
+    _build.record(CP.chain_probe, f"plan_{plan}",
+                  (tplan.mul_fmt, tplan.merge_fmts[0]))
+    return out
+
+
+def _p1_fake(x, y, params, steps, programs, plan):
+    return x.new_empty((programs,) + tuple(x.shape), dtype=torch.int32)
+
+
+# P1: steps product + layer-0 merge steps of the plan params (_kernel_params
+# at 0) on the tile x against y, written programs times; instantiation plan
+# (p1_plan)
+chain_probe = _declare(
+    "chain_probe(Tensor x, Tensor y, int[] params, int steps, int programs,"
+    " int plan) -> Tensor", _p1_plain, _p1, _p1_fake)
+
+
+# every op, for opcheck and the tests
+OPS = (fused_gemm_s8, fused_gemm_s32, tree_gemm, tree_gemm_stream,
+       tree_gemm_hybrid, tree_gemm_hybrid_mma, qreduce, chain_probe)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from ..qformat import OverflowMode, QFormat, RoundMode
 from .wideint import _carry_mode
@@ -117,6 +118,28 @@ class LimbArray:
                 f"device={self.device})")
 
 
+def _moved(t, src: int, dst: int):
+    # a leaf that is not a tensor is a placeholder (``vmap``'s in_dims)
+    return t.movedim(src, dst) if isinstance(t, torch.Tensor) else t
+
+
+def _limbs_unflatten(children, _ctx) -> LimbArray:
+    out = object.__new__(LimbArray)
+    out.limbs = _moved(children[0], -1, 0)
+    return out
+
+
+# A pytree node, as the JAX package's LimbArray is.  Its one leaf holds the
+# limbs with the limb axis moved last (a view): the element axes come
+# first, so that ``torch.func.vmap`` maps an element axis by default, as it
+# maps a lane tensor's, and never the limb axis.
+pytree.register_pytree_node(
+    LimbArray,
+    lambda a: ([_moved(a.limbs, 0, -1)], None),
+    _limbs_unflatten,
+    serialized_type_name="qublas_tpu_torch.ops.limbint.LimbArray")
+
+
 def limbs_from_ints(values, K: int, device="cpu") -> torch.Tensor:
     """Python ints (any array-like) -> ``(K, *shape)`` limbs on ``device``.
 
@@ -176,8 +199,11 @@ def lext(x: torch.Tensor, K: int) -> torch.Tensor:
 def lconst(c: int, K: int, shape=(), device="cpu") -> torch.Tensor:
     """Python int -> broadcast constant limbs (mod 2^(32K))."""
     c &= (1 << (32 * K)) - 1
-    col = torch.tensor([(c >> (32 * i)) & M32 for i in range(K)],
-                       dtype=torch.int64, device=device)
+    # a fill a limb on the device, never a copy from host memory, which a
+    # CUDA graph could not capture
+    col = torch.stack([torch.full((), (c >> (32 * i)) & M32,
+                                  dtype=torch.int64, device=device)
+                       for i in range(K)])
     return col.reshape((K,) + (1,) * len(shape)).expand(
         (K,) + tuple(shape))
 
@@ -238,17 +264,15 @@ def lshl(x: torch.Tensor, d: int) -> torch.Tensor:
         return x
     K = x.shape[0]
     D, b = d // 32, d % 32
-    zero = torch.zeros_like(x[0])
-    out = []
-    for i in range(K):
-        if i < D:
-            out.append(zero)
-            continue
-        v = (x[i - D] << b) & M32 if b else x[i - D]
-        if b and i - D - 1 >= 0:
-            v = v | (x[i - D - 1] >> (32 - b))
-        out.append(v)
-    return torch.stack(out)
+    if D:
+        # whole limbs, as one concatenation: a handful of ops whatever K,
+        # so that a traced loop of shifts (ldiv_trunc's) stays small
+        x = torch.cat([torch.zeros_like(x[:min(D, K)]), x[:max(K - D, 0)]])
+    if b:
+        # limbs lie in [0, 2^32), so x << b < 2^63 and >> is logical
+        x = ((x << b) & M32) | torch.cat([torch.zeros_like(x[:1]),
+                                          x[:-1] >> (32 - b)])
+    return x
 
 
 def lshr(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -362,8 +386,7 @@ def ldiv_trunc(a: torch.Tensor, b: torch.Tensor, nbits: int) -> torch.Tensor:
     for _ in range(nbits):
         bit = x[K - 1] >> 31
         x = lshl(x, 1)
-        r = lshl(r, 1)
-        r[0] |= bit
+        r = _shl1_in(r, bit)
         trial = []
         borrow = None
         for i in range(K):
@@ -372,9 +395,15 @@ def ldiv_trunc(a: torch.Tensor, b: torch.Tensor, nbits: int) -> torch.Tensor:
             borrow = (t >> 32) & 1
         ge = borrow == 0
         r = lselect(ge, torch.stack(trial), r)
-        q = lshl(q, 1)
-        q[0] |= ge.to(torch.int64)
+        q = _shl1_in(q, ge.to(torch.int64))
     return lselect(neg_a != neg_b, lneg(q), q)
+
+
+def _shl1_in(x: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:
+    """``x`` shifted left by one bit mod 2^(32K), ``bit`` (0 or 1 an
+    element) shifted in at the bottom, out of place (a traced loop of them
+    mutates no view)."""
+    return ((x << 1) & M32) | torch.cat([bit[None], x[:-1] >> 31])
 
 
 def lmul(a: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:

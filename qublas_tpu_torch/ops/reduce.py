@@ -32,7 +32,6 @@ else host storage.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from collections import Counter
 
@@ -162,6 +161,10 @@ class ReducePlan:
             if not (op == "convert"
                     and self.level_fmts[l] == self.merge_fmts[l]))
         self.modes = k3_modes(self)
+        # per layer of sched, 1 where an odd tail converts into the layer's
+        # format and 0 where the formats are equal and it is copied: with
+        # kernel_params, what the plain version reads (library.reduce_plan)
+        self.tails = tuple(int(cur != lf) for cur, lf, _ in self.sched)
         self._params = None
 
     def kernel_params(self):
@@ -177,7 +180,7 @@ class ReducePlan:
             p.append(len(self.drain))
             for op, l in self.drain:
                 p += [_OPS[op], l]
-            self._params = (ctypes.c_int * len(p))(*p)
+            self._params = tuple(p)
         return self._params
 
 
@@ -270,8 +273,9 @@ def qreduce_kernel(x: torch.Tensor, axis: int, plan: ReducePlan):
     """Reduce the lane tensor ``x`` along ``axis`` under ``plan``, stored in
     ``torch_dtype_for(plan.final_fmt)``.
 
-    CPU tensors take the plain version; CUDA tensors launch K3, the kernel
-    of :func:`k3_route` with the modes of :func:`k3_modes`.
+    One call of the custom op ``qublas::qreduce`` (:mod:`.library`): CPU
+    tensors take the plain version; CUDA tensors launch K3, the kernel of
+    :func:`k3_route` with the modes of :func:`k3_modes`.
     ``qreduce_kernel.launches`` counts kernel launches,
     ``qreduce_kernel.seen`` (``_build.record``) each launch's kernel, S,
     instantiation and lane bytes and its layers' modes.
@@ -282,31 +286,12 @@ def qreduce_kernel(x: torch.Tensor, axis: int, plan: ReducePlan):
     if not 0 <= axis < x.ndim or x.shape[axis] != plan.n:
         raise ValueError(f"axis {axis} of {tuple(x.shape)} is not the "
                          f"plan's n = {plan.n}")
-    if x.device.type == "cpu":
-        return qreduce_plain(x, axis, plan)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"qreduce_kernel runs on CUDA or CPU, not "
                          f"{x.device}")
-    shape = tuple(x.shape)
-    out = torch.empty(shape[:axis] + shape[axis + 1:],
-                      dtype=torch_dtype_for(plan.final_fmt), device=x.device)
-    if out.numel() == 0:
-        return out
-    outer = math.prod(shape[:axis])
-    inner = math.prod(shape[axis + 1:])
-    x = x.contiguous()  # read in place as [outer, n, inner]
-    route, lanes = k3_route(x, axis, plan)
-    dev = x.device.index
-    err = _build.lib().qk_qreduce(
-        dev, x.data_ptr(), out.data_ptr(), outer, plan.n, inner,
-        x.element_size(), out.element_size(), plan.kernel_params(),
-        plan.modes, lanes, torch._C._cuda_getCurrentRawStream(dev))
-    _build.check(err, "qreduce_kernel")
-    qreduce_kernel.launches += 1
-    _build.record(qreduce_kernel,
-                  f"{route}_{lanes}/modes_{plan.modes}/{x.element_size()}",
-                  plan.merge_fmts)
-    return out
+    return torch.ops.qublas.qreduce(
+        x, axis, plan.kernel_params(), plan.tails, plan.modes,
+        torch_dtype_for(plan.final_fmt).itemsize)
 
 
 qreduce_kernel.launches = 0

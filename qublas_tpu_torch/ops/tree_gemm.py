@@ -43,7 +43,6 @@ and folds the tail layer by layer.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from collections import Counter
 from dataclasses import dataclass
@@ -414,7 +413,7 @@ def _build_params(plan: TreePlan, out_fmt: QFormat, log_blk: int):
     for op, l in plan.drain:
         p += [_OPS[op], l]
     p += _build.rq_args(plan.final_fmt.frac_bits, out_fmt)
-    return (ctypes.c_int * len(p))(*p)
+    return tuple(p)
 
 
 K2_LOG_BLK = 4   # K2 folds k in slices of 2^4 products (csrc LOG_BLK)
@@ -505,10 +504,7 @@ def _step_fmts(plan: TreePlan, out_fmt: QFormat):
     return (plan.mul_fmt, *plan.merge_fmts, out_fmt)
 
 
-def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
-            out_fmt: QFormat):
-    """Check the operands; None for CPU tensors, else the output of the
-    kernel ``name`` launched on them and its instantiation's name."""
+def _check(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan):
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0] \
             or a.shape[1] != plan.k:
         raise ValueError(f"need [M, {plan.k}] @ [{plan.k}, N], got "
@@ -518,45 +514,8 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
                         f"{a.dtype} and {b.dtype}")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
-    if a.device.type == "cpu":
-        return None
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on CUDA or CPU, not {a.device}")
-    m, k = a.shape
-    n = b.shape[1]
-    out = torch.empty((m, n), dtype=torch_dtype_for(out_fmt), device=a.device)
-    if m == 0 or n == 0:
-        return out, None
-    lib = _build.lib()
-    dev = a.device.index
-    stream = torch._C._cuda_getCurrentRawStream(dev)
-    if name == "tree_gemm":
-        a32 = a.to(torch.int32).contiguous()
-        b32 = b.to(torch.int32).contiguous()
-        modes = k2_modes(plan)
-        err = lib.qk_tree_gemm(dev, a32.data_ptr(), b32.data_ptr(),
-                               out.data_ptr(), m, n, k, out.element_size(),
-                               _kernel_params(plan, out_fmt, K2_LOG_BLK),
-                               modes, stream)
-        # csrc/tree_gemm_tiled.cu's instantiations: an 8-level slot stack
-        # below k = 4096, 32 levels from there
-        top = 8 if (k >> K2_LOG_BLK).bit_length() <= 8 else 32
-        instance = f"tiled_{top}_{modes}"
-    else:
-        a32, b32 = a.to(torch.int32), b.to(torch.int32)
-        ra, rb = k2s_route(a32), k2s_route(b32)
-        a32, lda = k2s_operand(a32, ra)
-        b32, ldb = k2s_operand(b32, rb)
-        if "k2s" not in plan._kernel_cache:
-            plan._kernel_cache["k2s"] = k2s_plan(plan)
-        err = lib.qk_tree_gemm_stream(dev, a32.data_ptr(), lda,
-                                      b32.data_ptr(), ldb, out.data_ptr(),
-                                      m, n, k, out.element_size(),
-                                      _kernel_params(plan, out_fmt, 0),
-                                      plan._kernel_cache["k2s"], stream)
-        instance = f"plan_{plan._kernel_cache['k2s']}/{ra}/{rb}"
-    _build.check(err, name)
-    return out, instance
 
 
 def tree_gemm(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
@@ -564,18 +523,18 @@ def tree_gemm(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
     """The tree GEMM ``a`` [M, K] @ ``b`` [K, N] of lane tensors under
     ``plan``, stored in ``torch_dtype_for(out_fmt)``.
 
-    CPU tensors take the plain version; CUDA tensors launch K2.
+    One call of the custom op ``qublas::tree_gemm`` (:mod:`.library`): CPU
+    tensors take the plain version; CUDA tensors launch K2, the
+    instantiation of :func:`k2_modes`.
     ``tree_gemm.launches`` counts kernel launches, ``tree_gemm.seen``
     (``_build.record``) each launch's instantiation and its steps' modes.
     """
-    res = _launch("tree_gemm", a, b, plan, out_fmt)
-    if res is None:
-        return tree_gemm_plain(a, b, plan, out_fmt)
-    out, instance = res
-    if instance is not None:
-        tree_gemm.launches += 1
-        _build.record(tree_gemm, instance, _step_fmts(plan, out_fmt))
-    return out
+    _check("tree_gemm", a, b, plan)
+    if "k2" not in plan._kernel_cache:
+        plan._kernel_cache["k2"] = k2_modes(plan)
+    return torch.ops.qublas.tree_gemm(
+        a, b, _kernel_params(plan, out_fmt, K2_LOG_BLK),
+        plan._kernel_cache["k2"], torch_dtype_for(out_fmt).itemsize)
 
 
 def tree_gemm_stream(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
@@ -583,20 +542,19 @@ def tree_gemm_stream(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
     """The same function as :func:`tree_gemm` on the one-pass schedule of
     ``tree_gemm_pallas``: every product pushed through the slot stack.
 
-    CPU tensors take the plain version; CUDA tensors launch K2′, the
-    instantiation of :func:`k2s_plan`.
+    One call of the custom op ``qublas::tree_gemm_stream``: CPU tensors
+    take the plain version; CUDA tensors launch K2′, the instantiation of
+    :func:`k2s_plan`.
     ``tree_gemm_stream.launches`` counts kernel launches,
     ``tree_gemm_stream.seen`` each launch's instantiation and operand
     routes (:func:`k2s_route`) and its steps' modes.
     """
-    res = _launch("tree_gemm_stream", a, b, plan, out_fmt)
-    if res is None:
-        return tree_gemm_stream_plain(a, b, plan, out_fmt)
-    out, instance = res
-    if instance is not None:
-        tree_gemm_stream.launches += 1
-        _build.record(tree_gemm_stream, instance, _step_fmts(plan, out_fmt))
-    return out
+    _check("tree_gemm_stream", a, b, plan)
+    if "k2s" not in plan._kernel_cache:
+        plan._kernel_cache["k2s"] = k2s_plan(plan)
+    return torch.ops.qublas.tree_gemm_stream(
+        a, b, _kernel_params(plan, out_fmt, 0),
+        plan._kernel_cache["k2s"], torch_dtype_for(out_fmt).itemsize)
 
 
 tree_gemm.launches = 0
@@ -663,7 +621,7 @@ def _hybrid_params(plan: HybridPlan, k: int, out_fmt: QFormat):
         for op, l in drain:
             p += [_OPS[op], l]
         p += _build.rq_args(plan.final_fmt.frac_bits, out_fmt)
-        plan._kernel_cache[key] = (ctypes.c_int * len(p))(*p)
+        plan._kernel_cache[key] = tuple(p)
     return plan._kernel_cache[key]
 
 
@@ -722,8 +680,10 @@ def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
     under ``plan``, stored in ``torch_dtype_for(out_fmt)``: the same bits
     as :func:`tree_gemm` on ``plan_tree`` of the same configuration.
 
-    CPU tensors take the plain version; CUDA tensors launch the K2h kernel
-    of :func:`k2h_route`, and raise if it refuses them.
+    One call of the custom op of :func:`k2h_route`'s kernel,
+    ``qublas::tree_gemm_hybrid_mma`` or ``qublas::tree_gemm_hybrid``: CPU
+    tensors take the plain version; CUDA tensors launch that K2h kernel,
+    and raise if it refuses them.
     ``tree_gemm_hybrid.launches`` counts launches of either kernel,
     ``tree_gemm_hybrid.mma_launches`` those of the tensor-core kernel and
     ``tree_gemm_hybrid.imad_launches`` those of the IMAD kernel;
@@ -739,49 +699,19 @@ def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
                         f"{a.dtype} and {b.dtype}")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
-    if a.device.type == "cpu":
-        return tree_gemm_hybrid_plain(a, b, plan, out_fmt)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tree_gemm_hybrid runs on CUDA or CPU, not "
                          f"{a.device}")
-    m, k = a.shape
-    n = b.shape[1]
-    out = torch.empty((m, n), dtype=torch_dtype_for(out_fmt), device=a.device)
-    if m == 0 or n == 0:
-        return out
-    dev = a.device.index
-    lib = _build.lib()
+    k = a.shape[1]
     params = _hybrid_params(plan, k, out_fmt)
-    stream = torch._C._cuda_getCurrentRawStream(dev)
+    out_bytes = torch_dtype_for(out_fmt).itemsize
     if k2h_route(a, b) == "mma":
-        a8, lda = _row_pitch(a)
-        b8, ldb = _row_pitch(b)
         key = ("k2h_modes", k)
         if key not in plan._kernel_cache:
             plan._kernel_cache[key] = k2h_modes(plan, k)
-        err = lib.qk_tree_gemm_hybrid_mma(
-            dev, a8.data_ptr(), lda, b8.data_ptr(), ldb, out.data_ptr(), m,
-            n, k, out.element_size(), params, plan._kernel_cache[key],
-            stream)
-        _build.check(err, "tree_gemm_hybrid (tensor-core kernel)")
-        tree_gemm_hybrid.mma_launches += 1
-        instance = f"mma_{plan._kernel_cache[key]}"
-    else:
-        # the IMAD kernel stages int32 slices: a widening copy of each
-        # operand a call, inside the kernel's event-timed time
-        a32 = a.to(torch.int32).contiguous()
-        b32 = b.to(torch.int32).contiguous()
-        err = lib.qk_tree_gemm_hybrid(
-            dev, a32.data_ptr(), b32.data_ptr(), out.data_ptr(), m, n, k,
-            out.element_size(), params, stream)
-        _build.check(err, "tree_gemm_hybrid (IMAD kernel)")
-        tree_gemm_hybrid.imad_launches += 1
-        instance = "imad"
-    tree_gemm_hybrid.launches += 1
-    levels = max((k // plan.s).bit_length(), 1)
-    _build.record(tree_gemm_hybrid, instance,
-                  (*plan.merge_fmts[plan.level:plan.level + levels], out_fmt))
-    return out
+        return torch.ops.qublas.tree_gemm_hybrid_mma(
+            a, b, params, plan._kernel_cache[key], out_bytes)
+    return torch.ops.qublas.tree_gemm_hybrid(a, b, params, out_bytes)
 
 
 tree_gemm_hybrid.launches = 0

@@ -37,7 +37,8 @@ class QuantPipeline(nn.Module):
     GEMM takes them but stored K-major (each the ``.t()`` view of an [N, K]
     contiguous tensor, made once here), the layout K1's tensor-core route
     reads without a copy; ``load_state_dict`` copies into them and keeps
-    it.  ``forward`` takes the raws of ``x`` in ``Qu<3,4>`` and returns the
+    it.  The ROM's entries are the buffer ``rom``, on the weights' device.
+    ``forward`` takes the raws of ``x`` in ``Qu<3,4>`` and returns the
     raws of ``y`` in ``Qu<3,4,SAT::ZERO>``, as ``entry()``'s forward does.
     """
 
@@ -47,6 +48,11 @@ class QuantPipeline(nn.Module):
         self.register_buffer("w1", kmajor(w1))
         self.register_buffer("w2", kmajor(w2))
         self.table = build_table(sqrt_func, self.out_fmt, self.out_fmt)
+        # the ROM's entries placed with the weights (and moved with them by
+        # ``.to``), so that no call copies them to the card, as a first
+        # call inside a CUDA graph capture would; not in the state dict
+        self.register_buffer("rom", self.table.table.to(self.w1.device),
+                             persistent=False)
 
     @classmethod
     def from_numpy(cls, w1_raw, w2_raw, device) -> "QuantPipeline":
@@ -69,7 +75,7 @@ class QuantPipeline(nn.Module):
         x = QTensor(x_raw, fa)
         h = qgemul(x, QTensor(self.w1, fa), mid, mul_to=wide,
                    add_formats=(wide,))
-        h = self.table(h)                    # ANUS LUT nonlinearity
+        h = self.table(h, self.rom)          # ANUS LUT nonlinearity
         h = h.astype(fa)
         y = qgemul(h, QTensor(self.w2, fa), mid, mul_to=wide,
                    add_formats=(wide,))

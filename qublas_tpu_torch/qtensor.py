@@ -30,6 +30,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from . import hostint
 from .ops.limbint import LimbArray, limbs_from_ints
@@ -260,6 +261,26 @@ class QTensor:
         from .ops.elementwise import qabs
 
         return qabs(self)
+
+
+# A pytree node, as the JAX package's QTensor is: the storage is the child
+# (a LimbArray is a node of its own), the format and a host tensor's device
+# are the context.  Host storage is an object array, not a tensor leaf, so
+# ``torch.func.vmap`` and ``torch.compile`` refuse it, as ``jax.jit``
+# refuses the JAX package's.
+def _qtensor_unflatten(children, ctx) -> QTensor:
+    # no checks: a leaf may be a placeholder (``vmap``'s in_dims)
+    out = object.__new__(QTensor)
+    out.data = children[0]
+    out.fmt, out._home = ctx
+    return out
+
+
+pytree.register_pytree_node(
+    QTensor,
+    lambda t: ([t.data], (t.fmt, t._home)),
+    _qtensor_unflatten,
+    serialized_type_name="qublas_tpu_torch.qtensor.QTensor")
 
 
 def from_raw(values: Any, fmt: QFormat, device="cuda",

@@ -273,7 +273,8 @@ def test_p1_matches_plain(cuda, name, steps, shape, offset):
 @pytest.mark.parametrize("steps", [T1, T2])
 def test_p1_matches_plain_at_measured_shapes(cuda, name, instance, steps):
     """P1 on measured_chain_prods' tile, chain lengths and G, at each
-    instantiation (the canonical plan also through the run-time one)."""
+    instantiation (the canonical plan also through the run-time one); the
+    forced launch is one launch of the custom op, and counts as one."""
     f, plan = _p1_plan(name, 2048)
     x, y = probe_tile(f, cuda)
     chain_probe.launches = 0
@@ -281,7 +282,7 @@ def test_p1_matches_plain_at_measured_shapes(cuda, name, instance, steps):
         CP._launch(x, y, plan, steps, G, 0)
     want = chain_probe_plain(x, y, plan, steps, G)
     torch.cuda.synchronize()
-    assert chain_probe.launches == (1 if instance else 0)
+    assert chain_probe.launches == 1
     assert got.shape == (G,) + tuple(x.shape) and torch.equal(got, want)
 
 
@@ -1089,3 +1090,32 @@ def test_sharded_gemm_on_the_card(cuda, world, backend):
             _, fmt, raw, _, _ = got
             assert fmt == ref.fmt and np.array_equal(
                 raw.astype(np.int64), ref.raw().astype(np.int64)), (fn, r)
+
+
+def test_pipeline_cuda_graph_replays_on_fresh_inputs(cuda):
+    """The pipeline captured eagerly in a ``torch.cuda.CUDAGraph`` (its K1
+    launches, the ROM and the cast) replays on two fresh inputs copied into
+    its static input, each equal to the eager call, and a replay launches
+    no counted kernel: no pointer or TMA descriptor was baked in stale."""
+    rng = np.random.RandomState(91)
+    w1, w2 = (rng.randint(FA.raw_min, FA.raw_max + 1, (512, 512))
+              .astype(np.int8) for _ in range(2))
+    pipe = qt.QuantPipeline.from_numpy(w1, w2, cuda)
+    static_x = _raws(92, FA, (256, 512), np.int8).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):          # warm-up off the capture
+            pipe(static_x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_y = pipe(static_x)
+    for seed in (93, 94):
+        x = _raws(seed, FA, (256, 512), np.int8).to(cuda)
+        static_x.copy_(x)
+        fused_int8_gemm.launches = 0
+        graph.replay()
+        torch.cuda.synchronize()
+        assert fused_int8_gemm.launches == 0
+        assert torch.equal(static_y, pipe(x)), seed

@@ -201,6 +201,17 @@ def test_port_runs_without_jax():
         "fuzz.sweep_k2(sw, 1)\n"
         "fuzz.sweep_cast(sw, 1)\n"
         "assert sw.fails == 0, sw.lines\n"
+        "pw = [rng.randint(-128, 128, (32, 32)).astype(np.int8) for _ in"
+        " range(3)]\n"
+        "pipe = qt.QuantPipeline.from_numpy(pw[1], pw[2], 'cpu')\n"
+        "cp = torch.compile(pipe, fullgraph=True, dynamic=False,"
+        " backend='aot_eager')\n"
+        "assert torch.equal(cp(torch.from_numpy(pw[0])),"
+        " pipe(torch.from_numpy(pw[0])))\n"
+        "cr = torch.compile(lambda t: qt.qreduce(qt.qmul(t, t), axis=1),"
+        " fullgraph=True, dynamic=False, backend='aot_eager')\n"
+        "assert cr(x).raw_list() == qt.qreduce(qt.qmul(x, x), axis=1)"
+        ".raw_list()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'qublas_tpu' or m.startswith('qublas_tpu.')]\n"
         "assert not bad, bad\n"
