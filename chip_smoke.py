@@ -94,7 +94,14 @@ Phases, each printing its lines:
       single-device call on every rank and held to the launches it must
       make on every rank, its collective bytes and rank 0's wall time
       beside the single-device time (Gloo through host memory: not an
-      NVLink figure); no rank may import JAX;
+      NVLink figure); no rank may import JAX; then, in worlds of their
+      own, the strategies' compiled programs (Inductor,
+      ``make_mesh(..., programs=...)``): j1 the dry run with every
+      strategy compiled, in the default mode and as CUDA graphs replayed
+      on fresh operands, in a world of 1 on NCCL, and j3's nine cases
+      compiled in a Gloo world of 4, each call Δ=0 to the eager call and
+      the single-device call, j3's launches and collective bytes equal to
+      the eager cases', with compile, first-call and median times;
    k. the card differential (``qublas_tpu_torch.fuzz``, the port of the
       JAX package's ``tools/deep_fuzz.py`` and ``tools/tpu_differential.py``):
       every family at the trial counts of ``DIFF_TRIALS``, each trial held
@@ -121,6 +128,13 @@ Phases, each printing its lines:
       row of the kernels line); each CUDA graph replayed on fresh inputs
       equal to eager, with no counted launch (a replay runs no Python);
       the compile seconds and the eager, compiled and replayed times;
+   m. ``utils.profiling`` on the card: ``device_busy`` of one forward of
+      the pipeline at 4096^3, eager and compiled, each inside a
+      ``record_function`` range: busy and span seconds, the range's device
+      span, the busy share and the top five device rows (K1 twice a
+      forward); the traces under ``chiprun_out/traces``; and
+      ``roofline_report`` of ``qgemul`` at 4096^3 against
+      ``torch._int_mm``;
    every result is checked against the plain versions, and 16x16 corners
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
@@ -142,6 +156,7 @@ exits non-zero and prints no result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -179,6 +194,7 @@ SHARD_WORLD = 4                   # j2, j3: ranks of the Gloo world
 SHARD_PIPE_N = 4096               # j3: the pipeline's first GEMM, N^3
 SHARD_TREE_N = 2048               # j3: canonical and hybrid GEMMs, N^3
 SHARD_TIMEOUT = 400               # seconds a world may take, spawn included
+SHARD_COMPILE_TIMEOUT = 600       # the same for the worlds of compiled programs
 # phase k: the card differential's trials a family (qublas_tpu_torch.fuzz)
 DIFF_TRIALS = {"routes": 1, "routes_sharded": 1, "elementwise": 120,
                "cast": 200, "reduce": 100, "gemm": 100, "gemm_limbwide": 60,
@@ -2171,12 +2187,15 @@ def j_operands(dev, sizes):
             "hybrid": (hout, dict(mul_to=hmul, add_formats=hlayers))}
 
 
-def sharded_rank(world: int, device: str, sizes) -> dict:
-    """Path j on one rank of a world (every rank runs it): the dry-run
-    sequence on each mesh of the world, then, given ``sizes`` (see
+def sharded_rank(world: int, device: str, sizes, programs="eager") -> dict:
+    """Path j on one rank of a world (every rank runs it), its meshes'
+    strategies run as ``programs`` says (``make_mesh``'s).  Eagerly: the
+    dry-run sequence on each mesh of the world, then, given ``sizes`` (see
     ``j_operands``), j3's cases at those sizes, each held Δ=0 to the
     single-device call and, on the card, to the launches it must make on
-    this rank.  Returns this rank's record."""
+    this rank.  Compiled: j3's cases only, each also held Δ=0 to the same
+    call on an eager mesh of its shape, its launches counted inside the
+    compiled programs.  Returns this rank's record."""
     import statistics
 
     import torch
@@ -2205,11 +2224,16 @@ def sharded_rank(world: int, device: str, sizes) -> dict:
             torch.cuda.synchronize()
         dist.barrier()
 
-    meshes = {s: make_mesh(s[0], s[1], dev)
-              for s in ([(1, 1)] if world == 1 else [(2, 2), (1, 4)])}
+    shapes = [(1, 1)] if world == 1 else [(2, 2), (1, 4)]
+    meshes = {s: make_mesh(s[0], s[1], dev, programs) for s in shapes}
+    compiled = programs != "eager"
+    eager = {s: make_mesh(s[0], s[1], dev, "eager") for s in shapes} \
+        if compiled else meshes
     rec = {"rank": rank, "backend": dist.get_backend(), "dry": [],
            "cases": [], "launches": {}}
     for shape, mesh in meshes.items():
+        if compiled:
+            break
         sync()
         t0 = time.perf_counter()
         names = dryrun_rank(mesh)
@@ -2219,6 +2243,7 @@ def sharded_rank(world: int, device: str, sizes) -> dict:
     rec["launches"] = {name: 0 for name, _, _ in counters}
     if sizes:
         m22, m14 = meshes[(2, 2)], meshes[(1, 4)]
+        e22, e14 = eager[(2, 2)], eager[(1, 4)]
         o = j_operands(dev, sizes)
         a, b, a2, b2, x, ah, bh = (o[k] for k in ("a", "b", "a2", "b2", "x",
                                                   "ah", "bh"))
@@ -2238,35 +2263,44 @@ def sharded_rank(world: int, device: str, sizes) -> dict:
             "hybrid batch": lambda: qt.qgemul(ah3, bh, hout, **hk)}
         refs = {k: f() for k, f in single.items()}
         n, tn, reduce_shape, _ = sizes
+        # each case's call, given the (1, 4) and (2, 2) meshes
         cases = [
             ("k psum", f"sharded_qgemul_k (1, 4), {n}^3", "gemm",
-             lambda: sharded_qgemul_k(a, b, mid, m14, **gk), {"K1": 1}),
+             lambda m14, m22: sharded_qgemul_k(a, b, mid, m14, **gk),
+             {"K1": 1}),
             ("k reduce-scatter", f"sharded_qgemul_k reduce_scatter (1, 4), "
-             f"{n}^3", "gemm", lambda: sharded_qgemul_k(
+             f"{n}^3", "gemm", lambda m14, m22: sharded_qgemul_k(
                  a, b, mid, m14, reduce_scatter=True, **gk), {"K1": 1}),
             ("k pipelined", f"sharded_qgemul_k_pipelined (1, 4), {n}^3",
-             "gemm", lambda: sharded_qgemul_k_pipelined(a, b, mid, m14,
-                                                        **gk), {"K1": 4}),
+             "gemm", lambda m14, m22: sharded_qgemul_k_pipelined(
+                 a, b, mid, m14, **gk), {"K1": 4}),
             ("mn canonical", f"sharded_qgemul_mn (2, 2), {tn}^3", "tree",
-             lambda: sharded_qgemul_mn(a2, b2, f88z, m22), {"K2": 1}),
+             lambda m14, m22: sharded_qgemul_mn(a2, b2, f88z, m22),
+             {"K2": 1}),
             ("k_tree butterfly", f"sharded_qgemul_k_tree (1, 4), {tn}^3, "
              f"s = {_k_tree_split(tn, 4)[0]}, two butterfly rounds", "tree",
-             lambda: sharded_qgemul_k_tree(a2, b2, f88z, m14), {"K2": 1}),
+             lambda m14, m22: sharded_qgemul_k_tree(a2, b2, f88z, m14),
+             {"K2": 1}),
             ("k_tree gather", f"sharded_qgemul_k_tree butterfly=False "
-             f"(1, 4), {tn}^3", "tree", lambda: sharded_qgemul_k_tree(
+             f"(1, 4), {tn}^3", "tree",
+             lambda m14, m22: sharded_qgemul_k_tree(
                  a2, b2, f88z, m14, butterfly=False), {"K2": 1, "K3": 1}),
             ("qreduce", f"sharded_qreduce config 2 {list(reduce_shape)} "
-             "(2, 2)", "reduce", lambda: sharded_qreduce(
+             "(2, 2)", "reduce", lambda m14, m22: sharded_qreduce(
                  x, config2, axis=1, mesh=m22), {"K3": 1}),
             ("hybrid auto", f"shard_qgemul(auto) i1 (2, 2), {tn}^3, chose "
              f"{picks['i1 auto']}", "hybrid",
-             lambda: shard_qgemul(ah, bh, hout, m22, **hk), {"K2h": 1}),
+             lambda m14, m22: shard_qgemul(ah, bh, hout, m22, **hk),
+             {"K2h": 1}),
             ("hybrid batch auto", f"shard_qgemul(auto) i1 "
              f"{list(ah3.shape)} (2, 2), chose {picks['i1 batch auto']}",
-             "hybrid batch", lambda: shard_qgemul(ah3, bh, hout, m22, **hk),
+             "hybrid batch",
+             lambda m14, m22: shard_qgemul(ah3, bh, hout, m22, **hk),
              {"K2h": 1}),
         ]
-        for key, label, ref_key, fn, expect in cases:
+        for key, label, ref_key, call, expect in cases:
+            def fn(call=call):
+                return call(m14, m22)
             sync()
             for _, owner, attr in counters:
                 setattr(owner, attr, 0)
@@ -2288,6 +2322,11 @@ def sharded_rank(world: int, device: str, sizes) -> dict:
             assert got.fmt == ref.fmt and got.shape == ref.shape, key
             assert torch.equal(got.data, ref.data), \
                 f"path j3 {key}: rank {rank} != the single-device call"
+            if compiled:
+                ref = call(e14, e22)
+                assert got.fmt == ref.fmt and torch.equal(got.data,
+                                                          ref.data), \
+                    f"path j3 {key}: rank {rank} compiled != eager"
             walls = []
             for _ in range(3):
                 sync()
@@ -2297,7 +2336,7 @@ def sharded_rank(world: int, device: str, sizes) -> dict:
                 walls.append(time.perf_counter() - t0)
             sync()
             single_ms = timeit(single[ref_key], runs=5, warmup=1) \
-                if rank == 0 and on_card else None
+                if rank == 0 and on_card and not compiled else None
             sync()
             rec["cases"].append({
                 "key": key, "label": label, "launches": launches,
@@ -2308,6 +2347,49 @@ def sharded_rank(world: int, device: str, sizes) -> dict:
            or m == "qublas_tpu" or m.startswith("qublas_tpu.")]
     assert not bad, f"rank {rank} imported {bad}"
     return rec
+
+
+def compiled_dry_rank(device: str, backend: str, mode: str) -> tuple:
+    """Path j1's compiled programs, in a world of 1 on NCCL: the dry-run
+    sequence with the first call of each strategy (every strategy, one
+    program each) compiled by ``backend`` in ``mode``: the default mode or
+    CUDA graphs (``"reduce-overhead"``), held Δ=0 to the same call on an
+    eager mesh, and every call to the single-device call.  In CUDA graphs
+    the sequence runs three times on its first operands (warm-up, record,
+    replay), then on two fresh draws of operands of the same shapes, each
+    compiled call a replay.  Returns (mode, calls checked, seconds a run,
+    programs cached)."""
+    import torch
+
+    from qublas_tpu_torch.parallel import make_mesh
+    from qublas_tpu_torch.parallel import sharding as S
+    from qublas_tpu_torch.parallel.dryrun import dryrun_rank
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev.index or 0)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    eager = make_mesh(1, 1, dev, "eager")
+    programs = {"backend": backend}
+    if mode != "default":
+        programs["mode"] = mode
+    mesh = make_mesh(1, 1, dev, programs)
+    runs = []
+    for seed in ((1,) if mode == "default" else (1, 1, 1, 2, 3)):
+        sync()
+        t0 = time.perf_counter()
+        names = dryrun_rank(mesh, seed=seed, eager=eager)
+        sync()
+        runs.append(time.perf_counter() - t0)
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax",
+                                                          "qublas_tpu")]
+    assert not bad, f"the rank imported {bad}"
+    return mode, len(names), runs, len(S._PROGRAM_CACHE)
 
 
 def phase_sharded(card):
@@ -2362,7 +2444,66 @@ def phase_sharded(card):
         assert all(r["launches"][name] > 0 for r in ranks), name
     print(f"path j: the world of {SHARD_WORLD} in {t2 - t1:.1f} s wall, "
           f"spawn included; no rank imported JAX [{MULTI_RANK}] [{card}]")
+    phase_sharded_compiled(card, ranks, sizes)
     return ranks
+
+
+def phase_sharded_compiled(card, eager_ranks, sizes):
+    """Path j's compiled programs, in worlds of their own: j1 every
+    strategy's program compiled by Inductor, default mode and CUDA graphs,
+    in a world of 1 on NCCL (``compiled_dry_rank``); j3's cases compiled
+    (default mode) in a Gloo world of 4, each Δ=0 to the eager call and to
+    the single-device call on every rank and held to the eager case's
+    launches, counted inside the compiled programs."""
+    from qublas_tpu_torch.parallel.launch import run_world, start_world
+
+    t0 = time.perf_counter()
+    # the two modes in two worlds of 1 at once (their compiles share the
+    # host's cores)
+    worlds = [start_world(1, "nccl", compiled_dry_rank,
+                          ("cuda", COMPILE_BACKEND, mode),
+                          timeout=SHARD_COMPILE_TIMEOUT)
+              for mode in COMPILE_MODES]
+    try:
+        r1 = [w.join()[0] for w in worlds]
+    finally:
+        for w in worlds:
+            w.stop()
+    t1 = time.perf_counter()
+    for mode, count, runs, cached in r1:
+        print(f"path j1 compiled ({COMPILE_BACKEND}, {mode}): the dry run's "
+              f"{count} calls Δ=0 to the single-device call, the first "
+              f"call of each strategy compiled ({cached} programs) and Δ=0 "
+              f"to the eager call; first run {runs[0]:.1f} s (compiles "
+              f"included), later runs "
+              f"{', '.join(f'{r:.3f}' for r in runs[1:]) or 'none'} s"
+              + ("; runs 4-5 on fresh operands, every compiled call a "
+                 "CUDA-graph replay" if len(runs) > 1 else "")
+              + f" [{card}]")
+    print(f"path j1 compiled: both worlds of 1 in {t1 - t0:.1f} s wall, "
+          f"spawns included [{card}]")
+    ranks = run_world(SHARD_WORLD, "gloo", sharded_rank,
+                      (SHARD_WORLD, "cuda", sizes,
+                       {"backend": COMPILE_BACKEND}),
+                      timeout=SHARD_COMPILE_TIMEOUT)
+    t2 = time.perf_counter()
+    for i, c in enumerate(ranks[0]["cases"]):
+        e = eager_ranks[0]["cases"][i]
+        assert c["key"] == e["key"]
+        for r, er in zip(ranks, eager_ranks):
+            assert r["cases"][i]["launches"] == er["cases"][i]["launches"], \
+                (c["key"], r["rank"])
+        print(f"path j3 compiled {c['key']}: {c['label']}: Δ=0 to the "
+              f"eager and the single-device call on all {SHARD_WORLD} "
+              f"ranks, the eager launches on each; rank 0 first call "
+              f"{c['first_ms'] / 1e3:.1f} s (compile included), then "
+              f"{c['ms']:.3f} ms a call (median of 3); eager first call "
+              f"{e['first_ms']:.3f} ms, {e['ms']:.3f} ms a call; "
+              f"{c['bytes']} collective bytes a rank (eager {e['bytes']}) "
+              f"[{MULTI_RANK}] [{card}]")
+        assert c["bytes"] == e["bytes"], c["key"]
+    print(f"path j3 compiled: the world of {SHARD_WORLD} in {t2 - t1:.1f} s "
+          f"wall, spawn included [{MULTI_RANK}] [{card}]")
 
 
 def phase_differential(card):
@@ -2675,11 +2816,8 @@ def phase_compiled(dev, card, state_a, state_b):
     program's compile seconds and the CUDA-event medians of its eager,
     compiled and replayed calls.  Returns the launches from compiled graphs
     by kernel row; they count in no row of the kernels line."""
-    import os
-
     import torch
 
-    from qublas_tpu_torch import _build
     from qublas_tpu_torch.ops.chain_probe import chain_probe
     from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
     from qublas_tpu_torch.ops.reduce import qreduce_kernel
@@ -2687,10 +2825,6 @@ def phase_compiled(dev, card, state_a, state_b):
                                                 tree_gemm_stream)
     from qublas_tpu_torch.timing import timeit
 
-    # Inductor's and Triton's caches inside the checkout
-    cache = _build.BUILD_DIR.parent / "inductor"
-    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(cache))
-    os.environ.setdefault("TRITON_CACHE_DIR", str(cache / "triton"))
     counters = (fused_int8_gemm, tree_gemm, tree_gemm_stream, qreduce_kernel,
                 chain_probe,
                 ("tree_gemm_hybrid", tree_gemm_hybrid, "imad_launches"),
@@ -2755,6 +2889,95 @@ def phase_compiled(dev, card, state_a, state_b):
           f"kernel row launched from a compiled graph, every CUDA graph "
           f"replay on fresh inputs equal to eager [{card}]")
     return launched
+
+
+def inductor_caches():
+    """Inductor's and Triton's caches inside the checkout (the spawned
+    worlds inherit them)."""
+    from qublas_tpu_torch import _build
+
+    cache = _build.BUILD_DIR.parent / "inductor"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(cache))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(cache / "triton"))
+
+
+K1_SYMBOL = "fused_gemm_s8_kernel"   # K1's tensor-core kernel in a trace
+# phase m's traces, for Perfetto, inside the checkout
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "chiprun_out", "traces")
+
+
+def phase_profile(card, state_a):
+    """Phase 3m: ``utils.profiling`` on the card.  ``device_busy`` traces
+    one forward of the pipeline at PIPE_N^3, eagerly and as phase l's
+    compiled program (Inductor, default mode), each call inside a
+    ``record_function`` range: the device's busy seconds, the span from its
+    first kernel to its last, the range's device span (``module_s``), the
+    busy share and the five device rows that took longest.  Each trace
+    must have 0 < busy <= span, rows that sum to busy, and K1's kernel
+    twice (one a GEMM).  Then ``roofline_report`` of ``qgemul`` at
+    PIPE_N^3 against ``torch._int_mm`` on the same operands."""
+    import glob
+
+    import torch
+    from torch.profiler import record_function
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.utils.profiling import device_busy, roofline_report
+
+    x, pipe, plan1, mid = state_a[:4]
+    fa, wide = pipe.fa, pipe.wide
+    compiled = torch.compile(pipe, fullgraph=True, dynamic=False,
+                             backend=COMPILE_BACKEND)
+    want = pipe(x)
+    assert torch.equal(compiled(x), want), "path m: compiled != eager"
+    torch.cuda.synchronize()
+    for name, fn in (("eager", pipe), ("compiled", compiled)):
+        logdir = os.path.join(TRACE_DIR, f"pipeline_{name}")
+
+        def run(fn=fn, name=name):
+            with record_function(f"pipeline {name}"):
+                fn(x)
+        got = device_busy(run, logdir)
+        assert got is not None, f"path m {name}: no device rows in the trace"
+        with open(max(glob.glob(os.path.join(logdir, "*.pt.trace.json")),
+                      key=os.path.getmtime)) as f:
+            events = json.load(f)["traceEvents"]
+        k1 = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") == "kernel" and K1_SYMBOL in e["name"]]
+        busy, span = got["busy_s"], got["span_s"]
+        top = sorted(got["ops"].items(), key=lambda kv: -kv[1])[:5]
+        print(f"path m {name}: pipeline {PIPE_N}^3 forward: busy "
+              f"{busy * 1e3:.4f} ms, span {span * 1e3:.4f} ms, busy share "
+              f"{busy / span:.4f}, module_s "
+              f"{got['module_s'] * 1e3 if got['module_s'] else None} ms; "
+              f"{len(got['ops'])} device rows, {len(k1)} K1 launches; trace "
+              f"{logdir} [{card}]")
+        for op, sec in top:
+            print(f"path m {name}:   {sec * 1e6:10.1f} us  {op[:100]}")
+        assert 0 < busy <= span, (name, busy, span)
+        assert abs(sum(got["ops"].values()) - busy) <= 1e-9 * max(busy, 1),             name
+        assert any(K1_SYMBOL in op for op in got["ops"]), name
+        assert len(k1) == 2, (name, len(k1))
+
+    b = pipe.w1                        # K-major, as the pipeline stores it
+
+    def gemm(a, b):
+        return qt.qgemul(qt.QTensor(a, fa), qt.QTensor(b, fa), mid,
+                         mul_to=wide, add_formats=(wide,)).data
+
+    def int_mm(a, b):
+        # the stream runs its kernels in order: the loop needs no data
+        # dependence to time them, and a's dtype must stay int8
+        torch._int_mm(a, b)
+        return a
+    rep = roofline_report(gemm, x, b, 2 * PIPE_N ** 3, baseline_fn=int_mm)
+    print(f"path m: roofline_report qgemul {PIPE_N}^3 (K1) against "
+          f"torch._int_mm: {rep['gops']:.1f} GOP/s, baseline "
+          f"{rep['baseline_gops']:.1f} GOP/s, fraction_of_roofline "
+          f"{rep['fraction_of_roofline']:.4f} (interleaved best of 2, 64 "
+          f"chained calls a side) [{card}]")
+    assert rep["gops"] > 0 and rep["fraction_of_roofline"] > 0
 
 
 def hybrid_tail_ops(hp, out_fmt, k, pairs=False):
@@ -3313,6 +3536,7 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    inductor_caches()
 
     chk = Checker()
     phase_kernels(dev, chk)
@@ -3329,6 +3553,7 @@ def main() -> int:
     phase_sharded(card)
     phase_differential(card)
     phase_compiled(dev, card, state_a, state_b)
+    phase_profile(card, state_a)
     t, bounds = phase_times(card, state_a, state_b, state_d, chain_rate,
                             state_f)
     limb_times(card, state_g, t, bounds)

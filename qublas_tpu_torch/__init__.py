@@ -49,6 +49,8 @@ from .ops.gemm import exact_plan, host_qgemul, qgemul, qgemv
 from .ops.reduce import qreduce, qreduce_args
 from .pipeline import QuantPipeline, pipeline_formats
 from .qformat import (
+    FULL_PREC,
+    FullPrec,
     OverflowMode,
     QFormat,
     RoundMode,
@@ -61,7 +63,7 @@ from .qtensor import (QTensor, from_double, from_float, from_raw, random_fill,
 from .refrand import reference_fill, reference_shuffle
 
 __all__ = [
-    "OverflowMode", "QFormat", "RoundMode", "add_merge", "mul_merge",
+    "FULL_PREC", "FullPrec", "OverflowMode", "QFormat", "RoundMode", "add_merge", "mul_merge",
     "qformat", "QTable", "build_table", "reciprocal_func", "rsqrt_func",
     "sqrt_func", "qcast", "qmul", "qadd", "qsub", "qdiv", "qabs", "qneg",
     "qcmp", "qeq", "exact_plan", "host_qgemul", "qgemul", "qgemv",

@@ -19,7 +19,10 @@ The families:
   :func:`rand_raws` as deep_fuzz does, so it is the same configuration in
   both packages.  Each is held bit for bit to the port's ``hostops`` (the
   sharded ones to the single-device call, in one spawned world of
-  :data:`WORLD` ranks: Gloo, on the card through host memory);
+  :data:`WORLD` ranks: Gloo, on the card through host memory; their
+  meshes run the strategies' eager form, as each trial is a configuration
+  whose compiled program would be built for it alone: ``chip_smoke.py``'s
+  path j holds the compiled programs to the eager form);
 * ``routes``: the curated cases of ``tools/tpu_differential.py``, one a
   device route (elementwise and casts on lane, pair and limb storage, the
   layered reduce, ``qgemul``'s int32, int64, digit-dot, tree and
@@ -1743,20 +1746,22 @@ def _world_rank(jobs, device):
     its meshes and returns its counts and repro lines."""
     from .parallel import make_mesh
 
+    def mesh(dp, tp):
+        return make_mesh(dp, tp, device, "eager")
+
     sw = Sweep(device, echo=False)
     stats = []
     for name, trials in jobs:
         f0, c0, r0 = sw.fails, sw.crashes, sw.refusals
         t0 = time.perf_counter()
         if name == "routes_sharded":
-            route_sharded(sw, make_mesh(1, WORLD, device))
+            route_sharded(sw, mesh(1, WORLD))
             done = 1
         elif name == "sharded":
-            done = sweep_sharded(sw, trials, make_mesh(1, WORLD, device))
+            done = sweep_sharded(sw, trials, mesh(1, WORLD))
         else:
             done = sweep_sharded_ktree(sw, trials,
-                                       [make_mesh(1, WORLD, device),
-                                        make_mesh(WORLD, 1, device)])
+                                       [mesh(1, WORLD), mesh(WORLD, 1)])
         stats.append((name, done, sw.fails - f0, sw.crashes - c0,
                       time.perf_counter() - t0, sw.refusals - r0))
     return {"stats": stats, "lines": sw.lines}

@@ -209,6 +209,9 @@ def _fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags, k,
         re_p = _s_addsub(A, B, g["AB"], sub=True)
         im_p = _s_addsub(B, C, g["BC"], sub=True)
     else:
+        # the TF steps' names, unused here: bound so that the plans'
+        # closures read no empty cell (Dynamo refuses to)
+        s_ab = s_cd = s_ba = None
         t = {n: mul_tags.get(n) for n in
              ("ac", "bd", "ad", "bc", "acbd", "adbc")}
         fb = hostops.single_tag_default(*t.values())
@@ -238,6 +241,7 @@ def _fast_plan(a, b, orf, oif, algo, r_layers, i_layers, mul_tags, k,
     re_tot = re_tot << (fin_r.frac_bits - re_p.fmt.frac_bits)
     im_tot = im_tot << (fin_i.frac_bits - im_p.fmt.frac_bits)
     fr, fi = fin_r.frac_bits, fin_i.frac_bits
+    fal1 = fal2 = w1 = w2 = w3 = fA = fB = fC = align = None
     if algo == "tf":
         fal1 = max(far.frac_bits, fai.frac_bits)
         w1 = s_ab.fmt.frac_bits - fal1

@@ -56,6 +56,7 @@ package: both operands are expanded to the broadcast batch as views (stride
 
 from __future__ import annotations
 
+import itertools
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional
@@ -394,7 +395,7 @@ def _over_batch(fn, a: QTensor, b: QTensor, batch) -> Optional[QTensor]:
     if parts is None:
         a, b = _expand(a, batch), _expand(b, batch)
         parts = []
-        for idx in np.ndindex(*batch):
+        for idx in itertools.product(*map(range, batch)):
             res = fn(a[idx], b[idx])
             if res is None:
                 return None

@@ -5,8 +5,10 @@ sequence: K-sharded GEMMs (psum, reduce-scatter, the ring, a sqrt ROM),
 the M/N-sharded canonical order-sensitive GEMM, the complex K strategies
 (TF on int32 dots, Basic in the 40-bit limb domain), the batch strategies,
 the sharded reductions (their i32 and limb regimes), pair and limb
-operands, the wide and limb K strategies and their rings, and the
-subtree-aligned K split of real and complex trees and of a reduction, each
+operands, the wide and limb K strategies and their rings, the
+subtree-aligned K split of real and complex trees and of a reduction, and
+(beyond the JAX sequence, so that every strategy runs) the M/N-sharded
+order-sensitive complex GEMM, each
 held bit for bit (Δ=0) to the single-device call of the port on the same
 rank.  :func:`dryrun_multichip` runs it in a world of ranks spawned on
 this machine.
@@ -47,10 +49,42 @@ def _same(what: str, got, ref):
         f"{what}: sharded != single-device"
 
 
-def dryrun_rank(mesh) -> list:
+class _Against:
+    """The sharding module with the first call of each strategy run on
+    ``mesh`` and again on ``eager`` (a mesh of the same shape whose
+    programs run eagerly) in its place, the two results held Δ=0 and the
+    first returned; a strategy's later calls run on ``eager`` alone."""
+
+    def __init__(self, module, mesh, eager):
+        self._module, self._mesh, self._eager = module, mesh, eager
+        self.first = []
+
+    def __getattr__(self, name):
+        fn = getattr(self._module, name)
+
+        def swap(v):
+            return self._eager if v is self._mesh else v
+
+        def both(*args, **kwargs):
+            ref = fn(*map(swap, args),
+                     **{k: swap(v) for k, v in kwargs.items()})
+            if name in self.first:
+                return ref
+            self.first.append(name)
+            got = fn(*args, **kwargs)
+            _same(f"{name}: {self._mesh.programs} vs eager", got, ref)
+            return got
+        return both
+
+
+def dryrun_rank(mesh, seed: int = 1, eager=None) -> list:
     """Run the dry-run sequence on this rank's ``mesh`` (every rank of the
-    world calls it), each call held Δ=0 to the single-device port call;
-    returns the names of the calls checked."""
+    world calls it), its operands drawn from ``seed``, each call held Δ=0
+    to the single-device port call; returns the names of the calls
+    checked.  Given ``eager`` (a mesh of the same shape whose programs run
+    eagerly), only each strategy's first call runs on ``mesh`` (one
+    program a strategy, held Δ=0 to the same call on ``eager`` too) and
+    the later ones on ``eager``."""
     from ..anus import build_table, sqrt_func
     from ..complex import QComplexTensor
     from ..ops.cgemm import cgemul
@@ -60,11 +94,13 @@ def dryrun_rank(mesh) -> list:
     from ..qtensor import QTensor, from_raw
     from . import sharding as S
 
+    if eager is not None:
+        S = _Against(S, mesh, eager)
     dev = mesh.device
     fa, wide, mid = _formats()
     f88z = qformat(8, 8, overflow_mode=OverflowMode.SAT_ZERO)
     dp, tp = mesh.shape["dp"], mesh.shape["tp"]
-    rng = np.random.RandomState(1)
+    rng = np.random.RandomState(seed)
     done = []
 
     def raw(fmt, shape):
@@ -207,6 +243,13 @@ def dryrun_rank(mesh) -> list:
     check("mn limb operands", S.sharded_qgemul_mn(
         al, bl, outl, mesh, mul_to=qformat(48, 40)),
         qgemul(al, bl, outl, mul_to=qformat(48, 40)))
+
+    cam = QComplexTensor(raw(f88z, (dp * 2, 4)), raw(f88z, (dp * 2, 4)))
+    cbm = QComplexTensor(raw(f88z, (4, tp * 2)), raw(f88z, (4, tp * 2)))
+    cmk = dict(algo="tf", add_formats=(f88z,))
+    check("cgemul_mn order-sensitive", S.sharded_cgemul_mn(
+        cam, cbm, (f88z, f88z), mesh, **cmk),
+        cgemul(cam, cbm, (f88z, f88z), **cmk))
     return done
 
 
@@ -221,8 +264,9 @@ def dryrun_multichip(n_devices: int, backend: str = "nccl", devices=None,
     """Run :func:`dryrun_rank` in a world of ``n_devices`` ranks spawned on
     this machine, on a (2, n/2) mesh when ``n_devices`` is even and above
     1, else (1, n), as ``__graft_entry__.dryrun_multichip`` lays its mesh
-    out.  ``devices`` is where each rank computes (the card unless named);
-    returns rank 0's list of calls checked."""
+    out.  ``devices`` is where each rank computes (the card unless named;
+    its strategies run as ``make_mesh`` runs them there); returns rank 0's
+    list of calls checked."""
     from .launch import run_world
 
     dp = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
@@ -278,15 +322,18 @@ def _encode(res):
     return res
 
 
-def run_cases(cases, device) -> list:
+def run_cases(cases, device, programs=None, stats=None) -> list:
     """Run each case ``(fn_name, (dp, tp), args, kwargs)`` of
     :mod:`.sharding` on this rank (every rank of the world runs the same
-    list), its operands on ``device`` (``"cuda"`` or ``"cpu"``), and
-    return, a case each, ``("ok", encoded result)`` or
-    ``("raise", exception class names, message)``.  An exception is
-    recorded and the next case runs: every gate the cases exercise raises
-    before any collective, on every rank alike.  Raises ``RuntimeError`` if
-    the rank has imported JAX or the JAX package."""
+    list), its operands on ``device`` (``"cuda"`` or ``"cpu"``), its
+    meshes' strategies run as ``programs`` says (``make_mesh``'s: eager or
+    a compiled backend), and return, a case each, ``("ok", encoded
+    result)`` or ``("raise", exception class names, message)``.  An
+    exception is recorded and the next case runs: every gate the cases
+    exercise raises before any collective, on every rank alike.  A list
+    ``stats`` receives, a case each, the ``(calls, bytes)`` the case added
+    to its mesh's ``stats``.  Raises ``RuntimeError`` if the rank has
+    imported JAX or the JAX package."""
     import sys
 
     from . import sharding as S
@@ -295,8 +342,9 @@ def run_cases(cases, device) -> list:
     meshes, out = {}, []
     for fn_name, shape, args, kwargs in cases:
         if shape not in meshes:
-            meshes[shape] = make_mesh(shape[0], shape[1], device)
+            meshes[shape] = make_mesh(shape[0], shape[1], device, programs)
         mesh = meshes[shape]
+        before = dict(mesh.stats)
         try:
             res = getattr(S, fn_name)(*_decode(args, device), mesh=mesh,
                                       **_decode(kwargs, device))
@@ -304,6 +352,9 @@ def run_cases(cases, device) -> list:
         except Exception as e:
             out.append(("raise", [c.__name__ for c in type(e).__mro__],
                         str(e)))
+        if stats is not None:
+            stats.append((mesh.stats["calls"] - before["calls"],
+                          mesh.stats["bytes"] - before["bytes"]))
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "qublas_tpu")]
     if bad:
         raise RuntimeError(f"the rank imported {bad[:5]}")

@@ -33,16 +33,36 @@ configuration never takes a host route inside ``shard_map``; here the
 ops' own dispatch on formats decides it (:func:`~qublas_tpu_torch.ops.gemm.
 gemm_on_device`, :func:`~qublas_tpu_torch.ops.cgemm.cgemul_on_device`,
 :func:`~qublas_tpu_torch.ops.reduce.reduce_format`: nothing is computed),
-and such a configuration raises the same ``ValueError``.  There is
-nothing to compile in eager torch, so the JAX package's program cache has
-no counterpart.
+and such a configuration raises the same ``ValueError``.  So the JAX
+package's probe cache (``_PROBE_CACHE``) has no counterpart: there is no
+probe to keep.
+
+Each strategy's per-rank program, from this rank's blocks to the value it
+returns (its compute, its collectives and the gather of the output), runs
+as the mesh's ``programs`` say (:func:`~.collectives.make_mesh`): eagerly
+(the plain version, the default on the CPU), or compiled by
+``torch.compile(fullgraph=True, dynamic=False)`` (Inductor by default on
+the card), as the JAX package jits its ``shard_map`` programs.  A compiled
+program is built once per static configuration and kept in
+``_PROGRAM_CACHE``, the counterpart of the JAX package's ``_cached`` and its
+bounded LRU: the key holds what the JAX key holds, plus the mesh (its
+token, which stands for its process groups, its shape, backend, device
+and programs) and the operands' shapes, strides, dtypes and formats.  Each program is compiled
+under a code object of its own, so Dynamo's recompile limit never sends one
+configuration of a strategy back to eager, and an eviction drops the
+program's graphs and kernels.  The gates run before any program: a
+configuration they refuse raises before anything compiles.  A compile or
+launch error raises; nothing falls back to eager.
 """
 
 from __future__ import annotations
 
+import itertools
+import types
 from typing import Optional
 
 import torch
+import torch.utils._pytree as pytree
 
 from ..ops import elementwise as ew
 from ..ops import limbint as L
@@ -73,6 +93,131 @@ _CHOST_MSG = ("this complex GEMM config outgrows device lanes (host route); "
               "{who} cannot run it inside shard_map")
 _RHOST_MSG = ("this reduction outgrows device lanes (host route); {who} "
               "cannot run it inside shard_map")
+
+
+# ---------------------------------------------------------------------------
+# the program cache: each rank's program compiled once per configuration
+# ---------------------------------------------------------------------------
+
+def _freeze(x):
+    """Recursively hashable view of a config value (lists/dicts -> tuples)."""
+    if isinstance(x, (list, tuple)):
+        return tuple(_freeze(v) for v in x)
+    if isinstance(x, dict):
+        return tuple(sorted((k, _freeze(v)) for k, v in x.items()))
+    return x
+
+
+class _LRU:
+    """Small bounded LRU over an insertion-ordered dict; ``release`` is
+    called on each value it evicts or clears."""
+
+    def __init__(self, max_items: int, release=None):
+        self.max_items = max_items
+        self.release = release
+        self._d: dict = {}
+
+    def get(self, key):
+        v = self._d.pop(key, None)
+        if v is not None:
+            self._d[key] = v       # re-insert: most recently used
+        return v
+
+    def put(self, key, value) -> None:
+        self._d.pop(key, None)
+        while len(self._d) >= self.max_items:
+            self._drop(self._d.pop(next(iter(self._d))))
+        self._d[key] = value
+
+    def _drop(self, value) -> None:
+        if self.release is not None:
+            self.release(value)
+
+    def __len__(self):
+        return len(self._d)
+
+    def clear(self) -> None:
+        while self._d:
+            self._drop(self._d.popitem()[1])
+
+
+class _Program:
+    """A compiled per-rank program (:func:`_compile`) and the collectives
+    its trace counted, added to its mesh's stats on each call."""
+
+    def __init__(self, fn, mesh: Mesh):
+        self.fn = fn
+        self.mesh = mesh
+        self.notes = []
+
+    def __call__(self, *leaves):
+        with C.recording(self.notes):
+            out = self.fn(*leaves)
+        self.mesh.stats["calls"] += len(self.notes)
+        self.mesh.stats["bytes"] += sum(self.notes)
+        return out
+
+    def release(self) -> None:
+        """Drop the program's Dynamo cache: its graphs and kernels (the
+        program has a code object of its own)."""
+        torch._dynamo.reset_code(self.fn.__wrapped__.__code__)
+
+
+_PROGRAM_CACHE = _LRU(512, _Program.release)
+
+
+def _cached(key, build):
+    """Memoize compiled per-rank programs by static config (the JAX
+    package's ``_cached``): ``build()`` compiles one on a miss.  Every key
+    component goes through :func:`_freeze`, and the cache is LRU-bounded,
+    so key churn cannot keep compiled programs forever."""
+    key = _freeze(key)
+    fn = _PROGRAM_CACHE.get(key)
+    if fn is None:
+        fn = build()
+    _PROGRAM_CACHE.put(key, fn)
+    return fn
+
+
+_PROGRAM_IDS = itertools.count()
+
+
+def _compile(block, spec, mesh: Mesh) -> _Program:
+    """``block`` as a compiled program of the leaves of its blocks (pytree
+    ``spec``: the formats are the program's constants, the tensors its
+    inputs) on ``mesh`` (its programs' form), under a code object of its
+    own."""
+    def program(*leaves):
+        C.trace_begins()
+        return block(*pytree.tree_unflatten(list(leaves), spec))
+
+    code = program.__code__.replace(
+        co_name=f"rank_program_{next(_PROGRAM_IDS)}")
+    fresh = types.FunctionType(code, program.__globals__, code.co_name,
+                               None, program.__closure__)
+    return _Program(torch.compile(fresh, fullgraph=True, dynamic=False,
+                                  **dict(mesh.programs)), mesh)
+
+
+def _program(key, mesh: Mesh, block, *blocks):
+    """Run this rank's program of a strategy, ``block(*blocks)`` from its
+    blocks to the value the strategy returns: eagerly on a mesh whose
+    programs are eager, else compiled once per ``key`` (with the mesh and
+    the blocks' signature added) and cached.  Lookup tables the key holds
+    are placed on the mesh's device first, so a program finds them there
+    on every call."""
+    if mesh.programs is None:
+        return block(*blocks)
+    from ..anus import QTable
+
+    for v in pytree.tree_leaves(_freeze(key)):
+        if isinstance(v, QTable) and v.table is not None:
+            v._table_on(mesh.device)
+    leaves, spec = pytree.tree_flatten(blocks)
+    key = (key, mesh.token, mesh.shape, mesh.backend, str(mesh.device),
+           mesh.programs, spec,
+           tuple((tuple(t.shape), t.stride(), t.dtype) for t in leaves))
+    return _cached(key, lambda: _compile(block, spec, mesh))(*leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -237,11 +382,15 @@ def sharded_qgemul_mn(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
     kw = _gemm_kw(kw)
     _check_traceable(a, b, out_fmt, mul_to, add_formats, kw,
                      "sharded_qgemul_mn")
-    la = _block(a, mesh, ("dp", None))
-    lb = _block(b, mesh, (None, "tp"))
-    c = qgemul(la, lb, out_fmt, mul_to=mul_to, add_formats=add_formats,
-               **kw)
-    return _whole(c, mesh, ("dp", "tp"))
+
+    def block(la, lb):
+        c = qgemul(la, lb, out_fmt, mul_to=mul_to, add_formats=add_formats,
+                   **kw)
+        return _whole(c, mesh, ("dp", "tp"))
+
+    return _program(("mn", a.fmt, b.fmt, out_fmt, mul_to, add_formats, kw),
+                    mesh, block, _block(a, mesh, ("dp", None)),
+                    _block(b, mesh, (None, "tp")))
 
 
 # ---------------------------------------------------------------------------
@@ -297,16 +446,21 @@ def sharded_qgemul_k(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
             f"N={b.shape[-1]} not divisible by tp={tp} (reduce_scatter "
             f"shards the output's N dim)")
     out_dtype = _k_gates(plan, out_fmt)
-    la = _block(a, mesh, (None, "tp"))
-    lb = _block(b, mesh, ("tp", None))
-    partial_dot = int_dot(la.data, lb.data)
-    if reduce_scatter:
-        dot = C.psum_scatter(partial_dot, mesh, "tp", dim=1)
-    else:
-        dot = C.psum(partial_dot, mesh, "tp")
-    res = _k_epilogue(dot, plan.prod_frac, out_fmt, out_dtype,
-                      epilogue_lut)
-    return _whole(res, mesh, (None, "tp")) if reduce_scatter else res
+
+    def block(la, lb):
+        partial_dot = int_dot(la.data, lb.data)
+        if reduce_scatter:
+            dot = C.psum_scatter(partial_dot, mesh, "tp", dim=1)
+        else:
+            dot = C.psum(partial_dot, mesh, "tp")
+        res = _k_epilogue(dot, plan.prod_frac, out_fmt, out_dtype,
+                          epilogue_lut)
+        return _whole(res, mesh, (None, "tp")) if reduce_scatter else res
+
+    return _program(("k", plan.prod_frac, out_fmt, bool(reduce_scatter),
+                     epilogue_lut), mesh, block,
+                    _block(a, mesh, (None, "tp")),
+                    _block(b, mesh, ("tp", None)))
 
 
 def _ring(tp: int):
@@ -336,19 +490,23 @@ def sharded_qgemul_k_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
         raise ValueError(f"K={k} and N={n} must divide tp={tp}")
     bn = n // tp
     out_dtype = _k_gates(plan, out_fmt)
-    la = _block(a, mesh, (None, "tp"))
-    lb = _block(b, mesh, ("tp", None))
     idx = mesh.get_local_rank("tp")
-    x, y = la.data, lb.data
-    acc = torch.zeros((x.shape[0], bn), dtype=torch.int32,
-                      device=x.device)
-    for i in range(tp):
-        blk = (idx + tp - 1 - i) % tp
-        p = int_dot(x, y[:, blk * bn:(blk + 1) * bn])
-        acc = C.ppermute(acc, mesh, "tp", _ring(tp)) + p
-    res = _k_epilogue(acc, plan.prod_frac, out_fmt, out_dtype,
-                      epilogue_lut)
-    return _whole(res, mesh, (None, "tp"))
+
+    def block(la, lb):
+        x, y = la.data, lb.data
+        acc = torch.zeros((x.shape[0], bn), dtype=torch.int32,
+                          device=x.device)
+        for i in range(tp):
+            blk = (idx + tp - 1 - i) % tp
+            p = int_dot(x, y[:, blk * bn:(blk + 1) * bn])
+            acc = C.ppermute(acc, mesh, "tp", _ring(tp)) + p
+        res = _k_epilogue(acc, plan.prod_frac, out_fmt, out_dtype,
+                          epilogue_lut)
+        return _whole(res, mesh, (None, "tp"))
+
+    return _program(("kp", plan.prod_frac, out_fmt, epilogue_lut, bn), mesh,
+                    block, _block(a, mesh, (None, "tp")),
+                    _block(b, mesh, ("tp", None)))
 
 
 # ---------------------------------------------------------------------------
@@ -483,34 +641,39 @@ def sharded_qgemul_k_tree(a: QTensor, b: QTensor, out_fmt: QFormat,
     top_layers = _shift_layers(add_formats, s)
     use_bf = _bf_ok(q, s, tp, n_nodes, butterfly)
     pad = tp * E - k
-    la = _block(_pad_k(a, 1, pad), mesh, (None, "tp"))
-    lb = _block(_pad_k(b, 0, pad), mesh, ("tp", None))
     m, n = a.shape[0], b.shape[-1]
-    if s == 0:
-        # nodes are the quantized products themselves
-        prod = ew.qmul(_unsqueeze_last(la), _unsqueeze0(lb), to=mul_to,
-                       full_prec=mul_full_prec)
-        nodes = _moveaxis(prod, 1, 0)
-    elif q == 1:
-        # the rank's span is ONE complete subtree: the local fold is a
-        # single-device qgemul whose tree ends in node_fmt
-        one = qgemul(la, lb, node_fmt, mul_to=mul_to,
-                     add_formats=add_formats,
-                     mul_full_prec=mul_full_prec)
-        if use_bf:
-            res = ew.qcast(_butterfly_fold(one, add_formats, s, mesh),
-                           out_fmt)
-            return res if epilogue_lut is None else epilogue_lut(res)
-        nodes = _unsqueeze0(one)
-    else:
-        # q complete subtrees: all at once, layered ([m, q, 2^s, n])
-        ca = _unsqueeze_last(_reshape(la, (m, q, 1 << s)))
-        rb = _reshape(lb, (q, 1 << s, n))
-        prod = ew.qmul(ca, rb, to=mul_to, full_prec=mul_full_prec)
-        nodes = _moveaxis(qreduce(prod, add_formats, axis=-2), 1, 0)
-    real = _gather_nodes(nodes, mesh)[0:n_nodes]   # drop pad nodes
-    res = ew.qcast(qreduce(real, top_layers, axis=0), out_fmt)
-    return res if epilogue_lut is None else epilogue_lut(res)
+
+    def block(la, lb):
+        if s == 0:
+            # nodes are the quantized products themselves
+            prod = ew.qmul(_unsqueeze_last(la), _unsqueeze0(lb), to=mul_to,
+                           full_prec=mul_full_prec)
+            nodes = _moveaxis(prod, 1, 0)
+        elif q == 1:
+            # the rank's span is ONE complete subtree: the local fold is a
+            # single-device qgemul whose tree ends in node_fmt
+            one = qgemul(la, lb, node_fmt, mul_to=mul_to,
+                         add_formats=add_formats,
+                         mul_full_prec=mul_full_prec)
+            if use_bf:
+                res = ew.qcast(_butterfly_fold(one, add_formats, s, mesh),
+                               out_fmt)
+                return res if epilogue_lut is None else epilogue_lut(res)
+            nodes = _unsqueeze0(one)
+        else:
+            # q complete subtrees: all at once, layered ([m, q, 2^s, n])
+            ca = _unsqueeze_last(_reshape(la, (m, q, 1 << s)))
+            rb = _reshape(lb, (q, 1 << s, n))
+            prod = ew.qmul(ca, rb, to=mul_to, full_prec=mul_full_prec)
+            nodes = _moveaxis(qreduce(prod, add_formats, axis=-2), 1, 0)
+        real = _gather_nodes(nodes, mesh)[0:n_nodes]   # drop pad nodes
+        res = ew.qcast(qreduce(real, top_layers, axis=0), out_fmt)
+        return res if epilogue_lut is None else epilogue_lut(res)
+
+    return _program(("k_tree", a.fmt, b.fmt, out_fmt, mul_to, add_formats,
+                     mul_full_prec, epilogue_lut, k, m, n, use_bf), mesh,
+                    block, _block(_pad_k(a, 1, pad), mesh, (None, "tp")),
+                    _block(_pad_k(b, 0, pad), mesh, ("tp", None)))
 
 
 def _reshape(t: QTensor, shape) -> QTensor:
@@ -606,12 +769,17 @@ def sharded_qgemul_k_wide(a: QTensor, b: QTensor, out_fmt: QFormat,
         raise ValueError(
             f"N={b.shape[-1]} not divisible by tp={tp} (reduce_scatter "
             f"shards the output's N dim)")
-    la = _block(a, mesh, (None, "tp"))
-    lb = _block(b, mesh, ("tp", None))
-    p = pair_dot_2d(la.data, lb.data, plan.prod_interval)
-    res = _pair_epilogue(_psum_pair(p, mesh, reduce_scatter),
-                         plan.prod_frac, out_fmt, epilogue_lut)
-    return _whole(res, mesh, (None, "tp")) if reduce_scatter else res
+
+    def block(la, lb):
+        p = pair_dot_2d(la.data, lb.data, plan.prod_interval)
+        res = _pair_epilogue(_psum_pair(p, mesh, reduce_scatter),
+                             plan.prod_frac, out_fmt, epilogue_lut)
+        return _whole(res, mesh, (None, "tp")) if reduce_scatter else res
+
+    return _program(("kw", a.fmt, b.fmt, plan.prod_frac, out_fmt,
+                     bool(reduce_scatter), epilogue_lut), mesh, block,
+                    _block(a, mesh, (None, "tp")),
+                    _block(b, mesh, ("tp", None)))
 
 
 def _slice_n(y: QTensor, start: int, size: int) -> QTensor:
@@ -642,18 +810,23 @@ def sharded_qgemul_k_wide_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
             "strategy='mn'")
     _wide_lut_gate(out_fmt, epilogue_lut)
     bn = n // tp
-    la = _block(a, mesh, (None, "tp"))
-    lb = _block(b, mesh, ("tp", None))
     idx = mesh.get_local_rank("tp")
-    acc = torch.zeros((la.shape[0], bn), dtype=torch.int64,
-                      device=mesh.device)
-    for i in range(tp):
-        blk = (idx + tp - 1 - i) % tp
-        p = pair_dot_2d(la.data, _slice_n(lb, blk * bn, bn).data,
-                        plan.prod_interval)
-        acc = C.ppermute(acc, mesh, "tp", _ring(tp)) + p
-    res = _pair_epilogue(acc, plan.prod_frac, out_fmt, epilogue_lut)
-    return _whole(res, mesh, (None, "tp"))
+
+    def block(la, lb):
+        acc = torch.zeros((la.shape[0], bn), dtype=torch.int64,
+                          device=mesh.device)
+        for i in range(tp):
+            blk = (idx + tp - 1 - i) % tp
+            p = pair_dot_2d(la.data, _slice_n(lb, blk * bn, bn).data,
+                            plan.prod_interval)
+            acc = C.ppermute(acc, mesh, "tp", _ring(tp)) + p
+        res = _pair_epilogue(acc, plan.prod_frac, out_fmt, epilogue_lut)
+        return _whole(res, mesh, (None, "tp"))
+
+    return _program(("kwp", a.fmt, b.fmt, plan.prod_frac, out_fmt,
+                     epilogue_lut, bn), mesh, block,
+                    _block(a, mesh, (None, "tp")),
+                    _block(b, mesh, ("tp", None)))
 
 
 # ---------------------------------------------------------------------------
@@ -744,12 +917,17 @@ def sharded_qgemul_k_limb(a: QTensor, b: QTensor, out_fmt: QFormat,
             f"N={b.shape[-1]} not divisible by tp={tp} (reduce_scatter "
             f"shards the output's N dim)")
     iva, ivb = fmt_interval(a.fmt), fmt_interval(b.fmt)
-    la = _block(a, mesh, (None, "tp"))
-    lb = _block(b, mesh, ("tp", None))
-    acc = limb_dot_2d(la.data, lb.data, iva, ivb, Kw)
-    res = _limb_epilogue(_psum_limbs(acc, mesh, reduce_scatter),
-                         plan.prod_frac, out_fmt, epilogue_lut)
-    return _whole(res, mesh, (None, "tp")) if reduce_scatter else res
+
+    def block(la, lb):
+        acc = limb_dot_2d(la.data, lb.data, iva, ivb, Kw)
+        res = _limb_epilogue(_psum_limbs(acc, mesh, reduce_scatter),
+                             plan.prod_frac, out_fmt, epilogue_lut)
+        return _whole(res, mesh, (None, "tp")) if reduce_scatter else res
+
+    return _program(("kl", a.fmt, b.fmt, plan.prod_frac, out_fmt, Kw,
+                     bool(reduce_scatter), epilogue_lut), mesh, block,
+                    _block(a, mesh, (None, "tp")),
+                    _block(b, mesh, ("tp", None)))
 
 
 def sharded_qgemul_k_limb_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
@@ -775,18 +953,23 @@ def sharded_qgemul_k_limb_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
     _wide_lut_gate(out_fmt, epilogue_lut)
     bn = n // tp
     iva, ivb = fmt_interval(a.fmt), fmt_interval(b.fmt)
-    la = _block(a, mesh, (None, "tp"))
-    lb = _block(b, mesh, ("tp", None))
     idx = mesh.get_local_rank("tp")
-    acc = torch.zeros((Kw, la.shape[0], bn), dtype=torch.int64,
-                      device=mesh.device)
-    for i in range(tp):
-        blk = (idx + tp - 1 - i) % tp
-        p = limb_dot_2d(la.data, _slice_n(lb, blk * bn, bn).data, iva,
-                        ivb, Kw)
-        acc = L.ladd(C.ppermute(acc, mesh, "tp", _ring(tp)), p)
-    res = _limb_epilogue(acc, plan.prod_frac, out_fmt, epilogue_lut)
-    return _whole(res, mesh, (None, "tp"))
+
+    def block(la, lb):
+        acc = torch.zeros((Kw, la.shape[0], bn), dtype=torch.int64,
+                          device=mesh.device)
+        for i in range(tp):
+            blk = (idx + tp - 1 - i) % tp
+            p = limb_dot_2d(la.data, _slice_n(lb, blk * bn, bn).data, iva,
+                            ivb, Kw)
+            acc = L.ladd(C.ppermute(acc, mesh, "tp", _ring(tp)), p)
+        res = _limb_epilogue(acc, plan.prod_frac, out_fmt, epilogue_lut)
+        return _whole(res, mesh, (None, "tp"))
+
+    return _program(("klp", a.fmt, b.fmt, plan.prod_frac, out_fmt, Kw,
+                     epilogue_lut, bn), mesh, block,
+                    _block(a, mesh, (None, "tp")),
+                    _block(b, mesh, ("tp", None)))
 
 
 # ---------------------------------------------------------------------------
@@ -805,10 +988,15 @@ def sharded_qgemul_dp(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
                      "sharded_qgemul_dp")
     spec_a = (("dp", "tp"),)
     spec_b = spec_a if b.ndim == a.ndim else ()
-    la, lb = _block(a, mesh, spec_a), _block(b, mesh, spec_b)
-    c = qgemul(la, lb, out_fmt, mul_to=mul_to, add_formats=add_formats,
-               **kw)
-    return _whole(c, mesh, spec_a)
+
+    def block(la, lb):
+        c = qgemul(la, lb, out_fmt, mul_to=mul_to, add_formats=add_formats,
+                   **kw)
+        return _whole(c, mesh, spec_a)
+
+    return _program(("dp", a.fmt, b.fmt, out_fmt, mul_to, add_formats, kw,
+                     spec_b), mesh, block, _block(a, mesh, spec_a),
+                    _block(b, mesh, spec_b))
 
 
 _STRATEGIES = {
@@ -830,6 +1018,10 @@ _STRATEGIES = {
 
 def _cparts(c):
     return c.real, c.imag
+
+
+def _cfmts(c):
+    return c.real.fmt, c.imag.fmt
 
 
 def _complex(r: QTensor, i: QTensor):
@@ -972,43 +1164,48 @@ def sharded_cgemul_k_tree(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
     node_i = _node_format(pi_fmt, i_layers, s)
     use_bf = _bf_ok(q, s, tp, n_nodes, butterfly)
     pad = tp * E - k
-    la = _complex(*(_block(_pad_k(t, 1, pad), mesh, (None, "tp"))
-                    for t in _cparts(a)))
-    lb = _complex(*(_block(_pad_k(t, 0, pad), mesh, ("tp", None))
-                    for t in _cparts(b)))
     m, n = a.real.shape[0], b.real.shape[-1]
-    if q == 1 and s >= 1:
-        loc = cgemul(la, lb, (node_r, node_i), algo=algo,
-                     add_formats=add_formats, **mul_tags)
 
-        def fold_one(t, layers, top, of):
-            if use_bf:
-                topv = _butterfly_fold(t, layers, s, mesh)
+    def block(la, lb):
+        if q == 1 and s >= 1:
+            loc = cgemul(la, lb, (node_r, node_i), algo=algo,
+                         add_formats=add_formats, **mul_tags)
+
+            def fold_one(t, layers, top, of):
+                if use_bf:
+                    topv = _butterfly_fold(t, layers, s, mesh)
+                else:
+                    nodes = _gather_nodes(_unsqueeze0(t), mesh)[0:n_nodes]
+                    topv = qreduce(nodes, top, axis=0)
+                return ew.qcast(topv, of or topv.fmt)
+
+            return _complex(fold_one(loc.real, r_layers, top_r, orf),
+                            fold_one(loc.imag, i_layers, top_i, oif))
+        mulfn = cmul_tf if algo == "tf" else cmul
+        pa = _complex(*(_unsqueeze_last(t) for t in _cparts(la)))
+        pb = _complex(*(_unsqueeze0(t) for t in _cparts(lb)))
+        prod = mulfn(pa, pb, **mul_tags)         # [m, E, n] a part
+
+        def fold(t, layers, top, of):
+            if s == 0:
+                nodes = _moveaxis(t, 1, 0)
             else:
-                nodes = _gather_nodes(_unsqueeze0(t), mesh)[0:n_nodes]
-                topv = qreduce(nodes, top, axis=0)
+                sub = qreduce(_reshape(t, (m, q, 1 << s, n)), layers,
+                              axis=-2)            # [m, q, n]
+                nodes = _moveaxis(sub, 1, 0)
+            real_nodes = _gather_nodes(nodes, mesh)[0:n_nodes]
+            topv = qreduce(real_nodes, top, axis=0)
             return ew.qcast(topv, of or topv.fmt)
 
-        return _complex(fold_one(loc.real, r_layers, top_r, orf),
-                        fold_one(loc.imag, i_layers, top_i, oif))
-    mulfn = cmul_tf if algo == "tf" else cmul
-    pa = _complex(*(_unsqueeze_last(t) for t in _cparts(la)))
-    pb = _complex(*(_unsqueeze0(t) for t in _cparts(lb)))
-    prod = mulfn(pa, pb, **mul_tags)         # [m, E, n] a part
+        return _complex(fold(prod.real, r_layers, top_r, orf),
+                        fold(prod.imag, i_layers, top_i, oif))
 
-    def fold(t, layers, top, of):
-        if s == 0:
-            nodes = _moveaxis(t, 1, 0)
-        else:
-            sub = qreduce(_reshape(t, (m, q, 1 << s, n)), layers,
-                          axis=-2)            # [m, q, n]
-            nodes = _moveaxis(sub, 1, 0)
-        real_nodes = _gather_nodes(nodes, mesh)[0:n_nodes]
-        topv = qreduce(real_nodes, top, axis=0)
-        return ew.qcast(topv, of or topv.fmt)
-
-    return _complex(fold(prod.real, r_layers, top_r, orf),
-                    fold(prod.imag, i_layers, top_i, oif))
+    return _program(("ck_tree", _cfmts(a), _cfmts(b), out_fmt, algo,
+                     add_formats, mul_tags, k, m, n, use_bf), mesh, block,
+                    _complex(*(_block(_pad_k(t, 1, pad), mesh, (None, "tp"))
+                               for t in _cparts(a))),
+                    _complex(*(_block(_pad_k(t, 0, pad), mesh, ("tp", None))
+                               for t in _cparts(b))))
 
 
 def sharded_cgemul_dp(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
@@ -1028,10 +1225,15 @@ def sharded_cgemul_dp(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
             f"batch dim {a.real.shape[0]} not divisible by {n_dev} devices")
     spec_a = (("dp", "tp"),)
     spec_b = spec_a if b.real.ndim == a.real.ndim else ()
-    la, lb = _cblock(a, mesh, spec_a), _cblock(b, mesh, spec_b)
-    c = cgemul(la, lb, out_fmt, algo=algo, add_formats=add_formats,
-               **mul_tags)
-    return _cwhole(c, mesh, spec_a)
+
+    def block(la, lb):
+        c = cgemul(la, lb, out_fmt, algo=algo, add_formats=add_formats,
+                   **mul_tags)
+        return _cwhole(c, mesh, spec_a)
+
+    return _program(("cdp", _cfmts(a), _cfmts(b), out_fmt, algo,
+                     add_formats, mul_tags, spec_b), mesh, block,
+                    _cblock(a, mesh, spec_a), _cblock(b, mesh, spec_b))
 
 
 def sharded_cgemul_mn(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
@@ -1041,12 +1243,17 @@ def sharded_cgemul_mn(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
     from ..ops.cgemm import cgemul
 
     _check_ctraceable(a, b, out_fmt, algo, add_formats, mul_tags,
-                  "sharded_cgemul_mn")
-    la = _cblock(a, mesh, ("dp", None))
-    lb = _cblock(b, mesh, (None, "tp"))
-    c = cgemul(la, lb, out_fmt, algo=algo, add_formats=add_formats,
-               **mul_tags)
-    return _cwhole(c, mesh, ("dp", "tp"))
+                      "sharded_cgemul_mn")
+
+    def block(la, lb):
+        c = cgemul(la, lb, out_fmt, algo=algo, add_formats=add_formats,
+                   **mul_tags)
+        return _cwhole(c, mesh, ("dp", "tp"))
+
+    return _program(("cmn", _cfmts(a), _cfmts(b), out_fmt, algo,
+                     add_formats, mul_tags), mesh, block,
+                    _cblock(a, mesh, ("dp", None)),
+                    _cblock(b, mesh, (None, "tp")))
 
 
 def sharded_cgemul_k(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
@@ -1093,16 +1300,21 @@ def sharded_cgemul_k(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
 
         def lred(d):
             return _psum_limbs(d, mesh, False)
-    la = _cblock(a, mesh, (None, "tp"))
-    lb = _cblock(b, mesh, ("tp", None))
-    c = _fast_cgemul(la, lb, orf, oif, algo, r_layers, i_layers,
-                     mul_tags, dot_reduce=red, limb_dot_reduce=lred,
-                     k_total=k, cap_mn=cap)
-    if c is None:
-        raise ValueError(
-            "K-sharded cgemul needs the lossless fast-path proof; this "
-            "config is order-sensitive - use strategy='mn'")
-    return _cwhole(c, mesh, (None, "tp")) if reduce_scatter else c
+
+    def block(la, lb):
+        c = _fast_cgemul(la, lb, orf, oif, algo, r_layers, i_layers,
+                         mul_tags, dot_reduce=red, limb_dot_reduce=lred,
+                         k_total=k, cap_mn=cap)
+        if c is None:
+            raise ValueError(
+                "K-sharded cgemul needs the lossless fast-path proof; this "
+                "config is order-sensitive - use strategy='mn'")
+        return _cwhole(c, mesh, (None, "tp")) if reduce_scatter else c
+
+    return _program(("ck", _cfmts(a), _cfmts(b), orf, oif, algo, r_layers,
+                     i_layers, mul_tags, k, cap, bool(reduce_scatter)),
+                    mesh, block, _cblock(a, mesh, (None, "tp")),
+                    _cblock(b, mesh, ("tp", None)))
 
 
 _CSTRATEGIES = {
@@ -1139,9 +1351,13 @@ def sharded_qreduce(x: QTensor, layer_formats=(), axis: int = -1,
     if x.is_host or reduce_format(x.fmt, layer_formats,
                                   x.shape[red_axis]) is None:
         raise ValueError(_RHOST_MSG.format(who="sharded_qreduce"))
-    lx = _block(x, mesh, spec)
-    r = qreduce(lx, layer_formats, axis=red_axis)
-    return _whole(r, mesh, out_spec)
+
+    def block(lx):
+        return _whole(qreduce(lx, layer_formats, axis=red_axis), mesh,
+                      out_spec)
+
+    return _program(("qr", x.fmt, layer_formats, red_axis, spec, out_spec),
+                    mesh, block, _block(x, mesh, spec))
 
 
 def sharded_qreduce_k(x: QTensor, layer_formats=(),
@@ -1204,22 +1420,26 @@ def sharded_qreduce_k(x: QTensor, layer_formats=(),
             raise ValueError(
                 "the requantize epilogue outgrows int32 lanes for this "
                 "config - use the batch-sharded form")
-    lx = _block(x, mesh, ("tp",))
-    if regime == "i32":
-        tot = C.psum(lx.data.to(torch.int32).sum(dim=0, keepdim=True,
-                                                 dtype=torch.int32),
+
+    def block(lx):
+        if regime == "i32":
+            tot = C.psum(lx.data.to(torch.int32).sum(dim=0, keepdim=True,
+                                                     dtype=torch.int32),
+                         mesh, "tp")
+            raw = requantize_i32(tot, frac, final_fmt).to(out_dtype)
+            return QTensor(raw[0], final_fmt)
+        if regime == "limb":
+            part = limb_axis_sum(to_limbs_any(lx.data, limb_k), 0)
+            tot = _psum_limbs(part.reshape(limb_k, 1), mesh, False)
+            raw = L.requantize_limb(tot, frac, final_fmt)
+            return ew._finish(raw, final_fmt)[0]
+        tot = C.psum(lx.data.to(torch.int64).sum(dim=0, keepdim=True),
                      mesh, "tp")
-        raw = requantize_i32(tot, frac, final_fmt).to(out_dtype)
-        return QTensor(raw[0], final_fmt)
-    if regime == "limb":
-        part = limb_axis_sum(to_limbs_any(lx.data, limb_k), 0)
-        tot = _psum_limbs(part.reshape(limb_k, 1), mesh, False)
-        raw = L.requantize_limb(tot, frac, final_fmt)
-        return ew._finish(raw, final_fmt)[0]
-    tot = C.psum(lx.data.to(torch.int64).sum(dim=0, keepdim=True),
-                 mesh, "tp")
-    return ew._finish(requantize_i64(tot, frac, final_fmt),
-                      final_fmt)[0]
+        return ew._finish(requantize_i64(tot, frac, final_fmt),
+                          final_fmt)[0]
+
+    return _program(("qrk", x.fmt, frac, final_fmt, regime, limb_k), mesh,
+                    block, _block(x, mesh, ("tp",)))
 
 
 def sharded_qreduce_k_tree(x: QTensor, layer_formats=(),
@@ -1246,13 +1466,17 @@ def sharded_qreduce_k_tree(x: QTensor, layer_formats=(),
         raise ValueError(_RHOST_MSG.format(who="sharded_qreduce_k_tree"))
     top_layers = _shift_layers(layer_formats, s)
     use_bf = _bf_ok(q, s, tp, n_nodes, butterfly)
-    lx = _block(_pad_k(x, 0, tp * E - n), mesh, ("tp",))
-    if s == 0:
-        nodes = lx                                   # [E] raw elements
-    else:
-        nodes = qreduce(_reshape(lx, (q, 1 << s)), layer_formats,
-                        axis=1)                      # [q]
-    if use_bf:
-        return _butterfly_fold(nodes, layer_formats, s, mesh)[0]
-    real = _gather_nodes(nodes, mesh)[0:n_nodes]
-    return qreduce(real, top_layers, axis=0)
+
+    def block(lx):
+        if s == 0:
+            nodes = lx                                   # [E] raw elements
+        else:
+            nodes = qreduce(_reshape(lx, (q, 1 << s)), layer_formats,
+                            axis=1)                      # [q]
+        if use_bf:
+            return _butterfly_fold(nodes, layer_formats, s, mesh)[0]
+        real = _gather_nodes(nodes, mesh)[0:n_nodes]
+        return qreduce(real, top_layers, axis=0)
+
+    return _program(("qrk_tree", x.fmt, layer_formats, n, use_bf), mesh,
+                    block, _block(_pad_k(x, 0, tp * E - n), mesh, ("tp",)))

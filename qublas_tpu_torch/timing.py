@@ -40,23 +40,22 @@ def timeit(fn, runs=10, warmup=2) -> float:
 
 
 def device_us(fn, runs=20) -> dict:
-    """Microseconds of device time per call of ``fn``, by kernel name, from
-    a torch.profiler trace of ``runs`` calls after one warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
+    """Microseconds of device time per call of ``fn``, by kernel name (its
+    first 60 characters), from a torch.profiler trace of ``runs`` calls
+    after one warm-up call, read by ``utils.profiling``'s parser."""
+    from .utils.profiling import device_busy
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(runs):
             fn()
-        torch.cuda.synchronize()
+
+    got = device_busy(run)
     out = {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "device_time_total", None)
-        if t is None:
-            t = getattr(evt, "cuda_time_total", 0)
-        if t:
-            out[evt.key[:60]] = t / runs
+    for name, sec in (got["ops"] if got else {}).items():
+        out[name[:60]] = out.get(name[:60], 0.0) + sec * 1e6 / runs
     return out
 
 
