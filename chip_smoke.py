@@ -65,12 +65,15 @@ Phases, each printing its lines:
       package's prefix-lossless configuration, ``Qu<3,4>`` operands,
       products ``Qu<7,8>``, four lossless layers and a ``SAT::ZERO`` tail)
       at 2048^3, one launch of K2h's tensor-core kernel (int8 lanes),
-      against K2 on ``plan_tree``, K2h's IMAD kernel on int16 copies of the
-      operands, the plain version on the card, the CPU on a row block and
-      ``hostops`` on a corner; again at k = 2040 (blocks of 8), k = 176 (an
-      odd block count), with a shift dl > 0 (s = 8, 256 block values) and
-      as a folded [8, 256, 2048] batch; the same datapath on ``Qu<5,6>``
-      operands in int16 lanes at 2048^3, one launch of the IMAD kernel;
+      against K2 on ``plan_tree``, K2h's digit kernels on int16 and int32
+      copies of the operands, the plain version on the card, the CPU on a
+      row block and ``hostops`` on a corner; again at k = 2040 (blocks of
+      8), k = 176 (an odd block count), with a shift dl > 0 (s = 8, 256
+      block values) and as a folded [8, 256, 2048] batch; the same datapath
+      on ``Qu<5,6>`` operands in int16 lanes at 2048^3, one launch of the
+      digit kernel (int16 lanes as u8/s8 byte digits); the digit kernels on
+      raws over the whole int16 and int32 lanes (outside the format, the
+      block dots wrapping) against the plain version;
       i2 host storage: the native engine built and
       loaded, ``from_float`` at 4096^2 through it against the Python loop
       on a row block, a ``Qu<600,600>`` (1,201-bit) tensor through
@@ -119,15 +122,16 @@ Phases, each printing its lines:
       ``"reduce-overhead"`` (CUDA graphs): the pipeline at 4096^3 (K1
       twice), the canonical ``qgemul`` at 2048^3 with a ``qreduce`` of its
       rows and K2′ on its operands, config 2's ``qreduce``, i1 on int8 and
-      int16 lanes (both K2h kernels), config 5's TF ``cgemul`` (K1 four
-      times), P1 at ``measured_chain_prods``' shapes, and the lane
-      (with ``qapprox``), pair and limb elementwise chains at 4096^2; each
-      compiled call equal to eager, eager to the plain versions and to
-      ``hostops`` on a corner, its launches counted (every kernel row
-      launches from inside a compiled graph; these launches count in no
-      row of the kernels line); each CUDA graph replayed on fresh inputs
-      equal to eager, with no counted launch (a replay runs no Python);
-      the compile seconds and the eager, compiled and replayed times;
+      int16 lanes (K2h's int8 and digit kernels), config 5's TF
+      ``cgemul`` (K1 four times), P1 at ``measured_chain_prods``' shapes,
+      and the lane (with ``qapprox``), pair and limb elementwise chains at
+      4096^2; each compiled call equal to eager, eager to the plain
+      versions and to ``hostops`` on a corner, its launches counted (every
+      kernel row launches from inside a compiled graph; these launches
+      count in no row of the kernels line); each CUDA graph replayed on
+      fresh inputs equal to eager, with no counted launch (a replay runs
+      no Python); the compile seconds and the eager, compiled and replayed
+      times;
    m. ``utils.profiling`` on the card: ``device_busy`` of one forward of
       the pipeline at 4096^3, eager and compiled, each inside a
       ``record_function`` range: busy and span seconds, the range's device
@@ -147,7 +151,8 @@ Phases, each printing its lines:
    its instantiations' registers; K2 and K2′ on the pair route at 2048^3,
    P1 on it at ``measured_chain_prods``' shapes, the wall times of
    paths f1-f4 and g1-g6, path h beside the 2-D calls of the same
-   size, and K2h's two kernels in turns on the same operands (event and
+   size, and K2h's tensor-core kernel on int8 lanes and its digit kernels
+   on int16 and int32 copies of the same operands in turns (event and
    device time, registers and spills) beside K2 and K2′.
 
 The second-to-last line is a JSON object describing each kernel; the last
@@ -186,6 +191,7 @@ LANE_BLOCK = 64                   # h2-h5: rows held against the CPU
 CKPT_LIMB_ROWS = 512              # h5: rows of the limb tensor saved
 HYB_N = 2048                      # i1: the hybrid tier at HYB_N^3
 HYB_BATCH = 8                     # i1: A as [HYB_BATCH, HYB_N / it, HYB_N]
+HYB_FULL_ROWS = 256               # i1: full-range int32 raws, checked on the CPU
 HOST_N = 64                       # i2: Qu<600,600> tensors HOST_N x HOST_N
 HOST_PY_ROWS = 256                # i2: rows of from_float's Python loop
 HOST_GEMM = (256, 256, 256)       # i2: the native host GEMM (m, k, n)
@@ -1875,7 +1881,7 @@ def hybrid_config(kind="base"):
     """The hybrid configurations: the JAX package's own
     (``tests/test_tree_gemm.py:136-145``; ``dl``: ``:172-181``, whose
     lossless prefix shifts) on int8 lanes, and ``int16``, the same datapath
-    shape on ``Qu<5,6>`` operands in int16 lanes, which take the IMAD
+    shape on ``Qu<5,6>`` operands in int16 lanes, which take the digit
     kernel: (operand format, mul_to, layers, out)."""
     import qublas_tpu_torch as qt
 
@@ -1898,10 +1904,12 @@ def hybrid_config(kind="base"):
 def phase_hybrid(dev, chk):
     """Phase 3i1: the hybrid tier through ``qgemul``: on int8 lanes one
     launch of K2h's tensor-core kernel a call, held to K2 on ``plan_tree``
-    of the same configuration, to the IMAD kernel on int16 copies of the
-    same operands, to the plain version on the card, to the CPU on a row
-    block and to hostops on a corner; on int16 lanes one launch of the IMAD
-    kernel, held the same way."""
+    of the same configuration, to the digit kernels on int16 and int32
+    copies of the same operands, to the plain version on the card, to the
+    CPU on a row block and to hostops on a corner; on int16 lanes one
+    launch of the digit kernel, held the same way; the digit kernels on
+    raws over the whole int16 and int32 lanes, where the block dots wrap,
+    against the plain version."""
     import numpy as np
     import torch
 
@@ -1918,7 +1926,8 @@ def phase_hybrid(dev, chk):
     gen = torch.Generator(device=dev).manual_seed(21)
     drive = Driver((fused_int8_gemm, tree_gemm, tree_gemm_stream,
                     qreduce_kernel,
-                    ("tree_gemm_hybrid", tree_gemm_hybrid, "imad_launches"),
+                    ("tree_gemm_hybrid_digits", tree_gemm_hybrid,
+                     "digit_launches"),
                     ("tree_gemm_hybrid_mma", tree_gemm_hybrid,
                      "mma_launches")))
     state = {}
@@ -1938,16 +1947,14 @@ def phase_hybrid(dev, chk):
         tp = plan_tree(fa, fa, mul_fmt, layers, k, out)
         assert hp is not None and tp is not None, key
         route = k2h_route(a.data, b.data)
-        assert route == ("imad" if kind == "int16" else "mma"), key
-        name = "tree_gemm_hybrid_mma" if route == "mma" else \
-            "tree_gemm_hybrid"
+        assert route == ("digits" if kind == "int16" else "mma"), key
+        name = f"tree_gemm_hybrid_{route}"
         c = drive(key, f"hybrid qgemul [{n}, {k}] @ [{k}, {n}] (s = {hp.s}, "
                   f"L = {hp.level}, dl = {hp.dl}, {k // hp.s} block values, "
                   f"{dt} lanes: the {route} kernel)",
                   lambda: qt.qgemul(a, b, out, mul_to=mul,
                                     add_formats=layers),
-                  {"tree_gemm_hybrid": int(route == "imad"),
-                   "tree_gemm_hybrid_mma": int(route == "mma")})
+                  {name: 1})
         assert c.fmt == out and c.shape == (n, n)
         plain = tree_gemm_hybrid_plain(a.data, b.data, hp, out)
         chk.same(name, f"{key} == K2 on plan_tree (k2_modes {k2_modes(tp)})",
@@ -1955,13 +1962,13 @@ def phase_hybrid(dev, chk):
         chk.same(name, f"{key} == tree_gemm_hybrid_plain on the card",
                  c.data, plain)
         if route == "mma":
-            # the IMAD kernel on int16 copies of the same operands
-            imad = tree_gemm_hybrid(a.data.to(torch.int16),
-                                    b.data.to(torch.int16), hp, out)
-            chk.same("tree_gemm_hybrid", f"{key}: the IMAD kernel on int16 "
-                     "copies == tree_gemm_hybrid_plain", imad, plain)
-            chk.same(name, f"{key} == the IMAD kernel on int16 copies",
-                     c.data, imad)
+            # the digit kernels on int16 and int32 copies of the operands
+            for lane in (torch.int16, torch.int32):
+                dig = tree_gemm_hybrid(a.data.to(lane), b.data.to(lane), hp,
+                                       out)
+                chk.same("tree_gemm_hybrid_digits", f"{key}: the digit "
+                         f"kernel on {lane} copies == "
+                         "tree_gemm_hybrid_plain", dig, plain)
         same_q(f"{key} rows 0..{rb}, card == CPU", c[:rb],
                qt.qgemul(a[:rb].to("cpu"), b.to("cpu"), out, mul_to=mul,
                          add_formats=layers))
@@ -1983,7 +1990,43 @@ def phase_hybrid(dev, chk):
     chk.same("tree_gemm_hybrid_mma", "i1 folded batch == the 2-D hybrid "
              "qgemul", c3.data.reshape(n, n), tree_gemm_hybrid(
                  a.data, b.data, hp, out))
+    hybrid_full_range(dev, chk, state)
     return drive.launches, state
+
+
+def hybrid_full_range(dev, chk, state):
+    """The digit kernels on raws over their whole lanes, outside the
+    formats (int16: -32768 and 32767 included), where the block dots wrap
+    mod 2^32 as the plain version's int32 dots do: i1 int16's plan at
+    2048^3 against ``tree_gemm_hybrid_plain`` on the card (its float64
+    block dots exact: each below 2^35), and i1's plan on int32 lanes
+    against the plain version on the CPU (int64, wrapping) over a
+    [HYB_FULL_ROWS, 2048] @ [2048, HYB_FULL_ROWS] block."""
+    import torch
+
+    from qublas_tpu_torch.ops.tree_gemm import (tree_gemm_hybrid,
+                                                tree_gemm_hybrid_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for key, lane, rows in (("i1 int16", torch.int16, HYB_N),
+                            ("i1", torch.int32, HYB_FULL_ROWS)):
+        a, b, hp, _, out, _, _ = state[key]
+        info = torch.iinfo(lane)
+        k = a.shape[1]
+        x = torch.randint(info.min, info.max + 1, (rows, k), generator=gen,
+                          device=dev, dtype=lane)
+        y = torch.randint(info.min, info.max + 1, (k, rows), generator=gen,
+                          device=dev, dtype=lane)
+        x[0, :8] = y[:8, 0] = info.min
+        x[1, :8] = y[:8, 1] = info.max
+        got = tree_gemm_hybrid(x, y, hp, out)
+        if lane == torch.int16:
+            ref = tree_gemm_hybrid_plain(x, y, hp, out)
+        else:
+            ref = tree_gemm_hybrid_plain(x.cpu(), y.cpu(), hp, out).to(dev)
+        chk.same("tree_gemm_hybrid_digits", f"{key} plan on full-range "
+                 f"{lane} raws [{rows}, {k}] @ [{k}, {rows}] == "
+                 "tree_gemm_hybrid_plain", got, ref)
 
 
 def phase_host(dev):
@@ -2147,7 +2190,7 @@ def j_counters():
             ("K2", tree_gemm, "launches"),
             ("K2'", tree_gemm_stream, "launches"),
             ("K2h", tree_gemm_hybrid, "mma_launches"),
-            ("K2h imad", tree_gemm_hybrid, "imad_launches"),
+            ("K2h digits", tree_gemm_hybrid, "digit_launches"),
             ("K3", qreduce_kernel, "launches"))
 
 
@@ -2648,7 +2691,8 @@ def l_programs(dev, state_a, state_b):
                   lambda s: (rand(f44, REDUCE_SHAPE, torch.int8, s),),
                   {"qreduce_kernel": 1}, reduce_check))
 
-    # i1 on both K2h kernels: int8 lanes (tensor cores), int16 (IMAD)
+    # i1 on both K2h routes: int8 lanes (tensor cores), int16 (the digit
+    # kernel)
     hfa, hmul, hlay, hout = hybrid_config()
     hp = plan_hybrid(hfa, hfa, qt.mul_merge(hfa, hfa, hmul), hlay, HYB_N,
                      hout)
@@ -2662,7 +2706,7 @@ def l_programs(dev, state_a, state_b):
     def hybrid_check(out, args):
         plain = tree_gemm_hybrid_plain(args[0], args[1], hp, hout)
         same_q("path l i1 (tensor-core kernel) == plain", out[0], plain)
-        same_q("path l i1 (IMAD kernel) == plain", out[1], plain)
+        same_q("path l i1 (digit kernel) == plain", out[1], plain)
         host_corner("i1", out[0], qt.QTensor(args[0], hfa),
                     qt.QTensor(args[1], hfa), hout, mul_to=hmul,
                     add_formats=hlay)
@@ -2672,7 +2716,7 @@ def l_programs(dev, state_a, state_b):
                 rand(hfa, (HYB_N, HYB_N), torch.int8, s + 100))
     progs.append((f"i1 hybrid qgemul {HYB_N}^3, int8 and int16 lanes",
                   hybrid, hybrid_args(41), hybrid_args,
-                  {"tree_gemm_hybrid_mma": 1, "tree_gemm_hybrid": 1},
+                  {"tree_gemm_hybrid_mma": 1, "tree_gemm_hybrid_digits": 1},
                   hybrid_check))
 
     # config 5's TF cgemul: K1 four times
@@ -2827,7 +2871,8 @@ def phase_compiled(dev, card, state_a, state_b):
 
     counters = (fused_int8_gemm, tree_gemm, tree_gemm_stream, qreduce_kernel,
                 chain_probe,
-                ("tree_gemm_hybrid", tree_gemm_hybrid, "imad_launches"),
+                ("tree_gemm_hybrid_digits", tree_gemm_hybrid,
+                 "digit_launches"),
                 ("tree_gemm_hybrid_mma", tree_gemm_hybrid, "mma_launches"))
     drive = Driver(counters)
     flat = torch.utils._pytree.tree_leaves
@@ -2980,91 +3025,109 @@ def phase_profile(card, state_a):
     assert rep["gops"] > 0 and rep["fraction_of_roofline"] > 0
 
 
-def hybrid_tail_ops(hp, out_fmt, k, pairs=False):
-    """int32 operations of K2h's tail for one output element: the shift of
-    each of the k / s block values (dl > 0), the tail's tree of merges over
-    them (drain converts included) and the final requantize.  ``pairs``:
-    the tensor-core kernel's count, which sums each pair of blocks in the
-    MMAs' accumulator, so tree level L's merges are their requantizes
-    alone (the adds are among the 2 m n k dot operations) and a pair, or
-    an odd last block, is shifted once."""
+def hybrid_tail_ops(hp, out_fmt, k, classes=1):
+    """int32 operations of K2h's tail for one output element as its
+    tensor-core kernels run it: the tail's tree of merges over the k / s
+    block values (drain converts included) and the final requantize.  Each
+    pair of blocks sums in the MMAs' accumulators, so tree level L's merges
+    are their requantizes alone (the adds are among the dot operations),
+    and a pair, or an odd last block, is shifted once (dl > 0); on digit
+    lanes its ``classes`` shift classes' accumulators are summed there, one
+    shift-and-add (an IMAD or LEA) for each class past the first."""
     nb = k // hp.s
     rqs = [rq_ops(hp.level_fmts[hp.level + j].frac_bits,
                   hp.merge_fmts[hp.level + j])
            for j in range(max(nb.bit_length(), 1))]
     ops = tree_ops(nb, rqs, lambda l: rqs[l]) + \
         rq_ops(hp.final_fmt.frac_bits, out_fmt)
-    if pairs:
-        return ops - nb // 2 + ((nb + 1) // 2 if hp.dl else 0)
-    return ops + (nb if hp.dl else 0)
+    sums = (nb + 1) // 2
+    return ops - nb // 2 + (sums if hp.dl else 0) + (classes - 1) * sums
 
 
-def hybrid_bound(hp, out_fmt, m, n, k, in_bytes, out_bytes):
-    """Bound of K2h's IMAD kernel: the operands and output once, and per
-    output element the k block-dot multiply-adds (one int32 operation
-    each) and the tail."""
-    return bound_ms(in_bytes * (m * k + k * n) + out_bytes * m * n,
-                    m * n * (k + hybrid_tail_ops(hp, out_fmt, k)),
-                    INT32_OPS_S)
+# K2h's tensor-core kernels by lane bytes: (MMAs a k16 step and n8 tile,
+# shift classes), csrc/tree_gemm_hybrid_mma.cuh's mma_digits and Lanes
+K2H_DIGITS = {1: (1, 1), 2: (4, 3), 4: (10, 4)}
 
 
-def hybrid_mma_bound(hp, out_fmt, m, n, k, out_bytes):
-    """Bound of K2h's tensor-core kernel, the largest of three times: the
-    int8 operands and the output once at the HBM rate, the block dots
-    (2 m n k int8 operations) at the int8 tensor-core rate, and the tail
-    (per output element, ``hybrid_tail_ops`` of pairs of blocks) at the
-    int32 rate."""
-    t_bytes = (m * k + k * n + out_bytes * m * n) / HBM_BYTES_S
-    t_dots = 2 * m * n * k / INT8_OPS_S
-    t_tail = m * n * hybrid_tail_ops(hp, out_fmt, k, pairs=True) / \
-        INT32_OPS_S
+def hybrid_mma_bound(hp, out_fmt, m, n, k, out_bytes, lane_bytes=1):
+    """Bound of K2h's tensor-core kernel on ``lane_bytes``-byte lanes, the
+    largest of three times: the operands in their lanes and the output
+    once at the HBM rate, the block dots (2 m n k int8 operations times
+    the digit MMAs a product: 1 on int8 lanes, 4 on int16, 10 on int32) at
+    the int8 tensor-core rate, and the tail (per output element,
+    ``hybrid_tail_ops`` with the lanes' shift classes) at the int32
+    rate."""
+    mmas, classes = K2H_DIGITS[lane_bytes]
+    t_bytes = (lane_bytes * (m * k + k * n) + out_bytes * m * n) / \
+        HBM_BYTES_S
+    t_dots = mmas * 2 * m * n * k / INT8_OPS_S
+    t_tail = m * n * hybrid_tail_ops(hp, out_fmt, k, classes) / INT32_OPS_S
     worst = max(t_bytes, t_dots, t_tail)
     by = "bytes" if worst == t_bytes else "operations"
     return worst * 1e3, by
 
 
 def hybrid_times(card, state_i, t, bounds, report):
-    """Phase 4, path i: K2h's two kernels in turns on the same operands
-    (the tensor-core kernel on the int8 lanes, the IMAD kernel on int16
-    copies of them) by CUDA events and device time, beside K2 and K2′ and
-    its plain version, and ``qgemul`` end to end."""
+    """Phase 4, path i: K2h's tensor-core kernel on the int8 lanes and its
+    digit kernels on int16 and int32 copies of the same operands, in turns
+    (int8, int16, int32, int32, int16, int8), by CUDA events and device
+    time, beside K2 and K2′ and the plain versions, and ``qgemul`` end to
+    end."""
     import torch
 
     import qublas_tpu_torch as qt
-    from qublas_tpu_torch.ops.tree_gemm import (k2s_plan, tree_gemm,
-                                                tree_gemm_hybrid,
+    from qublas_tpu_torch.ops.tree_gemm import (_hybrid_tail, k2s_plan,
+                                                hybrid_digit_dots_plain,
+                                                tree_gemm, tree_gemm_hybrid,
                                                 tree_gemm_hybrid_plain,
                                                 tree_gemm_stream)
     from qublas_tpu_torch.ops.widths import torch_dtype_for
     from qublas_tpu_torch.timing import device_us, timeit
 
+    lanes = (("k2h", torch.int8), ("k2h_digits", torch.int16),
+             ("k2h_digits32", torch.int32))
     for key, suffix in (("i1", ""), ("i1 k2040", "_k2040"),
                         ("i1 k176", "_k176"), ("i1 dl", "_dl")):
         a, b, hp, tp, out, mul, layers = state_i[key]
         m, k = a.shape
         n = b.shape[1]
-        a16, b16 = a.data.to(torch.int16), b.data.to(torch.int16)
-        mma = lambda: tree_gemm_hybrid(a.data, b.data, hp, out)  # noqa: E731
-        imad = lambda: tree_gemm_hybrid(a16, b16, hp, out)  # noqa: E731
-        turns = [timeit(f) for f in (mma, imad, imad, mma)]
-        t["k2h" + suffix] = (turns[0] + turns[3]) / 2
-        t["k2h_imad" + suffix] = (turns[1] + turns[2]) / 2
         ob = torch_dtype_for(out).itemsize
-        bounds["k2h" + suffix] = hybrid_mma_bound(hp, out, m, n, k, ob)
-        bounds["k2h_imad" + suffix] = hybrid_bound(hp, out, m, n, k, 2, ob)
-        us, us_imad = device_us(mma), device_us(imad)
+        calls = {}
+        for name, lane in lanes:
+            x, y = a.data.to(lane), b.data.to(lane)
+            calls[name] = (lambda x=x, y=y: tree_gemm_hybrid(x, y, hp, out))
+            bounds[name + suffix] = hybrid_mma_bound(hp, out, m, n, k, ob,
+                                                     lane.itemsize)
+        order = [name for name, _ in lanes]
+        turns = {name: [] for name in order}
+        for name in order + order[::-1]:
+            turns[name].append(timeit(calls[name]))
+        us = {}
+        for name in order:
+            t[name + suffix] = sum(turns[name]) / 2
+            us[name] = device_us(calls[name])
         print(f"time tree_gemm_hybrid [{m}, {k}] @ [{k}, {n}] (s = {hp.s}, "
               f"dl = {hp.dl}), in turns: tensor-core kernel (int8) "
-              f"{turns[0]:.4f}, {turns[3]:.4f} ms, "
+              f"{turns['k2h'][0]:.4f}, {turns['k2h'][1]:.4f} ms, "
               f"{m * n * k / t['k2h' + suffix] / 1e6:.2f} Gprod/s, device "
-              f"us per call {us}; IMAD kernel (int16 copies, its int32 "
-              f"copies included) {turns[1]:.4f}, {turns[2]:.4f} ms, device "
-              f"us per call {us_imad}; tensor-core / IMAD "
-              f"{t['k2h' + suffix] / t['k2h_imad' + suffix]:.4f} [{card}]")
+              f"us per call {us['k2h']}; digit kernel on int16 copies "
+              f"{turns['k2h_digits'][0]:.4f}, {turns['k2h_digits'][1]:.4f} "
+              f"ms, device us per call {us['k2h_digits']}; on int32 copies "
+              f"{turns['k2h_digits32'][0]:.4f}, "
+              f"{turns['k2h_digits32'][1]:.4f} ms, device us per call "
+              f"{us['k2h_digits32']}; int16 / int8 "
+              f"{t['k2h_digits' + suffix] / t['k2h' + suffix]:.4f}, "
+              f"int32 / int8 "
+              f"{t['k2h_digits32' + suffix] / t['k2h' + suffix]:.4f} "
+              f"[{card}]")
         if key != "i1":
             continue
         t["k2h_plain"] = timeit(lambda: tree_gemm_hybrid_plain(
             a.data, b.data, hp, out), runs=3, warmup=1)
+        a16, b16 = a.data.to(torch.int16), b.data.to(torch.int16)
+        t["k2h_digits_plain"] = timeit(lambda: _hybrid_tail(
+            hybrid_digit_dots_plain(a16, b16, hp.s), hp, out), runs=3,
+            warmup=1)
         t["k2h_qgemul"] = timeit(lambda: qt.qgemul(a, b, out, mul_to=mul,
                                                    add_formats=layers))
         t["k2h_k2"] = timeit(lambda: tree_gemm(a.data, b.data, tp, out),
@@ -3080,20 +3143,21 @@ def hybrid_times(card, state_i, t, bounds, report):
               f"(k2s_plan {k2s_plan(tp)}, every step read at run time) "
               f"{t['k2h_k2s']:.4f} ms, device us per call {k2s_us}; K2h "
               f"plain (float64 block matmuls, the tail in torch) "
-              f"{t['k2h_plain']:.4f} ms; hybrid qgemul "
+              f"{t['k2h_plain']:.4f} ms, the digit kernels' plain version "
+              f"on int16 copies (float64 digit-plane matmuls) "
+              f"{t['k2h_digits_plain']:.4f} ms; hybrid qgemul "
               f"{t['k2h_qgemul']:.4f} ms; K2h / K2 "
               f"{t['k2h'] / t['k2h_k2']:.4f} [{card}]")
     a, b, hp, tp, out, mul, layers = state_i["i1 int16"]
     t["k2h_int16_qgemul"] = timeit(lambda: qt.qgemul(
         a, b, out, mul_to=mul, add_formats=layers))
     print(f"time i1 int16: hybrid qgemul {list(a.shape)} @ {list(b.shape)} "
-          f"on int16 lanes (the IMAD kernel) {t['k2h_int16_qgemul']:.4f} ms "
+          f"on int16 lanes (the digit kernel) {t['k2h_int16_qgemul']:.4f} ms "
           f"[{card}]")
-    for line in resources(report, "tree_gemm_hybrid_kernel") + \
-            resources(report, "tree_gemm_hybrid_mma_kernel"):
+    for line in resources(report, "tree_gemm_hybrid_mma_kernel"):
         print(f"registers {line}")
-    for key in ("k2h", "k2h_k2040", "k2h_k176", "k2h_dl", "k2h_imad",
-                "k2h_imad_k2040", "k2h_imad_k176", "k2h_imad_dl"):
+    for key in [name + suffix for name, _ in lanes
+                for suffix in ("", "_k2040", "_k176", "_dl")]:
         ms, by = bounds[key]
         print(f"bound {key}: {ms:.4f} ms ({by}); measured {t[key]:.4f} ms, "
               f"{ms / t[key] * 100:.1f}% of the bound [{card}]")
@@ -3600,9 +3664,11 @@ def main() -> int:
             "qublas_tpu_torch/csrc/tree_gemm_hybrid_mma.cu",
             "qublas_tpu/ops/tree_gemm.py:620",
             launches_i["tree_gemm_hybrid_mma"], "k2h", "k2h_plain", None),
-        row("tree_gemm_hybrid", "qublas_tpu_torch/csrc/tree_gemm_hybrid.cu",
+        row("tree_gemm_hybrid_digits",
+            "qublas_tpu_torch/csrc/tree_gemm_hybrid_mma.cuh",
             "qublas_tpu/ops/tree_gemm.py:620",
-            launches_i["tree_gemm_hybrid"], "k2h_imad", "k2h_plain", None),
+            launches_i["tree_gemm_hybrid_digits"], "k2h_digits",
+            "k2h_digits_plain", None),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

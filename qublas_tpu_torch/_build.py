@@ -49,11 +49,10 @@ _SIGNATURES = {
                           _I, _I, _I, _I, _I, _P),
     # device, a, b, c, m, n, k, out_bytes, params, modes, stream
     "qk_tree_gemm": (_I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
-    # device, a, b, c, m, n, k, out_bytes, params, stream
-    "qk_tree_gemm_hybrid": (_I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    # device, a, lda, b, ldb, c, m, n, k, out_bytes, params, modes, stream
+    # device, a, lda, b, ldb, c, m, n, k, out_bytes, params, modes, digits,
+    # stream
     "qk_tree_gemm_hybrid_mma": (_I, _P, _L, _P, _L, _P, _I, _I, _I, _I, _P,
-                                _I, _P),
+                                _I, _I, _P),
     # device, a, lda, b, ldb, c, m, n, k, out_bytes, params, plan, stream
     "qk_tree_gemm_stream": (_I, _P, _L, _P, _L, _P, _I, _I, _I, _I, _P, _I,
                             _P),

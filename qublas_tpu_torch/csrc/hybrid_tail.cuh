@@ -1,9 +1,9 @@
-// The hybrid tier's tail, shared by both K2h kernels (tree_gemm_hybrid.cu,
-// the IMAD kernel for int16/int32 lanes, and tree_gemm_hybrid_mma.cu, the
-// tensor-core kernel for int8 lanes), so the two cannot drift: the plan's
-// parameters and their reader, the shift of a block value to tree level L,
-// the push of a value onto the binary-carry slot stack of tree levels L
-// and up, and the drain over the k / s block values.
+// The hybrid tier's tail, beside K2h's tensor-core kernels
+// (tree_gemm_hybrid_mma.cuh, on every lane width) and the experiments'
+// variants of them: the plan's parameters and their reader, the shift of a
+// block value to tree level L, the push of a value onto the binary-carry
+// slot stack of tree levels L and up, and the drain over the k / s block
+// values.
 //
 // A kernel keeps its slots where it likes (local memory, registers, shared
 // memory) behind an accessor with get(o, l) and set(o, l, v): output o's
@@ -24,8 +24,8 @@ struct HybridParams {
   Rq fin;  // final_fmt -> out_fmt
 };
 
-// K2h's least block: 2^3 products, the half slice of the IMAD kernel and
-// the half fragment (k 0..7 or 8..15) of the tensor-core kernel's m16n8k16.
+// K2h's least block: 2^3 products, the half fragment (k 0..7 or 8..15) of
+// the tensor-core kernel's m16n8k16.
 constexpr int HYB_MIN_LEVEL = 3;
 
 // params (host int32), as qublas_tpu_torch/ops/tree_gemm.py:_hybrid_params
@@ -81,10 +81,8 @@ __device__ __forceinline__ void hybrid_shift(int32_t (&v)[OUTS], int dl) {
 // slot stack, t values of that level pushed before them: one merge per
 // trailing one-bit of t, the slot the earlier, left operand (tree_fold.cuh's
 // push), in a rolled loop; then the store.  v holds the result.  RND, OVF:
-// the merges' modes fixed at compile time (with_modes), or ANY; INL: merges
-// whose modes are read at run time inlined (merge), not out of line.
-template <int RND = ANY, int OVF = ANY, bool INL = false, int OUTS,
-          class Slots>
+// the merges' modes fixed at compile time (with_modes), or ANY.
+template <int RND = ANY, int OVF = ANY, int OUTS, class Slots>
 __device__ __forceinline__ void hybrid_push(Slots& s, int32_t (&v)[OUTS],
                                             int base, int t, const Fold& f) {
   const int top = base + __ffs(~t) - 1;
@@ -92,11 +90,7 @@ __device__ __forceinline__ void hybrid_push(Slots& s, int32_t (&v)[OUTS],
   for (int l = base; l < top; ++l) {
 #pragma unroll
     for (int o = 0; o < OUTS; ++o) {
-      if constexpr (INL) {
-        v[o] = merge(f, l, s.get(o, l), v[o]);
-      } else {
-        v[o] = requant_modes<RND, OVF>(wadd(s.get(o, l), v[o]), f.merge[l]);
-      }
+      v[o] = requant_modes<RND, OVF>(wadd(s.get(o, l), v[o]), f.merge[l]);
     }
   }
 #pragma unroll
@@ -105,9 +99,9 @@ __device__ __forceinline__ void hybrid_push(Slots& s, int32_t (&v)[OUTS],
 
 // The drain (tree_fold.cuh's, the levels offset by L) over the stack: the
 // tail's odd edges, then the final requantize, once an output, their modes
-// read at run time (INL: inlined).  Every slot it reads was written by a
+// read at run time, out of line.  Every slot it reads was written by a
 // push: drain_ops reads only the levels of the block count's one-bits.
-template <bool INL = false, int OUTS, class Slots>
+template <int OUTS, class Slots>
 __device__ __forceinline__ void hybrid_drain(const Slots& s,
                                              int32_t (&out)[OUTS],
                                              const HybridParams& p) {
@@ -119,27 +113,17 @@ __device__ __forceinline__ void hybrid_drain(const Slots& s,
     const int op = f.drain_op[d];
 #pragma unroll
     for (int o = 0; o < OUTS; ++o) {
-      if constexpr (INL) {
-        if (op == CONVERT) {
-          out[o] = requant(out[o], f.merge[l]);
-        } else {
-          out[o] = op == SEED ? s.get(o, l) : merge(f, l, s.get(o, l), out[o]);
-        }
+      if (op == CONVERT) {
+        out[o] = requant_rt(out[o], f.merge[l]);
       } else {
-        if (op == CONVERT) {
-          out[o] = requant_rt(out[o], f.merge[l]);
-        } else {
-          out[o] = op == SEED ? s.get(o, l)
-                              : requant_rt(wadd(s.get(o, l), out[o]),
-                                           f.merge[l]);
-        }
+        out[o] = op == SEED ? s.get(o, l)
+                            : requant_rt(wadd(s.get(o, l), out[o]),
+                                         f.merge[l]);
       }
     }
   }
 #pragma unroll
-  for (int o = 0; o < OUTS; ++o) {
-    out[o] = INL ? requant(out[o], p.fin) : requant_rt(out[o], p.fin);
-  }
+  for (int o = 0; o < OUTS; ++o) out[o] = requant_rt(out[o], p.fin);
 }
 
 }  // namespace qk

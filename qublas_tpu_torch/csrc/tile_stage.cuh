@@ -1,6 +1,5 @@
-// The k-slice staging that K2 (tree_gemm_tiled.cuh) and K2h
-// (tree_gemm_hybrid.cu) share: a slice of A, transposed, and of B copied
-// by cp.async into one of two shared-memory buffers.
+// K2's k-slice staging (tree_gemm_tiled.cuh): a slice of A, transposed,
+// and of B copied by cp.async into one of two shared-memory buffers.
 #pragma once
 
 #include <cstdint>

@@ -6,6 +6,7 @@ imported by the package).
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps k3 OTHER_CHECKOUT
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps p1 OTHER_CHECKOUT
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps main OTHER_CHECKOUT
+    python3 -m qublas_tpu_torch.experiments.kernel_sweeps k2h OTHER_CHECKOUT
 
 PART is one of k1, k2, k2s, k3, k3v, p1 and k2h; all of them when left out.
 
@@ -63,16 +64,21 @@ under a time limit, so a kernel that hangs ends that part and not the run:
   itself into ``build/qublas_tpu_torch/experiments/p1_sass.txt``).
 
 * ``k2h``: K2h at ``chip_smoke.py``'s i1 shapes (2048^3 with s = 16;
-  k = 2040 and the dl configuration with s = 8): the tensor-core kernel
-  (its compiled-modes instantiation) and the IMAD kernel (on int16 copies
-  of the operands) in turns; the tensor-core kernel with its modes read at
-  run time and its dots without the tail (``k2h_variants.cu``: as the
-  kernel reads its operands, on cache-resident operand rows, at the
-  occupancy of the stages' shared memory alone),
-  by event and device time, checked against the package where they compute
-  its function; and the ``cuobjdump -sass`` opcode counts of each one's
+  k = 2040 and the dl configuration with s = 8): the tensor-core kernel on
+  the int8 lanes (its compiled-modes instantiation) and the digit kernels
+  on int16 and int32 copies of the operands in turns; the tensor-core
+  kernel with its modes read at run time and the dots without the tail
+  (``k2h_variants.cu``: as the int8 kernel reads its operands, on
+  cache-resident operand rows, at the occupancy of the stages' shared
+  memory alone, and the digit kernel's on the int16 copies), by event and
+  device time, checked against the package where they compute its
+  function; and the ``cuobjdump -sass`` opcode counts of each one's
   longest loop (the SASS itself into
-  ``build/qublas_tpu_torch/experiments/k2h_sass.txt``).
+  ``build/qublas_tpu_torch/experiments/k2h_sass.txt``).  Given another
+  checkout's root (e.g. the parent commit's ``git archive``): K2h on i1's
+  int8 operands at 2048^3 and on int16 and int32 copies of them, in both
+  trees in turns (other, this, this, other), each tree's route
+  (``k2h_route``) and kernels, checked against the plain version;
 
 * ``main`` (given another checkout's root only): the main path's calls end
   to end, in both trees in turns ((other, this, this, other) three
@@ -864,12 +870,15 @@ def _p1(card):
     _p1_variants(card)
 
 
-# (variant, what it leaves out or changes); none computes K2h's function
-K2H_VARIANTS = ((1, "the block dots alone (the tail an xor)"),
-                (2, "the block dots alone, every operand row its first "
+# (variant, its operands' lane bytes, what it leaves out or changes); none
+# computes K2h's function
+K2H_VARIANTS = ((1, 1, "the block dots alone (the tail an xor)"),
+                (2, 1, "the block dots alone, every operand row its first "
                  "(cache-resident stages)"),
-                (3, "the block dots alone in the stages' shared memory "
-                 "only (more blocks an SM), no drain"))
+                (3, 1, "the block dots alone in the stages' shared memory "
+                 "only (more blocks an SM), no drain"),
+                (4, 2, "the digit kernel's block dots alone on the int16 "
+                 "copies (four MMAs a k16 step and n8 tile)"))
 
 
 def _k2h(card):
@@ -897,7 +906,9 @@ def _k2h(card):
                           dtype=torch.int8)
         b = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
                           dtype=torch.int8)
-        a16, b16 = a.to(torch.int16), b.to(torch.int16)
+        lanes = {1: (a, b)}
+        for lane in (torch.int16, torch.int32):
+            lanes[lane.itemsize] = (a.to(lane), b.to(lane))
         hp = TT.plan_hybrid(fa, fa, qt.mul_merge(fa, fa, mul), layers, k,
                             out)
         params = TT._hybrid_params(hp, k, out)
@@ -907,24 +918,29 @@ def _k2h(card):
         got = torch.empty_like(want)
         tag = f"{kind} {k} (s = {hp.s}, dl = {hp.dl})"
 
-        def package(m=modes):
+        def package(m=modes, d=1):
             # the package's tensor-core K2h op with its instantiation forced
             return torch.ops.qublas.tree_gemm_hybrid_mma(
-                a, b, list(params), m, got.element_size())
-        imad = lambda: TT.tree_gemm_hybrid(a16, b16, hp, out)  # noqa: E731
-        turns = [timeit(f, runs=5, warmup=1)
-                 for f in (package, imad, imad, package)]
+                *lanes[d], list(params), m, got.element_size())
+        calls = {d: (lambda d=d: package(d=d)) for d in lanes}
+        for d in lanes:
+            assert torch.equal(calls[d](), want), (tag, d)
+        turns = {d: [] for d in lanes}
+        for d in (1, 2, 4, 4, 2, 1):
+            turns[d].append(timeit(calls[d], runs=5, warmup=1))
         print(f"k2h {tag}: tensor-core kernel (modes instantiation {modes}) "
-              f"{turns[0]:.4f}, {turns[3]:.4f} ms, device us "
-              f"{sum(device_us(package, runs=5).values()):.1f}; IMAD kernel "
-              f"on int16 copies {turns[1]:.4f}, {turns[2]:.4f} ms, device "
-              f"us {device_us(imad, runs=5)} [{card}]", flush=True)
+              + "; ".join(
+                  f"{('int8 lanes', 'int16 copies', '', 'int32 copies')[d - 1]}"
+                  f" {turns[d][0]:.4f}, {turns[d][1]:.4f} ms, device us "
+                  f"{sum(device_us(calls[d], runs=5).values()):.1f}"
+                  for d in lanes) + f" [{card}]", flush=True)
         runs = [("the package's kernel, modes read at run time",
                  lambda: package(0), True)]
-        for v, label in K2H_VARIANTS:
-            def run(v=v):
+        for v, d, label in K2H_VARIANTS:
+            def run(v=v, d=d):
+                x, y = lanes[d]
                 _build.check(lib.k2h_variant(
-                    v, a.data_ptr(), k, b.data_ptr(), n, got.data_ptr(), n,
+                    v, x.data_ptr(), k, y.data_ptr(), n, got.data_ptr(), n,
                     n, k, got.element_size(), library.c_ints(params)),
                     "k2h_variant")
                 return got
@@ -947,10 +963,59 @@ def _k2h(card):
         timeout=60).stdout.strip()
     print(f"k2h SM clock after the timings, and its maximum: {clocks} "
           f"[{card}]", flush=True)
-    _sass_dump(("tree_gemm_hybrid_mma_kernel", "tree_gemm_hybrid_kernel"),
+    _sass_dump(("tree_gemm_hybrid_mma_kernel",),
                (_build.library_path(),
                 _build.BUILD_DIR / "experiments" / "libk2h_variants.so"),
                "k2hv", "k2h_sass.txt")
+
+
+def _k2h_lanes(card):
+    """K2h on i1's int8 operands at 2048^3 (``chip_smoke.py``'s i1
+    configuration, raws from its seed) and on int16 and int32 copies of
+    them, in this process's tree: the route ``k2h_route`` gives each, its
+    event time (copies the route makes included) and device time, checked
+    against the plain version.  Only what both trees have is called."""
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops import tree_gemm as TT
+    from qublas_tpu_torch.timing import device_us, timeit
+
+    sys.path.insert(0, str(HERE.parent.parent))
+    from chip_smoke import hybrid_config
+
+    tree = Path(qt.__file__).resolve().parent.parent
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n = 2048
+    fa, mul, layers, out = hybrid_config("base")
+    a = torch.randint(fa.raw_min, fa.raw_max + 1, (n, n), generator=gen,
+                      device=dev, dtype=torch.int8)
+    b = torch.randint(fa.raw_min, fa.raw_max + 1, (n, n), generator=gen,
+                      device=dev, dtype=torch.int8)
+    hp = TT.plan_hybrid(fa, fa, qt.mul_merge(fa, fa, mul), layers, n, out)
+    want = TT.tree_gemm_hybrid_plain(a, b, hp, out)
+    for lane in (torch.int8, torch.int16, torch.int32):
+        x, y = a.to(lane), b.to(lane)
+
+        def call(x=x, y=y):
+            return TT.tree_gemm_hybrid(x, y, hp, out)
+        assert torch.equal(call(), want), (tree, lane)
+        ms = timeit(call, runs=10, warmup=2)
+        print(f"k2h-lanes {tree}: i1 {n}^3 on {lane} lanes, route "
+              f"{TT.k2h_route(x, y)}: event {ms:.4f} ms, device us per call "
+              f"{device_us(call, runs=5)}; == plain [{card}]", flush=True)
+
+
+def _k2h_against(card, other: str):
+    """K2h's lanes in this tree and in the checkout ``other`` (e.g. the
+    parent commit), in turns: other, this, this, other."""
+    this, other = str(HERE.parent.parent), str(Path(other).resolve())
+    for tree in (other, this, this, other):
+        env = dict(os.environ, PYTHONPATH=tree)
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "k2h-lanes"], env=env, cwd=tree, timeout=900,
+                       check=True)
 
 
 def main() -> int:
@@ -988,6 +1053,12 @@ def main() -> int:
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "main-times":
         _main_times(card)
+        return 0
+    if len(sys.argv) > 2 and sys.argv[1] == "k2h":
+        _k2h_against(card, sys.argv[2])
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "k2h-lanes":
+        _k2h_lanes(card)
         return 0
     if len(sys.argv) > 1:
         parts[sys.argv[1]](card)

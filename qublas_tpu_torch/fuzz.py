@@ -1376,19 +1376,25 @@ K2H_TAILS = (None, (TZ, TZ),
              ((RoundMode.TRN_TCPL, OverflowMode.SAT_TCPL), TZ))
 
 
+# A's storage bits in the k2h family's lanes: int8 (the tensor-core kernel
+# on int8 lanes), int16 and int32 (its digit kernels, B widened)
+K2H_A_BITS = {1: (2, 8), 2: (9, 12), 4: (17, 20)}
+
+
 def k2h_case(t):
     """A ``plan_hybrid`` configuration: by t % 2 int8 x int8 lanes (the
-    tensor-core kernel) or an int16 operand (the IMAD kernel); a lossless
-    prefix of L = 3..5 layers (s = 2^L) whose fraction grows by dl = 0..2
-    bits; a lossy tail with, by (t // 2) % 3, random modes or the modes of
-    one of the tensor-core kernel's compiled instantiations; k = s times an
-    odd block count (so no multiple of 2s) in two trials of three."""
+    tensor-core kernel) or, in turn, an int16 or an int32 operand A against
+    an int8 B (the digit kernels, B widened to A's lane); a lossless prefix
+    of L = 3..5 layers (s = 2^L) whose fraction grows by dl = 0..2 bits; a
+    lossy tail with, by (t // 2) % 3, random modes or the modes of one of
+    the kernels' compiled instantiations; k = s times an odd block count
+    (so no multiple of 2s) in two trials of three."""
     rng = rng_for("k2h", t)
-    mma = t % 2 == 0
+    lane = 1 if t % 2 == 0 else (2, 4)[(t // 2) % 2]
     tail_modes = K2H_TAILS[(t // 2) % 3]
     best = None
     for _ in range(400):
-        fa = lane_fmt(rng, 2, 8) if mma else lane_fmt(rng, 9, 12)
+        fa = lane_fmt(rng, *K2H_A_BITS[lane])
         fb = lane_fmt(rng, 2, 8)
         L, dl = int(rng.randint(3, 6)), int(rng.randint(0, 3))
         pf = fa.frac_bits + fb.frac_bits
@@ -1422,7 +1428,7 @@ def k2h_case(t):
         if hp is None:
             continue
         best = (fa, fb, mul_to, layers, out, hp, k)
-        if not mma or TG.k2h_modes(hp, k) == (t // 2) % 3:
+        if TG.k2h_modes(hp, k) == (t // 2) % 3:
             break
     if best is None:
         raise NoCase("no plan_hybrid plan in 400 draws")
@@ -1718,8 +1724,8 @@ KERNELS = (
     ("chain_probe", chain_probe, "launches", "p1", ""),
     ("tree_gemm_hybrid_mma", TG.tree_gemm_hybrid, "mma_launches", "k2h",
      "mma"),
-    ("tree_gemm_hybrid", TG.tree_gemm_hybrid, "imad_launches", "k2h",
-     "imad"),
+    ("tree_gemm_hybrid_digits", TG.tree_gemm_hybrid, "digit_launches",
+     "k2h", "digits"),
 )
 
 

@@ -10,8 +10,7 @@ op                          C entry point                       kernel
 ``fused_gemm_s32``          ``qk_fused_gemm_s32``               K1
 ``tree_gemm``               ``qk_tree_gemm``                    K2
 ``tree_gemm_stream``        ``qk_tree_gemm_stream``             K2′
-``tree_gemm_hybrid``        ``qk_tree_gemm_hybrid``             K2h (IMAD)
-``tree_gemm_hybrid_mma``    ``qk_tree_gemm_hybrid_mma``         K2h (MMA)
+``tree_gemm_hybrid_mma``    ``qk_tree_gemm_hybrid_mma``         K2h
 ``qreduce``                 ``qk_qreduce``                      K3
 ``chain_probe``             ``qk_chain_probe``                  P1
 ==========================  ==================================  ==========
@@ -395,15 +394,18 @@ tree_gemm_stream = _declare(
 
 
 # ---------------------------------------------------------------------------
-# K2h: the IMAD kernel and the tensor-core kernel
+# K2h: the tensor-core kernels (int8 lanes, and int16/int32 as byte digits)
 # ---------------------------------------------------------------------------
 
-def _k2h_plain(a, b, params, *args):
-    from .tree_gemm import tree_gemm_hybrid_plain
+def _k2h_plain(a, b, params, modes, out_bytes):
+    """K2h's plain version as its kernels compute it: the block dots of
+    the operands' byte digits (``hybrid_digit_dots_plain``), then the
+    tail."""
+    from .tree_gemm import _hybrid_tail, hybrid_digit_dots_plain
 
     plan, out_fmt = hybrid_plan(tuple(params))
-    return tree_gemm_hybrid_plain(a, b, plan, out_fmt).to(
-        lane_dtype(args[-1]))
+    vals = hybrid_digit_dots_plain(a, b, plan.s)
+    return _hybrid_tail(vals, plan, out_fmt).to(lane_dtype(out_bytes))
 
 
 def _k2h_record(kind: str, instance: str, params, k: int):
@@ -417,50 +419,36 @@ def _k2h_record(kind: str, instance: str, params, k: int):
                   (*plan.merge_fmts[plan.level:plan.level + levels], out_fmt))
 
 
-def _k2h_imad(a, b, params, out_bytes):
-    out = _gemm_out(a, b, out_bytes)
-    if out.numel() == 0:
-        return out
-    m, k = a.shape
-    params = tuple(params)
-    # the IMAD kernel stages int32 slices: a widening copy of each operand
-    # a call, inside the kernel's event-timed time
-    a32 = a.to(torch.int32).contiguous()
-    b32 = b.to(torch.int32).contiguous()
-    err = _build.lib().qk_tree_gemm_hybrid(
-        a.device.index, a32.data_ptr(), b32.data_ptr(), out.data_ptr(), m,
-        out.shape[1], k, out_bytes, c_ints(params), _stream(a))
-    _build.check(err, "tree_gemm_hybrid (IMAD kernel)")
-    _k2h_record("imad_launches", "imad", params, k)
-    return out
-
-
 def _k2h_mma(a, b, params, modes, out_bytes):
-    from .tree_gemm import _row_pitch
+    from .tree_gemm import _row_pitch, digit_lanes
 
     out = _gemm_out(a, b, out_bytes)
     if out.numel() == 0:
         return out
     m, k = a.shape
     params = tuple(params)
-    a8, lda = _row_pitch(a)
-    b8, ldb = _row_pitch(b)
+    d = digit_lanes(a, b)
+    # mixed lanes: the narrower operand widened to the wider lane, a copy
+    # inside the call's event-timed time
+    a = a if a.element_size() == d else a.to(lane_dtype(d))
+    b = b if b.element_size() == d else b.to(lane_dtype(d))
+    a, lda = _row_pitch(a)
+    b, ldb = _row_pitch(b)
     err = _build.lib().qk_tree_gemm_hybrid_mma(
-        a.device.index, a8.data_ptr(), lda, b8.data_ptr(), ldb,
+        a.device.index, a.data_ptr(), lda, b.data_ptr(), ldb,
         out.data_ptr(), m, out.shape[1], k, out_bytes, c_ints(params),
-        modes, _stream(a))
-    _build.check(err, "tree_gemm_hybrid (tensor-core kernel)")
-    _k2h_record("mma_launches", f"mma_{modes}", params, k)
+        modes, d, _stream(a))
+    _build.check(err, f"tree_gemm_hybrid ({d}-byte lanes)")
+    if d == 1:
+        _k2h_record("mma_launches", f"mma_{modes}", params, k)
+    else:
+        _k2h_record("digit_launches", f"digits{d}_{modes}", params, k)
     return out
 
 
-# K2h's IMAD kernel (any lanes, on int32 copies) under the plan params
-# (_hybrid_params)
-tree_gemm_hybrid = _declare(
-    "tree_gemm_hybrid(Tensor a, Tensor b, int[] params, int out_bytes) -> "
-    "Tensor", _k2h_plain, _k2h_imad, _gemm_fake)
-# K2h's tensor-core kernel (int8 x int8 lanes), instantiation modes
-# (k2h_modes)
+# K2h's tensor-core kernels under the plan params (_hybrid_params),
+# instantiation modes (k2h_modes): int8 x int8 lanes, or int16/int32 lanes
+# as byte digits (the lane bytes read from the operands, k2h_route)
 tree_gemm_hybrid_mma = _declare(
     "tree_gemm_hybrid_mma(Tensor a, Tensor b, int[] params, int modes, "
     "int out_bytes) -> Tensor", _k2h_plain, _k2h_mma, _gemm_fake)
@@ -566,4 +554,4 @@ chain_probe = _declare(
 
 # every op, for opcheck and the tests
 OPS = (fused_gemm_s8, fused_gemm_s32, tree_gemm, tree_gemm_stream,
-       tree_gemm_hybrid, tree_gemm_hybrid_mma, qreduce, chain_probe)
+       tree_gemm_hybrid_mma, qreduce, chain_probe)

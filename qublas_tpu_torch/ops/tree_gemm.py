@@ -32,13 +32,15 @@ tensors: products of one block, the in-block tree layers, the slot stack,
 the drain, the final requantize.
 
 The prefix-lossless hybrid (``HybridPlan``, ``plan_hybrid``, copies of
-``qublas_tpu/ops/tree_gemm.py:530-617``) has a kernel of its own,
-:func:`tree_gemm_hybrid` (K2h, ``csrc/tree_gemm_hybrid.cu``, counterpart of
-the JAX package's ``tree_gemm_hybrid``, an XLA einsum and VPU folds): the
-exact int32 dot of each block of ``s`` products, shifted by ``dl``, pushed
-onto the slot stack of tree levels ``L`` and up.  Its plain version
+``qublas_tpu/ops/tree_gemm.py:530-617``) has kernels of its own,
+:func:`tree_gemm_hybrid` (K2h, ``csrc/tree_gemm_hybrid_mma.cu``,
+counterpart of the JAX package's ``tree_gemm_hybrid``, an XLA einsum and
+VPU folds): the exact int32 dot of each block of ``s`` products on the
+tensor cores (int16 and int32 lanes as byte digits), shifted by ``dl``,
+pushed onto the slot stack of tree levels ``L`` and up.  Its plain version
 :func:`tree_gemm_hybrid_plain` forms the block dots as one matmul a block
-and folds the tail layer by layer.
+and folds the tail layer by layer; :func:`hybrid_digit_dots_plain` forms
+them as the digit kernels do.
 """
 
 from __future__ import annotations
@@ -74,7 +76,8 @@ __all__ = ["TreePlan", "plan_tree", "level_formats", "drain_ops", "ROUTES",
            "tree_gemm_stream_plain", "K2_LOG_BLK", "K2_MODES", "k2_modes",
            "K2S_LOG_S", "K2S_PLANS", "k2s_plan", "k2s_operand", "k2s_route",
            "HybridPlan", "plan_hybrid", "tree_gemm_hybrid",
-           "tree_gemm_hybrid_plain", "k2h_route", "K2H_MODES",
+           "tree_gemm_hybrid_plain", "hybrid_digit_dots_plain",
+           "digit_lanes", "digit_planes", "k2h_route", "K2H_MODES",
            "k2h_modes"]
 
 
@@ -232,9 +235,9 @@ class HybridPlan:
         return {}
 
 
-# K2h's least block (csrc/hybrid_tail.cuh HYB_MIN_LEVEL): the IMAD kernel
-# folds whole half slices of 8 products, the tensor-core kernel half an
-# m16n8k16 fragment, so a block holds at least 2**3 products
+# K2h's least block (csrc/hybrid_tail.cuh HYB_MIN_LEVEL): the tensor-core
+# kernel folds half an m16n8k16 fragment, so a block holds at least 2**3
+# products
 _HYB_MIN_LEVEL = 3
 
 
@@ -585,6 +588,14 @@ def tree_gemm_hybrid_plain(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
     for t in range(k // s):
         dot = af[:, t * s:(t + 1) * s] @ bf[t * s:(t + 1) * s]
         vals[t] = dot.to(torch.int64).to(torch.int32)
+    return _hybrid_tail(vals, plan, out_fmt)
+
+
+def _hybrid_tail(vals: torch.Tensor, plan: HybridPlan,
+                 out_fmt: QFormat) -> torch.Tensor:
+    """The tail over the ``[k // s, m, n]`` int32 block dots ``vals``:
+    shifted by ``dl``, folded layer by layer from tree level ``L`` (odd
+    tails converted), the final requantize."""
     if plan.dl:
         vals = vals << plan.dl
     level = plan.level
@@ -600,6 +611,50 @@ def tree_gemm_hybrid_plain(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
         level += 1
     raw = requantize_i32(vals[0], plan.final_fmt.frac_bits, out_fmt)
     return raw.to(torch_dtype_for(out_fmt))
+
+
+def digit_lanes(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The lane bytes D that K2h's tensor-core kernels read ``a`` @ ``b``
+    in: the wider operand's (1: int8, 2: int16, 4: int32); the narrower
+    operand is widened to it."""
+    return max(a.element_size(), b.element_size())
+
+
+def digit_planes(t: torch.Tensor, d: int) -> torch.Tensor:
+    """The ``d`` byte digits of the lanes of ``t`` (widened to ``d``
+    bytes), as int64 ``[d, *t.shape]``: digit i < d - 1 is byte i, an
+    unsigned byte (u8), and digit d - 1 the top byte, signed (s8), so that
+    ``t == sum_i planes[i] << 8 i`` exactly."""
+    x = t.to(torch.int64)
+    low = [(x >> (8 * i)) & 0xFF for i in range(d - 1)]
+    return torch.stack(low + [x >> (8 * (d - 1))])
+
+
+def hybrid_digit_dots_plain(a: torch.Tensor, b: torch.Tensor,
+                            s: int) -> torch.Tensor:
+    """K2h's block dots as its digit kernels form them: ``a`` [M, K] and
+    ``b`` [K, N] in D-byte lanes (:func:`digit_lanes`) as byte planes
+    (:func:`digit_planes`), for each block of ``s`` products the dots of
+    digit i of ``a`` and digit j of ``b`` summed by shift class i + j (the
+    classes with 8 (i + j) < 32: the others vanish mod 2^32) in int64, and
+    the classes' sum, class c shifted by 8c, in wrapping int32: the block
+    dots mod 2^32, ``[K // s, M, N]`` int32.  On the card the planes' dots
+    run in float64, exact below 2^53."""
+    m, k = a.shape
+    n = b.shape[1]
+    d = digit_lanes(a, b)
+    dt = torch.int64 if a.device.type == "cpu" else torch.float64
+    pa, pb = digit_planes(a, d).to(dt), digit_planes(b, d).to(dt)
+    vals = torch.empty((k // s, m, n), dtype=torch.int32, device=a.device)
+    for t in range(k // s):
+        blk = slice(t * s, (t + 1) * s)
+        total = torch.zeros((m, n), dtype=torch.int64, device=a.device)
+        for c in range(min(2 * d - 1, 4)):
+            cls = sum(pa[i][:, blk] @ pb[c - i][blk]
+                      for i in range(max(0, c - d + 1), min(c, d - 1) + 1))
+            total += (cls.to(torch.int64) << (8 * c)) & 0xFFFFFFFF
+        vals[t] = ((total & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+    return vals
 
 
 def _hybrid_params(plan: HybridPlan, k: int, out_fmt: QFormat):
@@ -657,11 +712,11 @@ def k2h_modes(plan: HybridPlan, k: int) -> int:
 
 def k2h_route(a: torch.Tensor, b: torch.Tensor) -> str:
     """Which K2h kernel takes ``a`` @ ``b`` on the card: "mma" (the
-    tensor-core kernel, ``csrc/tree_gemm_hybrid_mma.cu``) for int8 x int8
-    lanes, "imad" (``csrc/tree_gemm_hybrid.cu``, on int32 copies of both
-    operands) when either lane is wider: the tensor cores take no s16 or
-    s32 operand."""
-    return "mma" if a.dtype == b.dtype == torch.int8 else "imad"
+    tensor-core kernel on int8 lanes, ``csrc/tree_gemm_hybrid_mma.cu``) for
+    int8 x int8 lanes, "digits" (the same template on int16 or int32 lanes
+    as byte digits, the narrower operand widened) when either lane is
+    wider."""
+    return "mma" if digit_lanes(a, b) == 1 else "digits"
 
 
 def _row_pitch(t: torch.Tensor):
@@ -680,15 +735,16 @@ def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
     under ``plan``, stored in ``torch_dtype_for(out_fmt)``: the same bits
     as :func:`tree_gemm` on ``plan_tree`` of the same configuration.
 
-    One call of the custom op of :func:`k2h_route`'s kernel,
-    ``qublas::tree_gemm_hybrid_mma`` or ``qublas::tree_gemm_hybrid``: CPU
-    tensors take the plain version; CUDA tensors launch that K2h kernel,
-    and raise if it refuses them.
-    ``tree_gemm_hybrid.launches`` counts launches of either kernel,
-    ``tree_gemm_hybrid.mma_launches`` those of the tensor-core kernel and
-    ``tree_gemm_hybrid.imad_launches`` those of the IMAD kernel;
-    ``tree_gemm_hybrid.seen`` (``_build.record``) each launch's kernel and
-    instantiation and its tail's modes.
+    One call of the custom op ``qublas::tree_gemm_hybrid_mma``, which reads
+    the lane bytes from the operands (:func:`k2h_route`): CPU tensors take
+    the plain version (:func:`hybrid_digit_dots_plain` and the tail); CUDA
+    tensors launch K2h's tensor-core kernel for their lanes and the
+    instantiation of :func:`k2h_modes`, and raise if it refuses them.
+    ``tree_gemm_hybrid.launches`` counts launches of either route,
+    ``tree_gemm_hybrid.mma_launches`` those on int8 lanes and
+    ``tree_gemm_hybrid.digit_launches`` those on int16 or int32 lanes (the
+    digit kernels); ``tree_gemm_hybrid.seen`` (``_build.record``) each
+    launch's kernel and instantiation and its tail's modes.
     """
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0] \
             or a.shape[1] % plan.s:
@@ -703,18 +759,15 @@ def tree_gemm_hybrid(a: torch.Tensor, b: torch.Tensor, plan: HybridPlan,
         raise ValueError(f"tree_gemm_hybrid runs on CUDA or CPU, not "
                          f"{a.device}")
     k = a.shape[1]
-    params = _hybrid_params(plan, k, out_fmt)
-    out_bytes = torch_dtype_for(out_fmt).itemsize
-    if k2h_route(a, b) == "mma":
-        key = ("k2h_modes", k)
-        if key not in plan._kernel_cache:
-            plan._kernel_cache[key] = k2h_modes(plan, k)
-        return torch.ops.qublas.tree_gemm_hybrid_mma(
-            a, b, params, plan._kernel_cache[key], out_bytes)
-    return torch.ops.qublas.tree_gemm_hybrid(a, b, params, out_bytes)
+    key = ("k2h_modes", k)
+    if key not in plan._kernel_cache:
+        plan._kernel_cache[key] = k2h_modes(plan, k)
+    return torch.ops.qublas.tree_gemm_hybrid_mma(
+        a, b, _hybrid_params(plan, k, out_fmt), plan._kernel_cache[key],
+        torch_dtype_for(out_fmt).itemsize)
 
 
 tree_gemm_hybrid.launches = 0
 tree_gemm_hybrid.mma_launches = 0
-tree_gemm_hybrid.imad_launches = 0
+tree_gemm_hybrid.digit_launches = 0
 tree_gemm_hybrid.seen = Counter()

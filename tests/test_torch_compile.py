@@ -358,11 +358,11 @@ def test_every_kernel_is_a_node_of_the_graph():
     def hybrid(a, b):
         return qt.qgemul(a, b, P(qformat(5, 4)), mul_to=P(qformat(7, 8)),
                          add_formats=layers)
-    for lane, op in ((torch.int8, "tree_gemm_hybrid_mma"),
-                     (torch.int16, "tree_gemm_hybrid")):
-        wa, wb = TQ(ha.data.to(lane), fa), TQ(hb.data.to(lane), fa)
+    for la, lb in ((torch.int8, torch.int8), (torch.int16, torch.int16),
+                   (torch.int16, torch.int8), (torch.int32, torch.int32)):
+        wa, wb = TQ(ha.data.to(la), fa), TQ(hb.data.to(lb), fa)
         ops, got = _graph_ops(hybrid, wa, wb)
-        assert ops == {f"qublas.{op}"}
+        assert ops == {"qublas.tree_gemm_hybrid_mma"}
         same(got, hybrid(ha, hb))
 
     f34, wide, mid = P(qformat(3, 4)), P(qformat(20, 8)), P(qformat(5, 4))
@@ -426,10 +426,14 @@ def _op_cases():
         "fused_gemm_s32": (a32, b32.to(torch.int16), rq, 1),
         "tree_gemm": (a32, b32, k2, 0, 4),
         "tree_gemm_stream": (a32, b32, k2s, 1, 4),
-        "tree_gemm_hybrid": (lane((3, 32), -64, 64, torch.int16),
-                             lane((32, 5), -64, 64, torch.int16), k2h, 1),
         "tree_gemm_hybrid_mma": (lane((3, 32), -64, 64),
                                  lane((32, 5), -64, 64), k2h, 1, 1),
+        "tree_gemm_hybrid_mma-digits2": (
+            lane((3, 32), -32768, 32768, torch.int16),
+            lane((32, 5), -32768, 32768, torch.int16), k2h, 1, 1),
+        "tree_gemm_hybrid_mma-digits4": (
+            lane((3, 32), -2 ** 31, 2 ** 31, torch.int32),
+            lane((32, 5), -64, 64), k2h, 0, 1),
         "qreduce": (x3, 1, list(red.kernel_params()), red.tails, red.modes,
                     1),
         "chain_probe": (lane((4, 8), dtype=torch.int32),

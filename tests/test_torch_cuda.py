@@ -862,25 +862,30 @@ def _hybrid_case(config, k):
     return hp, tp, out
 
 
+def _k2h_counts():
+    h = TT.tree_gemm_hybrid
+    return h.launches, h.mma_launches, h.digit_launches
+
+
 def _k2h_both(a, b, hp, tp, out):
     """K2h on int8 ``a``, ``b`` (one launch of the tensor-core kernel),
-    held to its plain version, to the IMAD kernel on int16 copies of the
-    same operands and to K2 on ``plan_tree``."""
-    TT.tree_gemm_hybrid.launches = TT.tree_gemm_hybrid.mma_launches = 0
-    TT.tree_gemm_hybrid.imad_launches = 0
+    held to its plain version, to the digit kernels on int16 and int32
+    copies of the same operands (one launch each) and to K2 on
+    ``plan_tree``."""
+    h = TT.tree_gemm_hybrid
+    h.launches = h.mma_launches = h.digit_launches = 0
     got = TT.tree_gemm_hybrid(a, b, hp, out)
     torch.cuda.synchronize()
-    assert (TT.tree_gemm_hybrid.launches, TT.tree_gemm_hybrid.mma_launches,
-            TT.tree_gemm_hybrid.imad_launches) == (1, 1, 0)
+    assert _k2h_counts() == (1, 1, 0)
     assert TT.k2h_route(a, b) == "mma"
     assert torch.equal(got, TT.tree_gemm_hybrid_plain(a, b, hp, out))
-    a16, b16 = a.to(torch.int16), b.to(torch.int16)
-    assert TT.k2h_route(a16, b16) == "imad"
-    imad = TT.tree_gemm_hybrid(a16, b16, hp, out)
-    torch.cuda.synchronize()
-    assert (TT.tree_gemm_hybrid.launches, TT.tree_gemm_hybrid.mma_launches,
-            TT.tree_gemm_hybrid.imad_launches) == (2, 1, 1)
-    assert torch.equal(got, imad)
+    for i, lane in enumerate((torch.int16, torch.int32)):
+        x, y = a.to(lane), b.to(lane)
+        assert TT.k2h_route(x, y) == "digits"
+        dig = TT.tree_gemm_hybrid(x, y, hp, out)
+        torch.cuda.synchronize()
+        assert _k2h_counts() == (2 + i, 1, 1 + i)
+        assert torch.equal(got, dig), lane
     assert torch.equal(got, tree_gemm(a, b, tp, out))
     return got
 
@@ -897,8 +902,8 @@ def test_k2h_matches_plain_and_k2(cuda, config, k, s, m, n):
     values, 9 levels of slots, ragged tiles and unaligned B rows; the tail's
     modes compiled in, or read at run time where the top layer rounds,
     saturates or wraps otherwise) equals its plain version on the card and
-    on the CPU, the IMAD kernel on int16 copies of the same operands, and
-    K2 on ``plan_tree`` of the same configuration."""
+    on the CPU, the digit kernels on int16 and int32 copies of the same
+    operands, and K2 on ``plan_tree`` of the same configuration."""
     hp, tp, out = _hybrid_case(config, k)
     assert hp.s == s and (hp.dl > 0) == (config == "dl")
     assert (TT.k2h_modes(hp, k) == 0) == (config in HYB_TOPS)
@@ -913,7 +918,7 @@ def test_k2h_matches_plain_and_k2(cuda, config, k, s, m, n):
                                       ("dl", 2048), ("s32", 2048)])
 def test_k2h_every_raw_at_the_int8_minimum(cuda, config, k):
     """Every raw at -128: the largest block dots (s 2^14) and the tail's
-    saturation, on both kernels and K2."""
+    saturation, on the int8 and the digit kernels and K2."""
     hp, tp, out = _hybrid_case(config, k)
     a = torch.full((70, k), -128, dtype=torch.int8, device=cuda)
     b = torch.full((k, 40), -128, dtype=torch.int8, device=cuda)
@@ -984,9 +989,9 @@ def test_hybrid_qgemul_int8_is_one_mma_launch_and_no_copy(cuda):
     assert torch.equal(got.data.cpu(), want.data)
 
 
-def test_hybrid_qgemul_int16_takes_the_imad_kernel(cuda):
+def test_hybrid_qgemul_int16_takes_the_digit_kernel(cuda):
     """A hybrid configuration on int16 lanes (``Qu<5,6>`` operands) takes
-    the IMAD kernel, once, equal to the CPU and to K2."""
+    the digit kernel, once, equal to the CPU and to K2."""
     sz = qt.OverflowMode.SAT_ZERO
     fa = qt.qformat(5, 6)
     mul = qt.qformat(11, 12)
@@ -996,12 +1001,12 @@ def test_hybrid_qgemul_int16_takes_the_imad_kernel(cuda):
     a = qt.from_raw(_raws(35, fa, (100, 176), np.int16).numpy(), fa, cuda)
     b = qt.from_raw(_raws(36, fa, (176, 70), np.int16).numpy(), fa, cuda)
     assert a.data.dtype == torch.int16
-    TT.tree_gemm_hybrid.launches = TT.tree_gemm_hybrid.mma_launches = 0
-    TT.tree_gemm_hybrid.imad_launches = 0
+    h = TT.tree_gemm_hybrid
+    h.launches = h.mma_launches = h.digit_launches = 0
     got = qt.qgemul(a, b, out, mul_to=mul, add_formats=layers)
     torch.cuda.synchronize()
-    assert (TT.tree_gemm_hybrid.launches, TT.tree_gemm_hybrid.mma_launches,
-            TT.tree_gemm_hybrid.imad_launches) == (1, 0, 1)
+    assert _k2h_counts() == (1, 0, 1)
+    assert any(i.startswith("digits2_") for i, _ in h.seen)
     want = qt.qgemul(a.to("cpu"), b.to("cpu"), out, mul_to=mul,
                      add_formats=layers)
     assert torch.equal(got.data.cpu(), want.data)
@@ -1009,6 +1014,88 @@ def test_hybrid_qgemul_int16_takes_the_imad_kernel(cuda):
     assert torch.equal(got.data, tree_gemm(a.data, b.data, tp, out))
 
 
+# the digit kernels' configurations: (fa, fb, mul_to, layers, out), as
+# tests/test_torch_hybrid.py:DIGIT_CONFIGS
+_DSZ = qt.OverflowMode.SAT_ZERO
+DIGITS = {
+    "i16": (qt.qformat(5, 6), qt.qformat(5, 6), qt.qformat(11, 12),
+            (qt.qformat(12, 12), qt.qformat(13, 12), qt.qformat(14, 12),
+             qt.qformat(15, 12), qt.qformat(10, 6, overflow_mode=_DSZ)),
+            qt.qformat(7, 6)),
+    "i16xi8": (qt.qformat(5, 6), qt.qformat(3, 4), qt.qformat(9, 10),
+               (qt.qformat(10, 10), qt.qformat(11, 10), qt.qformat(12, 10),
+                qt.qformat(13, 10), qt.qformat(8, 5, overflow_mode=_DSZ)),
+               qt.qformat(6, 4)),
+    "i32xi8": (qt.qformat(8, 8), qt.qformat(3, 4), qt.qformat(12, 12),
+               (qt.qformat(13, 12), qt.qformat(14, 12), qt.qformat(15, 12),
+                qt.qformat(16, 12), qt.qformat(10, 6, overflow_mode=_DSZ)),
+               qt.qformat(7, 6)),
+    "i16xi32": (qt.qformat(4, 4), qt.qformat(8, 8), qt.qformat(13, 12),
+                (qt.qformat(14, 12), qt.qformat(15, 12), qt.qformat(16, 12),
+                 qt.qformat(17, 12), qt.qformat(10, 6, overflow_mode=_DSZ)),
+                qt.qformat(7, 6)),
+}
+
+
+def _lane_of(fmt):
+    from qublas_tpu_torch.ops.widths import torch_dtype_for
+
+    return torch_dtype_for(fmt)
+
+
+@pytest.mark.parametrize("config", sorted(DIGITS))
+@pytest.mark.parametrize("k", [48, 176, 2040, 2048])
+@pytest.mark.parametrize("full", [False, True], ids=["in", "full"])
+@pytest.mark.parametrize("m,n", [(1, 1), (63, 65), (200, 33)])
+def test_k2h_digits_match_plain(cuda, config, k, full, m, n):
+    """The digit kernels on int16 and int32 lanes and mixed lanes (the
+    narrower operand widened), raws inside the formats and over the whole
+    lanes (the block dots wrapping mod 2^32): one launch, equal to the
+    plain version on the CPU (int64 dots, wrapped) and to the digit
+    kernels' plain version there."""
+    fa, fb, mul, layers, out = DIGITS[config]
+    hp = TT.plan_hybrid(fa, fb, qt.mul_merge(fa, fb, mul), layers, k, out)
+    assert hp is not None
+    rng = np.random.RandomState(k + m)
+
+    def raws(fmt, shape):
+        dt = _lane_of(fmt)
+        info = torch.iinfo(dt)
+        lo, hi = (info.min, info.max) if full else (fmt.raw_min,
+                                                     fmt.raw_max)
+        x = rng.randint(lo, hi + 1, shape, dtype=np.int64)
+        if full:
+            x.flat[:2] = (lo, hi)
+        return torch.from_numpy(x).to(dt)
+    a, b = raws(fa, (m, k)), raws(fb, (k, n))
+    h = TT.tree_gemm_hybrid
+    h.launches = h.mma_launches = h.digit_launches = 0
+    got = TT.tree_gemm_hybrid(a.to(cuda), b.to(cuda), hp, out)
+    torch.cuda.synchronize()
+    assert _k2h_counts() == (1, 0, 1)
+    want = TT.tree_gemm_hybrid_plain(a, b, hp, out)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, TT.tree_gemm_hybrid(a, b, hp, out))
+
+
+def test_k2h_digits_pitched_and_unaligned_operands(cuda):
+    """The digit kernel reads row-pitched int16 and int32 views in place
+    and stages operands whose base or pitch is off 16 or 8 bytes
+    (narrower copies, then byte loads): all equal the plain version."""
+    hp, _, out = _hybrid_case("base", 176)
+    for lane in (torch.int16, torch.int32):
+        big_a = _raws(3, HYB_FA, (90, 200), np.int8).to(cuda).to(lane)
+        big_b = _raws(4, HYB_FA, (180, 77), np.int8).to(cuda).to(lane)
+        for a, b in ((big_a[:, :176], big_b[:176, :64]),     # pitched
+                     (big_a[3:, 1:177], big_b[2:178, 3:40]),  # off 2 or 4
+                     (big_a[:, 8:184], big_b[:176, 4:68]),    # off 16, 8
+                     (big_a[:64, :176].t().contiguous().t(),
+                      big_b[:176, :5])):
+            TT.tree_gemm_hybrid.digit_launches = 0
+            got = TT.tree_gemm_hybrid(a, b, hp, out)
+            torch.cuda.synchronize()
+            assert TT.tree_gemm_hybrid.digit_launches == 1
+            assert torch.equal(got, TT.tree_gemm_hybrid_plain(a, b, hp, out))
 def test_host_storage_on_the_card_machine(cuda):
     """The native engine builds; host tensors keep the card as their
     results' device, so a host op whose result fits a lane lands on the

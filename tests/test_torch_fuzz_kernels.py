@@ -147,15 +147,17 @@ def test_k2h_generator_reaches_both_kernels_and_tails():
         a, b = fuzz.tree_operands(c, "cpu")
         route = TG.k2h_route(a, b)
         got[route,] += 1
-        if route == "mma":
-            got["modes", TG.k2h_modes(c["plan"], c["A"].shape[1])] += 1
+        got["lane", TG.digit_lanes(a, b)] += 1
+        got["modes", route, TG.k2h_modes(c["plan"], c["A"].shape[1])] += 1
         got["s", c["plan"].s] += 1
         got["dl>0",] += c["plan"].dl > 0
         got["odd blocks",] += (c["A"].shape[1] // c["plan"].s) % 2
     assert got["mma",] >= fuzz.MIN_LAUNCHES
-    assert got["imad",] >= fuzz.MIN_LAUNCHES
-    for m in (0, 1, 2):
-        assert got["modes", m] > 0, m
+    assert got["digits",] >= fuzz.MIN_LAUNCHES
+    assert got["lane", 2] > 0 and got["lane", 4] > 0
+    for route in ("mma", "digits"):
+        for m in (0, 1, 2):
+            assert got["modes", route, m] > 0, (route, m)
     assert {k[1] for k in got if k[0] == "s"} >= {8, 16, 32}
     assert got["dl>0",] > 0 and got["odd blocks",] > 0
 
@@ -229,7 +231,7 @@ def test_gate_reports_what_a_sweep_missed():
         _build.record(TG.tree_gemm, inst, modes)
     _build.record(fused_int8_gemm, "int_dot/s32")
     _build.record(TG.tree_gemm_hybrid, "mma_1", modes[:2])
-    _build.record(TG.tree_gemm_hybrid, "imad", modes[:3])
+    _build.record(TG.tree_gemm_hybrid, "digits2_0", modes[:3])
     try:
         assert fuzz.gate({row[3] for row in fuzz.KERNELS}) == []
         assert fuzz.mode_pairs(fused_int8_gemm, "gemm/") == {
@@ -241,8 +243,9 @@ def test_gate_reports_what_a_sweep_missed():
         assert set(rows["tree_gemm"]["instances"]) == set(fuzz.K2_INSTANCES)
         assert rows["tree_gemm_hybrid_mma"]["instances"] == {"mma_1": 1}
         assert rows["tree_gemm_hybrid_mma"]["mode_pairs"] == 2
-        assert rows["tree_gemm_hybrid"]["instances"] == {"imad": 1}
-        assert rows["tree_gemm_hybrid"]["mode_pairs"] == 3
+        assert rows["tree_gemm_hybrid_digits"]["instances"] == {
+            "digits2_0": 1}
+        assert rows["tree_gemm_hybrid_digits"]["mode_pairs"] == 3
     finally:
         fuzz.reset_counts()
 

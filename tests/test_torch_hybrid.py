@@ -7,23 +7,26 @@ package's ``tree_gemm_hybrid``, and ``qgemul`` on the hybrid tier those of
 the JAX ``qgemul`` and of the host golden model, at the JAX package's own
 k (16, 48, 64, 80, 176: odd block counts included), with a shift dl > 0,
 batched and broadcast; and the bits of K2 on ``plan_tree`` of the same
-configuration.  The K2h kernel cannot run here, so its schedule is
-replayed from the int32 parameters it receives (``_hybrid_params``): k in
-slices of 16 products, the exact dot of each block of s, shifted by dl and
-pushed onto the slot stack of tree levels L and up, then the drain over
-the k / s block values and the final requantize; a mutation check shows
-that the replay reads each parameter.  The tensor-core kernel for int8
-lanes (``csrc/tree_gemm_hybrid_mma.cu``) is replayed the same way, down to
-its fragments: stages of 64 products, m16n8k16 MMAs on the PTX fragment
+configuration.  The K2h kernels cannot run here, so their schedules are
+replayed from the int32 parameters they receive (``_hybrid_params``): the
+tensor-core kernel for int8 lanes (``csrc/tree_gemm_hybrid_mma.cu``) down
+to its fragments: stages of 64 products, m16n8k16 MMAs on the PTX fragment
 layouts, B's columns transposed by its byte permutes, pairs of blocks as
 one accumulation of 2s products with one requantize at tree level L (a
 pair of blocks of 8 is one k16 step), the carry through stack levels 1
 and 2 in registers and the push from level 3, the odd last block (a
 zero-filled half step for s = 8) at level 0, and each accumulator
-register's output; ``k2h_route`` and ``k2h_modes`` (its compiled tail
-modes, against the kernel source's table) are checked.  The
-kernels themselves are held against the plain version on the card by
-``tests/test_torch_cuda.py``.
+register's output; and the same template on int16 and int32 lanes (the
+digit kernels): each element's byte digits (u8 low bytes, s8 top byte)
+split from the staged words by the kernel's byte permutes, the u8/s8 MMAs
+of each digit pair into the accumulator of its shift class, their sum in
+wrapping int32 where a pair ends.  Mutation checks show that the replays
+read each parameter; the digit split is checked on every int16 value, and
+the digit kernels' plain version (``hybrid_digit_dots_plain``) against
+the int32-wrapped block dot on full-range lanes.  ``k2h_route`` and
+``k2h_modes`` (its compiled tail modes, against the kernel source's table)
+are checked.  The kernels themselves are held against the plain version on
+the card by ``tests/test_torch_cuda.py``.
 """
 
 import dataclasses
@@ -128,7 +131,7 @@ def test_plan_hybrid_matches_jax():
 
 def test_plan_hybrid_min_level_is_the_kernels():
     """The shortest lossless prefix the planner accepts is the one K2h
-    runs: a block spans whole half slices of HALF products, and
+    runs: a block spans half an m16n8k16 step on every lane width, and
     ``read_hybrid`` refuses a shorter level, so a plan the CPU runs is
     never one the kernel refuses."""
     import pathlib
@@ -136,19 +139,19 @@ def test_plan_hybrid_min_level_is_the_kernels():
 
     csrc = pathlib.Path(TT.__file__).parent.parent / "csrc"
     tail = (csrc / "hybrid_tail.cuh").read_text()
-    imad = (csrc / "tree_gemm_hybrid.cu").read_text()
     mma = (csrc / "tree_gemm_hybrid_mma.cu").read_text() + \
         (csrc / "tree_gemm_hybrid_mma.cuh").read_text()
     least = int(re.search(r"constexpr int HYB_MIN_LEVEL = (\d+);",
                           tail).group(1))
     assert least == TT._HYB_MIN_LEVEL
-    # read_hybrid, which both kernels call, refuses a shorter prefix
+    # read_hybrid, which the kernels' entry calls, refuses a shorter prefix
     assert "p->level < HYB_MIN_LEVEL" in tail
-    assert imad.count('#include "hybrid_tail.cuh"') == 1
     assert mma.count('#include "hybrid_tail.cuh"') == 1    # the .cuh
-    assert "read_hybrid(" in imad and "read_hybrid(" in mma
-    # the IMAD kernel folds half slices of 2^HYB_MIN_LEVEL products
-    assert "constexpr int HALF = 1 << HYB_MIN_LEVEL;" in imad
+    assert "read_hybrid(" in mma
+    # every K2h source is the tensor-core template's entry or an
+    # instantiation of it
+    for src in csrc.glob("tree_gemm_hybrid*.cu"):
+        assert '#include "tree_gemm_hybrid_mma.cuh"' in src.read_text()
     # the tensor-core kernel: a pair of the least blocks fills whole
     # m16n8k16 steps, an odd last one half of one
     frag_k = {int(x) for x in re.findall(r"mma\.sync\.aligned\.m16n8k(\d+)",
@@ -274,46 +277,6 @@ def _rq(v, r):
     return requantize_i32(v, d, fmt)
 
 
-def _replay_k2h(a, b, params):
-    """K2h's schedule over ``a`` [M, K] @ ``b`` [K, N] from its parameters
-    (level, dl, levels, merge[levels][5], ndrain, (op, level)[ndrain],
-    fin[5]): slices of 16 products, each output's running block dot, a
-    push after each half slice of 8 products where a block of 2^level
-    ends."""
-    p = list(params)
-    level, dl, levels = p[0], p[1], p[2]
-    merges = [p[3 + 5 * l:8 + 5 * l] for l in range(levels)]
-    q = 3 + 5 * levels
-    nd = p[q]
-    ops = [(p[q + 1 + 2 * s], p[q + 2 + 2 * s]) for s in range(nd)]
-    fin = p[q + 1 + 2 * nd:q + 6 + 2 * nd]
-    a32, b32 = a.to(torch.int32), b.to(torch.int32)
-    k = a.shape[1]
-    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int32)
-    slots, t = {}, 0
-    for k0 in range(0, k, 16):
-        for qq in range(min(16, k - k0)):
-            acc = acc + a32[:, k0 + qq, None] * b32[None, k0 + qq, :]
-            if qq % 8 == 7 and (k0 + qq + 1) % (1 << level) == 0:
-                v, j = acc << dl, 0
-                while t & (1 << j):
-                    v = _rq(slots.pop(j) + v, merges[j])
-                    j += 1
-                slots[j] = v
-                acc = torch.zeros_like(acc)
-                t += 1
-    zero = torch.zeros_like(acc)   # the kernel's stack starts at 0
-    carry = None
-    for op, l in ops:
-        if op == 1:
-            carry = _rq(carry, merges[l])
-        elif op == 0:
-            carry = slots.get(l, zero)
-        else:
-            carry = _rq(slots.get(l, zero) + carry, merges[l])
-    return _rq(carry, fin)
-
-
 def _parse(params):
     """(level, dl, merges, drain ops, fin) from K2h's parameters."""
     p = list(params)
@@ -333,19 +296,21 @@ def _byte_perm(x, y, sel):
     return sum(src[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
 
 
-def _sbytes(x):
-    """The four signed bytes of uint32 array ``x``, on a new last axis."""
-    b = (x[..., None] >> (8 * np.arange(4))) & 0xFF
-    return b.astype(np.int64) - ((b >= 128) << 8)
+def _bytes(x, signed=True):
+    """The four bytes of uint32 array ``x``, on a new last axis, read as
+    signed (s8) or unsigned (u8)."""
+    b = ((x[..., None] >> (8 * np.arange(4))) & 0xFF).astype(np.int64)
+    return b - ((b >= 128) << 8) if signed else b
 
 
 # the lanes' groupID and thread-in-group
 _G, _T = np.arange(32) >> 2, np.arange(32) & 3
 
 
-def _mma(a0, a1, b, c):
-    """``mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32`` on the PTX ISA's
-    fragment layouts, for arrays of lanes [..., 32] (``c`` and the result
+def _mma(a0, a1, b, c, sa=True, sb=True):
+    """``mma.sync.aligned.m16n8k16.row.col.s32.{s8,u8}.{s8,u8}.s32`` (A's
+    bytes s8 when ``sa``, B's when ``sb``) on the PTX ISA's fragment
+    layouts, for arrays of lanes [..., 32] (``c`` and the result
     [..., 32, 4]): lane (g, t) holds A's rows g (a0) and g + 8 (a1) at k
     4t..4t+3, B's column g at k 4t..4t+3, and D's rows g (registers 0, 1)
     and g + 8 (2, 3) at columns 2t, 2t + 1; the sum wraps to int32."""
@@ -353,45 +318,95 @@ def _mma(a0, a1, b, c):
     A = np.zeros(sh + (16, 16), np.int64)
     Bm = np.zeros(sh + (16, 8), np.int64)
     kk = 4 * _T[:, None] + np.arange(4)                # [32, 4]
-    A[..., _G[:, None], kk] = _sbytes(a0)
-    A[..., _G[:, None] + 8, kk] = _sbytes(a1)
-    Bm[..., kk, _G[:, None]] = _sbytes(b)
+    A[..., _G[:, None], kk] = _bytes(a0, sa)
+    A[..., _G[:, None] + 8, kk] = _bytes(a1, sa)
+    Bm[..., kk, _G[:, None]] = _bytes(b, sb)
     D = A @ Bm                                         # [..., 16, 8]
     d = c.astype(np.int64).copy()
     for e in range(2):
         d[..., e] += D[..., _G, 2 * _T + e]
         d[..., 2 + e] += D[..., _G + 8, 2 * _T + e]
-    return ((d + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+    return _wrap32(d)
 
 
-def _replay_k2h_mma(a, b, params):
-    """The tensor-core K2h kernel's schedule
-    (``csrc/tree_gemm_hybrid_mma.cuh``) over int8 ``a`` [M, K] @ ``b`` [K, N], every warp of every 32 x 32 tile
-    at once: stages of 64 products (zero past the matrices), k16 MMAs on
-    each lane's fragments (A words at k 4t, B's columns 2g, 2g + 1 read as
-    16-bit words at k 4t..4t+3 and transposed by the kernel's byte
-    permutes), accumulated over a pair of blocks (2s products); at a pair's
-    end its dot, shifted, through tree level L's requantize, then the
-    binary carry through stack levels 1 and 2 (registers) and, one value in
-    four pairs, the push onto level 3; where K ends an odd block, its
-    shifted dot at stack level 0; the drain, the final requantize, and tile
-    j's register i stored at row g + 8 (i >> 1), column 4t + 2 (i & 1) + j
-    of the warp's 16 x 16 tile."""
+def _wrap32(x):
+    """int64 array ``x`` mod 2^32, as int32."""
+    return ((x + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+
+
+def _transpose_bytes(w0, w1, w2, w3):
+    """The kernels' ``transpose_bytes``: word j holds byte j of w0, w1, w2
+    and w3, by its eight byte permutes."""
+    t0, t1 = _byte_perm(w0, w1, 0x5140), _byte_perm(w0, w1, 0x7362)
+    t2, t3 = _byte_perm(w2, w3, 0x5140), _byte_perm(w2, w3, 0x7362)
+    return [_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+            _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)]
+
+
+def _replay_k2h_tc(a, b, params, d):
+    """K2h's tensor-core schedule (``csrc/tree_gemm_hybrid_mma.cuh``) over
+    ``a`` [M, K] @ ``b`` [K, N] in ``d``-byte lanes, every warp of every
+    32 x 32 tile at once: stages of 64 products (zero past the matrices),
+    each lane's fragments of a k16 step read as the kernel reads the
+    staged bytes, the MMAs of each digit pair (i, j) into the accumulator
+    of shift class i + j (d = 1: one s8 MMA), accumulated over a pair of
+    blocks (2s products); at a pair's end the classes' sum (class c
+    shifted by 8c, wrapping), shifted by dl, through tree level L's
+    requantize, then the binary carry through stack levels 1 and 2
+    (registers) and, one value in four pairs, the push onto level 3; where
+    K ends an odd block, its shifted sum at stack level 0; the drain, the
+    final requantize, and tile j's register i stored at row g + 8 (i >>
+    1), column 4t + 2 (i & 1) + j of the warp's 16 x 16 tile."""
     level, dl, merges, ops, fin = _parse(params)
     M, K = a.shape
     N = b.shape[1]
     Mp, Np, Kp = -(-M // 32) * 32, -(-N // 32) * 32, -(-K // 64) * 64
-    A = np.zeros((Mp, Kp), np.uint8)
-    A[:M, :K] = a.numpy().view(np.uint8)
-    Bm = np.zeros((Kp, Np), np.uint8)
-    Bm[:K, :N] = b.numpy().view(np.uint8)
+    A = np.zeros((Mp, Kp * d), np.uint8)
+    A[:M, :K * d] = a.contiguous().numpy().view(np.uint8).reshape(M, K * d)
+    Bm = np.zeros((Kp, Np * d), np.uint8)
+    Bm[:K, :N * d] = b.contiguous().numpy().view(np.uint8).reshape(K, N * d)
     A, Bm = A.astype(np.uint32), Bm.astype(np.uint32)
     rows = 16 * np.arange(Mp // 16)[:, None, None] + _G     # [WR, 1, 32]
     cols = 16 * np.arange(Np // 16)[None, :, None] + 2 * _G  # [1, WC, 32]
     shape = (Mp // 16, Np // 16, 32, 8)
+    classes = min(2 * d - 1, 4)
 
-    def word(r, k):  # the four bytes A[r, k..k+3], little-endian
-        return sum(A[r, k + i] << (8 * i) for i in range(4))
+    def word(X, r, c):  # the four bytes X[r, c..c+3], little-endian
+        return np.broadcast_to(sum(X[r, c + i] << (8 * i) for i in range(4)),
+                               shape[:3])
+
+    def frags(kq):
+        """(A's fragments [h][digit], B's [tile][digit]) at k16 step kq:
+        A's rows g + 8h at k 4t..4t+3, B's columns 2g + j."""
+        k, kb = kq + 4 * _T, kq + 4 * _T
+        if d == 1:
+            fa = [[word(A, rows + 8 * h, k)] for h in range(2)]
+            w = [Bm[kb + i, cols] | Bm[kb + i, cols + 1] << 8
+                 for i in range(4)]
+            w01 = _byte_perm(w[0], w[1], 0x5140)
+            w23 = _byte_perm(w[2], w[3], 0x5140)
+            fb = [[np.broadcast_to(_byte_perm(w01, w23, sel), shape[:3])]
+                  for sel in (0x5410, 0x7632)]
+        elif d == 2:
+            fa = []
+            for h in range(2):
+                x = word(A, rows + 8 * h, 2 * k)
+                y = word(A, rows + 8 * h, 2 * k + 4)
+                fa.append([_byte_perm(x, y, 0x6420),
+                           _byte_perm(x, y, 0x7531)])
+            r = _transpose_bytes(*[word(Bm, kb + i, 2 * cols)
+                                   for i in range(4)])
+            fb = [r[:2], r[2:]]
+        else:
+            fa = [_transpose_bytes(*[word(A, rows + 8 * h, 4 * k + 4 * j)
+                                     for j in range(4)]) for h in range(2)]
+            fb = [_transpose_bytes(*[word(Bm, kb + i, 4 * cols + 4 * j)
+                                     for i in range(4)]) for j in range(2)]
+        return fa, fb
+
+    def total(acc):  # the classes' sum, wrapping, as a torch tensor
+        return torch.from_numpy(_wrap32(sum(
+            acc[c].astype(np.int64) << (8 * c) for c in range(classes))))
 
     slots = {}
 
@@ -402,7 +417,7 @@ def _replay_k2h_mma(a, b, params):
             top += 1
         slots[top] = v
 
-    acc = np.zeros(shape, np.int32)
+    acc = np.zeros((classes,) + shape, np.int32)
     zero = torch.zeros(shape, dtype=torch.int32)
     first = l1 = l2 = zero   # stack levels 0, 1 and 2: the kernel's registers
     pairs = 0
@@ -410,20 +425,18 @@ def _replay_k2h_mma(a, b, params):
         k0 = 64 * st
         for q in range((min(64, K - k0) + 15) // 16):
             kq = k0 + 16 * q
-            a0 = np.broadcast_to(word(rows, kq + 4 * _T), shape[:3])
-            a1 = np.broadcast_to(word(rows + 8, kq + 4 * _T), shape[:3])
-            w = [Bm[kq + 4 * _T + i, cols] | Bm[kq + 4 * _T + i, cols + 1] << 8
-                 for i in range(4)]
-            w01 = _byte_perm(w[0], w[1], 0x5140)
-            w23 = _byte_perm(w[2], w[3], 0x5140)
-            bf = [np.broadcast_to(_byte_perm(w01, w23, sel), shape[:3])
-                  for sel in (0x5410, 0x7632)]
-            acc = np.concatenate(
-                [_mma(a0, a1, bf[j], acc[..., 4 * j:4 * j + 4])
-                 for j in range(2)], axis=-1)
+            fa, fb = frags(kq)
+            for j in range(2):
+                for i in range(d):
+                    for h in range(d):
+                        if i + h < classes:
+                            acc[i + h][..., 4 * j:4 * j + 4] = _mma(
+                                fa[0][i], fa[1][i], fb[j][h],
+                                acc[i + h][..., 4 * j:4 * j + 4],
+                                i == d - 1, h == d - 1)
             kend = min(kq + 16, K)
             if kend % (2 << level) == 0:
-                v = _rq(torch.from_numpy(acc.copy()) << dl, merges[0])
+                v = _rq(total(acc) << dl, merges[0])
                 if pairs & 1 == 0:
                     l1 = v
                 else:
@@ -433,9 +446,9 @@ def _replay_k2h_mma(a, b, params):
                     else:
                         push(_rq(l2 + v, merges[2]), 3, pairs >> 2)
                 pairs += 1
-                acc = np.zeros(shape, np.int32)
+                acc = np.zeros((classes,) + shape, np.int32)
             elif kend == K:
-                first = torch.from_numpy(acc.copy()) << dl
+                first = total(acc) << dl
     slots.update({0: first, 1: l1, 2: l2})
     carry = None
     for op, l in ops:
@@ -455,11 +468,38 @@ def _replay_k2h_mma(a, b, params):
     return torch.from_numpy(out[:M, :N])
 
 
+def _replay_k2h_mma(a, b, params):
+    """The tensor-core K2h kernel's schedule on int8 ``a`` [M, K] @ ``b``
+    [K, N]: one s8 MMA a k16 step and n8 tile, A words at k 4t, B's
+    columns 2g, 2g + 1 read as 16-bit words at k 4t..4t+3 and transposed by
+    the kernel's four byte permutes (:func:`_replay_k2h_tc`)."""
+    return _replay_k2h_tc(a, b, params, 1)
+
+
+def _replay_k2h_digits(a, b, params):
+    """The digit kernels' schedule on ``a`` @ ``b`` in int16 or int32 lanes
+    (the narrower operand widened, as the op does): D = 2 or 4 bytes an
+    element, A's row split into its digit planes by byte permutes of an
+    8-byte word pair (D = 2: lo u8, hi s8) or a 4 x 4 byte transpose of a
+    16-byte quad (D = 4: three u8 planes, the top byte s8), B's columns
+    2g, 2g + 1 at k 4t..4t+3 by the 4 x 4 transpose of their 2D-byte words;
+    the u8/s8 MMAs of each digit pair (4 for D = 2 into three shift classes,
+    10 for D = 4 into four), the classes' sum where a pair ends
+    (:func:`_replay_k2h_tc`)."""
+    d = max(a.element_size(), b.element_size())
+    lane = {2: torch.int16, 4: torch.int32}[d]
+    return _replay_k2h_tc(a.to(lane), b.to(lane), params, d)
+
+
+@pytest.mark.parametrize("lane", [torch.int16, torch.int32])
 @pytest.mark.parametrize("config,k", [("base", 16), ("base", 48),
                                       ("base", 80), ("base", 176),
                                       ("base", 2040), ("base", 4096),
                                       ("dl", 32), ("dl", 96)])
-def test_k2h_schedule_matches_plain(config, k):
+def test_k2h_schedule_matches_plain(config, k, lane):
+    """The digit kernels' replay on int16 and int32 copies of int8
+    operands equals the plain version on the int8 lanes: the digit planes
+    of a narrow value (its high bytes 0 or all ones) give its dots."""
     mul, layers, out = CONFIGS[config]
     _, tp = _plans(FA, FA, mul, layers, k, out)
     A = torch.from_numpy(_raws(k, FA, (5, k))).to(torch.int8)
@@ -467,7 +507,7 @@ def test_k2h_schedule_matches_plain(config, k):
     want = TT.tree_gemm_hybrid_plain(A, B, tp, P(out))
     params = TT._hybrid_params(tp, k, P(out))
     assert list(params[:2]) == [tp.level, tp.dl]
-    got = _replay_k2h(A, B, params).to(want.dtype)
+    got = _replay_k2h_digits(A.to(lane), B.to(lane), params).to(want.dtype)
     assert torch.equal(got, want)
 
 
@@ -501,6 +541,156 @@ def test_k2h_mma_schedule_matches_jax(config, k, s, m, n):
     np.testing.assert_array_equal(got.to(plain.dtype).numpy(), want)
 
 
+# The digit kernels' configurations: (fa, fb, mul_to, layers, out).  int16
+# lanes (chip_smoke.py's i1 int16: Qu<5,6>, 12 bits), int16 x int8, int32
+# lanes (Qu<8,8>: 17 bits) against int8 and against int16 (Qu<4,4>).
+_SZ = OverflowMode.SAT_ZERO
+DIGIT_CONFIGS = {
+    "i16": (qformat(5, 6), qformat(5, 6), qformat(11, 12),
+            (qformat(12, 12), qformat(13, 12), qformat(14, 12),
+             qformat(15, 12), qformat(10, 6, overflow_mode=_SZ)),
+            qformat(7, 6)),
+    "i16xi8": (qformat(5, 6), qformat(3, 4), qformat(9, 10),
+               (qformat(10, 10), qformat(11, 10), qformat(12, 10),
+                qformat(13, 10), qformat(8, 5, overflow_mode=_SZ)),
+               qformat(6, 4)),
+    "i32xi8": (qformat(8, 8), qformat(3, 4), qformat(12, 12),
+               (qformat(13, 12), qformat(14, 12), qformat(15, 12),
+                qformat(16, 12), qformat(10, 6, overflow_mode=_SZ)),
+               qformat(7, 6)),
+    "i16xi32": (qformat(4, 4), qformat(8, 8), qformat(13, 12),
+                (qformat(14, 12), qformat(15, 12), qformat(16, 12),
+                 qformat(17, 12), qformat(10, 6, overflow_mode=_SZ)),
+                qformat(7, 6)),
+}
+
+
+def _lane_raws(rng, fmt, shape, full):
+    """Raws of ``fmt`` in its lane, or (``full``) over the whole lane,
+    outside the format, its least and greatest values included."""
+    import jax.numpy as jnp
+
+    from qublas_tpu.ops.widths import dtype_for
+
+    dt = np.dtype(jnp.dtype(dtype_for(fmt)).name)
+    lo, hi = (np.iinfo(dt).min, np.iinfo(dt).max) if full \
+        else (fmt.raw_min, fmt.raw_max)
+    x = rng.randint(lo, hi + 1, shape, dtype=np.int64)
+    if full:
+        x.flat[:4] = (lo, hi, lo, hi)
+    return x.astype(dt)
+
+
+@pytest.mark.parametrize("config", sorted(DIGIT_CONFIGS))
+@pytest.mark.parametrize("k", [48, 176, 2040])
+@pytest.mark.parametrize("full", [False, True], ids=["in", "full"])
+@pytest.mark.parametrize("m,n", [(5, 6), (33, 17)])
+def test_k2h_digits_schedule_matches_jax(config, k, full, m, n):
+    """The digit kernels' replay, their plain version (the op's CPU
+    implementation: ``hybrid_digit_dots_plain`` and the tail) and
+    ``tree_gemm_hybrid_plain`` equal the JAX package's
+    ``tree_gemm_hybrid``, Δ=0, on int16 lanes, int16 x int8, int32 x int8
+    and int16 x int32: raws inside the formats, and over the whole lanes
+    (the block dots wrap mod 2^32 as the JAX einsum's int32 dot does);
+    s = 8 and 16, odd block counts, ragged tiles."""
+    import jax.numpy as jnp
+
+    fa, fb, mul_to, layers, out = DIGIT_CONFIGS[config]
+    jp, tp = _plans(fa, fb, mul_to, layers, k, out)
+    assert tp is not None and dataclasses.astuple(tp) == \
+        dataclasses.astuple(jp)
+    rng = np.random.RandomState(k + m + 7 * full)
+    A = _lane_raws(rng, fa, (m, k), full)
+    B = _lane_raws(rng, fb, (k, n), full)
+    want = np.asarray(JT.tree_gemm_hybrid(jnp.asarray(A), jnp.asarray(B), jp,
+                                          out))
+    At, Bt = torch.from_numpy(A), torch.from_numpy(B)
+    assert TT.k2h_route(At, Bt) == "digits"
+    plain = TT.tree_gemm_hybrid_plain(At, Bt, tp, P(out))
+    np.testing.assert_array_equal(plain.numpy(), want)
+    op = TT.tree_gemm_hybrid(At, Bt, tp, P(out))
+    np.testing.assert_array_equal(op.numpy(), want)
+    got = _replay_k2h_digits(At, Bt, TT._hybrid_params(tp, k, P(out)))
+    np.testing.assert_array_equal(got.to(plain.dtype).numpy(), want)
+
+
+def test_digit_split_every_int16_value():
+    """Every int16 value is its low byte (u8) plus 256 times its high
+    byte (s8): ``digit_planes`` and the kernel's byte permutes of the
+    staged word pairs (0x6420: the low bytes of four elements, 0x7531:
+    the high bytes) give those digits, and they rebuild the value."""
+    x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    lo, hi = TT.digit_planes(x, 2)
+    assert lo.min() == 0 and lo.max() == 255
+    assert hi.min() == -128 and hi.max() == 127
+    assert torch.equal(lo + 256 * hi, x.to(torch.int64))
+    words = x.numpy().view(np.uint32).astype(np.int64)  # two elements a word
+    xw, yw = words[0::2], words[1::2]                   # an 8-byte load
+    a_lo = _bytes(_byte_perm(xw, yw, 0x6420), signed=False)
+    a_hi = _bytes(_byte_perm(xw, yw, 0x7531), signed=True)
+    np.testing.assert_array_equal(a_lo.reshape(-1), lo.numpy())
+    np.testing.assert_array_equal(a_hi.reshape(-1), hi.numpy())
+
+
+def test_digit_split_int32_extremes_and_samples():
+    """int32 lanes as four digits (three u8, the top byte s8): the
+    extremes, powers of two and their neighbours, and random samples are
+    rebuilt exactly, by ``digit_planes`` and by the kernel's 4 x 4 byte
+    transpose of four staged elements."""
+    edge = [-2 ** 31, 2 ** 31 - 1, 0, -1, 1, -256, 255, 256]
+    edge += [s * 2 ** e + d for e in range(31) for s in (1, -1)
+             for d in (-1, 0, 1) if -2 ** 31 <= s * 2 ** e + d < 2 ** 31]
+    vals = np.concatenate([edge, np.random.RandomState(3).randint(
+        -2 ** 31, 2 ** 31, 4096, dtype=np.int64)])
+    vals = vals[:len(vals) // 4 * 4]        # whole quads of elements
+    x = torch.from_numpy(vals.astype(np.int32))
+    planes = TT.digit_planes(x, 4)
+    assert planes[:3].min() >= 0 and planes[:3].max() <= 255
+    assert planes[3].min() >= -128 and planes[3].max() <= 127
+    assert torch.equal(sum(planes[i] << (8 * i) for i in range(4)),
+                       x.to(torch.int64))
+    w = x.numpy().view(np.uint32).astype(np.int64).reshape(-1, 4)
+    r = _transpose_bytes(w[:, 0], w[:, 1], w[:, 2], w[:, 3])
+    for i in range(4):
+        got = _bytes(r[i], signed=i == 3)         # [n / 4, 4 elements]
+        np.testing.assert_array_equal(got.reshape(-1), planes[i].numpy())
+
+
+@pytest.mark.parametrize("da,db", [(np.int8, np.int8), (np.int16, np.int16),
+                                   (np.int16, np.int8), (np.int8, np.int16),
+                                   (np.int32, np.int32), (np.int32, np.int8),
+                                   (np.int16, np.int32)])
+@pytest.mark.parametrize("s", [8, 16, 32])
+def test_hybrid_digit_dots_plain_is_the_wrapped_block_dot(da, db, s):
+    """``hybrid_digit_dots_plain`` on lanes filled over their whole range
+    (extremes included) equals each block's dot mod 2^32, as the JAX
+    package's einsum forms it (``preferred_element_type=int32``) and as
+    int64 arithmetic wraps it."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(s)
+    k, m, n = 6 * s, 7, 5
+
+    def full(dt, shape):
+        i = np.iinfo(dt)
+        x = rng.randint(i.min, i.max + 1, shape, dtype=np.int64)
+        x.flat[:2] = (i.min, i.max)
+        return x.astype(dt)
+
+    A, B = full(da, (m, k)), full(db, (k, n))
+    got = TT.hybrid_digit_dots_plain(torch.from_numpy(A), torch.from_numpy(B),
+                                     s)
+    assert got.dtype == torch.int32 and got.shape == (k // s, m, n)
+    a64, b64 = A.astype(np.int64), B.astype(np.int64)
+    want = np.stack([a64[:, t * s:(t + 1) * s] @ b64[t * s:(t + 1) * s]
+                     for t in range(k // s)])
+    np.testing.assert_array_equal(got.numpy(), _wrap32(want))
+    jx = jnp.einsum("mts,tsn->tmn", jnp.asarray(A).reshape(m, k // s, s),
+                    jnp.asarray(B).reshape(k // s, s, n),
+                    preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jx))
+
+
 def test_k2h_drain_ends_in_the_plans_final_format():
     """The drain over the k / s block values, offset by L, ends in the
     format that the layerwise tail of ``plan_hybrid`` ends in."""
@@ -514,8 +704,9 @@ def test_k2h_drain_ends_in_the_plans_final_format():
         assert fmt == tp.final_fmt, k
 
 
-@pytest.mark.parametrize("replay", [_replay_k2h, _replay_k2h_mma],
-                         ids=["imad", "mma"])
+@pytest.mark.parametrize("replay", [
+    lambda a, b, p: _replay_k2h_digits(a.to(torch.int16), b, p),
+    _replay_k2h_mma], ids=["digits", "mma"])
 @pytest.mark.parametrize("field", ["dl", "merge0", "merge-top", "level"])
 def test_k2h_schedule_replay_sees_a_wrong_parameter(field, replay):
     """Mutation check of the replays: a changed shift of the block values
@@ -591,9 +782,16 @@ def test_k2h_modes_match_the_kernel_source():
 
     csrc = pathlib.Path(TT.__file__).parent.parent / "csrc"
     src = (csrc / "tree_gemm_hybrid_mma.cuh").read_text()
+    entry = (csrc / "tree_gemm_hybrid_mma.cu").read_text()
     for i in range(len(TT.K2H_MODES) + 1):
         name = "tree_gemm_hybrid_mma" + (f"_{i}" if i else "") + ".cu"
         assert f"K2H_INSTANCE({i});" in (csrc / name).read_text()
+        # the digit kernels: one source an instantiation, every lane width
+        for d in (2, 4):
+            inst = (csrc / f"tree_gemm_hybrid_mma_d{d}_{i}.cu").read_text()
+            assert f"K2H_DIGIT_INSTANCE({d}, {i});" in inst
+            assert f"extern K2H_DIGIT_INSTANCE({d}, {i});" in src
+            assert f"k2h::launch_modes<{i}, {d}>" in entry
     body = re.search(r"K2H_MODES\[\]\[3\] = \{(.*?)\};", src,
                      re.S).group(1)
     rows = [[x.strip().replace("qk::", "") for x in r.split(",")]
@@ -605,11 +803,13 @@ def test_k2h_modes_match_the_kernel_source():
 @pytest.mark.parametrize("da", [torch.int8, torch.int16, torch.int32])
 @pytest.mark.parametrize("db", [torch.int8, torch.int16, torch.int32])
 def test_k2h_route_by_lanes(da, db):
-    """int8 x int8 lanes take the tensor-core kernel; any wider lane the
-    IMAD kernel, which widens both operands to int32."""
+    """int8 x int8 lanes take the tensor-core kernel on int8 lanes; any
+    wider lane the digit kernel of the wider lane's bytes, which widens
+    the narrower operand to it."""
     a, b = torch.zeros((2, 16), dtype=da), torch.zeros((16, 3), dtype=db)
-    want = "mma" if da == db == torch.int8 else "imad"
+    want = "mma" if da == db == torch.int8 else "digits"
     assert TT.k2h_route(a, b) == want
+    assert TT.digit_lanes(a, b) == max(da.itemsize, db.itemsize)
 
 
 def _c_entries():
