@@ -168,7 +168,8 @@ def record(wrapper, instance: str, fmts=()):
     """Note one launch of ``wrapper``'s kernel in ``wrapper.seen``, a
     ``Counter`` keyed by (instantiation, the (round, overflow) pairs of the
     formats ``fmts`` that its requantize steps write): what a sweep reads
-    to tell which variants of a kernel it reached."""
+    to tell which variants of a kernel it reached.  The launch sites call
+    it only inside ``utils.profiling.launch_record``."""
     # names of the distinct pairs only: an enum's name costs a lookup
     pairs = tuple(sorted((r.name, o.name) for r, o in
                          {(f.round_mode, f.overflow_mode) for f in fmts}))

@@ -42,6 +42,7 @@ from .ops.limbint import LimbArray, ints_from_limbs, limbs_from_ints
 from .ops.widths import limb_count, storage_dtype, storage_kind
 from .qformat import QFormat
 from .qtensor import QTensor, from_raw
+from .utils.profiling import span
 
 __all__ = ["qpoly", "qapprox", "Segment", "qtable", "QTable", "build_table",
            "rsqrt_func", "reciprocal_func", "sqrt_func"]
@@ -260,7 +261,7 @@ class QTable:
                  ) -> QTensor:
         """The lookup of ``x``.  ``table``: these entries (``self.table``
         placed on ``x``'s device, e.g. a module's buffer) instead of the
-        table's own."""
+        table's own.  The device lookup is the span ``qublas.rom``."""
         # signedness and int_bits change how a bit pattern is interpreted;
         # round/overflow modes do not, so they may differ
         f, t = x.fmt, self.in_fmt
@@ -273,13 +274,14 @@ class QTable:
                     for r in x.raw().reshape(-1)]
             return from_raw(np.array(raws, dtype=object).reshape(x.shape),
                             self.out_fmt, x.device)
-        idx = (x.data.to(torch.int32) & self._mask).long()
-        if table is None:
-            table = self._table_on(x.device)
-        if table.ndim == 2:
-            return QTensor(LimbArray(table[:, idx]), self.out_fmt)
-        return QTensor(table[idx].to(storage_dtype(self.out_fmt)),
-                       self.out_fmt)
+        with span("qublas.rom"):
+            idx = (x.data.to(torch.int32) & self._mask).long()
+            if table is None:
+                table = self._table_on(x.device)
+            if table.ndim == 2:
+                return QTensor(LimbArray(table[:, idx]), self.out_fmt)
+            return QTensor(table[idx].to(storage_dtype(self.out_fmt)),
+                           self.out_fmt)
 
 
 def build_table(func, in_fmt: QFormat,

@@ -42,9 +42,10 @@ The families:
   whole would cost the oracle too much), so a fault falls on the kernel,
   the plain version or the proof.
 
-On the card the wrappers count their launches and record each launch's
-instantiation and mode pairs (``_build.record``); :func:`gate` fails the
-sweep when a kernel it steers into launched fewer than
+On the card the wrappers count their launches and, inside
+``utils.profiling.launch_record`` (which :func:`run` enters), record each
+launch's instantiation and mode pairs (``_build.record``); :func:`gate`
+fails the sweep when a kernel it steers into launched fewer than
 :data:`MIN_LAUNCHES` times, when K1's epilogue, K2's run-time
 instantiations or K3 saw fewer than :data:`MIN_PAIRS` distinct (round,
 overflow) pairs, or when one of K2's six instantiations never launched.
@@ -76,6 +77,7 @@ from .ops.reduce import plan_reduce, qreduce, qreduce_kernel
 from .ops.widths import fmt_interval, torch_dtype_for
 from .qformat import OverflowMode, QFormat, RoundMode, mul_merge, qformat
 from .qtensor import QTensor, from_raw, scalar
+from .utils.profiling import launch_record
 
 __all__ = ["Sweep", "rng_for", "rand_fmt", "rand_raws", "trial_counts",
            "run", "gate", "main", "FAMILIES", "KERNELS"]
@@ -1852,7 +1854,8 @@ def run(counts: dict, device, timeout: float = 1800.0) -> dict:
         if name not in counts:
             continue
         f0, c0, t0 = sw.fails, sw.crashes, time.perf_counter()
-        done = fn(sw, counts[name])
+        with launch_record():
+            done = fn(sw, counts[name])
         done = counts[name] if done is None else done
         stats[name] = (done, sw.fails - f0, sw.crashes - c0,
                        time.perf_counter() - t0)

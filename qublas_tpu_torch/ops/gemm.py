@@ -67,6 +67,7 @@ import torch
 from .. import hostops
 from ..qformat import OverflowMode, QFormat, add_merge, mul_merge
 from ..qtensor import QTensor, from_raw, result_device, zeros
+from ..utils.profiling import span
 from . import elementwise as ew
 from . import limbint as L
 from .fused_gemm import fused_int8_gemm, int_dot
@@ -272,12 +273,22 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     JAX package's limb and int64 tiers are 2-D only, so it sends a batched
     wide configuration to the streaming or layered tier; by the tiers'
     proofs the bits are the same.
+
+    Under a profiler the call is the span ``qublas.qgemul``, and each proof
+    or planner it runs before a tier's launch a ``qublas.plan`` inside it.
     """
-    if isinstance(out_fmt, QTensor):
-        out_fmt = out_fmt.fmt  # readme-style call shape `Qgemul(C, A, B)`
-    if epilogue_lut is not None:
-        return epilogue_lut(qgemul(a, b, out_fmt, mul_to, add_formats,
-                                   transpose_a, transpose_b, mul_full_prec))
+    with span("qublas.qgemul"):
+        if isinstance(out_fmt, QTensor):
+            out_fmt = out_fmt.fmt  # readme-style call shape `Qgemul(C, A, B)`
+        c = _qgemul(a, b, out_fmt, mul_to, add_formats, transpose_a,
+                    transpose_b, mul_full_prec)
+        return c if epilogue_lut is None else epilogue_lut(c)
+
+
+def _qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to, add_formats,
+            transpose_a: bool, transpose_b: bool,
+            mul_full_prec: bool) -> QTensor:
+    """:func:`qgemul` without its span and epilogue."""
     if isinstance(add_formats, QFormat):
         add_formats = (add_formats,)
     add_formats = tuple(add_formats)
@@ -300,12 +311,15 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     k = a.shape[-1]
     if 0 in batch:
         return zeros(batch + (a.shape[-2], b.shape[-1]), out_fmt, a.device)
-    mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
-    if a.is_host or b.is_host:
+    with span("qublas.plan"):
+        mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
+        host = a.is_host or b.is_host
+        plan = None if host else exact_plan(a.fmt, b.fmt, mul_fmt,
+                                            add_formats, k)
+        lossless = plan is not None and _device_epilogue_ok(plan, out_fmt)
+    if host:
         return _host_gemm(a, b, out_fmt, mul_to, add_formats, mul_full_prec)
-
-    plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats, k)
-    if plan is not None and _device_epilogue_ok(plan, out_fmt):
+    if lossless:
         return _over_batch(lambda x, y: QTensor(fused_int8_gemm(
             x.data, y.data, plan.prod_frac, out_fmt), out_fmt), a, b, batch)
     if plan is not None:
@@ -323,11 +337,15 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     # the tree kernels take lanes
     if not (a.is_pair or b.is_pair or a.is_limb or b.is_limb):
         # prefix-lossless hybrid: exact block dots, then the lossy tail
-        hplan = plan_hybrid(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
+        with span("qublas.plan"):
+            hplan = plan_hybrid(a.fmt, b.fmt, mul_fmt, add_formats, k,
+                                out_fmt)
         if hplan is not None:
             return _over_batch(lambda x, y: QTensor(tree_gemm_hybrid(
                 x.data, y.data, hplan, out_fmt), out_fmt), a, b, batch)
-        tplan = plan_tree(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
+        with span("qublas.plan"):
+            tplan = plan_tree(a.fmt, b.fmt, mul_fmt, add_formats, k,
+                              out_fmt)
         # K2 requantizes products on the int32 and 64-bit routes; a plan
         # whose product needs wider working bits ("limb") takes the tiers
         # below, whose products run on limbs
@@ -471,8 +489,9 @@ def _fast_gemm_limb(a: QTensor, b: QTensor, out_fmt: QFormat,
     :func:`limb_dot_plan`."""
     from . import limbdot as D
 
-    Kw = limb_dot_plan(a.fmt, b.fmt, out_fmt, plan, a.shape[-1],
-                       a.shape[-2], b.shape[-1])
+    with span("qublas.plan"):
+        Kw = limb_dot_plan(a.fmt, b.fmt, out_fmt, plan, a.shape[-1],
+                           a.shape[-2], b.shape[-1])
     if Kw is None:
         return None
     acc = D.limb_dot_2d(a.data, b.data, fmt_interval(a.fmt),
@@ -545,7 +564,9 @@ def _fast_gemm_wide(a: QTensor, b: QTensor, out_fmt: QFormat,
     """The lossless wide tier: the exact int64 dot (:func:`pair_dot_2d`)
     requantized once from the raw products' scale.  Bit-exact by the same
     argument as the int32 tier; None outside :func:`wide_dot_ok`."""
-    if not wide_dot_ok(a, b, out_fmt, plan):
+    with span("qublas.plan"):
+        ok = wide_dot_ok(a, b, out_fmt, plan)
+    if not ok:
         return None
     dot = pair_dot_2d(a.data, b.data, plan.prod_interval)
     raw = requantize_i64(dot, plan.prod_frac, out_fmt)

@@ -30,8 +30,8 @@ Each op has three parts:
   reads ``data_ptr()``: the operand routes (``k1_route``, ``k2s_route``,
   ``k3_route``, ``k2h_route``) and the ``ctypes`` launch run on real
   tensors at run time, never on a traced one.  It adds one to the
-  wrapper's ``launches`` and notes the launch in its ``seen``
-  (``_build.record``);
+  wrapper's ``launches`` and, inside ``utils.profiling.launch_record``,
+  notes the launch in its ``seen`` (``_build.record``);
 * the CPU implementation is the kernel's plain version, on the plan read
   back from the same ints (:func:`rq_format`, :func:`tree_plan`,
   :func:`hybrid_plan`, :func:`reduce_plan`);
@@ -57,6 +57,7 @@ import torch
 
 from .. import _build
 from ..qformat import OverflowMode, QFormat, RoundMode
+from ..utils.profiling import recording_launches
 
 __all__ = ["rq_format", "tree_plan", "hybrid_plan", "reduce_plan",
            "lane_dtype", "c_ints", "OPS"]
@@ -262,6 +263,8 @@ def _k1_record(instance: str, rq):
     from .fused_gemm import fused_int8_gemm
 
     fused_int8_gemm.launches += 1
+    if not recording_launches():
+        return
     if rq:
         _build.record(fused_int8_gemm, "gemm/" + instance,
                       (rq_format(tuple(rq))[1],))
@@ -322,7 +325,8 @@ def _tree_record(wrapper, instance: str, params, k: int):
     from .tree_gemm import _step_fmts
 
     wrapper.launches += 1
-    _build.record(wrapper, instance, _step_fmts(*tree_plan(params, k)))
+    if recording_launches():
+        _build.record(wrapper, instance, _step_fmts(*tree_plan(params, k)))
 
 
 def _k2_plain(a, b, params, modes, out_bytes):
@@ -411,10 +415,12 @@ def _k2h_plain(a, b, params, modes, out_bytes):
 def _k2h_record(kind: str, instance: str, params, k: int):
     from .tree_gemm import tree_gemm_hybrid as wrapper
 
-    plan, out_fmt = hybrid_plan(params)
-    levels = max((k // plan.s).bit_length(), 1)
     setattr(wrapper, kind, getattr(wrapper, kind) + 1)
     wrapper.launches += 1
+    if not recording_launches():
+        return
+    plan, out_fmt = hybrid_plan(params)
+    levels = max((k // plan.s).bit_length(), 1)
     _build.record(wrapper, instance,
                   (*plan.merge_fmts[plan.level:plan.level + levels], out_fmt))
 
@@ -485,9 +491,10 @@ def _k3(x, axis, params, tails, modes, out_bytes):
         _stream(x))
     _build.check(err, "qreduce_kernel")
     qreduce_kernel.launches += 1
-    _build.record(qreduce_kernel,
-                  f"{route}_{lanes}/modes_{modes}/{x.element_size()}",
-                  plan.merge_fmts)
+    if recording_launches():
+        _build.record(qreduce_kernel,
+                      f"{route}_{lanes}/modes_{modes}/{x.element_size()}",
+                      plan.merge_fmts)
     return out
 
 
@@ -533,10 +540,11 @@ def _p1(x, y, params, steps, programs, plan):
         x.device.index, x32.data_ptr(), y32.data_ptr(), out.data_ptr(),
         x32.numel(), programs, steps, c_ints(params), plan, _stream(x))
     _build.check(err, "chain_probe")
-    tplan, _ = tree_plan(params, 1)
     CP.chain_probe.launches += 1
-    _build.record(CP.chain_probe, f"plan_{plan}",
-                  (tplan.mul_fmt, tplan.merge_fmts[0]))
+    if recording_launches():
+        tplan, _ = tree_plan(params, 1)
+        _build.record(CP.chain_probe, f"plan_{plan}",
+                      (tplan.mul_fmt, tplan.merge_fmts[0]))
     return out
 
 

@@ -9,6 +9,18 @@ the ``"ph": "X"`` events of category ``kernel`` (one a kernel launch),
 call also appears on the device as a ``gpu_user_annotation`` event, which
 spans the device work the range launched, as the JAX trace's "XLA
 Modules" row spans one program.
+
+The port's own ranges (:func:`span`) are ``record_function`` ranges on
+the same clock, entered only while a profiler records: ``qublas.qgemul``
+around a ``qgemul`` call, ``qublas.plan`` around each proof or planner it
+runs before a tier's launch, ``qublas.rom`` around a ROM lookup on the
+device.  A device row runs where the card gets to it, often after the
+range that launched it has ended: a range's device work is the rows of
+the launches inside it.
+
+A kernel launch adds one to its wrapper's ``launches`` always; it notes
+its instantiation and mode pairs in the wrapper's ``seen`` only inside
+:func:`launch_record`, which the coverage sweeps enter.
 """
 
 from __future__ import annotations
@@ -29,6 +41,38 @@ __all__ = ["trace", "roofline_report", "timeit_chained", "device_busy",
            "parse_trace_events"]
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_OFF = contextlib.nullcontext()   # the span of a call no profiler records
+_RECORDING = False                # inside launch_record()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler
+    records; otherwise (and while ``torch.compile`` traces, so that
+    no profiler op enters a graph) one shared no-op context, which costs
+    two checks."""
+    if torch.compiler.is_compiling() or \
+            not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def launch_record():
+    """Within the block, each kernel launch also notes its instantiation
+    and the (round, overflow) pairs of its steps in its wrapper's ``seen``
+    (``_build.record``): what a coverage sweep reads.  Outside it a launch
+    only counts in ``launches``."""
+    global _RECORDING
+    saved, _RECORDING = _RECORDING, True
+    try:
+        yield
+    finally:
+        _RECORDING = saved
+
+
+def recording_launches() -> bool:
+    """Whether launches note themselves in ``seen`` (:func:`launch_record`)."""
+    return _RECORDING
 
 
 @contextlib.contextmanager
@@ -109,14 +153,16 @@ def parse_trace_events(ev):
     ``{busy_s, span_s, module_s, ops}`` for the device rows (kernels,
     memory copies and sets), or None when there are none (the CPU).
 
-    * ``busy_s``: the sum of the device rows' durations;
+    * ``busy_s``: the seconds in which some device row ran (the union of
+      their intervals, so rows that overlap on two streams count once);
     * ``span_s``: the first device row's start to the last one's end
       (device-side gaps included, host time before and after excluded);
     * ``module_s``: the longest ``gpu_user_annotation`` event, the device
       span of one ``record_function`` range (one program call), or None
       when there is none;
     * ``ops``: ``{name: total seconds}`` of the device rows, the copies
-      and sets under their own names; the rows sum to ``busy_s``."""
+      and sets under their own names; the rows sum to ``busy_s`` where
+      none overlap."""
     rows = [e for e in ev if e.get("ph") == "X"
             and e.get("cat") in _DEVICE_CATS]
     if not rows:
@@ -128,8 +174,12 @@ def parse_trace_events(ev):
         ops[e["name"]] = ops.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e6
     ts0 = min(e["ts"] for e in rows)
     ts1 = max(e["ts"] + e.get("dur", 0.0) for e in rows)
+    busy, end = 0.0, ts0
+    for s, e in sorted((r["ts"], r["ts"] + r.get("dur", 0.0)) for r in rows):
+        busy += max(e - max(s, end), 0.0)
+        end = max(end, e)
     return {
-        "busy_s": sum(e.get("dur", 0.0) for e in rows) / 1e6,
+        "busy_s": busy / 1e6,
         "span_s": (ts1 - ts0) / 1e6,
         "module_s": (max(ann, default=0.0) / 1e6) or None,
         "ops": ops,
@@ -141,6 +191,9 @@ def roofline_report(fn: Callable, a, b, flops: float,
                     iters: int = 64, ab_rounds: int = 2) -> dict:
     """Measured throughput of ``fn`` and its fraction of a measured
     baseline's (e.g. the raw integer matmul for a quantized GEMM).
+    ``fraction_of_roofline`` is that ratio of two measured times, the
+    baseline's over ``fn``'s: not a share of the card's peak, and above 1
+    where ``fn`` beats the baseline.
 
     The two sides are measured in interleaved A/B rounds, best of each
     side, so that a drift of the card's clock between rounds (a card held

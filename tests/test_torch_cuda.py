@@ -29,6 +29,7 @@ from qublas_tpu_torch.ops.tree_gemm import (k2_modes, k2s_operand, k2s_plan,
                                             plan_tree, tree_gemm,
                                             tree_gemm_plain, tree_gemm_stream,
                                             tree_gemm_stream_plain)
+from qublas_tpu_torch.utils.profiling import launch_record
 
 pytestmark = pytest.mark.cuda
 
@@ -1003,7 +1004,8 @@ def test_hybrid_qgemul_int16_takes_the_digit_kernel(cuda):
     assert a.data.dtype == torch.int16
     h = TT.tree_gemm_hybrid
     h.launches = h.mma_launches = h.digit_launches = 0
-    got = qt.qgemul(a, b, out, mul_to=mul, add_formats=layers)
+    with launch_record():     # the launch noted in h.seen
+        got = qt.qgemul(a, b, out, mul_to=mul, add_formats=layers)
     torch.cuda.synchronize()
     assert _k2h_counts() == (1, 0, 1)
     assert any(i.startswith("digits2_") for i, _ in h.seen)

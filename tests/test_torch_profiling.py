@@ -71,6 +71,19 @@ def test_parse_device_rows():
     assert abs(sum(p["ops"].values()) - p["busy_s"]) < 1e-12
 
 
+def test_parse_overlapping_rows_count_once():
+    """Two rows that overlap (two streams) count once in ``busy_s``: the
+    union of their intervals, as the card was busy; ``ops`` keeps each
+    row's own time."""
+    p = parse_trace_events([
+        _ev("kernel", K1, 100.0, 50.0, tid=7),
+        _ev("kernel", "triton_poi_fused_index_0", 120.0, 60.0, tid=8),
+        _ev("gpu_memset", "Memset (Device)", 200.0, 10.0, tid=7)])
+    assert abs(p["busy_s"] - (80.0 + 10.0) / 1e6) < 1e-12
+    assert abs(p["span_s"] - 110.0 / 1e6) < 1e-12
+    assert abs(sum(p["ops"].values()) - 120.0 / 1e6) < 1e-12
+
+
 def test_parse_no_device_rows_returns_none():
     # a CPU trace: host rows only -> None (callers fall back to wall time)
     ev = [_ev("cpu_op", "aten::add", 0.0, 100.0, 123, 1),
