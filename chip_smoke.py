@@ -25,8 +25,9 @@ Phases, each printing its lines:
 3. drive the main paths through the public entry points, each with the
    launch counts set to 0 just before it and read just after:
    a. the quantized GEMM pipeline (``QuantPipeline``: GEMM -> sqrt ROM ->
-      cast -> GEMM) at 4096^3 and the canonical order-sensitive ``qgemul``
-      at 2048^3: K1 twice, K2 once;
+      cast -> GEMM, the ROM and the cast in the first K1's epilogue) at
+      4096^3 and the canonical order-sensitive ``qgemul`` at 2048^3: K1
+      twice (once with its table), K2 once;
    b. ``qreduce`` of BASELINE config 2 at [4096, 1024], and the layered
       canonical GEMM at 512^3 (``qcast(qreduce(qmul(a[:, :, None],
       b[None]), (), axis=1))``) beside ``tree_gemm_stream`` and ``qgemul``
@@ -143,7 +144,10 @@ Phases, each printing its lines:
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
    after warm-up) beside its bound and, where one exists, the PyTorch call
-   computing the same function, and the main-path calls end to end; K2′
+   computing the same function, and the main-path calls end to end; K1
+   with the pipeline's table and without it, and K1 followed by the ROM
+   and the cast in plain torch, at the FFN's first GEMM (``FFN_GEMM``) in
+   turns; K2′
    and K3 also by their device time (a profiler trace) and the host's
    time to enqueue a call, K2′ beside K2 and with its instantiations'
    registers and spills; P1 by its device time too, with
@@ -169,6 +173,7 @@ from contextlib import contextmanager
 
 # main-path sizes
 PIPE_N = 4096                     # x, W1, W2: PIPE_N x PIPE_N
+FFN_GEMM = (24576, 1024, 4096)    # BERT-Large's first FFN GEMM (m, k, n)
 TREE_N = 2048                     # canonical qgemul: TREE_N^3
 REDUCE_SHAPE = (4096, 1024)       # BASELINE config 2, reduced over axis 1
 REDUCE_BIG_ROWS = 131072          # K3 timed at [REDUCE_BIG_ROWS, 1024]
@@ -665,7 +670,7 @@ def phase_main_path(dev, chk):
                      dev)
     torch.cuda.synchronize()
 
-    fused_int8_gemm.launches = 0
+    fused_int8_gemm.launches = fused_int8_gemm.lut_launches = 0
     tree_gemm.launches = 0
     t0 = time.perf_counter()
     y = pipe(x)
@@ -675,9 +680,12 @@ def phase_main_path(dev, chk):
     launches = {"fused_int8_gemm": fused_int8_gemm.launches,
                 "tree_gemm": tree_gemm.launches}
     print(f"main path a: pipeline {n}^3 + canonical qgemul {TREE_N}^3 in "
-          f"{wall * 1e3:.3f} ms wall (first call), launches {launches}")
+          f"{wall * 1e3:.3f} ms wall (first call), launches {launches}, "
+          f"K1 with a table {fused_int8_gemm.lut_launches}")
     check_launches("main path a", launches,
                    {"fused_int8_gemm": 2, "tree_gemm": 1})
+    check_launches("main path a: K1 with a table",
+                   fused_int8_gemm.lut_launches, 1)
 
     assert y.shape == (n, n) and y.dtype == torch.int8, (y.shape, y.dtype)
     assert int(y.min()) >= mid.raw_min and int(y.max()) <= mid.raw_max
@@ -688,7 +696,7 @@ def phase_main_path(dev, chk):
     plan1 = qt.exact_plan(fa, fa, qt.mul_merge(fa, fa, wide), (wide,), n)
     h1 = qt.QTensor(fused_int8_gemm_plain(x, pipe.w1, plan1.prod_frac, mid),
                     mid)
-    h = pipe.table(h1).astype(fa)
+    h = qt.build_table(qt.sqrt_func, mid)(h1).astype(fa)
     y_ref = fused_int8_gemm_plain(h.data, pipe.w2, plan1.prod_frac, mid)
     chk.same("fused_int8_gemm", f"pipeline {n}^3 output", y, y_ref)
     tplan = plan_tree(f88z, f88z, qt.mul_merge(f88z, f88z), (), TREE_N, f88z)
@@ -2635,7 +2643,7 @@ def l_programs(dev, state_a, state_b):
     def pipe_check(y, args):
         h1 = qt.QTensor(fused_int8_gemm_plain(args[0], pipe.w1,
                                               plan1.prod_frac, mid), mid)
-        h = pipe.table(h1).astype(fa)
+        h = qt.build_table(qt.sqrt_func, mid)(h1).astype(fa)
         same_q("path l pipeline == plain", y, fused_int8_gemm_plain(
             h.data, pipe.w2, plan1.prod_frac, mid))
         host_corner("pipeline", y, h, qt.QTensor(pipe.w2, fa), mid,
@@ -3334,6 +3342,53 @@ def limb_times(card, state_g, t, bounds):
           f"{t['g6']:.4f} ms [{card}]")
 
 
+def ffn_times(card, pipe):
+    """Phase 4: K1 at the FFN's first GEMM (``FFN_GEMM``) plain, with the
+    pipeline's table in its epilogue, and plain followed by the ROM and
+    the cast in plain torch (the glue the table replaces), in turns on the
+    same operands; the table's output held to the glue's."""
+    import statistics
+
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm, kmajor
+    from qublas_tpu_torch.timing import timeit
+
+    fa, wide, mid = pipe.fa, pipe.wide, pipe.out_fmt
+    m, k, n = FFN_GEMM
+    dev = pipe.w1.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = kmajor(torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                             dtype=torch.int8))
+    pf = qt.exact_plan(fa, fa, qt.mul_merge(fa, fa, wide), (wide,),
+                       k).prod_frac
+    rom = qt.build_table(qt.sqrt_func, mid)
+    entries = rom.table.to(dev)
+    calls = {
+        "plain": lambda: fused_int8_gemm(x, w, pf, mid),
+        "table": lambda: fused_int8_gemm(x, w, pf, mid, pipe.rom, fa),
+        "glue": lambda: rom(qt.QTensor(fused_int8_gemm(x, w, pf, mid), mid),
+                            entries).astype(fa).data,
+    }
+    assert torch.equal(calls["table"](), calls["glue"]()), \
+        "K1's table != K1, the ROM and the cast"
+    got = {key: [] for key in calls}
+    for key in list(calls) + list(calls)[::-1]:
+        got[key].append(timeit(calls[key]))
+    ms = {key: statistics.median(v) for key, v in got.items()}
+    bound = max(2 * m * k * n / INT8_OPS_S,
+                (m * k + k * n + m * n) / HBM_BYTES_S) * 1e3
+    print(f"time fused_int8_gemm {list(FFN_GEMM)} (m, k, n): plain "
+          f"{ms['plain']:.4f} ms, with the pipeline's table "
+          f"{ms['table']:.4f} ms ({ms['table'] / ms['plain']:.4f} of "
+          f"plain), plain then the ROM and the cast in plain torch "
+          f"{ms['glue']:.4f} ms; bound {bound:.4f} ms (operations) [{card}]")
+    return ms
+
+
 def phase_times(card, state_a, state_b, state_d, chain_rate, state_f):
     """Phase 4: kernel, plain, library and main-path times."""
     import torch
@@ -3452,6 +3507,7 @@ def phase_times(card, state_a, state_b, state_d, chain_rate, state_f):
                           "reference)")):
         print(f"time {label} {n}^3: {t[key]:.4f} ms, "
               f"{ops / t[key] / 1e9:.2f} TOP/s [{card}]")
+    ffn_times(card, pipe)
     for key, label, size in (
             ("k2", "tree_gemm", tn), ("k2_plain", "tree_gemm plain", tn),
             ("k2s_big", "tree_gemm_stream", tn),
@@ -3623,7 +3679,8 @@ def main() -> int:
     limb_times(card, state_g, t, bounds)
     lane_times(card, state_h, t)
     hybrid_times(card, state_i, t, bounds, report)
-    for line in resources(report, "tree_gemm_tiled_kernel") + \
+    for line in resources(report, "fused_gemm_s8_kernel") + \
+            resources(report, "tree_gemm_tiled_kernel") + \
             resources(report, "tree_gemm_stream_kernel") + \
             resources(report, "chain_probe_kernel"):
         print(f"registers {line}")

@@ -41,9 +41,9 @@ _SIGNATURES = {
     # lanes, stream
     "qk_qreduce": (_I, _P, _P, _L, _L, _L, _I, _I, _P, _I, _I, _P),
     # device, a, lda, bt, ldb, c, m, n, k, out_bytes, d, round, ovf, w,
-    # sgn, stream
+    # sgn, lut, mask, stream
     "qk_fused_gemm_s8": (_I, _P, _L, _P, _L, _P, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _P),
+                         _I, _I, _I, _I, _I, _P, _I, _P),
     # device, a, b, c, m, n, k, out_bytes, d, round, ovf, w, sgn, stream
     "qk_fused_gemm_s32": (_I, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _P),

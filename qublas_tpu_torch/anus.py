@@ -187,6 +187,13 @@ def sqrt_func(v: float) -> float:
 MAX_TABLE_BITS = 20  # 1M int32 entries
 
 
+def _pattern_raw(p: int, fmt: QFormat) -> int:
+    """The raw of ``fmt`` whose logical-width bit pattern is ``p``."""
+    w = fmt.width
+    return p - (1 << w) if fmt.signed and w > 0 and p >= (1 << (w - 1)) \
+        else p
+
+
 class QTable:
     """A precomputed exact LUT: input bit pattern -> output raw value.
 
@@ -206,17 +213,21 @@ class QTable:
             raise ValueError(
                 f"LUT over a {w}-bit input needs 2^{w} entries; cap is "
                 f"2^{MAX_TABLE_BITS}.  Use qapprox for wide formats.")
-        kind = storage_kind(self.out_fmt)
         raws = []
         for p in range(1 << max(w, 0)):
-            raw_in = p - (1 << w) if (in_fmt.signed and w > 0
-                                      and p >= (1 << (w - 1))) else p
-            val = hostint.raw_to_double(raw_in, in_fmt)
+            val = hostint.raw_to_double(_pattern_raw(p, in_fmt), in_fmt)
             try:
                 out_val = float(func(val))
             except (ValueError, ZeroDivisionError, OverflowError):
                 out_val = math.nan
             raws.append(hostint.double_to_raw(out_val, self.out_fmt))
+        self._store(raws)
+
+    def _store(self, raws: list):
+        """Hold ``raws`` (entry p the output raw of input pattern p) as
+        the output format's storage takes them."""
+        w = self.in_fmt.width
+        kind = storage_kind(self.out_fmt)
         self._mask = (1 << w) - 1 if w > 0 else 0
         # the entries as Python ints, for host lookups: kept here for host
         # storage, read back from the table on a first host input otherwise
@@ -230,6 +241,23 @@ class QTable:
             self.table = torch.from_numpy(np.array(
                 raws, dtype=np.int64 if kind == "pair" else np.int32))
         self._on_device = {}
+
+    def astype(self, fmt: QFormat) -> "QTable":
+        """This table followed by the cast to ``fmt``, as one table of the
+        same input: entry p is entry p cast (``QTensor.astype``), so that a
+        lookup gives the bits of ``self(x).astype(fmt)`` for every ``x``.
+        The cast runs once, here, on the entries; the new table's ``func``
+        is None."""
+        w = self.in_fmt.width
+        x = from_raw(np.array([_pattern_raw(p, self.in_fmt)
+                               for p in range(1 << max(w, 0))],
+                              dtype=object), self.in_fmt, "cpu")
+        raws = [int(r) for r in
+                np.asarray(self(x).astype(fmt).raw(), dtype=object)]
+        out = QTable.__new__(QTable)
+        out.func, out.in_fmt, out.out_fmt = None, self.in_fmt, fmt
+        out._store(raws)
+        return out
 
     def to(self, device) -> "QTable":
         """Place the entries on ``device`` (in place; returns the table):

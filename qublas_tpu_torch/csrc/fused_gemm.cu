@@ -25,7 +25,15 @@
 //    wraps, as int_dot_plain wraps;
 //  * the epilogue parks the accumulators in shared memory (the ring is
 //    free by then), requantizes them in a rolled loop with one inlined
-//    qk::requant, and writes the lane in 16-byte stores.
+//    qk::requant, and writes the lane in 16-byte stores;
+//  * the table instantiation (LUT) stores lut[v & mask] for each
+//    requantized value v: a ROM on the output's raws (and any cast after
+//    it, composed into the entries), at most 256 int32 entries staged
+//    once a block in the part of the ring that the int32 staging leaves
+//    free, so the lookup costs one shared-memory read an output, made as
+//    the store loop packs the lane, and no pass over device memory.  A
+//    warp's 32 reads of random entries would share banks, so int8 entries
+//    are also staged as one byte copy a lane, in banks of its own.
 // TMA zero-fills boxes past the tensor's edge, so ragged M, N and K need
 // no code here.  It cannot describe a row stride that is not a multiple of
 // 16 bytes or a base that is not 16-byte aligned: for those the wrapper
@@ -63,6 +71,12 @@ constexpr int RING = STAGES * STAGE;
 constexpr int LDC = BN + 8;  // int32 staging row: 8-word skew
 constexpr int EPI = BM * LDC * 4;
 constexpr int DATA = RING > EPI ? RING : EPI;
+// the table instantiation's entries, past the int32 staging
+constexpr int LUT_MAX = 256;
+// and, for int8 outputs, a byte copy of the table for each lane of a warp
+constexpr int COPIES = EPI + LUT_MAX * 4;
+static_assert(COPIES + LUT_MAX * 32 <= DATA, "the table must fit the ring");
+static_assert(LUT_MAX <= CONSUMERS, "a consumer thread an entry");
 // data, then full[STAGES] and empty[STAGES] barriers, and room to align the
 // data to the 1024 bytes that the 128-byte swizzle repeats over
 constexpr int SMEM = DATA + 16 * STAGES + 1024;
@@ -182,42 +196,81 @@ __device__ __forceinline__ void fence_acc(int32_t (&acc)[NACC]) {
   for (int i = 0; i < NACC; ++i) asm volatile("" : "+r"(acc[i])::"memory");
 }
 
+// Four staged int32 results (16-byte aligned), each looked up in table
+// (its low bits under mask) where the instantiation has one.
+template <bool LUT>
+__device__ __forceinline__ int4 load4(const int32_t* v, const int32_t* table,
+                                      uint32_t mask) {
+  int4 x = *reinterpret_cast<const int4*>(v);
+  if constexpr (LUT) {
+    x = make_int4(table[(uint32_t)x.x & mask], table[(uint32_t)x.y & mask],
+                  table[(uint32_t)x.z & mask], table[(uint32_t)x.w & mask]);
+  }
+  return x;
+}
+
+// Entry v & mask of an int8 table from this lane's byte copy: entry i of
+// lane l's copy lies at byte 128 (i / 4) + 4 l + i % 4 from the copies'
+// start, in word 32 (i / 4) + l, so a warp's 32 reads fall in 32 banks
+// whatever entries they read.
+__device__ __forceinline__ uint32_t lane_byte(const uint8_t* copy, int32_t v,
+                                              uint32_t mask) {
+  const uint32_t i = (uint32_t)v & mask;
+  return copy[((i >> 2) << 7) + (i & 3)];
+}
+
 // Store 16 bytes of the output lane at element `off` from 16 / out_bytes
-// staged int32 results (16-byte aligned), wrapping each into the lane.
+// staged int32 results (16-byte aligned), wrapping each into the lane;
+// the table instantiation stores their entries (int8 ones from the lane's
+// byte copy).
+template <bool LUT>
 __device__ __forceinline__ void store16(void* C, size_t off,
-                                        const int32_t* v, int out_bytes) {
+                                        const int32_t* v, int out_bytes,
+                                        const int32_t* table,
+                                        const uint8_t* copy, uint32_t mask) {
   int4 w;
   if (out_bytes == 1) {
     uint32_t word[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int4 x = reinterpret_cast<const int4*>(v)[q];
-      word[q] = ((uint32_t)x.x & 0xffu) | (((uint32_t)x.y & 0xffu) << 8) |
-                (((uint32_t)x.z & 0xffu) << 16) | ((uint32_t)x.w << 24);
+      const int4 x = *reinterpret_cast<const int4*>(v + 4 * q);
+      if constexpr (LUT) {
+        word[q] = lane_byte(copy, x.x, mask) |
+                  (lane_byte(copy, x.y, mask) << 8) |
+                  (lane_byte(copy, x.z, mask) << 16) |
+                  (lane_byte(copy, x.w, mask) << 24);
+      } else {
+        word[q] = ((uint32_t)x.x & 0xffu) | (((uint32_t)x.y & 0xffu) << 8) |
+                  (((uint32_t)x.z & 0xffu) << 16) | ((uint32_t)x.w << 24);
+      }
     }
     w = make_int4((int)word[0], (int)word[1], (int)word[2], (int)word[3]);
   } else if (out_bytes == 2) {
     uint32_t word[4];
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
-      const int4 x = reinterpret_cast<const int4*>(v)[q];
+      const int4 x = load4<LUT>(v + 4 * q, table, mask);
       word[2 * q] = ((uint32_t)x.x & 0xffffu) | ((uint32_t)x.y << 16);
       word[2 * q + 1] = ((uint32_t)x.z & 0xffffu) | ((uint32_t)x.w << 16);
     }
     w = make_int4((int)word[0], (int)word[1], (int)word[2], (int)word[3]);
   } else {
-    w = *reinterpret_cast<const int4*>(v);
+    w = load4<LUT>(v, table, mask);
   }
   *reinterpret_cast<int4*>(static_cast<int8_t*>(C) + off * out_bytes) = w;
 }
 
 // C[m, n] = requant(sum_k A[m, k] * Bt[n, k]) for int8 A [M, K] and Bt
 // [N, K], read through the TMA maps map_a and map_bt; C [M, N] contiguous.
+// With LUT, C[m, n] = lut[requant(...) & mask], mask + 1 <= LUT_MAX
+// entries (lut and mask are not read without it).
+template <bool LUT>
 __global__ void __launch_bounds__(THREADS, MINB)
 fused_gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_bt,
                      void* __restrict__ C, int M, int N, int K,
-                     int out_bytes, bool vec, bool ident, qk::Rq rq) {
+                     int out_bytes, bool vec, bool ident, qk::Rq rq,
+                     const int32_t* __restrict__ lut, uint32_t mask) {
   constexpr int NACC = BN / 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -253,6 +306,12 @@ fused_gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
 
   // consumers: warpgroup wg owns output rows [64 wg, 64 wg + 64)
   const int wg = tid >> 7;
+  // the table instantiation: this thread's entry, read now so that the
+  // read's latency hides under the products
+  [[maybe_unused]] int32_t entry = 0;
+  if constexpr (LUT) {
+    if ((uint32_t)tid <= mask) entry = __ldg(lut + tid);
+  }
   int32_t acc[NACC];
 #pragma unroll
   for (int i = 0; i < NACC; ++i) acc[i] = 0;
@@ -278,6 +337,26 @@ fused_gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
   // epilogue: accumulators -> shared staging [BM][LDC] int32
   consumers_sync();  // both warpgroups are done reading the ring
   int32_t* cs = reinterpret_cast<int32_t*>(smem);
+  // the table instantiation's entries, past the staging, and for int8
+  // outputs the lanes' byte copies: warp w packs entries 32 w .. 32 w + 31
+  // (its lanes' entries) four to a word and writes each word once a lane
+  [[maybe_unused]] int32_t* table = reinterpret_cast<int32_t*>(smem + EPI);
+  [[maybe_unused]] uint8_t* copies = smem + COPIES;
+  if constexpr (LUT) {
+    if ((uint32_t)tid <= mask) table[tid] = entry;
+    if (out_bytes == 1) {
+      const uint32_t b = (uint32_t)entry & 0xffu;
+      const uint32_t quad = b | (__shfl_down_sync(~0u, b, 1) << 8) |
+                            (__shfl_down_sync(~0u, b, 2) << 16) |
+                            (__shfl_down_sync(~0u, b, 3) << 24);
+      uint32_t* words = reinterpret_cast<uint32_t*>(copies) +
+                        (tid >> 5) * 8 * 32 + (tid & 31);
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        words[g * 32] = __shfl_sync(~0u, quad, 4 * g);
+      }
+    }
+  }
   {
     const int lane = tid & 31;
     const int r = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
@@ -299,7 +378,9 @@ fused_gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
     }
     consumers_sync();
   }
-  // the lane, 16 bytes a store where the row and its alignment allow
+  // the lane, 16 bytes a store where the row and its alignment allow; the
+  // table instantiation looks each value up as it packs it: 4 to 16
+  // independent shared-memory reads a store
   const int per = 16 / out_bytes;
   const int chunks = BN / per;
 #pragma unroll 1
@@ -312,10 +393,12 @@ fused_gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
     const int32_t* src = cs + r * LDC + c;
     const size_t off = (size_t)gr * N + gc;
     if (vec && gc + per <= N) {
-      store16(C, off, src, out_bytes);
+      store16<LUT>(C, off, src, out_bytes, table, copies + 4 * (tid & 31),
+                   mask);
     } else {
       for (int e = 0; e < per && gc + e < N; ++e) {
-        qk::store_lane(C, off + e, src[e], out_bytes);
+        const int32_t v = LUT ? table[(uint32_t)src[e] & mask] : src[e];
+        qk::store_lane(C, off + e, v, out_bytes);
       }
     }
   }
@@ -388,21 +471,38 @@ bool tensor_map(CUtensorMap* map, const void* base, int rows, int k,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The dynamic shared memory of fused_gemm_s8_kernel<LUT>, set once a
+// device.
+template <bool LUT>
+cudaError_t size_smem(int device) {
+  static uint64_t sized = 0;  // devices whose attribute is set
+  if (device < 64 && ((sized >> device) & 1)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(fused_gemm_s8_kernel<LUT>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err == cudaSuccess && device < 64) sized |= (uint64_t)1 << device;
+  return err;
+}
+
 }  // namespace
 
 // int8 A [m, k] (row stride lda bytes) times Bt [n, k] (row stride ldb),
-// both K-major with 16-byte aligned bases and strides.  Returns a
-// cudaError_t, -1 for arguments outside the kernel's range, -2 if TMA
-// cannot describe them.
+// both K-major with 16-byte aligned bases and strides.  lut: null, or the
+// device's int32 table of mask + 1 entries (a power of two, at most
+// LUT_MAX) that maps each requantized output's low bits to the value
+// stored.  Returns a cudaError_t, -1 for arguments outside the kernel's
+// range, -2 if TMA cannot describe them.
 extern "C" int qk_fused_gemm_s8(int device, const void* a, long long lda,
                                 const void* bt, long long ldb, void* c,
                                 int m, int n, int k, int out_bytes, int d,
                                 int round, int ovf, int w, int sgn,
-                                void* stream) {
+                                const void* lut, int mask, void* stream) {
   if ((k > 0 && (lda % 16 != 0 || ldb % 16 != 0 ||
                  reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
                  reinterpret_cast<uintptr_t>(bt) % 16 != 0)) ||
-      (out_bytes != 1 && out_bytes != 2 && out_bytes != 4)) {
+      (out_bytes != 1 && out_bytes != 2 && out_bytes != 4) ||
+      (lut != nullptr &&
+       (mask < 0 || mask >= LUT_MAX || (mask & (mask + 1)) != 0))) {
     return -1;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -412,14 +512,8 @@ extern "C" int qk_fused_gemm_s8(int device, const void* a, long long lda,
                  tensor_map(&map_bt, bt, n, k, ldb, BN))) {
     return -2;
   }
-  static uint64_t sized = 0;  // devices whose attribute is set
-  if (device >= 64 || !((sized >> device) & 1)) {
-    err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(fused_gemm_s8_kernel),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return (int)err;
-    if (device < 64) sized |= (uint64_t)1 << device;
-  }
+  err = lut != nullptr ? size_smem<true>(device) : size_smem<false>(device);
+  if (err != cudaSuccess) return (int)err;
   const bool vec = ((long long)n * out_bytes) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(c) % 16 == 0;
   // int_dot's epilogue: requant returns the sum unchanged (shift 0, a
@@ -428,9 +522,16 @@ extern "C" int qk_fused_gemm_s8(int device, const void* a, long long lda,
   const bool ident = rq.d == 0 && rq.ovf == qk::WRP_TCPL && rq.w >= 32 &&
                      rq.sgn;
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  fused_gemm_s8_kernel<<<grid, THREADS, SMEM,
-                         static_cast<cudaStream_t>(stream)>>>(
-      map_a, map_bt, c, m, n, k, out_bytes, vec, ident, rq);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* table = static_cast<const int32_t*>(lut);
+  if (table != nullptr) {
+    fused_gemm_s8_kernel<true><<<grid, THREADS, SMEM, s>>>(
+        map_a, map_bt, c, m, n, k, out_bytes, vec, ident, rq, table,
+        (uint32_t)mask);
+  } else {
+    fused_gemm_s8_kernel<false><<<grid, THREADS, SMEM, s>>>(
+        map_a, map_bt, c, m, n, k, out_bytes, vec, ident, rq, nullptr, 0);
+  }
   return (int)cudaGetLastError();
 }
 

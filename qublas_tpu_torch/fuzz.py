@@ -48,7 +48,8 @@ launch's instantiation and mode pairs (``_build.record``); :func:`gate`
 fails the sweep when a kernel it steers into launched fewer than
 :data:`MIN_LAUNCHES` times, when K1's epilogue, K2's run-time
 instantiations or K3 saw fewer than :data:`MIN_PAIRS` distinct (round,
-overflow) pairs, or when one of K2's six instantiations never launched.
+overflow) pairs, when one of K2's six instantiations never launched, or
+when K1's table instantiation (a ROM in its epilogue) never launched.
 """
 
 from __future__ import annotations
@@ -1094,15 +1095,22 @@ def _hold(sw: Sweep, what, dev_out, cpu_out, want, pos):
 
 # -- K1 ---------------------------------------------------------------------
 
+# ROMs that K1's table trials draw (``anus``'s LUT functions)
+K1_ROMS = ("sqrt_func", "rsqrt_func", "reciprocal_func")
+
+
 def k1_case(t):
     """A lossless K1 configuration: ``exact_plan`` proves it and its
     epilogue runs on int32 lanes, with any of the 35 output mode pairs.
     Kinds by t % 6: 0-2 the kernel called directly on random views (int8
     lanes, the s32 instantiation at t % 12 == 2, the largest shapes at
-    t % 12 == 1), 3 ``qgemul`` with a batch dim and transposes, 4 the int64
-    tier's segment dots, 5 the limb tier's digit dots (both on ``int_dot``)."""
+    t % 12 == 1), 3 ``qgemul`` with a batch dim and transposes (at
+    t % 12 == 9 into an int8 lane with a ROM as its ``epilogue_lut``, to
+    any lane: K1's table instantiation), 4 the int64 tier's segment dots,
+    5 the limb tier's digit dots (both on ``int_dot``)."""
     rng = rng_for("k1", t)
     kind = ("gemm", "gemm", "gemm", "qgemul", "wide", "limb")[t % 6]
+    table = t % 12 == 9
     for _ in range(400):
         if kind == "wide":
             # 11..15-bit lane operands, a dot beyond int32 within int64
@@ -1123,7 +1131,7 @@ def k1_case(t):
             k = rand_k(rng, 16, 2100 if t % 12 == 1 else 300)
             if rng.randint(0, 2):
                 k = max(k // 16, 1) * 16   # what TMA reads in place
-            out = lane_fmt(rng, 2, 31)
+            out = lane_fmt(rng, 2, 8 if table else 31)
         pf = fa.frac_bits + fb.frac_bits
         mul_to = qformat(fa.int_bits + fb.int_bits + 2,
                          pf + int(rng.randint(0, 3)), True,
@@ -1156,8 +1164,10 @@ def k1_case(t):
     elif kind == "wide":
         m, n = int(rng.randint(1, 9)), int(rng.randint(1, 9))
     A, B = raws_array(rng, fa, (m, k)), raws_array(rng, fb, (k, n))
+    lut = (K1_ROMS[rng.randint(0, len(K1_ROMS))], lane_fmt(rng, 2, 31)) \
+        if table else None
     return dict(kind=kind, fa=fa, fb=fb, mul_to=mul_to, layers=layers,
-                out=out, plan=plan, A=A, B=B,
+                out=out, plan=plan, A=A, B=B, lut=lut,
                 views=(VIEWS[rng.randint(0, len(VIEWS))],
                        VIEWS[rng.randint(0, len(VIEWS))]),
                 batch=int(rng.choice([1, 2, 3])),
@@ -1177,13 +1187,18 @@ def k1_check(sw: Sweep, case, t):
     kind, fa, fb, out = case["kind"], case["fa"], case["fb"], case["out"]
     mul_to, layers, A, B = (case["mul_to"], case["layers"], case["A"],
                             case["B"])
-    plan = case["plan"]
+    plan, lut = case["plan"], case["lut"]
     what = f"k1[{t}] {kind} {fa} {fb} {out} {layers} {A.shape}@{B.shape}"
     try:
         m, k = A.shape
         n = B.shape[1]
         pos = _corner(m, n, k)
         want = _oracle_at(A, B, fa, fb, out, mul_to, layers, pos)
+        if lut is not None:
+            what += f" rom {lut[0]} -> {lut[1]}"
+            lut = anus.QTable(getattr(anus, lut[0]), out, lut[1])
+            entries = lut.table.tolist()
+            want = [entries[v & ((1 << out.width) - 1)] for v in want]
         if kind == "gemm":
             ac, bc = k1_operands(case, "cpu")
             cpu = fused_int8_gemm(ac, bc, plan.prod_frac, out)
@@ -1205,7 +1220,9 @@ def k1_check(sw: Sweep, case, t):
                 r = G.qgemul(QTensor(a.to(torch_dtype_for(fa)).to(device), fa),
                              QTensor(b.to(torch_dtype_for(fb)).to(device), fb),
                              out, mul_to=mul_to, add_formats=layers,
-                             transpose_a=ta, transpose_b=tb)
+                             transpose_a=ta, transpose_b=tb,
+                             epilogue_lut=lut, lut_table=None if lut is None
+                             else lut.table.to(device))
                 return r.data.reshape(m, n)
             with G.force_tiers_off("limb") if kind == "wide" \
                     else nullcontext():
@@ -1781,6 +1798,7 @@ def reset_counts():
         setattr(owner, attr, 0)
         owner.seen = Counter()
     TG.tree_gemm_hybrid.launches = 0
+    fused_int8_gemm.lut_launches = 0
 
 
 def mode_pairs(owner, prefix="", suffix=""):
@@ -1827,6 +1845,9 @@ def gate(families) -> list:
         n = len(mode_pairs(owner, prefix, suffix))
         if fam in families and n < MIN_PAIRS:
             bad.append(f"{what}: {n} mode pairs < {MIN_PAIRS}")
+    if "k1" in families and not fused_int8_gemm.lut_launches:
+        bad.append("fused_int8_gemm: the table instantiation never "
+                   "launched")
     if "k2" in families:
         got = {inst for inst, _ in TG.tree_gemm.seen}
         for inst in K2_INSTANCES:

@@ -16,6 +16,12 @@ with K rounded up to 16 (:func:`k1_route` says which).  Other lanes are
 widened to int32 and run the int32 instantiation on row-major operands, as
 ``qgemul_fast`` casts them.
 
+The tensor-core instantiation also takes a table of at most 256 int32
+entries that its epilogue applies to each requantized raw before the
+store (``lut``): an ANUS ROM on the output, and a cast after it, cost no
+pass over device memory (``gemm.qgemul``'s ``epilogue_lut`` hands such a
+table over where it can).
+
 :func:`int_dot` is the same kernel with an identity epilogue: the plain
 int32 dot that the complex GEMM's fast path combines (the JAX package's
 ``jnp.matmul(..., preferred_element_type=int32)`` in ``ops/cgemm.py``).
@@ -96,23 +102,37 @@ def _check_operands(name: str, a: torch.Tensor, b: torch.Tensor):
 
 
 def fused_int8_gemm(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
-                    out_fmt: QFormat) -> torch.Tensor:
+                    out_fmt: QFormat, lut: Optional[torch.Tensor] = None,
+                    lut_fmt: Optional[QFormat] = None) -> torch.Tensor:
     """``requantize_i32(a @ b, prod_frac, out_fmt)`` for 2-D lane tensors
     ``a`` [M, K] and ``b`` [K, N], stored in ``torch_dtype_for(out_fmt)``.
+
+    ``lut`` (int8 operands only): int32 entries, 2^w <= 256 of them on the
+    operands' device, that the epilogue applies before its store: each
+    requantized raw ``r`` becomes ``lut[r & (2^w - 1)]``, stored in
+    ``lut_fmt``'s lane (an ANUS ROM on ``out_fmt``'s raws, with any cast
+    after it composed into the entries).
 
     One call of the custom op ``qublas::fused_gemm_s8`` (int8 operands)
     or ``qublas::fused_gemm_s32`` (:mod:`.library`): CPU tensors take the
     plain version; CUDA tensors launch the kernel.
-    ``fused_int8_gemm.launches`` counts kernel launches, and
+    ``fused_int8_gemm.launches`` counts kernel launches,
+    ``fused_int8_gemm.lut_launches`` those with a table, and
     ``fused_int8_gemm.seen`` (``_build.record``) each launch's route and
     epilogue modes.
     """
     _check_operands("fused_int8_gemm", a, b)
-    out_dtype = torch_dtype_for(out_fmt)
+    out_dtype = torch_dtype_for(out_fmt if lut is None else lut_fmt)
     if out_dtype is None:
-        raise ValueError(f"{out_fmt} has no lane storage")
-    return _op(a, b)(a, b, _build.rq_args(prod_frac, out_fmt),
-                     out_dtype.itemsize)
+        raise ValueError(f"{out_fmt if lut is None else lut_fmt} has no "
+                         f"lane storage")
+    rq = _build.rq_args(prod_frac, out_fmt)
+    if lut is None:
+        return _op(a, b)(a, b, rq, out_dtype.itemsize)
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"the table epilogue takes int8 operands, got "
+                        f"{a.dtype} and {b.dtype}")
+    return torch.ops.qublas.fused_gemm_s8(a, b, rq, out_dtype.itemsize, lut)
 
 
 def _op(a: torch.Tensor, b: torch.Tensor):
@@ -146,4 +166,5 @@ def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 fused_int8_gemm.launches = 0
+fused_int8_gemm.lut_launches = 0
 fused_int8_gemm.seen = Counter()

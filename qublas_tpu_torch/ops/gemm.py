@@ -243,16 +243,21 @@ def _device_epilogue_ok(plan: ExactPlan, out_fmt: QFormat) -> bool:
 def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
            add_formats=(), transpose_a: bool = False,
            transpose_b: bool = False, mul_full_prec: bool = False,
-           epilogue_lut=None) -> QTensor:
+           epilogue_lut=None, lut_table=None) -> QTensor:
     """C = op(A) @ op(B) with per-product and per-layer quantization.
 
     Readme-parity API (``readme.md:80-87``): ``mul_to`` ~ QgemulMulArgs,
     ``add_formats`` ~ QgemulAddArgs TypeList, ``transpose_a/b`` ~
     QgemulTransposedA/B.  ``epilogue_lut`` applies a
     :class:`~qublas_tpu_torch.anus.QTable` built for ``out_fmt`` to the
-    result.  Operands are QTensors (lane, pair or limb storage) of at least
-    2 dims on one device; a CUDA operand runs the tier's kernel, a CPU
-    operand its plain version.
+    result; ``lut_table``, its entries already on the operands' device (a
+    module's buffer, as ``QTable.__call__``'s ``table``).  Where the
+    lossless tier runs on int8 operands into an int8 lane and the table
+    has at most 256 entries of a lane format on that device, K1's epilogue
+    looks it up before its store (:func:`_k1_lut`); otherwise the table
+    runs after the GEMM.  Operands are QTensors (lane, pair or limb
+    storage) of at least 2 dims on one device; a CUDA operand runs the
+    tier's kernel, a CPU operand its plain version.
 
     Leading dims broadcast (batch dims that cannot raise ``ValueError``).
     Rows of C are independent, so a batch reaches the 2-D tiers in one of
@@ -275,20 +280,54 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     proofs the bits are the same.
 
     Under a profiler the call is the span ``qublas.qgemul``, and each proof
-    or planner it runs before a tier's launch a ``qublas.plan`` inside it.
+    or planner it runs before a tier's launch a ``qublas.plan`` inside it;
+    a table applied after the GEMM is a ``qublas.rom`` inside it too.
     """
     with span("qublas.qgemul"):
         if isinstance(out_fmt, QTensor):
             out_fmt = out_fmt.fmt  # readme-style call shape `Qgemul(C, A, B)`
-        c = _qgemul(a, b, out_fmt, mul_to, add_formats, transpose_a,
-                    transpose_b, mul_full_prec)
-        return c if epilogue_lut is None else epilogue_lut(c)
+        c, looked_up = _qgemul(a, b, out_fmt, mul_to, add_formats,
+                               transpose_a, transpose_b, mul_full_prec,
+                               epilogue_lut, lut_table)
+        if epilogue_lut is None or looked_up:
+            return c
+        if lut_table is None:
+            return epilogue_lut(c)
+        return epilogue_lut(c, lut_table)
+
+
+def _k1_lut(lut, entries, a: QTensor, b: QTensor, out_fmt: QFormat):
+    """The entries of ``lut`` (a ``QTable``) that K1's epilogue applies to
+    the lossless tier's result, or None where the table runs after the
+    GEMM.  K1 takes it where the operands are int8 lanes, ``out_fmt``'s
+    lane is int8, the table is built for ``out_fmt``'s bits with one int32
+    entry a pattern (a lane output format) and its entries (``entries``,
+    else its own) already lie on the operands' device: an int8 raw has at
+    most 256 patterns, and a lookup copies no entry to the card, as a call
+    inside a CUDA graph capture must not."""
+    t = getattr(lut, "in_fmt", None)
+    if t is None or a.data.dtype != torch.int8 \
+            or b.data.dtype != torch.int8 \
+            or torch_dtype_for(out_fmt) != torch.int8 \
+            or torch_dtype_for(lut.out_fmt) is None:
+        return None
+    f = out_fmt
+    if (f.int_bits, f.frac_bits, f.signed) != (t.int_bits, t.frac_bits,
+                                               t.signed):
+        return None
+    table = lut.table if entries is None else entries
+    if (table is None or table.ndim != 1 or table.dtype != torch.int32
+            or table.numel() != 1 << f.width
+            or table.device != a.data.device):
+        return None
+    return table
 
 
 def _qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to, add_formats,
-            transpose_a: bool, transpose_b: bool,
-            mul_full_prec: bool) -> QTensor:
-    """:func:`qgemul` without its span and epilogue."""
+            transpose_a: bool, transpose_b: bool, mul_full_prec: bool,
+            epilogue_lut=None, lut_table=None):
+    """:func:`qgemul` without its span, and with ``epilogue_lut`` applied
+    only where K1's epilogue takes it: the result and whether it was."""
     if isinstance(add_formats, QFormat):
         add_formats = (add_formats,)
     add_formats = tuple(add_formats)
@@ -310,7 +349,8 @@ def _qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to, add_formats,
                              f"{b.shape}") from e
     k = a.shape[-1]
     if 0 in batch:
-        return zeros(batch + (a.shape[-2], b.shape[-1]), out_fmt, a.device)
+        return zeros(batch + (a.shape[-2], b.shape[-1]), out_fmt,
+                     a.device), False
     with span("qublas.plan"):
         mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
         host = a.is_host or b.is_host
@@ -318,10 +358,26 @@ def _qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to, add_formats,
                                             add_formats, k)
         lossless = plan is not None and _device_epilogue_ok(plan, out_fmt)
     if host:
-        return _host_gemm(a, b, out_fmt, mul_to, add_formats, mul_full_prec)
+        return _host_gemm(a, b, out_fmt, mul_to, add_formats,
+                          mul_full_prec), False
     if lossless:
+        table = _k1_lut(epilogue_lut, lut_table, a, b, out_fmt)
+        if table is not None:
+            fmt = epilogue_lut.out_fmt
+            return _over_batch(lambda x, y: QTensor(fused_int8_gemm(
+                x.data, y.data, plan.prod_frac, out_fmt, table, fmt), fmt),
+                a, b, batch), True
         return _over_batch(lambda x, y: QTensor(fused_int8_gemm(
-            x.data, y.data, plan.prod_frac, out_fmt), out_fmt), a, b, batch)
+            x.data, y.data, plan.prod_frac, out_fmt), out_fmt), a, b,
+            batch), False
+    return _qgemul_tiers(a, b, out_fmt, mul_to, add_formats, mul_full_prec,
+                         plan, mul_fmt, batch, k), False
+
+
+def _qgemul_tiers(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
+                  add_formats, mul_full_prec: bool, plan, mul_fmt, batch,
+                  k: int) -> QTensor:
+    """:func:`_qgemul` past the lossless tier: the tiers in order."""
     if plan is not None:
         # the dot outgrows int32: the digit dot first, then the int64 dot,
         # in the JAX package's order

@@ -248,46 +248,77 @@ def _gemm_out(a, b, out_bytes):
 _IDENTITY_RQ = (0, int(RoundMode.TRN_TCPL), int(OverflowMode.WRP_TCPL), 32, 1)
 
 
-def _k1_plain(a, b, rq, out_bytes):
+# entries of K1's table epilogue, at most (csrc/fused_gemm.cu: LUT_MAX)
+LUT_MAX = 256
+
+
+def _lut_mask(lut: torch.Tensor, device: torch.device) -> int:
+    """The index mask of K1's table ``lut``: int32 entries, a power of two
+    of them up to ``LUT_MAX``, contiguous, on ``device``."""
+    n = lut.numel()
+    if (lut.dtype != torch.int32 or lut.ndim != 1 or not 0 < n <= LUT_MAX
+            or n & (n - 1) or not lut.is_contiguous()
+            or lut.device != device):
+        raise ValueError(f"K1's table takes 2^w <= {LUT_MAX} contiguous "
+                         f"int32 entries on {device}, got {lut.dtype} "
+                         f"{tuple(lut.shape)} on {lut.device}")
+    return n - 1
+
+
+def _k1_plain(a, b, rq, out_bytes, lut=None):
     """K1's plain version: ``rq`` the requantize step, none for
-    ``int_dot``'s identity epilogue."""
+    ``int_dot``'s identity epilogue; ``lut`` a table of 2^w entries that
+    maps each result's low w bits to the value stored."""
     from .fused_gemm import fused_int8_gemm_plain, int_dot_plain
 
-    if not rq:
-        return int_dot_plain(a, b)
-    d, fmt = rq_format(tuple(rq))
-    return fused_int8_gemm_plain(a, b, d, fmt).to(lane_dtype(out_bytes))
+    if rq:
+        d, fmt = rq_format(tuple(rq))
+        raw = fused_int8_gemm_plain(a, b, d, fmt)
+    else:
+        raw = int_dot_plain(a, b)
+    if lut is not None:
+        raw = lut[(raw.to(torch.int32) & _lut_mask(lut, a.device)).long()]
+    return raw.to(lane_dtype(out_bytes))
 
 
-def _k1_record(instance: str, rq):
+def _k1_fake(a, b, rq, out_bytes, lut=None):
+    return _gemm_fake(a, b, out_bytes)
+
+
+def _k1_record(instance: str, rq, lut: bool = False):
     from .fused_gemm import fused_int8_gemm
 
     fused_int8_gemm.launches += 1
+    if lut:
+        fused_int8_gemm.lut_launches += 1
     if not recording_launches():
         return
     if rq:
-        _build.record(fused_int8_gemm, "gemm/" + instance,
+        _build.record(fused_int8_gemm,
+                      ("gemm+lut/" if lut else "gemm/") + instance,
                       (rq_format(tuple(rq))[1],))
     else:
         _build.record(fused_int8_gemm, "int_dot/" + instance)
 
 
-def _k1_s8(a, b, rq, out_bytes):
+def _k1_s8(a, b, rq, out_bytes, lut=None):
     from .fused_gemm import k1_operand, k1_route
 
     out = _gemm_out(a, b, out_bytes)
     if out.numel() == 0:
         return out
     m, k = a.shape
+    mask = 0 if lut is None else _lut_mask(lut, a.device)
     ra, rb = k1_route(a), k1_route(b.t())
     a8 = k1_operand(a, ra)
     bt = k1_operand(b.t(), rb)  # [N, K]
     err = _build.lib().qk_fused_gemm_s8(
         a.device.index, a8.data_ptr(), a8.stride(0), bt.data_ptr(),
         bt.stride(0), out.data_ptr(), m, out.shape[1], k, out_bytes,
-        *(rq or _IDENTITY_RQ), _stream(a))
+        *(rq or _IDENTITY_RQ), None if lut is None else lut.data_ptr(),
+        mask, _stream(a))
     _build.check(err, "fused_int8_gemm")
-    _k1_record(f"s8/{ra}/{rb}", rq)
+    _k1_record(f"s8/{ra}/{rb}", rq, lut is not None)
     return out
 
 
@@ -307,10 +338,11 @@ def _k1_s32(a, b, rq, out_bytes):
 
 
 # K1's tensor-core instantiation: a [M, K] @ b [K, N] of int8 lanes,
-# requantized by rq (none: int_dot's identity epilogue)
+# requantized by rq (none: int_dot's identity epilogue), then looked up in
+# lut where one is given (the table instantiation)
 fused_gemm_s8 = _declare(
-    "fused_gemm_s8(Tensor a, Tensor b, int[] rq, int out_bytes) -> Tensor",
-    _k1_plain, _k1_s8, _gemm_fake)
+    "fused_gemm_s8(Tensor a, Tensor b, int[] rq, int out_bytes, "
+    "Tensor? lut=None) -> Tensor", _k1_plain, _k1_s8, _k1_fake)
 # K1's int32 instantiation, operands of any lane widened to int32
 fused_gemm_s32 = _declare(
     "fused_gemm_s32(Tensor a, Tensor b, int[] rq, int out_bytes) -> Tensor",

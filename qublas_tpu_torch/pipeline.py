@@ -4,6 +4,9 @@ Port of ``__graft_entry__.entry()``'s forward (``__graft_entry__.py:12-49``):
 an int8-storage ``Qu<3,4>`` GEMM with lossless ``Qu<20,8>`` products and
 accumulation into a ``Qu<3,4,SAT::ZERO>`` output, an ANUS sqrt ROM, a
 converting cast back to ``Qu<3,4>``, and a second GEMM of the same kind.
+The ROM and the cast map each int8 raw to an int8 raw, so they run as one
+256-entry table that K1's epilogue applies to the first GEMM's output
+before its store.
 """
 
 from __future__ import annotations
@@ -37,7 +40,10 @@ class QuantPipeline(nn.Module):
     GEMM takes them but stored K-major (each the ``.t()`` view of an [N, K]
     contiguous tensor, made once here), the layout K1's tensor-core route
     reads without a copy; ``load_state_dict`` copies into them and keeps
-    it.  The ROM's entries are the buffer ``rom``, on the weights' device.
+    it.  ``table`` is the sqrt ROM and the cast to ``fa`` composed
+    (``QTable.astype``: ``Qu<3,4,SAT::ZERO>`` in, ``Qu<3,4>`` out), its
+    entries the buffer ``rom``, on the weights' device; the first GEMM
+    hands it to K1's epilogue (``qgemul``'s ``epilogue_lut``).
     ``forward`` takes the raws of ``x`` in ``Qu<3,4>`` and returns the
     raws of ``y`` in ``Qu<3,4,SAT::ZERO>``, as ``entry()``'s forward does.
     """
@@ -47,9 +53,10 @@ class QuantPipeline(nn.Module):
         self.fa, self.wide, self.out_fmt = pipeline_formats()
         self.register_buffer("w1", kmajor(w1))
         self.register_buffer("w2", kmajor(w2))
-        self.table = build_table(sqrt_func, self.out_fmt, self.out_fmt)
-        # the ROM's entries placed with the weights (and moved with them by
-        # ``.to``), so that no call copies them to the card, as a first
+        self.table = build_table(sqrt_func, self.out_fmt,
+                                 self.out_fmt).astype(self.fa)
+        # the table's entries placed with the weights (and moved with them
+        # by ``.to``), so that no call copies them to the card, as a first
         # call inside a CUDA graph capture would; not in the state dict
         self.register_buffer("rom", self.table.table.to(self.w1.device),
                              persistent=False)
@@ -73,10 +80,10 @@ class QuantPipeline(nn.Module):
     def forward(self, x_raw: torch.Tensor) -> torch.Tensor:
         fa, wide, mid = self.fa, self.wide, self.out_fmt
         x = QTensor(x_raw, fa)
+        # the ANUS LUT nonlinearity and the cast to fa, in K1's epilogue
         h = qgemul(x, QTensor(self.w1, fa), mid, mul_to=wide,
-                   add_formats=(wide,))
-        h = self.table(h, self.rom)          # ANUS LUT nonlinearity
-        h = h.astype(fa)
+                   add_formats=(wide,), epilogue_lut=self.table,
+                   lut_table=self.rom)
         y = qgemul(h, QTensor(self.w2, fa), mid, mul_to=wide,
                    add_formats=(wide,))
         return y.data

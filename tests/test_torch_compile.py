@@ -423,6 +423,8 @@ def _op_cases():
     return {
         "fused_gemm_s8": (lane((5, 24)), lane((24, 7)), rq, 1),
         "fused_gemm_s8-int_dot": (lane((5, 24)), lane((24, 7)), [], 4),
+        "fused_gemm_s8-lut": (lane((5, 24)), lane((24, 7)), rq, 2,
+                              lane((256,), -2 ** 15, 2 ** 15, torch.int32)),
         "fused_gemm_s32": (a32, b32.to(torch.int16), rq, 1),
         "tree_gemm": (a32, b32, k2, 0, 4),
         "tree_gemm_stream": (a32, b32, k2s, 1, 4),

@@ -391,6 +391,54 @@ def test_k1_tile_and_k_edges_match_plain(cuda, m, k, n):
     assert torch.equal(int_dot(a, kmajor(b)), int_dot_plain(a, b))
 
 
+@pytest.mark.parametrize("m,k,n", [
+    (256, 512, 256), (129, 256, 127), (130, 1003, 129), (1, 1, 1),
+    (300, 4112, 384), (130, 16, 144)])
+@pytest.mark.parametrize("w,out_bytes", [(8, 1), (8, 2), (8, 4), (4, 1),
+                                         (1, 2)])
+def test_k1_table_matches_plain(cuda, m, k, n, w, out_bytes):
+    """K1's table instantiation, Δ=0 to its plain version: tiles one past
+    and one short of 128, K that TMA reads in place or through the padded
+    copy, rows the 16-byte store takes (n · out_bytes a multiple of 16)
+    and rows it does not, tables of 2^w entries holding the lane's
+    extremes, stored in 1, 2 or 4 bytes; one launch, counted in
+    ``launches`` and ``lut_launches``."""
+    rng = np.random.RandomState(m + k + n + w + out_bytes)
+    a = _raws(m + k, FA, (m, k), np.int8)
+    b = _raws(n + k, FA, (k, n), np.int8)
+    fmt = qt.qformat(w - 1, 0, round_mode=qt.RoundMode.RND_CONV)
+    lane = {1: torch.int8, 2: torch.int16, 4: torch.int32}[out_bytes]
+    info = torch.iinfo(lane)
+    entries = rng.randint(info.min, info.max, 1 << w, dtype=np.int64)
+    entries[0], entries[-1] = info.min, info.max
+    lut = torch.from_numpy(entries).to(torch.int32)
+    rq = qt._build.rq_args(8, fmt)
+    fused_int8_gemm.launches = fused_int8_gemm.lut_launches = 0
+    got = torch.ops.qublas.fused_gemm_s8(a.to(cuda), b.to(cuda), rq,
+                                         out_bytes, lut.to(cuda))
+    torch.cuda.synchronize()
+    assert (fused_int8_gemm.launches, fused_int8_gemm.lut_launches) == (1, 1)
+    want = torch.ops.qublas.fused_gemm_s8(a, b, rq, out_bytes, lut)
+    assert got.dtype == want.dtype == lane
+    assert torch.equal(got.cpu(), want), (m, k, n, w, out_bytes)
+
+
+def test_pipeline_takes_k1_table_once_a_block(cuda):
+    """A pipeline block on the card: two K1 launches, the first with the
+    composed ROM and cast in its epilogue, and the CPU's bits."""
+    x = _raws(5, FA, (300, 256), np.int8)
+    w1 = _raws(6, FA, (256, 384), np.int8).numpy()
+    w2 = _raws(7, FA, (384, 200), np.int8).numpy()
+    pipe = qt.QuantPipeline.from_numpy(w1, w2, cuda)
+    assert pipe.rom.device == cuda
+    fused_int8_gemm.launches = fused_int8_gemm.lut_launches = 0
+    y = pipe(x.to(cuda))
+    torch.cuda.synchronize()
+    assert (fused_int8_gemm.launches, fused_int8_gemm.lut_launches) == (2, 1)
+    want = qt.QuantPipeline.from_numpy(w1, w2, "cpu")(x)
+    assert torch.equal(y.cpu(), want)
+
+
 @pytest.mark.parametrize("start,stop,routes", [
     (0, 544, ("direct", "direct")), (16, 544, ("direct", "direct")),
     (1, 529, ("copy", "copy")), (1, 528, ("padded", "padded"))])

@@ -3,7 +3,7 @@ kernel wrapper takes its plain version: each trial's plain version held to
 ``hostops`` (``hostint`` for P1's chain) at the generators' steered
 configurations; the generators' reach, case by case, into each route
 predicate that the card sweep's coverage gate needs (``k1_route``,
-``k2_modes``, ``k2s_plan`` and ``k2s_route``, ``k2h_route`` and
+``gemm._k1_lut``, ``k2_modes``, ``k2s_plan`` and ``k2s_route``, ``k2h_route`` and
 ``k2h_modes``, ``k3_route`` and ``k3_modes``, ``p1_plan``); the gate and
 the launch record; the ported ``tools/deep_fuzz.py`` families at a few
 trials; the command line; and the limb product route that the sweep found
@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from qublas_tpu_torch import _build, fuzz, hostops
+from qublas_tpu_torch import _build, anus, fuzz, hostops
 from qublas_tpu_torch.ops import gemm as G
 from qublas_tpu_torch.ops import limbdot
 from qublas_tpu_torch.ops import reduce as R
@@ -29,7 +29,8 @@ from qublas_tpu_torch.ops.chain_probe import p1_plan
 from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm, k1_route
 from qublas_tpu_torch.qformat import (OverflowMode, RoundMode, mul_merge,
                                       qformat)
-from qublas_tpu_torch.qtensor import from_raw
+from qublas_tpu_torch.ops.widths import torch_dtype_for
+from qublas_tpu_torch.qtensor import QTensor, from_raw
 
 ROOT = Path(__file__).resolve().parent.parent
 # the trials of each family that phase k of chip_smoke.py runs on the card
@@ -108,6 +109,28 @@ def test_k1_generator_reaches_the_dot_tiers():
                 assert calls[c["kind"]] > before, (t, c["kind"])
     finally:
         G.int_dot, limbdot.int_dot = saved
+
+
+def test_k1_generator_reaches_the_table_epilogue():
+    """Part of the qgemul kind draw a ROM as ``epilogue_lut``: within phase
+    k's trials K1's epilogue takes some (int8 lanes in and out) and others
+    run it after the GEMM, each trial held to ``hostops`` and the
+    table's own entries."""
+    routes = collections.Counter()
+    for t in range(PHASE_K):
+        c = fuzz.k1_case(t)
+        if c["lut"] is None:
+            continue
+        assert c["kind"] == "qgemul", t
+        table = anus.QTable(getattr(anus, c["lut"][0]), c["out"],
+                            c["lut"][1])
+        a, b = (QTensor(torch.zeros((1, 1), dtype=torch_dtype_for(f)), f)
+                for f in (c["fa"], c["fb"]))
+        routes[G._k1_lut(table, None, a, b, c["out"]) is not None] += 1
+        sw = fuzz.Sweep("cpu", echo=False)
+        fuzz.k1_check(sw, c, t)
+        assert sw.fails == 0, sw.lines
+    assert routes[True] >= 2 and routes[False] >= 1, routes
 
 
 def test_k2_generator_reaches_all_six_instantiations():
@@ -220,13 +243,18 @@ def test_gate_reports_what_a_sweep_missed():
     fuzz.reset_counts()
     findings = fuzz.gate({row[3] for row in fuzz.KERNELS})
     assert len([f for f in findings if "launches <" in f]) == 7
-    assert len([f for f in findings if "never launched" in f]) == 6
+    # K2's six instantiations and K1's table instantiation
+    assert len([f for f in findings if "never launched" in f]) == 7
     for _, owner, attr, _, _ in fuzz.KERNELS:
         setattr(owner, attr, fuzz.MIN_LAUNCHES)
+    fused_int8_gemm.lut_launches = 1
     modes = [qformat(3, 4, True, r, o) for r, o in fuzz.MODES[:fuzz.MIN_PAIRS]]
     for m in modes:
         _build.record(fused_int8_gemm, "gemm/s8/direct/direct", (m,))
         _build.record(R.qreduce_kernel, "warp_1/modes_0/1", (m,))
+    # a table epilogue's launch adds no mode pair to the plain epilogues'
+    _build.record(fused_int8_gemm, "gemm+lut/s8/direct/direct",
+                  (qformat(3, 4, True, *fuzz.MODES[-1]),))
     for inst in fuzz.K2_INSTANCES:
         _build.record(TG.tree_gemm, inst, modes)
     _build.record(fused_int8_gemm, "int_dot/s32")
@@ -239,7 +267,8 @@ def test_gate_reports_what_a_sweep_missed():
         rows = {r["name"]: r for r in fuzz.kernel_report()}
         assert rows["fused_int8_gemm"]["mode_pairs"] == fuzz.MIN_PAIRS
         assert rows["fused_int8_gemm"]["instances"] == {
-            "gemm/s8/direct/direct": fuzz.MIN_PAIRS, "int_dot/s32": 1}
+            "gemm/s8/direct/direct": fuzz.MIN_PAIRS, "int_dot/s32": 1,
+            "gemm+lut/s8/direct/direct": 1}
         assert set(rows["tree_gemm"]["instances"]) == set(fuzz.K2_INSTANCES)
         assert rows["tree_gemm_hybrid_mma"]["instances"] == {"mma_1": 1}
         assert rows["tree_gemm_hybrid_mma"]["mode_pairs"] == 2

@@ -1,7 +1,8 @@
 """The port's spans (``utils.profiling.span``) on the CPU: under
 ``torch.profiler`` a ``qgemul`` is one ``qublas.qgemul`` range with its
 proofs and planners as ``qublas.plan`` ranges inside it, and a ROM lookup
-one ``qublas.rom`` range; with no profiler no ``record_function`` is
+after the GEMM one ``qublas.rom`` range (a ROM in K1's epilogue opens
+none); with no profiler no ``record_function`` is
 entered; the results are the same bits either way; and a compiled graph
 holds no profiler op.  The launch record (``.seen``) is kept only inside
 ``launch_record``."""
@@ -50,9 +51,11 @@ def _pipeline_call():
     return lambda: pipe(x)
 
 
-def _lut_call():
-    """A ``qgemul`` whose result goes through a ROM (``epilogue_lut``)."""
-    return _k1_call(qt.build_table(qt.sqrt_func, MID))
+def _lut_call(out_fmt=MID):
+    """A ``qgemul`` whose result goes through a ROM (``epilogue_lut``):
+    into an int8 lane, in K1's epilogue; into a pair (``Qu<20,20>``),
+    after the GEMM."""
+    return _k1_call(qt.build_table(qt.sqrt_func, MID, out_fmt))
 
 
 def _spans(fn):
@@ -84,22 +87,26 @@ def test_qgemul_is_one_span_with_its_plans_inside(case, plans):
 
 def test_pipeline_block_spans():
     """A ``QuantPipeline`` block: two calls, each with its plan inside,
-    and the ROM between them, in neither."""
+    and no ROM span: the ROM and the cast run in the first call's K1
+    epilogue."""
     _, ev = _spans(_pipeline_call())
     assert [n for n, _, _ in ev] == ["qublas.qgemul", "qublas.plan",
-                                     "qublas.rom", "qublas.qgemul",
-                                     "qublas.plan"]
-    first, plan1, rom, second, plan2 = ev
+                                     "qublas.qgemul", "qublas.plan"]
+    first, plan1, second, plan2 = ev
     assert _inside(plan1, first) and _inside(plan2, second)
-    assert first[2] <= rom[1] and rom[2] <= second[1]
+    assert first[2] <= second[1]
 
 
-def test_epilogue_lut_is_inside_one_call_span():
-    """``epilogue_lut`` opens no second ``qublas.qgemul``: the ROM runs
-    inside the one call span."""
-    _, ev = _spans(_lut_call())
-    names = Counter(n for n, _, _ in ev)
-    assert names == {"qublas.qgemul": 1, "qublas.plan": 1, "qublas.rom": 1}
+@pytest.mark.parametrize("out_fmt,names", [
+    (MID, {"qublas.qgemul": 1, "qublas.plan": 1}),
+    (qt.qformat(20, 20), {"qublas.qgemul": 1, "qublas.plan": 1,
+                          "qublas.rom": 1})], ids=["fused", "after"])
+def test_epilogue_lut_is_inside_one_call_span(out_fmt, names):
+    """``epilogue_lut`` opens no second ``qublas.qgemul``: a table K1's
+    epilogue takes opens no ROM span, one it does not runs inside the one
+    call span."""
+    _, ev = _spans(_lut_call(out_fmt))
+    assert Counter(n for n, _, _ in ev) == names
     call = next(s for s in ev if s[0] == "qublas.qgemul")
     assert all(_inside(s, call) for s in ev)
 
@@ -121,10 +128,12 @@ def test_no_profiler_enters_no_record_function(monkeypatch):
             calls[0]()
 
 
-@pytest.mark.parametrize("case", ["tree", "k1", "pipeline", "lut"])
+@pytest.mark.parametrize("case", ["tree", "k1", "pipeline", "lut",
+                                  "lut_after"])
 def test_same_bits_with_and_without_the_profiler(case):
     fn = {"tree": _tree_call, "k1": _k1_call, "pipeline": _pipeline_call,
-          "lut": _lut_call}[case]()
+          "lut": _lut_call,
+          "lut_after": lambda: _lut_call(qt.qformat(20, 20))}[case]()
     want = fn()
     got, ev = _spans(fn)
     assert ev and torch.equal(got, want)
@@ -172,3 +181,21 @@ def test_launch_record_only_inside_its_block(monkeypatch):
     assert FG.fused_int8_gemm.seen == Counter({
         ("gemm/s8/direct/direct", (("TRN_TCPL", "SAT_ZERO"),)): 1,
         ("int_dot/s32", ()): 1})
+
+
+def test_table_launch_counts_apart(monkeypatch):
+    """A launch with K1's table counts in ``launches`` and in
+    ``lut_launches``, and notes itself under ``gemm+lut/``, apart from the
+    plain epilogues' ``gemm/`` that the fuzz's gate reads."""
+    monkeypatch.setattr(FG.fused_int8_gemm, "launches", 0)
+    monkeypatch.setattr(FG.fused_int8_gemm, "lut_launches", 0)
+    monkeypatch.setattr(FG.fused_int8_gemm, "seen", Counter())
+    rq = _build.rq_args(8, MID)
+    with P.launch_record():
+        library._k1_record("s8/direct/direct", rq, True)
+        library._k1_record("s8/direct/direct", rq)
+    assert (FG.fused_int8_gemm.launches,
+            FG.fused_int8_gemm.lut_launches) == (2, 1)
+    assert FG.fused_int8_gemm.seen == Counter({
+        ("gemm+lut/s8/direct/direct", (("TRN_TCPL", "SAT_ZERO"),)): 1,
+        ("gemm/s8/direct/direct", (("TRN_TCPL", "SAT_ZERO"),)): 1})
