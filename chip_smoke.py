@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (qublas_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py moe    # phases 1 and 3n alone
 
 Phases, each printing its lines:
 
@@ -140,6 +141,16 @@ Phases, each printing its lines:
       forward); the traces under ``chiprun_out/traces``; and
       ``roofline_report`` of ``qgemul`` at 4096^3 against
       ``torch._int_mm``;
+   n. one DeepSeek-V3 layer of the benchmark's ``dsv3_moe_int8`` at the
+      published widths and its cell's batch of 32,768 rows
+      (``QuantRMSNorm`` then ``QuantMoE``, the 32 experts of routing group
+      0 held): N1 once, K1 seven times (the router, the shared expert's
+      three projections, one grouped launch a held projection; the SiLU
+      table in both gate projections' epilogue), G1 twice and C1 once,
+      equal to the benchmark's plain reference; each of those launches'
+      own arguments, recorded from that run, through its kernel and its
+      plain version on the card (Δ=0), and N1, K1's grouped launches, G1
+      and C1 timed beside their plain versions and their bounds;
    every result is checked against the plain versions, and 16x16 corners
    against the exact host golden model (``hostops``);
 4. time each kernel and its plain version (CUDA events, median of 10 runs
@@ -170,6 +181,7 @@ import subprocess
 import sys
 import time
 from contextlib import contextmanager
+from pathlib import Path
 
 # main-path sizes
 PIPE_N = 4096                     # x, W1, W2: PIPE_N x PIPE_N
@@ -3389,6 +3401,154 @@ def ffn_times(card, pipe):
     return ms
 
 
+# phase n: the MoE layer's seed (the cell's draws at one layer)
+MOE_SEED = 2 ** 31 + 23
+# its ops by name: the plain version of each (ops/library.py) and the
+# kernel's row in the kernels line
+MOE_OPS = {"rms_norm": ("_n1_plain", "rms_norm",
+                        "qublas_tpu_torch/csrc/rms_norm.cu"),
+           "fused_gemm_s8": ("_k1_plain", None, None),
+           "fused_gemm_s8_grouped": (
+               "_grouped_plain", "fused_int8_gemm_grouped",
+               "qublas_tpu_torch/csrc/fused_gemm.cu"),
+           "mul_requant": ("_g1_plain", "mul_requant",
+                           "qublas_tpu_torch/csrc/mul_requant.cu"),
+           "moe_combine": ("_c1_plain", "moe_combine",
+                           "qublas_tpu_torch/csrc/moe_combine.cu")}
+
+
+@contextmanager
+def recorded_ops(names):
+    """Inside: every call of the custom ops ``torch.ops.qublas.<name>``
+    made through the namespace (as the port's wrappers call them) is
+    recorded in the yielded dict, name -> [args], and then made."""
+    import torch
+
+    ns = torch.ops.qublas
+    calls = {name: [] for name in names}
+    ops = {name: getattr(ns, name) for name in names}
+
+    def recorder(name):
+        def call(*args):
+            calls[name].append(args)
+            return ops[name](*args)
+        return call
+
+    for name in names:
+        setattr(ns, name, recorder(name))
+    try:
+        yield calls
+    finally:
+        for name in names:
+            setattr(ns, name, ops[name])
+
+
+def moe_bound(name, args):
+    """(ms, by) of one call of the MoE layer's op ``name``: K1 grouped by
+    its operations or its operands' and output's bytes, the others by
+    their bytes read and written once."""
+    a = args[0]
+    if name == "fused_gemm_s8_grouped":
+        b, out_bytes = args[1], args[4]
+        m, k, n = a.shape[0], a.shape[1], b.shape[2]
+        return bound_ms(m * k + b.numel() + m * n * out_bytes,
+                        2 * m * k * n, INT8_OPS_S)
+    if name == "rms_norm":
+        return bound_ms(2 * a.numel(), 0, INT8_OPS_S)
+    if name == "mul_requant":
+        return bound_ms(2 * a.numel() + a.numel() * args[4], 0, INT8_OPS_S)
+    shared, d, pos, w, _, out_bytes = args
+    return bound_ms(2 * (shared.numel() + d.numel()) + 4 * (pos.numel()
+                    + w.numel()) + out_bytes * shared.numel(), 0,
+                    INT8_OPS_S)
+
+
+def phase_moe(dev, chk, card):
+    """Phase 3n and its times (module docstring).  Returns the kernels
+    line's rows of N1, K1's grouped instantiation, G1 and C1."""
+    import torch
+
+    import qublas_tpu_torch as qt
+    from gpubench import inputs
+    from gpubench.reference import moe_ffn as ref
+    from qublas_tpu_torch import moe
+    from qublas_tpu_torch.ops import library
+    from qublas_tpu_torch.ops.fused_gemm import fused_int8_gemm
+    from qublas_tpu_torch.timing import timeit
+
+    root = Path(__file__).resolve().parent / "gpubench"
+    cfg = json.loads((root / "configs" / "dsv3_moe_int8.json").read_text())
+    traffic = json.loads((root / "traffic" / "prefill.json").read_text())
+    cfg["num_hidden_layers"] = 1
+    w, pool = inputs.make(ref, cfg, dict(traffic, pool=1), MOE_SEED, dev)
+    x = pool[0]
+    norm = qt.QuantRMSNorm(cfg["hidden_size"], cfg["norm_rms"], dev)
+    layer = qt.QuantMoE(
+        w["wr"][0].t(), w["bias"][0], w["wg"][0].transpose(1, 2),
+        w["wu"][0].transpose(1, 2), w["wd"][0].transpose(1, 2),
+        w["sg"][0].t(), w["su"][0].t(), w["sd"][0].t(),
+        (cfg["held_first"], cfg["n_routed_experts"]), cfg["n_group"],
+        cfg["topk_group"], cfg["num_experts_per_tok"],
+        cfg["routed_scaling_factor"])
+    print(f"phase n: one dsv3_moe_int8 layer on {tuple(x.shape)} rows, "
+          f"experts {layer.first}-{layer.first + layer.count - 1} held")
+    counters = ((fused_int8_gemm, "launches"),
+                (fused_int8_gemm, "lut_launches"), (moe.rms_norm, "launches"),
+                (moe.gated, "launches"), (moe.combine, "launches"))
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+    with recorded_ops(MOE_OPS) as calls:
+        y = layer(norm(x))
+        torch.cuda.synchronize()
+    check_launches("n rms_norm", moe.rms_norm.launches, 1)
+    check_launches("n fused_int8_gemm", fused_int8_gemm.launches, 1 + 3 + 3)
+    check_launches("n fused_int8_gemm (table)",
+                   fused_int8_gemm.lut_launches, 2)
+    check_launches("n mul_requant", moe.gated.launches, 2)
+    check_launches("n moe_combine", moe.combine.launches, 1)
+    check_launches("n host syncs", layer.syncs, 1)
+    print(f"  pairs routed here {layer.pairs} ({layer.pairs / x.shape[0]:.4f}"
+          f" a row), held experts empty {layer.empty}, largest group "
+          f"{layer.largest} rows")
+    want = ref.forward(x, w, cfg)
+    chk.same("quant_moe", "the layer against the plain reference",
+             y.long(), want)
+    launches = {name: len(v) for name, v in calls.items()}
+    rows, t = [], {}
+    for name, args_list in calls.items():
+        plain_name, row_name, source = MOE_OPS[name]
+        plain = getattr(library, plain_name)
+        op = getattr(torch.ops.qublas, name)
+        for i, args in enumerate(args_list):
+            chk.same(row_name or "fused_int8_gemm",
+                     f"{name} call {i} of the layer, its own arguments",
+                     op(*args), plain(*args))
+            if row_name is None:
+                continue
+            ms = timeit(lambda: op(*args))
+            plain_ms = timeit(lambda: plain(*args), runs=3, warmup=1)
+            bound, by = moe_bound(name, args)
+            t.setdefault(row_name, []).append((ms, plain_ms, bound, by))
+            print(f"time {name} call {i} "
+                  f"{[tuple(a.shape) for a in args if hasattr(a, 'shape')]}"
+                  f": {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of it "
+                  f"[{card}]")
+    for name, (plain_name, row_name, source) in MOE_OPS.items():
+        if row_name is None:
+            continue
+        ms, plain_ms, bound, _ = (sum(v) for v in zip(*[
+            (m, p, b, 0) for m, p, b, _ in t[row_name]]))
+        by = "operations" if any(b == "operations" for *_, b in
+                                 t[row_name]) else "bytes"
+        rows.append({"name": row_name, "route": "cuda", "source": source,
+                     "replaces": None, "launches": launches[name],
+                     "max_abs_err": chk.max_err[row_name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": None})
+    return rows
+
+
 def phase_times(card, state_a, state_b, state_d, chain_rate, state_f):
     """Phase 4: kernel, plain, library and main-path times."""
     import torch
@@ -3659,6 +3819,13 @@ def main() -> int:
     inductor_caches()
 
     chk = Checker()
+    if sys.argv[1:] == ["moe"]:
+        print(card)
+        print(json.dumps({"kernels": phase_moe(dev, chk, card)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     phase_kernels(dev, chk)
     launches_a, state_a = phase_main_path(dev, chk)
     launches_b, state_b = phase_reduce_path(dev, chk)
@@ -3679,6 +3846,7 @@ def main() -> int:
     limb_times(card, state_g, t, bounds)
     lane_times(card, state_h, t)
     hybrid_times(card, state_i, t, bounds, report)
+    moe_rows = phase_moe(dev, chk, card)
     for line in resources(report, "fused_gemm_s8_kernel") + \
             resources(report, "tree_gemm_tiled_kernel") + \
             resources(report, "tree_gemm_stream_kernel") + \
@@ -3726,7 +3894,7 @@ def main() -> int:
             "qublas_tpu/ops/tree_gemm.py:620",
             launches_i["tree_gemm_hybrid_digits"], "k2h_digits",
             "k2h_digits_plain", None),
-    ]
+    ] + moe_rows
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

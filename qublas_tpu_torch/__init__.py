@@ -3,7 +3,8 @@
 Bit-exact QuBLAS fixed-point semantics on torch tensors, with the kernels of
 the ported paths written by hand for NVIDIA Hopper (``csrc/``): K1, the
 lossless int8 GEMM with a fused requantize epilogue (also the int32 dots of
-the complex GEMM's fast path); K2 and K2′, the order-sensitive tree GEMM on
+the complex GEMM's fast path, and in a grouped instantiation the experts'
+GEMMs of a mixture of experts); K2 and K2′, the order-sensitive tree GEMM on
 its blocked and one-pass schedules; K2h, the prefix-lossless hybrid tree
 GEMM (exact block dots, then the lossy tail); K3, the layered tree reduce
 (Qreduce); and P1, the probe that measures the tree GEMM's per-product
@@ -15,7 +16,10 @@ engine (``native``, built with ``g++`` at first use) or the exact Python
 model; the wide lossless GEMMs run as balanced int8 digit dots on K1
 (``ops.limbdot``); ``bitstream`` serializes tensors to the reference's bit
 strings.  Around them:
-``anus`` (``qpoly``/``qapprox``/``QTable``), ``refrand`` (the reference's
+``anus`` (``qpoly``/``qapprox``/``QTable``), ``pipeline.QuantPipeline``
+(an FFN block) and ``moe.QuantMoE`` (DeepSeek-V3's MoE layer, with its
+combine C1, its g·u pass G1, and ``QuantRMSNorm``, the norm before it,
+N1), ``refrand`` (the reference's
 mt19937 ``fill()``/``shuffle()`` streams), ``bitwise``, ``checkpoint`` and
 ``diagnostics``.
 
@@ -34,7 +38,8 @@ unless the caller names another device; host tensors never live on it.
 
 from . import bitstream, bitwise
 from .anus import (QTable, Segment, build_table, qapprox, qpoly, qtable,
-                   reciprocal_func, rsqrt_func, sqrt_func)
+                   reciprocal_func, rsqrt_func, sigmoid_func, silu_func,
+                   sqrt_func)
 from .checkpoint import dumps_bits, load, loads_bits, save
 from .complex import (QComplexTensor, cadd, cdiv, ceq, cmul, cmul_tf, cneg,
                       complex_from_float, complex_from_parts, complex_from_raw,
@@ -45,7 +50,8 @@ from .diagnostics import format_range_report, requant_stats
 from .ops.cgemm import cgemul, cgemv
 from .ops.elementwise import (qabs, qadd, qcast, qcmp, qdiv, qeq, qmul, qneg,
                               qsub)
-from .ops.gemm import exact_plan, host_qgemul, qgemul, qgemv
+from .moe import QuantMoE, QuantRMSNorm, moe_formats
+from .ops.gemm import exact_plan, host_qgemul, qgemul, qgemul_grouped, qgemv
 from .ops.reduce import qreduce, qreduce_args
 from .pipeline import QuantPipeline, pipeline_formats
 from .qformat import (
@@ -65,9 +71,11 @@ from .refrand import reference_fill, reference_shuffle
 __all__ = [
     "FULL_PREC", "FullPrec", "OverflowMode", "QFormat", "RoundMode", "add_merge", "mul_merge",
     "qformat", "QTable", "build_table", "reciprocal_func", "rsqrt_func",
-    "sqrt_func", "qcast", "qmul", "qadd", "qsub", "qdiv", "qabs", "qneg",
-    "qcmp", "qeq", "exact_plan", "host_qgemul", "qgemul", "qgemv",
+    "sqrt_func", "sigmoid_func", "silu_func", "qcast", "qmul", "qadd",
+    "qsub", "qdiv", "qabs", "qneg", "qcmp", "qeq", "exact_plan",
+    "host_qgemul", "qgemul", "qgemul_grouped", "qgemv",
     "qreduce", "qreduce_args", "QuantPipeline", "pipeline_formats",
+    "QuantMoE", "QuantRMSNorm", "moe_formats",
     "QTensor", "from_raw", "from_float", "from_double", "scalar", "zeros",
     "random_fill", "from_jax", "port_format", "complex_from_jax",
     "QComplexTensor", "complex_from_parts", "complex_from_float",

@@ -44,6 +44,10 @@ _SIGNATURES = {
     # sgn, lut, mask, stream
     "qk_fused_gemm_s8": (_I, _P, _L, _P, _L, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _P, _I, _P),
+    # device, a, lda, bt, ldb, c, offsets, groups, m, n, k, out_bytes, d,
+    # round, ovf, w, sgn, lut, mask, stream, launched
+    "qk_fused_gemm_s8_grouped": (_I, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _P, _I, _P, _P),
     # device, a, b, c, m, n, k, out_bytes, d, round, ovf, w, sgn, stream
     "qk_fused_gemm_s32": (_I, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _P),
@@ -56,6 +60,12 @@ _SIGNATURES = {
     # device, a, lda, b, ldb, c, m, n, k, out_bytes, params, plan, stream
     "qk_tree_gemm_stream": (_I, _P, _L, _P, _L, _P, _I, _I, _I, _I, _P, _I,
                             _P),
+    # device, shared, d, pos, w, out, rows, n, k, out_bytes, steps, stream
+    "qk_moe_combine": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # device, a, b, out, n, steps, stream
+    "qk_mul_requant": (_I, _P, _P, _P, _L, _P, _P),
+    # device, x, out, rows, n, table, mask, gain, steps, stream
+    "qk_rms_norm": (_I, _P, _P, _I, _I, _P, _I, _I, _P, _P),
     # device, x, y, out, elems, programs, steps, params, plan, stream
     "qk_chain_probe": (_I, _P, _P, _P, _I, _I, _I, _P, _I, _P),
 }

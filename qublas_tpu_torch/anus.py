@@ -45,7 +45,8 @@ from .qtensor import QTensor, from_raw
 from .utils.profiling import span
 
 __all__ = ["qpoly", "qapprox", "Segment", "qtable", "QTable", "build_table",
-           "rsqrt_func", "reciprocal_func", "sqrt_func"]
+           "rsqrt_func", "reciprocal_func", "sqrt_func", "sigmoid_func",
+           "silu_func"]
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +183,20 @@ def reciprocal_func(v: float) -> float:
 def sqrt_func(v: float) -> float:
     """sqrt(x) (readme.md:74)."""
     return math.sqrt(v) if v >= 0 else math.nan
+
+
+def sigmoid_func(v: float) -> float:
+    """1 / (1 + exp(-x)): a router's score (DeepSeek-V3's
+    ``scoring_func`` sigmoid).  Below x = -709 ``exp`` overflows, which a
+    :class:`QTable` stores as 0."""
+    return 1.0 / (1.0 + math.exp(-v))
+
+
+def silu_func(v: float) -> float:
+    """x / (1 + exp(-x)): SiLU, a gated FFN's activation (``hidden_act``
+    silu), in this one form of the double arithmetic (``x * sigmoid(x)``
+    may round otherwise)."""
+    return v / (1.0 + math.exp(-v))
 
 
 MAX_TABLE_BITS = 20  # 1M int32 entries

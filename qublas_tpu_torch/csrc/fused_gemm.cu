@@ -260,25 +260,24 @@ __device__ __forceinline__ void store16(void* C, size_t off,
   *reinterpret_cast<int4*>(static_cast<int8_t*>(C) + off * out_bytes) = w;
 }
 
-// C[m, n] = requant(sum_k A[m, k] * Bt[n, k]) for int8 A [M, K] and Bt
-// [N, K], read through the TMA maps map_a and map_bt; C [M, N] contiguous.
-// With LUT, C[m, n] = lut[requant(...) & mask], mask + 1 <= LUT_MAX
-// entries (lut and mask are not read without it).
+// One block's output tile: C[m, n] = requant(sum_k A[m, k] * Bt[n, k]) for
+// rows m0 <= m < min(m0 + BM, mend) and columns n0 <= n < min(n0 + BN, N)
+// of C [*, N] (contiguous), A's rows from m0 and Bt's from brow read
+// through the TMA maps map_a and map_bt.  With LUT, C[m, n] =
+// lut[requant(...) & mask], mask + 1 <= LUT_MAX entries (lut and mask are
+// not read without it).
 template <bool LUT>
-__global__ void __launch_bounds__(THREADS, MINB)
-fused_gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
-                     const __grid_constant__ CUtensorMap map_bt,
-                     void* __restrict__ C, int M, int N, int K,
-                     int out_bytes, bool vec, bool ident, qk::Rq rq,
-                     const int32_t* __restrict__ lut, uint32_t mask) {
+__device__ __forceinline__ void k1_tile(
+    const CUtensorMap* map_a, const CUtensorMap* map_bt,
+    void* __restrict__ C, int m0, int n0, int brow, int mend, int N, int K,
+    int out_bytes, bool vec, bool ident, const qk::Rq& rq,
+    const int32_t* __restrict__ lut, uint32_t mask) {
   constexpr int NACC = BN / 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + DATA);
   uint64_t* empty = full + STAGES;
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
   const int ktiles = (K + BK - 1) / BK;
 
   if (tid == 0) {
@@ -297,8 +296,8 @@ fused_gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
         if (kt >= STAGES) mbar_wait(&empty[s], (kt / STAGES - 1) & 1);
         uint8_t* stage = smem + s * STAGE;
         mbar_expect_tx(&full[s], STAGE);
-        tma_load(stage, &map_a, kt * BK, m0, &full[s]);
-        tma_load(stage + A_BYTES, &map_bt, kt * BK, n0, &full[s]);
+        tma_load(stage, map_a, kt * BK, m0, &full[s]);
+        tma_load(stage + A_BYTES, map_bt, kt * BK, brow, &full[s]);
       }
     }
     return;
@@ -389,7 +388,7 @@ fused_gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
     const int c = (i % chunks) * per;
     const int gr = m0 + r;
     const int gc = n0 + c;
-    if (gr >= M || gc >= N) continue;
+    if (gr >= mend || gc >= N) continue;
     const int32_t* src = cs + r * LDC + c;
     const size_t off = (size_t)gr * N + gc;
     if (vec && gc + per <= N) {
@@ -402,6 +401,62 @@ fused_gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   }
+}
+
+// C[m, n] = requant(sum_k A[m, k] * Bt[n, k]) for int8 A [M, K] and Bt
+// [N, K], read through the TMA maps map_a and map_bt; C [M, N] contiguous;
+// a block a tile.
+template <bool LUT>
+__global__ void __launch_bounds__(THREADS, MINB)
+fused_gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_bt,
+                     void* __restrict__ C, int M, int N, int K,
+                     int out_bytes, bool vec, bool ident, qk::Rq rq,
+                     const int32_t* __restrict__ lut, uint32_t mask) {
+  const int n0 = blockIdx.x * BN;
+  k1_tile<LUT>(&map_a, &map_bt, C, blockIdx.y * BM, n0, n0, M, N, K,
+               out_bytes, vec, ident, rq, lut, mask);
+}
+
+// groups of one grouped launch, at most
+constexpr int MAX_GROUPS = 256;
+
+// The groups of a grouped launch: group g holds A's and C's rows row[g] ..
+// row[g + 1] - 1 and the row tiles tile[g] .. tile[g + 1] - 1 of the grid
+// (ceil(rows / BM) of them, none for an empty group).
+struct Groups {
+  int count;
+  int row[MAX_GROUPS + 1];
+  int tile[MAX_GROUPS + 1];
+};
+
+// K1 over groups in one launch: for each group g, C's rows of g =
+// requant(A's rows of g . Bt_g), Bt_g rows g N .. g N + N - 1 of the map
+// map_bt ([G N, K]).  A tile that runs past its group's rows reads the next
+// group's rows (or TMA's zeros) and stores none of them.
+template <bool LUT>
+__global__ void __launch_bounds__(THREADS, MINB)
+fused_gemm_s8_grouped_kernel(const __grid_constant__ CUtensorMap map_a,
+                             const __grid_constant__ CUtensorMap map_bt,
+                             void* __restrict__ C, int N, int K,
+                             int out_bytes, bool vec, bool ident, qk::Rq rq,
+                             const int32_t* __restrict__ lut, uint32_t mask,
+                             const __grid_constant__ Groups groups) {
+  // the group whose tiles hold this block's: tile[g] <= y < tile[g + 1]
+  const int y = blockIdx.y;
+  int g = 0;
+  for (int hi = groups.count; hi - g > 1;) {
+    const int mid = (g + hi) / 2;
+    if (groups.tile[mid] <= y) {
+      g = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  const int n0 = blockIdx.x * BN;
+  k1_tile<LUT>(&map_a, &map_bt, C, groups.row[g] + (y - groups.tile[g]) * BM,
+               n0, g * N + n0, groups.row[g + 1], N, K, out_bytes, vec,
+               ident, rq, lut, mask);
 }
 
 constexpr int TS = 16;  // SIMT tile: 16 x 16 outputs, 16-deep K slices
@@ -471,15 +526,18 @@ bool tensor_map(CUtensorMap* map, const void* base, int rows, int k,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The dynamic shared memory of fused_gemm_s8_kernel<LUT>, set once a
-// device.
-template <bool LUT>
+// The dynamic shared memory of fused_gemm_s8_kernel<LUT> (GROUPED: of
+// fused_gemm_s8_grouped_kernel<LUT>), set once a device.
+template <bool LUT, bool GROUPED>
 cudaError_t size_smem(int device) {
   static uint64_t sized = 0;  // devices whose attribute is set
   if (device < 64 && ((sized >> device) & 1)) return cudaSuccess;
+  const void* kernel =
+      GROUPED
+          ? reinterpret_cast<const void*>(fused_gemm_s8_grouped_kernel<LUT>)
+          : reinterpret_cast<const void*>(fused_gemm_s8_kernel<LUT>);
   const cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(fused_gemm_s8_kernel<LUT>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err == cudaSuccess && device < 64) sized |= (uint64_t)1 << device;
   return err;
 }
@@ -512,7 +570,8 @@ extern "C" int qk_fused_gemm_s8(int device, const void* a, long long lda,
                  tensor_map(&map_bt, bt, n, k, ldb, BN))) {
     return -2;
   }
-  err = lut != nullptr ? size_smem<true>(device) : size_smem<false>(device);
+  err = lut != nullptr ? size_smem<true, false>(device)
+                       : size_smem<false, false>(device);
   if (err != cudaSuccess) return (int)err;
   const bool vec = ((long long)n * out_bytes) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(c) % 16 == 0;
@@ -533,6 +592,93 @@ extern "C" int qk_fused_gemm_s8(int device, const void* a, long long lda,
         map_a, map_bt, c, m, n, k, out_bytes, vec, ident, rq, nullptr, 0);
   }
   return (int)cudaGetLastError();
+}
+
+// The grouped GEMM of a mixture of experts: for each group g with rows
+// offsets[g] .. offsets[g + 1] - 1 of A [m, k] (offsets: groups + 1 host
+// ints, non-decreasing from 0 to m), C's rows = requant(A's rows . Bt_g),
+// Bt_g [n, k] at bt + g * n * ldb bytes, into C [m, n].  One launch of
+// fused_gemm_s8_grouped_kernel over the row tiles of every group with rows
+// (a launch per MAX_GROUPS groups, or per 65535 row tiles, counted in
+// *launched); lut and mask as qk_fused_gemm_s8 takes them.  Returns as it
+// does.
+extern "C" int qk_fused_gemm_s8_grouped(int device, const void* a,
+                                        long long lda, const void* bt,
+                                        long long ldb, void* c,
+                                        const int* offsets, int groups,
+                                        int m, int n, int k, int out_bytes,
+                                        int d, int round, int ovf, int w,
+                                        int sgn, const void* lut, int mask,
+                                        void* stream, int* launched) {
+  *launched = 0;
+  if ((k > 0 && (lda % 16 != 0 || ldb % 16 != 0 ||
+                 reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+                 reinterpret_cast<uintptr_t>(bt) % 16 != 0)) ||
+      (out_bytes != 1 && out_bytes != 2 && out_bytes != 4) ||
+      (lut != nullptr &&
+       (mask < 0 || mask >= LUT_MAX || (mask & (mask + 1)) != 0)) ||
+      groups < 0 || offsets[0] != 0 || offsets[groups] != m) {
+    return -1;
+  }
+  for (int g = 0; g < groups; ++g) {
+    if (offsets[g + 1] < offsets[g]) return -1;
+  }
+  if (m == 0 || n == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = lut != nullptr ? size_smem<true, true>(device)
+                       : size_smem<false, true>(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_a{};
+  if (k > 0 && !tensor_map(&map_a, a, m, k, lda, BM)) return -2;
+  const bool vec = ((long long)n * out_bytes) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  const qk::Rq rq{d, round, ovf, w, sgn};
+  const bool ident = rq.d == 0 && rq.ovf == qk::WRP_TCPL && rq.w >= 32 &&
+                     rq.sgn;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* table = static_cast<const int32_t*>(lut);
+  for (int g0 = 0; g0 < groups;) {
+    // the next launch's groups: at most MAX_GROUPS, at most 65535 tiles
+    Groups part{};
+    int tiles = 0;
+    int count = 0;
+    for (; g0 + count < groups && count < MAX_GROUPS; ++count) {
+      const int rows = offsets[g0 + count + 1] - offsets[g0 + count];
+      const int more = (rows + BM - 1) / BM;
+      if (count > 0 && tiles + more > 65535) break;
+      part.row[count] = offsets[g0 + count];
+      part.tile[count] = tiles;
+      tiles += more;
+    }
+    part.count = count;
+    part.row[count] = offsets[g0 + count];
+    part.tile[count] = tiles;
+    CUtensorMap map_bt{};
+    if (k > 0 && !tensor_map(&map_bt,
+                             static_cast<const int8_t*>(bt) +
+                                 (long long)g0 * n * ldb,
+                             count * n, k, ldb, BN)) {
+      return -2;
+    }
+    if (tiles > 0) {
+      const dim3 grid((n + BN - 1) / BN, tiles);
+      if (table != nullptr) {
+        fused_gemm_s8_grouped_kernel<true><<<grid, THREADS, SMEM, s>>>(
+            map_a, map_bt, c, n, k, out_bytes, vec, ident, rq, table,
+            (uint32_t)mask, part);
+      } else {
+        fused_gemm_s8_grouped_kernel<false><<<grid, THREADS, SMEM, s>>>(
+            map_a, map_bt, c, n, k, out_bytes, vec, ident, rq, nullptr, 0,
+            part);
+      }
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      ++*launched;
+    }
+    g0 += count;
+  }
+  return 0;
 }
 
 extern "C" int qk_fused_gemm_s32(int device, const void* a, const void* b,

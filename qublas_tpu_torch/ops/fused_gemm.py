@@ -39,8 +39,9 @@ from ..qformat import QFormat
 from .wideint import requantize_i32
 from .widths import LANE_DTYPES, torch_dtype_for
 
-__all__ = ["fused_int8_gemm", "fused_int8_gemm_plain", "int_dot",
-           "int_dot_plain", "k1_route", "k1_operand", "kmajor"]
+__all__ = ["fused_int8_gemm", "fused_int8_gemm_grouped",
+           "fused_int8_gemm_plain", "int_dot", "int_dot_plain", "k1_route",
+           "k1_operand", "k1_stack", "kmajor"]
 
 
 def fused_int8_gemm_plain(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
@@ -53,10 +54,11 @@ def fused_int8_gemm_plain(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
 
 
 def kmajor(b: torch.Tensor) -> torch.Tensor:
-    """``b`` [K, N] as the ``.t()`` view of a K-major copy ([N, K]
-    contiguous), the layout K1's tensor-core route reads in place.  A
-    caller that multiplies by one B several times converts it once."""
-    return b.t().contiguous().t()
+    """``b`` [..., K, N] as the transposed view of a K-major copy ([...,
+    N, K] contiguous; none where ``b`` is such a view already), the layout
+    K1's tensor-core route reads in place.  A caller that multiplies by
+    one B several times converts it once."""
+    return b.transpose(-2, -1).contiguous().transpose(-2, -1)
 
 
 def k1_route(t: torch.Tensor) -> str:
@@ -86,6 +88,24 @@ def k1_operand(t: torch.Tensor, route: Optional[str] = None) -> torch.Tensor:
         (r, kp), dtype=t.dtype, device=t.device)
     buf[:, :k] = t
     return buf[:, :k]
+
+
+def k1_stack(b: torch.Tensor):
+    """``(route, bt)``: the int8 stack ``b`` [G, K, N] as the grouped
+    tensor-core route reads it, ``bt`` [G, N, K] K-major, its G * N rows
+    one TMA map: ``b``'s own storage (``"direct"``, each matrix as
+    :func:`k1_route` takes it and the next one right after it), else a
+    copy, zero-padded to K rounded up to 16 (``"copy"``, ``"padded"``)."""
+    bt = b.transpose(1, 2)
+    g, n, k = bt.shape
+    if g == 0 or (k1_route(bt[0]) == "direct"
+                  and bt.stride(0) == n * bt.stride(1)):
+        return "direct", bt
+    kp = -(-k // 16) * 16
+    buf = (torch.zeros if kp != k else torch.empty)(
+        (g, n, kp), dtype=bt.dtype, device=bt.device)
+    buf[..., :k] = bt
+    return ("copy" if kp == k else "padded"), buf[..., :k]
 
 
 def _check_operands(name: str, a: torch.Tensor, b: torch.Tensor):
@@ -133,6 +153,45 @@ def fused_int8_gemm(a: torch.Tensor, b: torch.Tensor, prod_frac: int,
         raise TypeError(f"the table epilogue takes int8 operands, got "
                         f"{a.dtype} and {b.dtype}")
     return torch.ops.qublas.fused_gemm_s8(a, b, rq, out_dtype.itemsize, lut)
+
+
+def fused_int8_gemm_grouped(a: torch.Tensor, b: torch.Tensor, offsets,
+                            prod_frac: int, out_fmt: QFormat,
+                            lut: Optional[torch.Tensor] = None,
+                            lut_fmt: Optional[QFormat] = None
+                            ) -> torch.Tensor:
+    """:func:`fused_int8_gemm` a group: rows ``offsets[g]`` ..
+    ``offsets[g + 1] - 1`` of the int8 ``a`` [M, K] times ``b[g]`` of the
+    int8 stack ``b`` [G, K, N] (K-major matrices, :func:`kmajor`, go in
+    without a copy), into one [M, N] result.  ``offsets``: G + 1 ints from
+    0 to M, non-decreasing.  ``lut`` and ``lut_fmt`` as there.
+
+    One call of the custom op ``qublas::fused_gemm_s8_grouped``: CPU
+    tensors take the plain version a group; CUDA tensors launch K1's
+    grouped instantiation once (once a 256 groups), its grid the row tiles
+    of every group with rows, a group of one row too; each launch counted
+    in ``fused_int8_gemm.launches`` (and ``lut_launches``).
+    """
+    offsets = [int(o) for o in offsets]
+    if (a.dtype != torch.int8 or b.dtype != torch.int8 or a.ndim != 2
+            or b.ndim != 3 or a.shape[1] != b.shape[1]):
+        raise ValueError(f"need int8 [M, K] and a stack [G, K, N], got "
+                         f"{a.dtype} {tuple(a.shape)} and {b.dtype} "
+                         f"{tuple(b.shape)}")
+    if (len(offsets) != b.shape[0] + 1 or offsets[0] != 0
+            or offsets[-1] != a.shape[0]
+            or any(e < s for s, e in zip(offsets, offsets[1:]))):
+        raise ValueError(f"offsets {offsets} do not split {a.shape[0]} "
+                         f"rows into {b.shape[0]} groups")
+    if a.device != b.device:
+        raise ValueError(f"operands on {a.device} and {b.device}")
+    out_dtype = torch_dtype_for(out_fmt if lut is None else lut_fmt)
+    if out_dtype is None:
+        raise ValueError(f"{out_fmt if lut is None else lut_fmt} has no "
+                         f"lane storage")
+    return torch.ops.qublas.fused_gemm_s8_grouped(
+        a, b, offsets, _build.rq_args(prod_frac, out_fmt),
+        out_dtype.itemsize, lut)
 
 
 def _op(a: torch.Tensor, b: torch.Tensor):

@@ -70,7 +70,7 @@ from ..qtensor import QTensor, from_raw, result_device, zeros
 from ..utils.profiling import span
 from . import elementwise as ew
 from . import limbint as L
-from .fused_gemm import fused_int8_gemm, int_dot
+from .fused_gemm import fused_int8_gemm, fused_int8_gemm_grouped, int_dot
 from .reduce import layer_format, qreduce, reduce_format
 from .tree_gemm import (
     ROUTES,
@@ -94,9 +94,9 @@ from .widths import (
     torch_dtype_for,
 )
 
-__all__ = ["qgemul", "qgemv", "exact_plan", "ExactPlan", "host_qgemul",
-           "wide_dot_ok", "pair_dot_2d", "stream_gate", "force_tiers_off",
-           "limb_dot_plan", "gemm_on_device"]
+__all__ = ["qgemul", "qgemul_grouped", "qgemv", "exact_plan", "ExactPlan",
+           "host_qgemul", "wide_dot_ok", "pair_dot_2d", "stream_gate",
+           "force_tiers_off", "limb_dot_plan", "gemm_on_device"]
 
 _TIERS_OFF: frozenset = frozenset()   # subset of {"wide", "limb"}
 _STREAM_GATE_OVERRIDE: Optional[int] = None
@@ -294,6 +294,43 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
         if lut_table is None:
             return epilogue_lut(c)
         return epilogue_lut(c, lut_table)
+
+
+def qgemul_grouped(a: QTensor, offsets, b: QTensor, out_fmt: QFormat,
+                   mul_to=None, add_formats=(), epilogue_lut=None,
+                   lut_table=None) -> QTensor:
+    """The GEMMs of a mixture of experts in one call: rows ``offsets[g]``
+    .. ``offsets[g + 1] - 1`` of ``a`` [M, K] times ``b[g]`` of the stack
+    ``b`` [G, K, N], each as :func:`qgemul` computes it, into one [M, N]
+    result.  ``offsets``: G + 1 host ints from 0 to M, non-decreasing (a
+    group may be empty).  ``epilogue_lut`` and ``lut_table`` as there.
+
+    The groups share their formats, K and N, so the exact plan is proved
+    once a call (one ``qublas.plan`` span inside the call's
+    ``qublas.qgemul``); it must hold, on int8 lanes: K1's grouped
+    instantiation then runs every group with rows in one launch, one row
+    included (:func:`~.fused_gemm.fused_int8_gemm_grouped`), the table in
+    its epilogue by :func:`_k1_lut`'s rules, else after it."""
+    with span("qublas.qgemul"):
+        if isinstance(add_formats, QFormat):
+            add_formats = (add_formats,)
+        with span("qublas.plan"):
+            mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, False)
+            plan = None if a.is_host or b.is_host else exact_plan(
+                a.fmt, b.fmt, mul_fmt, tuple(add_formats), a.shape[-1])
+        if (plan is None or not _device_epilogue_ok(plan, out_fmt)
+                or a.data.dtype != torch.int8 or b.data.dtype != torch.int8):
+            raise ValueError(f"qgemul_grouped runs K1: {a.fmt} x {b.fmt} "
+                             f"into {out_fmt} is not a lossless int8 GEMM")
+        table = _k1_lut(epilogue_lut, lut_table, a, b, out_fmt)
+        fmt = out_fmt if table is None else epilogue_lut.out_fmt
+        c = QTensor(fused_int8_gemm_grouped(a.data, b.data, offsets,
+                                            plan.prod_frac, out_fmt, table,
+                                            fmt), fmt)
+        if epilogue_lut is None or table is not None:
+            return c
+        return epilogue_lut(c) if lut_table is None else \
+            epilogue_lut(c, lut_table)
 
 
 def _k1_lut(lut, entries, a: QTensor, b: QTensor, out_fmt: QFormat):

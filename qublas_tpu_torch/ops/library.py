@@ -8,11 +8,15 @@ op                          C entry point                       kernel
 ==========================  ==================================  ==========
 ``fused_gemm_s8``           ``qk_fused_gemm_s8``                K1
 ``fused_gemm_s32``          ``qk_fused_gemm_s32``               K1
+``fused_gemm_s8_grouped``   ``qk_fused_gemm_s8_grouped``        K1, grouped
 ``tree_gemm``               ``qk_tree_gemm``                    K2
 ``tree_gemm_stream``        ``qk_tree_gemm_stream``             K2′
 ``tree_gemm_hybrid_mma``    ``qk_tree_gemm_hybrid_mma``         K2h
 ``qreduce``                 ``qk_qreduce``                      K3
 ``chain_probe``             ``qk_chain_probe``                  P1
+``moe_combine``             ``qk_moe_combine``                  C1
+``mul_requant``             ``qk_mul_requant``                  G1
+``rms_norm``                ``qk_rms_norm``                     N1
 ==========================  ==================================  ==========
 
 An op takes tensors, ints and lists of ints only: a requantize step as the
@@ -60,7 +64,7 @@ from ..qformat import OverflowMode, QFormat, RoundMode
 from ..utils.profiling import recording_launches
 
 __all__ = ["rq_format", "tree_plan", "hybrid_plan", "reduce_plan",
-           "lane_dtype", "c_ints", "OPS"]
+           "lane_dtype", "c_ints", "OPS", "IDENTITY_RQ"]
 
 # lane dtype by its bytes: the ops' ``out_bytes`` argument
 _LANE = {1: torch.int8, 2: torch.int16, 4: torch.int32}
@@ -245,7 +249,7 @@ def _gemm_out(a, b, out_bytes):
 
 # K1's identity epilogue (int_dot): requant.cuh returns y unchanged for
 # d = 0 under WRP_TCPL at a signed width of 32
-_IDENTITY_RQ = (0, int(RoundMode.TRN_TCPL), int(OverflowMode.WRP_TCPL), 32, 1)
+IDENTITY_RQ = (0, int(RoundMode.TRN_TCPL), int(OverflowMode.WRP_TCPL), 32, 1)
 
 
 # entries of K1's table epilogue, at most (csrc/fused_gemm.cu: LUT_MAX)
@@ -269,15 +273,21 @@ def _k1_plain(a, b, rq, out_bytes, lut=None):
     """K1's plain version: ``rq`` the requantize step, none for
     ``int_dot``'s identity epilogue; ``lut`` a table of 2^w entries that
     maps each result's low w bits to the value stored."""
-    from .fused_gemm import fused_int8_gemm_plain, int_dot_plain
+    from .fused_gemm import int_dot_plain
 
+    return _k1_epilogue(int_dot_plain(a, b), rq, out_bytes, lut)
+
+
+def _k1_epilogue(dot, rq, out_bytes, lut=None):
+    """K1's epilogue in plain torch on the int32 dots ``dot``."""
+    from .wideint import requantize_i32
+
+    raw = dot
     if rq:
         d, fmt = rq_format(tuple(rq))
-        raw = fused_int8_gemm_plain(a, b, d, fmt)
-    else:
-        raw = int_dot_plain(a, b)
+        raw = requantize_i32(dot, d, fmt)
     if lut is not None:
-        raw = lut[(raw.to(torch.int32) & _lut_mask(lut, a.device)).long()]
+        raw = lut[(raw & _lut_mask(lut, dot.device)).long()]
     return raw.to(lane_dtype(out_bytes))
 
 
@@ -315,7 +325,7 @@ def _k1_s8(a, b, rq, out_bytes, lut=None):
     err = _build.lib().qk_fused_gemm_s8(
         a.device.index, a8.data_ptr(), a8.stride(0), bt.data_ptr(),
         bt.stride(0), out.data_ptr(), m, out.shape[1], k, out_bytes,
-        *(rq or _IDENTITY_RQ), None if lut is None else lut.data_ptr(),
+        *(rq or IDENTITY_RQ), None if lut is None else lut.data_ptr(),
         mask, _stream(a))
     _build.check(err, "fused_int8_gemm")
     _k1_record(f"s8/{ra}/{rb}", rq, lut is not None)
@@ -331,7 +341,7 @@ def _k1_s32(a, b, rq, out_bytes):
     b32 = b.to(torch.int32).contiguous()
     err = _build.lib().qk_fused_gemm_s32(
         a.device.index, a32.data_ptr(), b32.data_ptr(), out.data_ptr(), m,
-        out.shape[1], k, out_bytes, *(rq or _IDENTITY_RQ), _stream(a))
+        out.shape[1], k, out_bytes, *(rq or IDENTITY_RQ), _stream(a))
     _build.check(err, "fused_int8_gemm")
     _k1_record("s32", rq)
     return out
@@ -347,6 +357,56 @@ fused_gemm_s8 = _declare(
 fused_gemm_s32 = _declare(
     "fused_gemm_s32(Tensor a, Tensor b, int[] rq, int out_bytes) -> Tensor",
     _k1_plain, _k1_s32, _gemm_fake)
+
+
+def _grouped_plain(a, b, offsets, rq, out_bytes, lut=None):
+    """K1's plain version a group: rows ``offsets[g]`` ..
+    ``offsets[g + 1] - 1`` of ``a`` times ``b[g]``."""
+    from .fused_gemm import int_dot_plain
+
+    dots = [int_dot_plain(a[s:e], b[g])
+            for g, (s, e) in enumerate(zip(offsets, offsets[1:])) if e > s]
+    if not dots:
+        return _grouped_fake(a, b, offsets, rq, out_bytes)
+    return _k1_epilogue(torch.cat(dots), rq, out_bytes, lut)
+
+
+def _grouped_fake(a, b, offsets, rq, out_bytes, lut=None):
+    return a.new_empty((a.shape[0], b.shape[2]), dtype=lane_dtype(out_bytes))
+
+
+def _k1_s8_grouped(a, b, offsets, rq, out_bytes, lut=None):
+    from .fused_gemm import k1_operand, k1_route, k1_stack
+
+    out = torch.empty((a.shape[0], b.shape[2]), dtype=lane_dtype(out_bytes),
+                      device=a.device)
+    if out.numel() == 0:
+        return out
+    m, k = a.shape
+    mask = 0 if lut is None else _lut_mask(lut, a.device)
+    ra = k1_route(a)
+    a8 = k1_operand(a, ra)
+    rb, bt = k1_stack(b)  # [G, N, K]
+    launched = ctypes.c_int(0)
+    err = _build.lib().qk_fused_gemm_s8_grouped(
+        a.device.index, a8.data_ptr(), a8.stride(0), bt.data_ptr(),
+        bt.stride(1), out.data_ptr(), c_ints(tuple(offsets)), b.shape[0], m,
+        out.shape[1], k, out_bytes, *(rq or IDENTITY_RQ),
+        None if lut is None else lut.data_ptr(), mask, _stream(a),
+        ctypes.byref(launched))
+    _build.check(err, "fused_int8_gemm_grouped")
+    for _ in range(launched.value):
+        _k1_record(f"s8_grouped/{ra}/{rb}", rq, lut is not None)
+    return out
+
+
+# K1 over the groups of a mixture of experts: rows offsets[g] ..
+# offsets[g + 1] - 1 of a [M, K] times b[g] of b [G, K, N], int8 lanes, in
+# one launch of the grouped instantiation (one a 256 groups)
+fused_gemm_s8_grouped = _declare(
+    "fused_gemm_s8_grouped(Tensor a, Tensor b, int[] offsets, int[] rq, "
+    "int out_bytes, Tensor? lut=None) -> Tensor", _grouped_plain,
+    _k1_s8_grouped, _grouped_fake)
 
 
 # ---------------------------------------------------------------------------
@@ -592,6 +652,205 @@ chain_probe = _declare(
     " int plan) -> Tensor", _p1_plain, _p1, _p1_fake)
 
 
+# ---------------------------------------------------------------------------
+# C1 and G1: moe_combine and mul_requant
+# ---------------------------------------------------------------------------
+
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def _trunc_steps(params):
+    """The requantize steps of ``params`` (five ints each) as the four
+    ints (shift, lo, hi, zero) of C1's and G1's ``Step``, or None where
+    one of them rounds or wraps: a step truncates (TRN_TCPL, or no
+    fraction bit dropped) and saturates (SAT_TCPL, SAT_SMGN into [lo, hi],
+    SAT_ZERO to 0 outside it)."""
+    out = []
+    for i in range(0, len(params), 5):
+        d, rnd, ovf, w, sgn = params[i:i + 5]
+        sat = (OverflowMode.SAT_TCPL, OverflowMode.SAT_ZERO,
+               OverflowMode.SAT_SMGN)
+        if (d > 0 and rnd != int(RoundMode.TRN_TCPL)) or d < -31 or \
+                ovf not in map(int, sat):
+            return None
+        lo, hi = _I32_MIN, _I32_MAX
+        if w <= 32:
+            hi = (1 << (w - 1)) - 1
+            lo = 0 if not sgn else -hi if ovf == OverflowMode.SAT_SMGN \
+                else -hi - 1
+        out += [d, lo, hi, int(ovf == OverflowMode.SAT_ZERO)]
+    return tuple(out)
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if it is contiguous and 16-byte aligned, else a copy that
+    is (C1's and G1's 16-byte loads)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _c1_plain(shared, d, pos, w, params, out_bytes):
+    """C1's plain version: the scatter-add of the pairs' requantized
+    products into the rows' requantized shared outputs (int32, wrapping
+    as the kernel's sum does), then the last two steps."""
+    from .wideint import requantize_i32
+
+    pair, pacc, sh, sat, fin = (rq_format(tuple(params[i:i + 5]))
+                                for i in range(0, 25, 5))
+    acc = requantize_i32(shared.to(torch.int32), *sh)
+    rows, slots = (pos >= 0).nonzero(as_tuple=True)
+    prod = w[rows, slots, None] * d[pos[rows, slots].long()].to(torch.int32)
+    acc.index_add_(0, rows, requantize_i32(requantize_i32(prod, *pair),
+                                           *pacc))
+    return requantize_i32(requantize_i32(acc, *sat), *fin).to(
+        lane_dtype(out_bytes))
+
+
+def _c1_fake(shared, d, pos, w, params, out_bytes):
+    return shared.new_empty(shared.shape, dtype=lane_dtype(out_bytes))
+
+
+def _c1(shared, d, pos, w, params, out_bytes):
+    """C1: its steps but the last truncate and saturate, its lanes are
+    int16, n a multiple of 8 and at most 8 slots; other arguments raise
+    ValueError (copies of strided or unaligned tensors are launched)."""
+    from ..moe import combine
+
+    steps = _trunc_steps(params[:20])
+    n, k = shared.shape[1], pos.shape[1]
+    if (steps is None or shared.dtype != torch.int16 or d.dtype !=
+            torch.int16 or n % 8 or k > 8):
+        raise ValueError(
+            f"moe_combine on the card: C1 takes truncating, saturating "
+            f"steps but the last, int16 lanes, n % 8 == 0 and k <= 8; got "
+            f"steps "
+            f"{list(params)}, {shared.dtype} and {d.dtype} lanes, n = {n}, "
+            f"k = {k}")
+    shared, d = _dense(shared), _dense(d)
+    out = torch.empty(shared.shape, dtype=lane_dtype(out_bytes),
+                      device=shared.device)
+    pos, w = pos.contiguous(), w.contiguous()
+    err = _build.lib().qk_moe_combine(
+        shared.device.index, shared.data_ptr(), d.data_ptr(), pos.data_ptr(),
+        w.data_ptr(), out.data_ptr(), shared.shape[0], n, k, out_bytes,
+        c_ints(steps + tuple(params[20:])), _stream(shared))
+    _build.check(err, "moe_combine")
+    combine.launches += 1
+    return out
+
+
+# C1: a row's shared output plus its held pairs' weighted outputs, as one
+# gather a row (moe.combine)
+moe_combine = _declare(
+    "moe_combine(Tensor shared, Tensor d, Tensor pos, Tensor w, "
+    "int[] params, int out_bytes) -> Tensor", _c1_plain, _c1, _c1_fake)
+
+
+def _g1_plain(a, b, params, mid_bytes, out_bytes):
+    """G1's plain version: the int32 product (wrapping), its two steps, the
+    first one's result stored in its lane between them."""
+    from .wideint import requantize_i32
+
+    mid, fin = (rq_format(tuple(params[i:i + 5])) for i in (0, 5))
+    h = requantize_i32(a.to(torch.int32) * b.to(torch.int32), *mid)
+    h = h.to(lane_dtype(mid_bytes)).to(torch.int32)
+    return requantize_i32(h, *fin).to(lane_dtype(out_bytes))
+
+
+def _g1_fake(a, b, params, mid_bytes, out_bytes):
+    return a.new_empty(a.shape, dtype=lane_dtype(out_bytes))
+
+
+def _g1(a, b, params, mid_bytes, out_bytes):
+    """G1: the first step truncates and saturates (so mid's result fits
+    its lane), the lanes are int8 and the elements a multiple of 16; other
+    arguments raise ValueError (copies of strided or unaligned tensors
+    are launched)."""
+    from ..moe import gated
+
+    steps = _trunc_steps(params[:5])
+    if (steps is None or a.dtype != torch.int8 or b.dtype != torch.int8
+            or out_bytes != 1 or a.numel() % 16):
+        raise ValueError(
+            f"mul_requant on the card: G1 takes a truncating, saturating "
+            f"first step, int8 lanes in and out and a multiple of 16 "
+            f"elements; "
+            f"got steps {list(params)}, {a.dtype} and {b.dtype} lanes, "
+            f"out_bytes {out_bytes}, {a.numel()} elements")
+    a, b = _dense(a), _dense(b)
+    out = torch.empty(a.shape, dtype=lane_dtype(out_bytes), device=a.device)
+    err = _build.lib().qk_mul_requant(
+        a.device.index, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        a.numel(), c_ints(steps + tuple(params[5:])), _stream(a))
+    _build.check(err, "mul_requant")
+    gated.launches += 1
+    return out
+
+
+# G1: qcast(qmul(a, b, to=mid), fin) of same-shape lanes in one pass
+# (moe.gated)
+mul_requant = _declare(
+    "mul_requant(Tensor a, Tensor b, int[] params, int mid_bytes, "
+    "int out_bytes) -> Tensor", _g1_plain, _g1, _g1_fake)
+
+
+# ---------------------------------------------------------------------------
+# N1: rms_norm
+# ---------------------------------------------------------------------------
+
+def _n1_plain(x, table, gain, params):
+    """N1's plain version: each row's sum of squares in int32, its ROM
+    entry times ``gain`` requantized into the row's factor, and the row
+    times its factor, each through its step."""
+    from .wideint import requantize_i32
+
+    cast, scale, fin = (rq_format(tuple(params[i:i + 5]))
+                        for i in (0, 5, 10))
+    xi = x.to(torch.int32)
+    ss = (xi * xi).sum(-1, keepdim=True, dtype=torch.int32)
+    rs = table[(requantize_i32(ss, *cast) & (table.numel() - 1)).long()]
+    s = requantize_i32(rs * gain, *scale)
+    return requantize_i32(xi * s, *fin).to(torch.int8)
+
+
+def _n1_fake(x, table, gain, params):
+    return x.new_empty(x.shape, dtype=torch.int8)
+
+
+def _n1(x, table, gain, params):
+    """N1: int8 rows [rows, n], n a multiple of 16 below 2^17, a table of
+    2^w contiguous int32 entries on the card; other arguments raise
+    ValueError (a copy of a strided or unaligned ``x`` is launched)."""
+    from ..moe import rms_norm
+
+    n, t = x.shape[-1], table.numel()
+    if (x.dtype != torch.int8 or x.ndim != 2 or n % 16 or n >= 1 << 17
+            or table.dtype != torch.int32 or table.ndim != 1 or t & (t - 1)
+            or not table.is_contiguous() or table.device != x.device):
+        raise ValueError(
+            f"rms_norm on the card: N1 takes int8 rows of n % 16 == 0, "
+            f"n < 2^17 and a table of 2^w contiguous int32 entries on "
+            f"{x.device}; got {x.dtype} {tuple(x.shape)}, table "
+            f"{table.dtype} {tuple(table.shape)} on {table.device}")
+    x = _dense(x)
+    out = torch.empty_like(x)
+    err = _build.lib().qk_rms_norm(
+        x.device.index, x.data_ptr(), out.data_ptr(), x.shape[0], n,
+        table.data_ptr(), t - 1, gain, c_ints(tuple(params)), _stream(x))
+    _build.check(err, "rms_norm")
+    rms_norm.launches += 1
+    return out
+
+
+# N1: RMSNorm of int8 rows through a ROM of each row's sum of squares
+# (moe.rms_norm)
+rms_norm = _declare(
+    "rms_norm(Tensor x, Tensor table, int gain, int[] params) -> Tensor",
+    _n1_plain, _n1, _n1_fake)
+
+
 # every op, for opcheck and the tests
-OPS = (fused_gemm_s8, fused_gemm_s32, tree_gemm, tree_gemm_stream,
-       tree_gemm_hybrid_mma, qreduce, chain_probe)
+OPS = (fused_gemm_s8, fused_gemm_s32, fused_gemm_s8_grouped, tree_gemm,
+       tree_gemm_stream, tree_gemm_hybrid_mma, qreduce, chain_probe,
+       moe_combine, mul_requant, rms_norm)

@@ -14,7 +14,9 @@ The port's own ranges (:func:`span`) are ``record_function`` ranges on
 the same clock, entered only while a profiler records: ``qublas.qgemul``
 around a ``qgemul`` call, ``qublas.plan`` around each proof or planner it
 runs before a tier's launch, ``qublas.rom`` around a ROM lookup on the
-device.  A device row runs where the card gets to it, often after the
+device; ``QuantMoE``'s ``qublas.moe.route``, ``qublas.moe.dispatch``,
+``qublas.moe.experts`` and ``qublas.moe.combine`` around the parts of a
+layer (``moe.py``).  A device row runs where the card gets to it, often after the
 range that launched it has ended: a range's device work is the rows of
 the launches inside it.
 

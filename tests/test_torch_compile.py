@@ -30,6 +30,7 @@ from qublas_tpu.qformat import OverflowMode, RoundMode, qformat
 from qublas_tpu.qtensor import QTensor as JQ
 from qublas_tpu.qtensor import from_raw as jfrom_raw
 import qublas_tpu_torch as qt
+from qublas_tpu_torch import _build
 from qublas_tpu_torch import bitwise as tbitwise
 from qublas_tpu_torch.convert import port_format as P
 from qublas_tpu_torch.ops import elementwise as tew
@@ -420,12 +421,28 @@ def _op_cases():
     red = qt.ops.reduce.plan_reduce(P(F44), (P(qformat(5, 3)),), 13)
     x3 = lane((3, 13, 2), -128, 128)
     cp = TG.plan_tree(f88z, f88z, f88z, (), 2, f88z)
+    m = qt.moe_formats()
+    c1 = [v for fr, f in ((20, m["pair"]), (8, m["acc"]), (8, m["acc"]),
+                          (8, m["acc"]), (8, m["out"]))
+          for v in _build.rq_args(fr, f)]
+    pos = torch.tensor([[0, -1], [2, 1], [-1, -1], [1, 0], [2, -1]],
+                       dtype=torch.int32)
+    g1 = list(_build.rq_args(8, m["gu"]) + _build.rq_args(8, m["operand"]))
+    g1z = list(_build.rq_args(8, m["gu"]) + _build.rq_args(8, m["gate"]))
+    n1 = [v for fr, f in ((8, m["sumsq_rom"]), (22, m["norm_scale"]),
+                          (16, m["normed"]))
+          for v in _build.rq_args(fr, f)]
     return {
         "fused_gemm_s8": (lane((5, 24)), lane((24, 7)), rq, 1),
         "fused_gemm_s8-int_dot": (lane((5, 24)), lane((24, 7)), [], 4),
         "fused_gemm_s8-lut": (lane((5, 24)), lane((24, 7)), rq, 2,
                               lane((256,), -2 ** 15, 2 ** 15, torch.int32)),
         "fused_gemm_s32": (a32, b32.to(torch.int16), rq, 1),
+        "fused_gemm_s8_grouped": (lane((9, 24)), lane((3, 24, 7)),
+                                  [0, 4, 4, 9], rq, 1),
+        "fused_gemm_s8_grouped-lut": (
+            lane((9, 24)), lane((3, 24, 7)), [0, 1, 8, 9], rq, 2,
+            lane((256,), -2 ** 15, 2 ** 15, torch.int32)),
         "tree_gemm": (a32, b32, k2, 0, 4),
         "tree_gemm_stream": (a32, b32, k2s, 1, 4),
         "tree_gemm_hybrid_mma": (lane((3, 32), -64, 64),
@@ -438,6 +455,14 @@ def _op_cases():
             lane((32, 5), -64, 64), k2h, 0, 1),
         "qreduce": (x3, 1, list(red.kernel_params()), red.tails, red.modes,
                     1),
+        "moe_combine": (lane((5, 8), -2 ** 15, 2 ** 15, torch.int16),
+                        lane((3, 8), -2 ** 15, 2 ** 15, torch.int16), pos,
+                        lane((5, 2), -2 ** 15, 2 ** 15, torch.int32), c1,
+                        1),
+        "mul_requant": (lane((6, 16)), lane((6, 16)), g1, 2, 1),
+        "mul_requant-sat_zero": (lane((4, 32)), lane((4, 32)), g1z, 2, 1),
+        "rms_norm": (lane((3, 32)), lane((1 << 16,), -2 ** 15, 2 ** 15,
+                                         torch.int32), 2709, n1),
         "chain_probe": (lane((4, 8), dtype=torch.int32),
                         lane((4, 8), dtype=torch.int32),
                         list(TG._kernel_params(cp, cp.final_fmt, 0)), 3, 2,

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import qublas_tpu_torch as qt
+from qublas_tpu_torch import moe
 from qublas_tpu_torch.ops import cgemm
 from qublas_tpu_torch.ops import chain_probe as CP
 from qublas_tpu_torch.ops import tree_gemm as TT
@@ -21,6 +22,7 @@ from qublas_tpu_torch.ops.chain_probe import (G, T1, T2, chain_probe,
                                               chain_probe_plain, p1_plan,
                                               probe_tile)
 from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm,
+                                             fused_int8_gemm_grouped,
                                              fused_int8_gemm_plain, int_dot,
                                              int_dot_plain, k1_route, kmajor)
 from qublas_tpu_torch.ops.reduce import (k3_route, plan_reduce,
@@ -1256,3 +1258,172 @@ def test_pipeline_cuda_graph_replays_on_fresh_inputs(cuda):
         torch.cuda.synchronize()
         assert fused_int8_gemm.launches == 0
         assert torch.equal(static_y, pipe(x)), seed
+
+
+@pytest.mark.parametrize("k,n,sizes,launches", [
+    (7168, 256, [0, 1, 127, 300], 1),
+    # 300 groups (two launches of at most 256), a third of them empty
+    (96, 200, [(7 * g) % 41 if g % 3 else 0 for g in range(300)], 2)])
+def test_grouped_k1_matches_plain(cuda, k, n, sizes, launches):
+    """K1's grouped instantiation against its plain version, with and
+    without the table: groups of one row, of under and over a tile, empty
+    ones; one launch a 256 groups."""
+    fa = FA
+    offsets = [0]
+    for rows in sizes:
+        offsets.append(offsets[-1] + rows)
+    a = _raws(5, fa, (offsets[-1], k), np.int8).to(cuda)
+    b = kmajor(_raws(6, fa, (len(sizes), k, n), np.int8).to(cuda))
+    silu = qt.QTable(qt.silu_func, MID, fa)
+    for table in (None, silu.table.to(cuda)):
+        before = fused_int8_gemm.launches
+        got = fused_int8_gemm_grouped(a, b, offsets, 8, MID, table, fa)
+        want = fused_int8_gemm_grouped(a.cpu(), b.cpu(), offsets, 8, MID,
+                                       None if table is None else
+                                       table.cpu(), fa)
+        torch.cuda.synchronize()
+        assert fused_int8_gemm.launches - before == launches
+        assert torch.equal(got.cpu(), want)
+
+
+def test_moe_layer_at_published_widths(cuda):
+    """One DeepSeek-V3 layer at the published widths, its RMSNorm and its
+    MoE holding the 32 experts of routing group 0, on 384 rows: the
+    reference's output bit for bit; N1 once; K1 once for the router, once
+    a projection for the held experts (the grouped instantiation) and for
+    the shared expert, the table in the gate projections' epilogue; G1
+    twice; C1 once; one host sync."""
+    import json
+    from pathlib import Path
+
+    from gpubench import inputs
+    from gpubench.reference import moe_ffn as ref
+
+    root = Path(__file__).resolve().parent.parent
+    cfg = json.loads((root / "gpubench" / "configs" /
+                      "dsv3_moe_int8.json").read_text())
+    cfg.update(num_hidden_layers=1)
+    w, pool = inputs.make(ref, cfg, {"sequences": 1, "seq_len": 384,
+                                     "pool": 1}, 2 ** 31 + 3, cuda)
+    layer = qt.QuantMoE(
+        w["wr"][0].t(), w["bias"][0], w["wg"][0].transpose(1, 2),
+        w["wu"][0].transpose(1, 2), w["wd"][0].transpose(1, 2),
+        w["sg"][0].t(), w["su"][0].t(), w["sd"][0].t(), (0, 32))
+    norm = qt.QuantRMSNorm(cfg["hidden_size"], cfg["norm_rms"], cuda)
+    launches, luts = fused_int8_gemm.launches, fused_int8_gemm.lut_launches
+    combines, gates = moe.combine.launches, moe.gated.launches
+    norms = moe.rms_norm.launches
+    got = layer(norm(pool[0]))
+    torch.cuda.synchronize()
+    assert moe.rms_norm.launches - norms == 1
+    assert fused_int8_gemm.launches - launches == 1 + 3 + 3
+    assert fused_int8_gemm.lut_launches - luts == 2
+    assert moe.combine.launches - combines == 1
+    assert moe.gated.launches - gates == 2
+    assert layer.syncs == 1 and 0 < layer.pairs <= 384 * 8
+    assert 0 < layer.largest <= 384
+    want = ref.forward(pool[0], w, cfg)
+    assert torch.equal(got.long(), want)
+
+
+@pytest.mark.parametrize("rows,n,k,acc,narrow", [
+    (300, 7168, 8, False, False), (37, 1000, 3, True, False),
+    (64, 515, 5, True, True)])
+def test_moe_combine_matches_plain(cuda, rows, n, k, acc, narrow):
+    """C1 against its plain scatter-add: random outputs and weights, a
+    third of the slots not held; into the output's int8 lane (rounded to
+    nearest) and into the int32 accumulator, with the layer's formats, and
+    on strided views of the outputs (copies are launched); a rounding pair
+    format, a Qu<10,8> accumulator whose sum saturates and a ragged n,
+    which C1 does not take, raise on the card."""
+    f = dict(qt.moe_formats())
+    if narrow:
+        f.update(pair=qt.qformat(10, 10, round_mode=qt.RoundMode.RND_CONV),
+                 acc=qt.qformat(10, 8))
+    g = torch.Generator().manual_seed(rows)
+    pairs = rows * k // 2
+    shared = qt.QTensor(torch.randint(-2 ** 15, 2 ** 15, (rows, n),
+                                      generator=g, dtype=torch.int16),
+                        f["down"])
+    d = qt.QTensor(torch.randint(-2 ** 15, 2 ** 15, (pairs, n), generator=g,
+                                 dtype=torch.int16), f["down"])
+    w = qt.QTensor(torch.randint(0, 5 * 4096, (rows, k), generator=g,
+                                 dtype=torch.int16), f["weight"])
+    pos = torch.randint(-pairs // 2, pairs, (rows, k), generator=g,
+                        dtype=torch.int32).clamp_(min=-1)
+    out = None if acc else f["out"]
+    want = moe.combine(shared, d, pos, w, f["pair"], f["acc"], out)
+    launches = moe.combine.launches
+    card = [qt.QTensor(t.data.to(cuda), t.fmt) for t in (shared, d)]
+    if acc:
+        # views one column in: strided and off 16 bytes
+        card = [qt.QTensor(torch.nn.functional.pad(t.data, (1, 0))[:, 1:],
+                           t.fmt) for t in card]
+    args = (*card, pos.to(cuda), qt.QTensor(w.data.to(cuda), w.fmt),
+            f["pair"], f["acc"], out)
+    if narrow:
+        with pytest.raises(ValueError, match="C1 takes"):
+            moe.combine(*args)
+        return
+    got = moe.combine(*args)
+    torch.cuda.synchronize()
+    assert moe.combine.launches - launches == 1
+    assert got.dtype == (torch.int32 if acc else torch.int8)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape,lanes,fmts", [
+    ((1000, 2048), (torch.int8, torch.int8), ("gu", "operand")),
+    ((37, 41), (torch.int16, torch.int8),
+     (qt.qformat(6, 6, round_mode=qt.RoundMode.RND_CONV,
+                 overflow_mode=qt.OverflowMode.WRP_TCPL),
+      qt.qformat(9, 2, overflow_mode=qt.OverflowMode.SAT_ZERO)))])
+def test_gated_matches_plain(cuda, shape, lanes, fmts):
+    """G1 against its plain version: int8 lanes in and out with the
+    layer's formats (the cast rounded to nearest); int16 times int8 with a
+    rounding, wrapping middle format, which G1 does not take, raises on
+    the card."""
+    f = qt.moe_formats()
+    mid, out = (f[x] if isinstance(x, str) else x for x in fmts)
+    g = torch.Generator().manual_seed(shape[0])
+    a, b = (qt.QTensor(torch.randint(torch.iinfo(t).min,
+                                     torch.iinfo(t).max + 1, shape,
+                                     generator=g, dtype=t),
+                       qt.qformat(8 * t.itemsize - 5, 4))
+            for t in lanes)
+    want = moe.gated(a, b, mid, out)
+    launches = moe.gated.launches
+    args = (qt.QTensor(a.data.to(cuda), a.fmt),
+            qt.QTensor(b.data.to(cuda), b.fmt), mid, out)
+    if lanes[0] != torch.int8:
+        with pytest.raises(ValueError, match="G1 takes"):
+            moe.gated(*args)
+        return
+    got = moe.gated(*args)
+    torch.cuda.synchronize()
+    assert moe.gated.launches - launches == 1
+    assert torch.equal(got.data.cpu(), want.data)
+
+
+@pytest.mark.parametrize("rows,n,rms", [(300, 7168, 0.125), (37, 64, 1.0),
+                                        (5, 48, 0.5)])
+def test_rms_norm_matches_plain(cuda, rows, n, rms):
+    """N1 against its plain version: rows of small, typical and saturated
+    raws, a zero row; a strided view (a copy is launched); rows not a
+    multiple of 16 wide raise on the card."""
+    g = torch.Generator().manual_seed(rows)
+    x = torch.randint(-128, 128, (rows, n), generator=g, dtype=torch.int8)
+    x[: rows // 3] = x[: rows // 3].clamp(-3, 3)
+    x[-1] = 0
+    norm = qt.QuantRMSNorm(n, rms)
+    want = norm(x)
+    card = qt.QuantRMSNorm(n, rms, cuda)
+    launches = moe.rms_norm.launches
+    got = card(x.to(cuda))
+    wide = torch.nn.functional.pad(x.to(cuda), (0, 16))[:, :n]
+    assert torch.equal(card(wide).cpu(), want)
+    torch.cuda.synchronize()
+    assert moe.rms_norm.launches - launches == 2
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="N1 takes"):
+        qt.QuantRMSNorm(n - 8, rms, cuda)(x[:, 8:].to(cuda))
