@@ -28,11 +28,14 @@ Phases, each printing its lines:
    a. the quantized GEMM pipeline (``QuantPipeline``: GEMM -> sqrt ROM ->
       cast -> GEMM, the ROM and the cast in the first K1's epilogue) at
       4096^3 and the canonical order-sensitive ``qgemul`` at 2048^3: K1
-      twice (once with its table), K2 once;
+      twice (once with its table), K2′ once (the route of
+      ``ops.tree_gemm.takes_k2s``); then the canonical ``qgemul`` at the
+      tree cells' GEMMs (``TREE_CELLS``), K2′ once each, fc1 in its depth-12
+      and fc2 in its depth-14 instantiation, equal to the plain version;
    b. ``qreduce`` of BASELINE config 2 at [4096, 1024], and the layered
       canonical GEMM at 512^3 (``qcast(qreduce(qmul(a[:, :, None],
       b[None]), (), axis=1))``) beside ``tree_gemm_stream`` and ``qgemul``
-      on the same operands: K3 twice, K2′ once, K2 once; the three GEMMs
+      on the same operands: K3 twice, K2′ twice; the three GEMMs
       must agree bit for bit;
    c. the elementwise ops at 4096x4096 on the card against the same ops on
       CPU copies (plain torch ops, no kernel);
@@ -58,7 +61,7 @@ Phases, each printing its lines:
       against the 2-D first weight, folded into ONE K1 launch equal to the
       2-D GEMM 1, and a [4, 4096, 4096] batch of B against the 2-D x (four
       launches); h2 the canonical tree's a2 as [8, 256, 2048] against b2,
-      one K2 launch equal to the 2-D tree; h3 a ``qgemv`` of 64 vectors
+      one K2′ launch equal to K2 on the 2-D tree; h3 a ``qgemv`` of 64 vectors
       against [4096, 4096], one K1 launch; h4 ``qpoly``/``qapprox`` at
       4096^2 on lane, pair and limb storage; h5 the bitwise ops, a
       checkpoint round trip, ``requant_stats`` and the reference's
@@ -92,7 +95,7 @@ Phases, each printing its lines:
       GEMM at 4096^3 by ``sharded_qgemul_k`` (psum, reduce-scatter) and
       its ring (one K1 launch a rank, four for the ring), the canonical
       tree at 2048^3 by mn on (2, 2) and by k_tree on (1, 4) with and
-      without the butterfly (one K2 launch a rank, and K3 for the
+      without the butterfly (one K2′ launch a rank, and K3 for the
       gathered top fold), config 2's ``qreduce`` batch-sharded (K3 a
       rank), the hybrid configuration i1 through ``shard_qgemul(auto)``,
       2-D and as a batch (one K2h launch a rank); each case equal to the
@@ -115,15 +118,16 @@ Phases, each printing its lines:
       plans, every mode pair, each instantiation, shapes to the tile edges
       and transposed, strided and offset views) to its plain version on
       CPU copies; the coverage gate (every kernel row launched at least 20
-      times, K2's six instantiations, 10 mode pairs on K1's epilogue, K2's
+      times, K2's six and K2′'s five instantiations, 10 mode pairs on K1's
+      epilogue, K2's
       run-time instantiations and K3); the three examples'
       ``main("cuda")``; its launches on a line of their own, in no row of
       the kernels line;
    l. the paths as compiled programs: Inductor builds each program with
       ``fullgraph=True`` and ``dynamic=False``, in the default mode and in
       ``"reduce-overhead"`` (CUDA graphs): the pipeline at 4096^3 (K1
-      twice), the canonical ``qgemul`` at 2048^3 with a ``qreduce`` of its
-      rows and K2′ on its operands, config 2's ``qreduce``, i1 on int8 and
+      twice), the canonical ``qgemul`` at 2048^3 (K2′) with a ``qreduce``
+      of its rows and K2 on its operands, config 2's ``qreduce``, i1 on int8 and
       int16 lanes (K2h's int8 and digit kernels), config 5's TF
       ``cgemul`` (K1 four times), P1 at ``measured_chain_prods``' shapes,
       and the lane (with ``qapprox``), pair and limb elementwise chains at
@@ -158,7 +162,8 @@ Phases, each printing its lines:
    computing the same function, and the main-path calls end to end; K1
    with the pipeline's table and without it, and K1 followed by the ROM
    and the cast in plain torch, at the FFN's first GEMM (``FFN_GEMM``) in
-   turns; K2′
+   turns; K2 and K2′ at the tree cells' GEMMs (``TREE_CELLS``) beside
+   ``qgemul``; K2′
    and K3 also by their device time (a profiler trace) and the host's
    time to enqueue a call, K2′ beside K2 and with its instantiations'
    registers and spills; P1 by its device time too, with
@@ -187,6 +192,8 @@ from pathlib import Path
 PIPE_N = 4096                     # x, W1, W2: PIPE_N x PIPE_N
 FFN_GEMM = (24576, 1024, 4096)    # BERT-Large's first FFN GEMM (m, k, n)
 TREE_N = 2048                     # canonical qgemul: TREE_N^3
+# the tree cells' GEMMs (m, k, n): gpubench's bertl_fc_tree16 fc1 and fc2
+TREE_CELLS = {"fc1": (1536, 1024, 4096), "fc2": (1536, 4096, 1024)}
 REDUCE_SHAPE = (4096, 1024)       # BASELINE config 2, reduced over axis 1
 REDUCE_BIG_ROWS = 131072          # K3 timed at [REDUCE_BIG_ROWS, 1024]
 LAYERED_N = 512                   # layered canonical GEMM: LAYERED_N^3
@@ -664,7 +671,8 @@ def phase_main_path(dev, chk):
     from qublas_tpu_torch.ops.fused_gemm import (fused_int8_gemm,
                                                  fused_int8_gemm_plain)
     from qublas_tpu_torch.ops.tree_gemm import (plan_tree, tree_gemm,
-                                                tree_gemm_plain)
+                                                tree_gemm_plain,
+                                                tree_gemm_stream)
 
     fa, wide, mid = qt.pipeline_formats()
     n = PIPE_N
@@ -683,19 +691,22 @@ def phase_main_path(dev, chk):
     torch.cuda.synchronize()
 
     fused_int8_gemm.launches = fused_int8_gemm.lut_launches = 0
-    tree_gemm.launches = 0
+    tree_gemm.launches = tree_gemm_stream.launches = 0
     t0 = time.perf_counter()
     y = pipe(x)
     c = qt.qgemul(a2, b2, f88z)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"fused_int8_gemm": fused_int8_gemm.launches,
-                "tree_gemm": tree_gemm.launches}
+                "tree_gemm": tree_gemm.launches,
+                "tree_gemm_stream": tree_gemm_stream.launches}
     print(f"main path a: pipeline {n}^3 + canonical qgemul {TREE_N}^3 in "
           f"{wall * 1e3:.3f} ms wall (first call), launches {launches}, "
           f"K1 with a table {fused_int8_gemm.lut_launches}")
+    # the canonical tree takes K2′ (ops.tree_gemm.takes_k2s)
     check_launches("main path a", launches,
-                   {"fused_int8_gemm": 2, "tree_gemm": 1})
+                   {"fused_int8_gemm": 2, "tree_gemm": 0,
+                    "tree_gemm_stream": 1})
     check_launches("main path a: K1 with a table",
                    fused_int8_gemm.lut_launches, 1)
 
@@ -713,7 +724,7 @@ def phase_main_path(dev, chk):
     chk.same("fused_int8_gemm", f"pipeline {n}^3 output", y, y_ref)
     tplan = plan_tree(f88z, f88z, qt.mul_merge(f88z, f88z), (), TREE_N, f88z)
     c_ref = qt.QTensor(tree_gemm_plain(a2.data, b2.data, tplan, f88z), f88z)
-    chk.same("tree_gemm", f"canonical qgemul {TREE_N}^3", c, c_ref)
+    chk.same("tree_gemm_stream", f"canonical qgemul {TREE_N}^3", c, c_ref)
 
     # corners against the exact host golden model (hostops.qgemul)
     cn = CORNER
@@ -731,7 +742,49 @@ def phase_main_path(dev, chk):
     assert np.array_equal(c.raw()[:cn, :cn], host), "tree corner vs host"
     print(f"main path a: {cn}x{cn} corners of both pipeline GEMMs and the "
           "canonical tree equal hostops.qgemul")
+    launches["tree_gemm_stream"] += tree_cells_path(dev, chk, f88z)
     return launches, (x, pipe, plan1, mid, a2, b2, tplan, f88z)
+
+
+def tree_cells_path(dev, chk, f88z):
+    """Path a at the tree cells' GEMMs (``TREE_CELLS``): the canonical
+    ``qgemul`` launches K2′ once a cell, in the instantiation whose stack
+    holds the cell's k (``k2s_top``: depth 12 for fc1's k = 1024, 14 for
+    fc2's k = 4096), equal to the plain version on the card.  Returns the
+    launches."""
+    import numpy as np
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops.tree_gemm import (k2s_top, plan_tree,
+                                                tree_gemm, tree_gemm_plain,
+                                                tree_gemm_stream)
+    from qublas_tpu_torch.utils.profiling import launch_record
+
+    rng = np.random.RandomState(24)
+    total = 0
+    for cell, (m, k, n) in TREE_CELLS.items():
+        a = qt.from_raw(rand_raws(rng, f88z, (m, k), np.int32), f88z, dev)
+        b = qt.from_raw(rand_raws(rng, f88z, (k, n), np.int32), f88z, dev)
+        tree_gemm.launches = tree_gemm_stream.launches = 0
+        tree_gemm_stream.seen.clear()
+        with launch_record():
+            c = qt.qgemul(a, b, f88z)
+        launches = {"tree_gemm": tree_gemm.launches,
+                    "tree_gemm_stream": tree_gemm_stream.launches}
+        seen = sorted({inst.split("/")[0]
+                       for inst, _ in tree_gemm_stream.seen})
+        print(f"main path a, {cell}: canonical qgemul [{m}, {k}] @ [{k}, "
+              f"{n}], launches {launches}, instantiations {seen}")
+        check_launches(f"main path a, {cell}", launches,
+                       {"tree_gemm": 0, "tree_gemm_stream": 1})
+        want = [f"stream_{k2s_top(k, 1)}_1"]
+        assert seen == want, (cell, seen, want)
+        plan = plan_tree(f88z, f88z, qt.mul_merge(f88z, f88z), (), k, f88z)
+        chk.same("tree_gemm_stream", f"canonical qgemul {cell} [{m}, {k}] @ "
+                 f"[{k}, {n}] ({want[0]})", c, qt.QTensor(
+                     tree_gemm_plain(a.data, b.data, plan, f88z), f88z))
+        total += launches["tree_gemm_stream"]
+    return total
 
 
 def phase_reduce_path(dev, chk):
@@ -776,8 +829,8 @@ def phase_reduce_path(dev, chk):
           f"tree_gemm_stream and qgemul at {ln}^3 in {wall * 1e3:.3f} ms "
           f"wall (first call), launches {launches}")
     check_launches("main path b", launches,
-                   {"fused_int8_gemm": 0, "tree_gemm": 1,
-                    "tree_gemm_stream": 1, "qreduce_kernel": 2})
+                   {"fused_int8_gemm": 0, "tree_gemm": 0,
+                    "tree_gemm_stream": 2, "qreduce_kernel": 2})
 
     assert r.shape == (REDUCE_SHAPE[0],) and r.fmt == config2[1]
     assert r.data.dtype == torch.int16
@@ -1702,15 +1755,15 @@ def phase_lanes(dev, chk, state_a):
     state["h1"] = (x3, w1, xq, bb, kw, mid)
 
     # h2: the canonical tree's a2 as [TREE_BATCH, tn / TREE_BATCH, tn]
-    # against the 2-D b2: one K2 launch
+    # against the 2-D b2: one K2′ launch
     a3 = qt.QTensor(a2.data.reshape(TREE_BATCH, tn // TREE_BATCH, tn), f88z)
     c3 = drive("h2", f"canonical qgemul {list(a3.shape)} @ [{tn}, {tn}] (a "
                "folded broadcast batch)", lambda: qt.qgemul(a3, b2, f88z),
-               {"tree_gemm": 1})
-    chk.same("tree_gemm", "h2 folded batch == the 2-D canonical qgemul of "
-             "path a", c3.data.reshape(tn, tn),
+               {"tree_gemm_stream": 1})
+    chk.same("tree_gemm_stream", "h2 folded batch == K2 on the 2-D operands "
+             "of path a", c3.data.reshape(tn, tn),
              tree_gemm(a2.data, b2.data, tplan, f88z))
-    chk.same("tree_gemm", f"h2 folded batch, rows 0..{rb} == plain",
+    chk.same("tree_gemm_stream", f"h2 folded batch, rows 0..{rb} == plain",
              c3.data[0, :rb], tree_gemm_plain(a2.data[:rb], b2.data, tplan,
                                                f88z))
     state["h2"] = (a3, b2, f88z)
@@ -2339,15 +2392,15 @@ def sharded_rank(world: int, device: str, sizes, programs="eager") -> dict:
                  a, b, mid, m14, **gk), {"K1": 4}),
             ("mn canonical", f"sharded_qgemul_mn (2, 2), {tn}^3", "tree",
              lambda m14, m22: sharded_qgemul_mn(a2, b2, f88z, m22),
-             {"K2": 1}),
+             {"K2'": 1}),
             ("k_tree butterfly", f"sharded_qgemul_k_tree (1, 4), {tn}^3, "
              f"s = {_k_tree_split(tn, 4)[0]}, two butterfly rounds", "tree",
              lambda m14, m22: sharded_qgemul_k_tree(a2, b2, f88z, m14),
-             {"K2": 1}),
+             {"K2'": 1}),
             ("k_tree gather", f"sharded_qgemul_k_tree butterfly=False "
              f"(1, 4), {tn}^3", "tree",
              lambda m14, m22: sharded_qgemul_k_tree(
-                 a2, b2, f88z, m14, butterfly=False), {"K2": 1, "K3": 1}),
+                 a2, b2, f88z, m14, butterfly=False), {"K2'": 1, "K3": 1}),
             ("qreduce", f"sharded_qreduce config 2 {list(reduce_shape)} "
              "(2, 2)", "reduce", lambda m14, m22: sharded_qreduce(
                  x, config2, axis=1, mesh=m22), {"K3": 1}),
@@ -2503,7 +2556,7 @@ def phase_sharded(card):
               f" [{card}]")
     for r in ranks:
         print(f"path j launches rank {r['rank']}: {r['launches']}")
-    for name in ("K1", "K2", "K2h", "K3"):
+    for name in ("K1", "K2'", "K2h", "K3"):
         assert all(r["launches"][name] > 0 for r in ranks), name
     print(f"path j: the world of {SHARD_WORLD} in {t2 - t1:.1f} s wall, "
           f"spawn included; no rank imported JAX [{MULTI_RANK}] [{card}]")
@@ -2575,8 +2628,8 @@ def phase_differential(card):
     sharded families in a spawned Gloo world of 2, each trial held to the
     host oracle and, in the kernel families, each kernel launch to its
     plain version on CPU copies; then the coverage gate (each of the seven
-    kernel rows launched at least ``fuzz.MIN_LAUNCHES`` times, K2's six
-    instantiations launched, ``fuzz.MIN_PAIRS`` mode pairs on K1's
+    kernel rows launched at least ``fuzz.MIN_LAUNCHES`` times, K2's six and
+    K2′'s five instantiations launched, ``fuzz.MIN_PAIRS`` mode pairs on K1's
     epilogue, K2's run-time instantiations and K3), and the three examples'
     ``main("cuda")``.  A mismatch, a crash or a gate finding fails the
     run; these launches count in no row of the kernels line."""
@@ -2664,8 +2717,8 @@ def l_programs(dev, state_a, state_b):
                   lambda s: (rand(fa, (PIPE_N, PIPE_N), torch.int8, s),),
                   {"fused_int8_gemm": 2}, pipe_check))
 
-    # the canonical tree at 2048^3, qreduce of its rows, K2′ on the same
-    # operands: K2, K3 and K2′ once each
+    # the canonical tree at 2048^3 (on K2′), qreduce of its rows, K2 on
+    # the same operands: K2′, K3 and K2 once each
     a2, b2, tplan, f88z = state_a[4:8]
     lay = (qt.qformat(10, 6),)
     r_plan = qt.ops.reduce.plan_reduce(f88z, lay, TREE_N)
@@ -2673,17 +2726,17 @@ def l_programs(dev, state_a, state_b):
     def tree(a, b):
         c = qt.qgemul(qt.QTensor(a, f88z), qt.QTensor(b, f88z), f88z)
         return (c.data, qt.qreduce(c, lay, axis=1).data,
-                qt.ops.tree_gemm.tree_gemm_stream(a, b, tplan, f88z))
+                qt.ops.tree_gemm.tree_gemm(a, b, tplan, f88z))
 
     def tree_check(out, args):
         c = tree_gemm_plain(args[0], args[1], tplan, f88z)
         same_q("path l canonical qgemul == plain", out[0], c)
         same_q("path l qreduce of its rows == plain", out[1],
                qreduce_plain(c, 1, r_plan))
-        same_q("path l K2′ == K2", out[2], c)
+        same_q("path l K2 == plain", out[2], c)
         host_corner("canonical", out[0], qt.QTensor(args[0], f88z),
                     qt.QTensor(args[1], f88z), f88z)
-    progs.append((f"canonical qgemul {TREE_N}^3, qreduce, K2′", tree,
+    progs.append((f"canonical qgemul {TREE_N}^3, qreduce, K2", tree,
                   (a2.data, b2.data),
                   lambda s: (rand(f88z, (TREE_N, TREE_N), torch.int32, s),
                              rand(f88z, (TREE_N, TREE_N), torch.int32,
@@ -3549,6 +3602,50 @@ def phase_moe(dev, chk, card):
     return rows
 
 
+def tree_cell_times(card, f88z):
+    """Phase 4: K2 and K2′ on the canonical plan at the tree cells' GEMMs
+    (``TREE_CELLS``), each instantiation that ``qk_tree_gemm`` and
+    ``qk_tree_gemm_stream`` pick there, and ``qgemul`` on its route, by
+    events and device time, Δ=0 to each other."""
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch.ops.tree_gemm import (K2_LOG_BLK, k2s_top,
+                                                plan_tree, tree_gemm,
+                                                tree_gemm_stream)
+    from qublas_tpu_torch.timing import device_us, timeit
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    for cell, (m, k, n) in TREE_CELLS.items():
+        a, b = (torch.randint(f88z.raw_min, f88z.raw_max + 1, shape,
+                              generator=gen, device=dev, dtype=torch.int32)
+                for shape in ((m, k), (k, n)))
+        plan = plan_tree(f88z, f88z, qt.mul_merge(f88z, f88z), (), k, f88z)
+        qa, qb = qt.QTensor(a, f88z), qt.QTensor(b, f88z)
+        k2 = tree_gemm(a, b, plan, f88z)
+        assert torch.equal(tree_gemm_stream(a, b, plan, f88z), k2), cell
+        assert torch.equal(qt.qgemul(qa, qb, f88z).data, k2), cell
+        k2_top = 8 if (k >> K2_LOG_BLK).bit_length() <= 8 else 32
+        for label, fn in (
+                (f"tree_gemm (K2, depth {k2_top})",
+                 lambda: tree_gemm(a, b, plan, f88z)),
+                (f"tree_gemm_stream (K2′, depth {k2s_top(k, 1)})",
+                 lambda: tree_gemm_stream(a, b, plan, f88z)),
+                ("canonical qgemul", lambda: qt.qgemul(qa, qb, f88z))):
+            ms = timeit(fn)
+            # the profiler's trace can come back without device rows: once
+            # more, then none
+            dus = (sum(device_us(fn, runs=10).values())
+                   or sum(device_us(fn, runs=10).values()))
+            on_dev = (f"device {dus:.2f} us per call, "
+                      f"{m * k * n / dus / 1e3:.2f} Gprod/s on the device"
+                      if dus else
+                      "device time not measured (no device rows traced)")
+            print(f"time {cell} [{m}, {k}] @ [{k}, {n}] {label}: event "
+                  f"{ms:.4f} ms, {on_dev}; Δ=0 to K2 [{card}]")
+
+
 def phase_times(card, state_a, state_b, state_d, chain_rate, state_f):
     """Phase 4: kernel, plain, library and main-path times."""
     import torch
@@ -3716,6 +3813,7 @@ def phase_times(card, state_a, state_b, state_d, chain_rate, state_f):
               f"{host_us(fn, runs=20):.2f} [{card}]")
     print(f"time tree_gemm_stream / tree_gemm at {tn}^3 (canonical plan): "
           f"{t['k2s_big'] / t['k2']:.4f} [{card}]")
+    tree_cell_times(card, f88z)
     print(f"time main path: QuantPipeline forward {n}^3 {t['pipeline']:.4f}"
           f" ms ({2 * ops / t['pipeline'] / 1e9:.2f} TOP/s over its two "
           f"GEMMs), canonical qgemul {tn}^3 {t['canonical']:.4f} ms, "
@@ -3872,12 +3970,12 @@ def main() -> int:
             + launches_h["fused_int8_gemm"], "k1", "k1_plain", "int_mm"),
         row("tree_gemm", "qublas_tpu_torch/csrc/tree_gemm_tiled.cu",
             "qublas_tpu/ops/tree_gemm.py:362",
-            launches_a["tree_gemm"] + launches_f["tree_gemm"]
-            + launches_h["tree_gemm"], "k2", "k2_plain", None),
+            launches_f["tree_gemm"], "k2", "k2_plain", None),
         row("tree_gemm_stream",
             "qublas_tpu_torch/csrc/tree_gemm_stream.cuh",
             "qublas_tpu/ops/tree_gemm.py:457",
-            launches_b["tree_gemm_stream"] + launches_f["tree_gemm_stream"],
+            launches_a["tree_gemm_stream"] + launches_b["tree_gemm_stream"]
+            + launches_f["tree_gemm_stream"] + launches_h["tree_gemm_stream"],
             "k2s", "k2s_plain", None),
         row("qreduce_kernel", "qublas_tpu_torch/csrc/qreduce.cu",
             "qublas_tpu/ops/reduce.py:192",

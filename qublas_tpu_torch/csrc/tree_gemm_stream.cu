@@ -53,6 +53,10 @@ extern "C" int qk_tree_gemm_stream(int device, const void* a, long long lda,
                  : qk::launch_k2s<qk::K2S_TOP, 0>)(A, lda, B, ldb, c, m, n, k,
                                                    out_bytes, p, s);
   }
+  if (plan && bit_length(k) <= qk::K2S_TOP2) {
+    return qk::launch_k2s<qk::K2S_TOP2, 1>(A, lda, B, ldb, c, m, n, k,
+                                           out_bytes, p, s);
+  }
   return (plan ? qk::launch_k2s<qk::MAXL, 1> : qk::launch_k2s<qk::MAXL, 0>)(
       A, lda, B, ldb, c, m, n, k, out_bytes, p, s);
 }

@@ -3,7 +3,8 @@
 // through a slot stack of every tree level, slots_ref[l] in VMEM scratch).
 // This header holds the kernel template and its launcher qk::launch_k2s;
 // tree_gemm_stream.cu has the C entry point, tree_gemm_stream_<TOP>_<PLAN>.cu
-// one instantiation each, so that nvcc builds them in parallel.
+// one instantiation each (qk::K2S_INSTANCES), so that nvcc builds them in
+// parallel.
 //
 // The schedule: product number i of an output is a binary counter.  It
 // merges once per trailing one-bit of i, the slot of that level the left
@@ -53,8 +54,36 @@
 
 namespace qk {
 
-// The stack depth of the instantiations for k below 4096; MAXL above.
+// The stack depths of the instantiations: K2S_TOP for k below 4096, then
+// for the compiled plans K2S_TOP2 for k below 16384; MAXL above.
 constexpr int K2S_TOP = 12;
+constexpr int K2S_TOP2 = 14;
+
+// The instantiations of launch_k2s, as tree_gemm_stream.cu chooses them:
+// {stack depth, plan (0: steps read at run time, 1: K2S_PLANS[1] compiled
+// in), outputs a thread (TM x 1), blocks an SM}.  Below k = 4096 the
+// compiled plans take 4 x 1 outputs a thread and 3 blocks an SM, the
+// fastest of 2 x 1, 4 x 1 and 2 x 2 at 2 to 4 blocks an SM; the run-time
+// plan 2 x 1 and 4 blocks, as its rolled requantizes spill at 4 x 1.  From
+// k = 4096 the compiled plan's two more levels take the tile below
+// (PERF.md); the deepest stack one output and 2 blocks, to keep it in
+// registers.
+constexpr int K2S_INSTANCES[][4] = {
+    {K2S_TOP, 0, 2, 4},
+    {K2S_TOP, 1, 4, 3},
+    {K2S_TOP2, 1, 4, 2},
+    {MAXL, 0, 1, 2},
+    {MAXL, 1, 1, 2},
+};
+
+// The row of K2S_INSTANCES for (top, plan), -1 if none.
+constexpr int k2s_instance(int top, int plan) {
+  for (int i = 0; i < int(sizeof(K2S_INSTANCES) / sizeof(K2S_INSTANCES[0]));
+       ++i) {
+    if (K2S_INSTANCES[i][0] == top && K2S_INSTANCES[i][1] == plan) return i;
+  }
+  return -1;
+}
 
 }  // namespace qk
 
@@ -407,18 +436,16 @@ namespace qk {
 
 constexpr int K2S_LOG_S = 5;  // products per k-slice: 32
 
-// K2' for k below 2^TOP, plan K2S_PLANS[PLAN].  Below k = 4096 the
-// compiled plans take 4 x 1 outputs a thread and 3 blocks an SM, the
-// fastest of 2 x 1, 4 x 1 and 2 x 2 at 2 to 4 blocks an SM; the run-time
-// plan 2 x 1 and 4 blocks, as its rolled requantizes spill at 4 x 1
-// (PERF.md).  The deep stack takes one output and 2 blocks, to keep it in
-// registers.
+// K2' for k below 2^TOP, plan K2S_PLANS[PLAN], on the tile that
+// K2S_INSTANCES gives it.
 template <int TOP, int PLAN>
 int launch_k2s(const int32_t* a, long long lda, const int32_t* b,
                long long ldb, void* c, int m, int n, int k, int out_bytes,
                const TreeParams& p, cudaStream_t stream) {
-  constexpr int TM = TOP > K2S_TOP ? 1 : PLAN ? 4 : 2;
-  constexpr int MINB = TOP > K2S_TOP ? 2 : PLAN ? 3 : 4;
+  constexpr int I = k2s_instance(TOP, PLAN);
+  static_assert(I >= 0, "no such row of K2S_INSTANCES");
+  constexpr int TM = K2S_INSTANCES[I][2];
+  constexpr int MINB = K2S_INSTANCES[I][3];
   return k2s::launch<TOP, k2s::Steps<PLAN>, TM, 1, MINB, K2S_LOG_S,
                      k2s::TmaLoad>(a, lda, b, ldb, c, m, n, k, out_bytes, p,
                                    stream);
@@ -431,6 +458,7 @@ int launch_k2s(const int32_t* a, long long lda, const int32_t* b,
                                      cudaStream_t)
 extern QK_K2S_INSTANCE(K2S_TOP, 0);
 extern QK_K2S_INSTANCE(K2S_TOP, 1);
+extern QK_K2S_INSTANCE(K2S_TOP2, 1);
 extern QK_K2S_INSTANCE(MAXL, 0);
 extern QK_K2S_INSTANCE(MAXL, 1);
 

@@ -1,7 +1,7 @@
 // Variants of the package's K2' kernel (csrc/tree_gemm_stream.cuh, included
 // here), timed by experiments/kernel_sweeps.py to choose its design: the
 // load path, the slice length, how much of the requantize step is compiled
-// in, the micro-tile.  Not part of the package's kernels.
+// in, the micro-tile, the stack depth.  Not part of the package's kernels.
 //
 // kernel_sweeps.py compiles this file once for each K2S_VARIANT, all at
 // once, into one library; each defines k2s_variant_<K2S_VARIANT>.  The
@@ -81,8 +81,7 @@ struct ModesOnly {
   static __device__ __forceinline__ int32_t product(const TreeParams& p,
                                                     int32_t a, int32_t b) {
     const qk::Rq r = qk::with_modes<qk::TRN_TCPL, qk::SAT_ZERO>(p.prod);
-    return p.split ? qk::requant_split_mul(a, b, r)
-                   : qk::requant(qk::wmul(a, b), r);
+    return qk::product_rq(p.route, a, b, r);
   }
 
   static __device__ __forceinline__ int32_t convert(const qk::Fold& f, int l,
@@ -106,22 +105,34 @@ using Compiled = k2s::Steps<1>;
 #define K2S_NAME2(a, b) a##b
 #define K2S_NAME(a, b) K2S_NAME2(a, b)
 
+// Each variant's stack depth: the package's K2S_TOP (k below 4096), or for
+// the variants from 8 on the depths that k from 4096 can take.
+#if K2S_VARIANT >= 8 && K2S_VARIANT <= 10
+#define K2S_VARIANT_TOP 14
+#elif K2S_VARIANT == 11
+#define K2S_VARIANT_TOP 13
+#elif K2S_VARIANT == 12
+#define K2S_VARIANT_TOP qk::MAXL
+#else
+#define K2S_VARIANT_TOP qk::K2S_TOP
+#endif
+
 // The variant on A [m, k] (pitch lda) and B [k, n] (pitch ldb), C [m, n]
 // int32; params as ops/tree_gemm.py:_kernel_params writes them with
 // log_blk = 0, the canonical plan where the variant compiles its steps;
-// k below 4096.
+// k below 2^TOP.
 extern "C" int K2S_NAME(k2s_variant_, K2S_VARIANT)(
     const void* a, long long lda, const void* b, long long ldb, void* c,
     int m, int n, int k, const int* params) {
+  constexpr int TOP = K2S_VARIANT_TOP;
   TreeParams p{};
   int log_blk;
   if (!read_params(params, &p, &log_blk) || log_blk != 0 ||
-      bit_length(k) > qk::K2S_TOP) {
+      bit_length(k) > TOP) {
     return -1;
   }
   const auto* A = static_cast<const int32_t*>(a);
   const auto* B = static_cast<const int32_t*>(b);
-  constexpr int TOP = qk::K2S_TOP;
 #if K2S_VARIANT == 1  // 16-byte cp.async instead of TMA
   return k2s::launch<TOP, Compiled, 4, 1, 3, 5, CpAsyncLoad>(
       A, lda, B, ldb, c, m, n, k, 4, p, nullptr);
@@ -143,7 +154,22 @@ extern "C" int K2S_NAME(k2s_variant_, K2S_VARIANT)(
 #elif K2S_VARIANT == 7  // 2 x 2 outputs a thread, 3 blocks an SM
   return k2s::launch<TOP, Compiled, 2, 2, 3, 5, TmaLoad>(
       A, lda, B, ldb, c, m, n, k, 4, p, nullptr);
+#elif K2S_VARIANT == 8  // depth 14, 4 x 1 outputs a thread, 3 blocks an SM
+  return k2s::launch<TOP, Compiled, 4, 1, 3, 5, TmaLoad>(
+      A, lda, B, ldb, c, m, n, k, 4, p, nullptr);
+#elif K2S_VARIANT == 9  // depth 14, 2 x 1 outputs a thread, 4 blocks an SM
+  return k2s::launch<TOP, Compiled, 2, 1, 4, 5, TmaLoad>(
+      A, lda, B, ldb, c, m, n, k, 4, p, nullptr);
+#elif K2S_VARIANT == 10  // depth 14, 4 x 1 outputs a thread, 2 blocks an SM
+  return k2s::launch<TOP, Compiled, 4, 1, 2, 5, TmaLoad>(
+      A, lda, B, ldb, c, m, n, k, 4, p, nullptr);
+#elif K2S_VARIANT == 11  // depth 13, 4 x 1 outputs a thread, 3 blocks an SM
+  return k2s::launch<TOP, Compiled, 4, 1, 3, 5, TmaLoad>(
+      A, lda, B, ldb, c, m, n, k, 4, p, nullptr);
+#elif K2S_VARIANT == 12  // depth MAXL, 1 output a thread, 2 blocks an SM
+  return k2s::launch<TOP, Compiled, 1, 1, 2, 5, TmaLoad>(
+      A, lda, B, ldb, c, m, n, k, 4, p, nullptr);
 #else
-#error "K2S_VARIANT must be 1-7"
+#error "K2S_VARIANT must be 1-12"
 #endif
 }

@@ -3,6 +3,7 @@ imported by the package).
 
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps [PART]
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps k2s OTHER_CHECKOUT
+    python3 -m qublas_tpu_torch.experiments.kernel_sweeps k2s-cells [small]
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps k3 OTHER_CHECKOUT
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps p1 OTHER_CHECKOUT
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps main OTHER_CHECKOUT
@@ -26,7 +27,10 @@ under a time limit, so a kernel that hangs ends that part and not the run:
   canonical plan, checked against its plain version and K2, with its
   device and host time per call beside K2's time (given another
   checkout's root, the same in both trees in turns: other, this, this,
-  other); then its variants (``k2s_variants.cu``: 16-byte ``cp.async``
+  other); K2, K2′ and ``qgemul`` at the tree cells' shapes beside the
+  variants whose stack holds their k (depths 13, 14 and 32 on several
+  tiles), and at shapes under one k-slice or one wave of blocks; then its
+  variants (``k2s_variants.cu``: 16-byte ``cp.async``
   instead of TMA, slices of 16 instead of 32, only the modes compiled in,
   other micro-tiles and blocks an SM beside the package's 4 x 1 at 3) and the
   package's instantiation with every step read at run time, each checked
@@ -326,7 +330,24 @@ K2S_VARIANTS = {1: "16-byte cp.async instead of TMA",
                 4: "2 x 1 outputs a thread, 4 blocks an SM",
                 5: "4 x 1 outputs a thread, 2 blocks an SM",
                 6: "2 x 2 outputs a thread, 2 blocks an SM",
-                7: "2 x 2 outputs a thread, 3 blocks an SM"}
+                7: "2 x 2 outputs a thread, 3 blocks an SM",
+                8: "depth 14, 4 x 1 outputs a thread, 3 blocks an SM",
+                9: "depth 14, 2 x 1 outputs a thread, 4 blocks an SM",
+                10: "depth 14, 4 x 1 outputs a thread, 2 blocks an SM",
+                11: "depth 13, 4 x 1 outputs a thread, 3 blocks an SM",
+                12: "depth 32 (MAXL), 1 output a thread, 2 blocks an SM"}
+# the stack depth of each variant (k below 2^depth)
+K2S_VARIANT_TOP = {v: 14 if 8 <= v <= 10 else 13 if v == 11 else
+                   32 if v == 12 else 12 for v in K2S_VARIANTS}
+
+# the tree cells' GEMMs (m, k, n): BERT-Large's fc1 and fc2 at 4 sequences
+# of 384 (gpubench/configs/bertl_fc_tree16.json)
+K2S_CELL_SHAPES = {"fc1": (1536, 1024, 4096), "fc2": (1536, 4096, 1024)}
+# shapes below one k-slice or one wave of blocks (m, k, n): the card
+# tests' and the fuzz's sizes, where K2 might beat K2′ on launch cost
+K2S_SMALL_SHAPES = ((64, 100, 48), (33, 13, 17), (64, 16, 48),
+                    (256, 31, 256), (256, 32, 256), (256, 64, 256),
+                    (128, 256, 128), (128, 1024, 128), (512, 512, 512))
 
 
 def _k2s_variants_lib():
@@ -418,8 +439,96 @@ def _k2s_variants(card):
                "k2sv", "k2s_sass.txt")
 
 
+def _k2s_cells(card, small_only=False):
+    """K2 and K2′ at the tree cells' shapes and at small ones: the
+    package's kernels and ``qgemul`` on its route and on each route forced,
+    and at the cells' shapes the variants whose stack holds k, by event,
+    device and host time, each checked against K2; at the small shapes
+    also ``qgemul``'s host time a call on K2 and on K2′ in turns (K2, K2′,
+    K2′, K2), where the host sets the pace.  ``small_only``: the small
+    shapes alone."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import qublas_tpu_torch as qt
+    from qublas_tpu_torch import _build
+    from qublas_tpu_torch.ops import gemm as G
+    from qublas_tpu_torch.ops import library
+    from qublas_tpu_torch.ops import tree_gemm as TT
+    from qublas_tpu_torch.timing import device_us, host_us, timeit
+
+    dev = torch.device("cuda", 0)
+    f = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
+    lib = None if small_only else _k2s_variants_lib()[0]
+
+    def qgemul_on(k2s, qa, qb):
+        # qgemul with its tree tier's route forced to K2′ or to K2
+        saved, G.takes_k2s = G.takes_k2s, lambda *args: k2s
+        try:
+            return qt.qgemul(qa, qb, f).data
+        finally:
+            G.takes_k2s = saved
+    shapes = [] if small_only else list(K2S_CELL_SHAPES.items())
+    shapes += [(f"{m}x{k}x{n}", (m, k, n)) for m, k, n in K2S_SMALL_SHAPES]
+    for label, (m, k, n) in shapes:
+        rng = np.random.RandomState(m + k + n)
+        a, b = (torch.from_numpy(rng.randint(f.raw_min, f.raw_max + 1, sh)
+                                 .astype(np.int32)).to(dev)
+                for sh in ((m, k), (k, n)))
+        plan = TT.plan_tree(f, f, qt.mul_merge(f, f), (), k, f)
+        assert TT.k2s_plan(plan) == 1
+        want = TT.tree_gemm(a, b, plan, f)
+        qa, qb = qt.QTensor(a, f), qt.QTensor(b, f)
+        runs = [("K2 (tree_gemm)", lambda: TT.tree_gemm(a, b, plan, f)),
+                ("K2′ (tree_gemm_stream)",
+                 lambda: TT.tree_gemm_stream(a, b, plan, f)),
+                ("qgemul", lambda: qt.qgemul(qa, qb, f).data),
+                ("qgemul on K2", lambda: qgemul_on(False, qa, qb)),
+                ("qgemul on K2′", lambda: qgemul_on(True, qa, qb))]
+        params = TT._kernel_params(plan, f, 0)
+        out = torch.empty_like(want)
+        for v in K2S_VARIANTS if label in K2S_CELL_SHAPES else ():
+            if v < 8 or k >= 1 << K2S_VARIANT_TOP[v]:
+                continue
+            fn = getattr(lib, f"k2s_variant_{v}")
+
+            def run(fn=fn):
+                _build.check(fn(a.data_ptr(), k, b.data_ptr(), n,
+                                out.data_ptr(), m, n, k,
+                                library.c_ints(params)), "k2s_variant")
+                return out
+            runs.append((f"variant {v}: {K2S_VARIANTS[v]}", run))
+        for name, run in runs:
+            out.zero_()
+            res = run()
+            torch.cuda.synchronize()
+            assert torch.equal(res, want), (label, name)
+            ms = timeit(run, runs=30, warmup=3)
+            dus = sum(device_us(run, runs=10).values())
+            hus = host_us(run, runs=30)
+            rate = f"{m * k * n / dus / 1e3:.2f}" if dus else "no device rows"
+            print(f"k2sc {label} [{m}, {k}] @ [{k}, {n}] {name}: event "
+                  f"{ms:.4f} ms, device {dus:.2f} us, host {hus:.1f} us "
+                  f"per call, {rate} Gprod/s on the device, == K2 "
+                  f"[{card}]", flush=True)
+        if label in K2S_CELL_SHAPES:
+            continue
+        turns = {False: [], True: []}
+        for k2s in (False, True, True, False, False, True, True, False):
+            turns[k2s].append(host_us(lambda: qgemul_on(k2s, qa, qb),
+                                      runs=200))
+        print(f"k2sc {label} qgemul host us a call in turns: on K2 "
+              f"{statistics.mean(turns[False]):.1f} "
+              f"{[round(x, 1) for x in turns[False]]}, on K2′ "
+              f"{statistics.mean(turns[True]):.1f} "
+              f"{[round(x, 1) for x in turns[True]]} [{card}]", flush=True)
+
+
 def _k2s(card):
     _k2s_times(card)
+    _k2s_cells(card)
     _k2s_variants(card)
 
 
@@ -1040,6 +1149,9 @@ def main() -> int:
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "k2s-times":
         _k2s_times(card)
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "k2s-cells":
+        _k2s_cells(card, sys.argv[2:] == ["small"])
         return 0
     if len(sys.argv) > 2 and sys.argv[1] == "p1":
         _p1_against(card, sys.argv[2])

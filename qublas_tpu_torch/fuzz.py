@@ -48,8 +48,9 @@ launch's instantiation and mode pairs (``_build.record``); :func:`gate`
 fails the sweep when a kernel it steers into launched fewer than
 :data:`MIN_LAUNCHES` times, when K1's epilogue, K2's run-time
 instantiations or K3 saw fewer than :data:`MIN_PAIRS` distinct (round,
-overflow) pairs, when one of K2's six instantiations never launched, or
-when K1's table instantiation (a ROM in its epilogue) never launched.
+overflow) pairs, when one of K2's six or K2′'s five instantiations never
+launched, or when K1's table instantiation (a ROM in its epilogue) never
+launched.
 """
 
 from __future__ import annotations
@@ -824,7 +825,7 @@ def route_gemm(sw: Sweep):
                 qformat(60, 20, round_mode=RoundMode.RND_CONV,
                         overflow_mode=OverflowMode.SAT_TCPL),
                 qformat(51, 30), (qformat(57, 30),), 3, 16, 4)
-    # the order-sensitive tree (K2)
+    # the order-sensitive tree (K2; K2′ on the card)
     f88z = qformat(8, 8, overflow_mode=OverflowMode.SAT_ZERO)
     _route_gemm(sw, "gemm.tree", f88z, f88z, f88z, None, (), 4, 8, 4)
     # the general-k stream (odd k, ragged tail subtree)
@@ -1252,6 +1253,9 @@ TZ = (RoundMode.TRN_TCPL, OverflowMode.SAT_ZERO)
 # (0) or (TRN::TCPL, SAT::ZERO) compiled in with the int32 (1) or 64-bit
 # (2) product routes
 K2_INSTANCES = tuple(f"tiled_{top}_{m}" for top in (8, 32) for m in (0, 1, 2))
+# K2′'s five (csrc/tree_gemm_stream_<depth>_<plan>.cu): TG.K2S_INSTANCES
+K2S_INSTANCES = tuple(f"stream_{top}_{plan}"
+                      for top, plan, _, _ in TG.K2S_INSTANCES)
 
 
 def tree_config(rng, modes, pair_route, k):
@@ -1320,13 +1324,19 @@ def k2_case(t, tag="k2"):
 def k2s_case(t):
     """A ``plan_tree`` configuration for K2′: by t % 4, the canonical
     ``Qu<8,8,TRN::TCPL,SAT::ZERO>`` plan (the instantiation of
-    ``K2S_PLANS``, k2s_plan 1) at any k, a plan at k from 4096 (the
-    32-level stack), or random plans at any k (steps read at run time)."""
+    ``K2S_PLANS``, k2s_plan 1), a plan at k from 4096 (the 32-level
+    stack), or random plans at any k (steps read at run time).  The
+    canonical plan's k takes each of its stack depths in turn (k2s_top):
+    up to 2100, twice in four draws; from 4096 below 2^K2S_TOP2; from
+    2^K2S_TOP2, on small m and n."""
     if t % 4 == 0:
         rng = rng_for("k2s", t)
         f = qformat(8, 8, True, *MODES[rng.randint(0, len(MODES))])
         z = qformat(8, 8, True, *TZ)
-        k = rand_k(rng, 32, 2100)
+        depth = (t // 4) % 4
+        k = rand_k(rng, 32, 2100) if depth in (0, 2) else \
+            int(rng.randint(4096, 1 << TG.K2S_TOP2)) if depth == 1 else \
+            (1 << TG.K2S_TOP2) + int(rng.randint(0, 200))
         for _ in range(400):
             out = lane_fmt(rng, 2, 31)
             plan = TG.plan_tree(f, f, mul_merge(f, f, z, False), (z,), k,
@@ -1335,7 +1345,8 @@ def k2s_case(t):
                 break
         else:
             raise NoCase("no plan_tree plan in 400 draws")
-        m, n = rand_dim(rng, 64), rand_dim(rng, 64)
+        m, n = (rand_dim(rng, 64), rand_dim(rng, 64)) if depth != 3 else \
+            (int(rng.randint(1, 7)), int(rng.randint(1, 7)))
         return dict(fa=f, fb=f, mul_to=z, layers=(z,), out=out, plan=plan,
                     A=raws_array(rng, f, (m, k)), B=raws_array(rng, f, (k, n)),
                     views=(VIEWS[rng.randint(0, len(VIEWS))],
@@ -1853,6 +1864,13 @@ def gate(families) -> list:
         for inst in K2_INSTANCES:
             if inst not in got:
                 bad.append(f"tree_gemm: instantiation {inst} never launched")
+    if "k2s" in families:
+        # an instantiation, then its operand routes
+        got = {inst.split("/")[0] for inst, _ in TG.tree_gemm_stream.seen}
+        for inst in K2S_INSTANCES:
+            if inst not in got:
+                bad.append(f"tree_gemm_stream: instantiation {inst} never "
+                           "launched")
     return bad
 
 

@@ -35,8 +35,11 @@ order is about speed):
    lane operands only.
 5. **Order-sensitive tier** (``plan_tree``): the reference's balanced tree
    with per-product and per-layer requantization —
-   :func:`~qublas_tpu_torch.ops.tree_gemm.tree_gemm` (kernel K2), products
-   on the i32, split or 64-bit pair route, lane operands only.
+   :func:`~qublas_tpu_torch.ops.tree_gemm.tree_gemm_stream` (kernel K2′)
+   for CUDA operands on a plan whose steps K2′ has compiled in, else
+   :func:`~qublas_tpu_torch.ops.tree_gemm.tree_gemm` (kernel K2)
+   (:func:`~qublas_tpu_torch.ops.tree_gemm.takes_k2s`), products on the
+   i32, split or 64-bit pair route, lane operands only.
 6. **Streaming tier** (:func:`_stream_gemm_wide`): the same tree as a
    binary-carry stream of k-chunks over the elementwise ops and
    :func:`~qublas_tpu_torch.ops.reduce.qreduce`, for configurations outside
@@ -77,8 +80,10 @@ from .tree_gemm import (
     drain_ops,
     plan_hybrid,
     plan_tree,
+    takes_k2s,
     tree_gemm,
     tree_gemm_hybrid,
+    tree_gemm_stream,
 )
 from .wideint import mul_wide, requantize_i64
 from .widths import (
@@ -266,7 +271,7 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     * **folded**: when ``b`` is 2-D, or every batch dim of ``b`` is 1 (an
       activation batch against a shared weight), ``a`` is reshaped to
       ``[prod(batch)·M, K]`` and the lossless (K1), limb, int64, hybrid
-      (K2h) and tree (K2) tiers make ONE call (a batch of more than
+      (K2h) and tree (K2, K2′) tiers make ONE call (a batch of more than
       ``_FOLD_MAX_ROWS`` rows, which K1's and K2's grids cannot hold, a
       call per that many).  The limb tier's envelope
       (:func:`limb_dot_plan`) is taken at the folded M; a fold outside it
@@ -439,12 +444,16 @@ def _qgemul_tiers(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
         with span("qublas.plan"):
             tplan = plan_tree(a.fmt, b.fmt, mul_fmt, add_formats, k,
                               out_fmt)
-        # K2 requantizes products on the int32 and 64-bit routes; a plan
-        # whose product needs wider working bits ("limb") takes the tiers
-        # below, whose products run on limbs
+        # K2 and K2′ requantize products on the int32 and 64-bit routes; a
+        # plan whose product needs wider working bits ("limb") takes the
+        # tiers below, whose products run on limbs
         if tplan is not None and tplan.prod_route in ROUTES:
-            return _over_batch(lambda x, y: QTensor(tree_gemm(
-                x.data, y.data, tplan, out_fmt), out_fmt), a, b, batch)
+            def tree(x, y):
+                kernel = tree_gemm_stream if takes_k2s(
+                    tplan, x.data.device) else tree_gemm
+                return QTensor(kernel(x.data, y.data, tplan, out_fmt),
+                               out_fmt)
+            return _over_batch(tree, a, b, batch)
 
     a, b = _expand(a, batch), _expand(b, batch)
     res = _stream_gemm_wide(a, b, out_fmt, mul_to, add_formats,
@@ -467,8 +476,8 @@ def _swap(t: QTensor) -> QTensor:
     return QTensor(data, t.fmt, t.device)
 
 
-# rows of one folded call: K1's and K2's grids hold at most 65535 blocks
-# along M, of at least 16 rows each
+# rows of one folded call: K1's, K2's and K2′'s grids hold at most 65535
+# blocks along M, of at least 16 rows each
 _FOLD_MAX_ROWS = 65535 * 16
 
 

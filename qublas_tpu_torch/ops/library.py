@@ -474,7 +474,8 @@ def _k2s(a, b, params, plan, out_bytes):
         out.data_ptr(), m, out.shape[1], k, out_bytes, c_ints(params), plan,
         _stream(a))
     _build.check(err, "tree_gemm_stream")
-    _tree_record(TG.tree_gemm_stream, f"plan_{plan}/{ra}/{rb}", params, k)
+    _tree_record(TG.tree_gemm_stream,
+                 f"stream_{TG.k2s_top(k, plan)}_{plan}/{ra}/{rb}", params, k)
     return out
 
 

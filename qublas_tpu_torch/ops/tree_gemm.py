@@ -75,6 +75,8 @@ __all__ = ["TreePlan", "plan_tree", "level_formats", "drain_ops", "ROUTES",
            "tree_gemm", "tree_gemm_plain", "tree_gemm_stream",
            "tree_gemm_stream_plain", "K2_LOG_BLK", "K2_MODES", "k2_modes",
            "K2S_LOG_S", "K2S_PLANS", "k2s_plan", "k2s_operand", "k2s_route",
+           "K2S_TOP", "K2S_TOP2", "K2S_MAXL", "K2S_INSTANCES", "k2s_top",
+           "takes_k2s",
            "HybridPlan", "plan_hybrid", "tree_gemm_hybrid",
            "tree_gemm_hybrid_plain", "hybrid_digit_dots_plain",
            "digit_lanes", "digit_planes", "k2h_route", "K2H_MODES",
@@ -474,6 +476,42 @@ def k2s_plan(plan: TreePlan) -> int:
     return 0
 
 
+# csrc/tree_gemm_stream.cuh's stack depths (K2S_TOP, K2S_TOP2, MAXL) and
+# its K2S_INSTANCES: (stack depth, plan: 0 read at run time or 1 compiled,
+# outputs a thread TM (x 1), blocks an SM), as k2s_top picks the depth
+K2S_TOP, K2S_TOP2, K2S_MAXL = 12, 14, 32
+K2S_INSTANCES = ((K2S_TOP, 0, 2, 4), (K2S_TOP, 1, 4, 3), (K2S_TOP2, 1, 4, 2),
+                 (K2S_MAXL, 0, 1, 2), (K2S_MAXL, 1, 1, 2))
+
+
+def k2s_top(k: int, plan: int) -> int:
+    """The stack depth of K2′'s instantiation for k products under
+    instantiation ``plan`` (:func:`k2s_plan`), as ``qk_tree_gemm_stream``
+    picks it: K2S_TOP while k < 2^12; for the compiled plans K2S_TOP2
+    while k < 2^14; else K2S_MAXL."""
+    if k.bit_length() <= K2S_TOP:
+        return K2S_TOP
+    if plan and k.bit_length() <= K2S_TOP2:
+        return K2S_TOP2
+    return K2S_MAXL
+
+
+def takes_k2s(plan: TreePlan, device: torch.device) -> bool:
+    """Whether ``qgemul``'s order-sensitive tier runs ``plan`` on K2′
+    (:func:`tree_gemm_stream`) rather than K2 (:func:`tree_gemm`) for
+    operands on ``device``: for CUDA operands whose plan K2′ has compiled
+    in (:func:`k2s_plan` > 0, an int32 product route), where it gives K2's
+    bits in about a third of K2's device time.  K2 keeps the 64-bit "pair"
+    route and the plans whose steps K2′ reads at run time, where K2′ is no
+    faster, and CPU tensors, whose plain K2 folds blocks of products where
+    K2′'s takes one at a time (PERF.md §6)."""
+    if device.type != "cuda":
+        return False
+    if "k2s" not in plan._kernel_cache:
+        plan._kernel_cache["k2s"] = k2s_plan(plan)
+    return plan._kernel_cache["k2s"] > 0
+
+
 def k2s_route(t32: torch.Tensor) -> str:
     """How K2′'s TMA reads the 2-D int32 tensor ``t32``: "direct" when its
     rows are contiguous, its pitch a multiple of 4 elements and its base
@@ -547,10 +585,11 @@ def tree_gemm_stream(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
 
     One call of the custom op ``qublas::tree_gemm_stream``: CPU tensors
     take the plain version; CUDA tensors launch K2′, the instantiation of
-    :func:`k2s_plan`.
+    :func:`k2s_plan` at the stack depth of :func:`k2s_top`.
     ``tree_gemm_stream.launches`` counts kernel launches,
-    ``tree_gemm_stream.seen`` each launch's instantiation and operand
-    routes (:func:`k2s_route`) and its steps' modes.
+    ``tree_gemm_stream.seen`` each launch's instantiation
+    (``stream_<depth>_<plan>``) and operand routes (:func:`k2s_route`) and
+    its steps' modes.
     """
     _check("tree_gemm_stream", a, b, plan)
     if "k2s" not in plan._kernel_cache:

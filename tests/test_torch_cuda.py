@@ -92,7 +92,8 @@ def test_k2_matches_plain(cuda, m, k, n, layers):
 
 def test_main_path_matches_cpu_and_counts_launches(cuda):
     """The main path on the card equals the same calls on CPU tensors (the
-    plain versions), and launches K1 twice and K2 once."""
+    plain versions), and launches K1 twice and K2′ once (the canonical
+    tree's route, ``takes_k2s``)."""
     x = _raws(0, FA, (256, 256), np.int8)
     w1 = _raws(1, FA, (256, 256), np.int8).numpy()
     w2 = _raws(2, FA, (256, 128), np.int8).numpy()
@@ -100,14 +101,15 @@ def test_main_path_matches_cpu_and_counts_launches(cuda):
     b = qt.from_raw(_raws(4, F88Z, (100, 48), np.int32).numpy(), F88Z, "cpu")
     pipe_gpu = qt.QuantPipeline.from_numpy(w1, w2, cuda)
     fused_int8_gemm.launches = 0
-    tree_gemm.launches = 0
+    tree_gemm.launches = tree_gemm_stream.launches = 0
     y = pipe_gpu(x.to(cuda))
     c = qt.qgemul(a.to(cuda), b.to(cuda), F88Z)
     torch.cuda.synchronize()
-    assert (fused_int8_gemm.launches, tree_gemm.launches) == (2, 1)
+    assert (fused_int8_gemm.launches, tree_gemm_stream.launches) == (2, 1)
+    assert tree_gemm.launches == 0
     y_cpu = qt.QuantPipeline.from_numpy(w1, w2, "cpu")(x)
     c_cpu = qt.qgemul(a, b, F88Z)
-    assert (fused_int8_gemm.launches, tree_gemm.launches) == (2, 1)
+    assert (fused_int8_gemm.launches, tree_gemm_stream.launches) == (2, 1)
     assert torch.equal(y.cpu(), y_cpu)
     assert c.fmt == c_cpu.fmt and torch.equal(c.data.cpu(), c_cpu.data)
 
@@ -603,18 +605,61 @@ def test_pair_route_matches_plain_in_every_mode(cuda, rm, om):
 def test_pair_route_qgemul_launches_k2_in_its_modes_instantiation(cuda):
     """qgemul on Qu<12,12,TRN::TCPL,SAT::ZERO>: the pair product route
     through K2's instantiation with those modes and the 64-bit product
-    compiled in, equal to K2′ and to the plain version."""
+    compiled in (not K2′, slower there), equal to K2′ and to the plain
+    version."""
     a = qt.from_raw(_raws(5, F12Z, (100, 300), np.int32).numpy(), F12Z, cuda)
     b = qt.from_raw(_raws(6, F12Z, (300, 70), np.int32).numpy(), F12Z, cuda)
     plan = plan_tree(F12Z, F12Z, qt.mul_merge(F12Z, F12Z), (), 300, F12Z)
     assert plan.prod_route == "pair" and k2_modes(plan) == 2
-    tree_gemm.launches = 0
+    tree_gemm.launches = tree_gemm_stream.launches = 0
     got = qt.qgemul(a, b, F12Z)
     torch.cuda.synchronize()
-    assert tree_gemm.launches == 1
+    assert (tree_gemm.launches, tree_gemm_stream.launches) == (1, 0)
     want = tree_gemm_plain(a.data, b.data, plan, F12Z)
     assert torch.equal(got.data, want)
     assert torch.equal(tree_gemm_stream(a.data, b.data, plan, F12Z), want)
+
+
+@pytest.mark.parametrize("k", [1, 31, 1024, 4095, 4096, 4097,
+                               2 ** TT.K2S_TOP2 - 1, 2 ** TT.K2S_TOP2])
+def test_canonical_qgemul_takes_k2s_at_every_depth(cuda, k):
+    """The canonical plan through qgemul launches K2′ once, below one
+    k-slice too, in the compiled instantiation at the stack depth that k
+    needs (K2S_TOP below 4096, K2S_TOP2 below 2^K2S_TOP2, MAXL from there),
+    equal bit for bit to K2 and to the plain version."""
+    a = _raws(k, F88Z, (128, k), np.int32).to(cuda)
+    b = _raws(k + 1, F88Z, (k, 64), np.int32).to(cuda)
+    plan = plan_tree(F88Z, F88Z, qt.mul_merge(F88Z, F88Z), (), k, F88Z)
+    assert k2s_plan(plan) == 1
+    tree_gemm.launches = tree_gemm_stream.launches = 0
+    tree_gemm_stream.seen.clear()
+    with launch_record():
+        got = qt.qgemul(qt.QTensor(a, F88Z), qt.QTensor(b, F88Z), F88Z)
+    torch.cuda.synchronize()
+    assert (tree_gemm.launches, tree_gemm_stream.launches) == (0, 1)
+    top = TT.K2S_TOP if k < 4096 else \
+        TT.K2S_TOP2 if k < 2 ** TT.K2S_TOP2 else TT.K2S_MAXL
+    assert {i for i, _ in tree_gemm_stream.seen} == {
+        f"stream_{top}_1/direct/direct" if k % 4 == 0 else
+        f"stream_{top}_1/pitched/direct"}
+    assert torch.equal(got.data, tree_gemm(a, b, plan, F88Z))
+    assert torch.equal(got.data, tree_gemm_plain(a, b, plan, F88Z))
+
+
+@pytest.mark.parametrize("config", ["layered", "i32"])
+def test_run_time_plans_keep_k2_in_qgemul(cuda, config):
+    """Plans whose steps K2′ reads at run time stay on K2 in qgemul, at any
+    size."""
+    fmt, layers = {"layered": (F88Z, LAYERS), "i32": (I32F, ())}[config]
+    a = qt.from_raw(_raws(7, fmt, (256, 300), np.int32).numpy(), fmt, cuda)
+    b = qt.from_raw(_raws(8, fmt, (300, 256), np.int32).numpy(), fmt, cuda)
+    plan = plan_tree(fmt, fmt, qt.mul_merge(fmt, fmt), layers, 300, fmt)
+    assert k2s_plan(plan) == 0
+    tree_gemm.launches = tree_gemm_stream.launches = 0
+    got = qt.qgemul(a, b, fmt, add_formats=layers)
+    torch.cuda.synchronize()
+    assert (tree_gemm.launches, tree_gemm_stream.launches) == (1, 0)
+    assert torch.equal(got.data, tree_gemm_plain(a.data, b.data, plan, fmt))
 
 
 def test_pair_storage_on_the_card_matches_cpu(cuda):
@@ -815,10 +860,10 @@ def test_folded_broadcast_batch_is_one_launch(cuda):
     a = qt.from_raw(_raws(23, F88Z, (2, 3, 40, 70), np.int32).numpy(), F88Z,
                     cuda)
     b = qt.from_raw(_raws(24, F88Z, (70, 50), np.int32).numpy(), F88Z, cuda)
-    tree_gemm.launches = 0
+    tree_gemm.launches = tree_gemm_stream.launches = 0
     c = qt.qgemul(a, b, F88Z)
     torch.cuda.synchronize()
-    assert tree_gemm.launches == 1
+    assert (tree_gemm.launches, tree_gemm_stream.launches) == (0, 1)
     c2 = qt.qgemul(qt.QTensor(a.data.reshape(-1, 70), F88Z), b, F88Z)
     assert torch.equal(c.data.reshape(-1, 50), c2.data)
     c_cpu = qt.qgemul(a.to("cpu"), b.to("cpu"), F88Z)

@@ -163,6 +163,16 @@ def test_k2s_generator_reaches_both_plans_and_operand_routes():
         assert got[key] > 0, key
 
 
+def test_k2s_generator_reaches_every_instantiation():
+    """Phase k's trials of the k2s family reach each of K2′'s
+    instantiations (stack depth by k2s_top, plan by k2s_plan), so the
+    gate can ask for all of them."""
+    got = _tally("k2s", lambda c: "stream_{}_{}".format(
+        TG.k2s_top(c["A"].shape[1], TG.k2s_plan(c["plan"])),
+        TG.k2s_plan(c["plan"])))
+    assert set(got) == set(fuzz.K2S_INSTANCES), got
+
+
 def test_k2h_generator_reaches_both_kernels_and_tails():
     got = collections.Counter()
     for t in range(PHASE_K):
@@ -243,8 +253,8 @@ def test_gate_reports_what_a_sweep_missed():
     fuzz.reset_counts()
     findings = fuzz.gate({row[3] for row in fuzz.KERNELS})
     assert len([f for f in findings if "launches <" in f]) == 7
-    # K2's six instantiations and K1's table instantiation
-    assert len([f for f in findings if "never launched" in f]) == 7
+    # K2's six instantiations, K2′'s five and K1's table instantiation
+    assert len([f for f in findings if "never launched" in f]) == 12
     for _, owner, attr, _, _ in fuzz.KERNELS:
         setattr(owner, attr, fuzz.MIN_LAUNCHES)
     fused_int8_gemm.lut_launches = 1
@@ -257,6 +267,8 @@ def test_gate_reports_what_a_sweep_missed():
                   (qformat(3, 4, True, *fuzz.MODES[-1]),))
     for inst in fuzz.K2_INSTANCES:
         _build.record(TG.tree_gemm, inst, modes)
+    for inst in fuzz.K2S_INSTANCES:
+        _build.record(TG.tree_gemm_stream, f"{inst}/direct/pitched", modes)
     _build.record(fused_int8_gemm, "int_dot/s32")
     _build.record(TG.tree_gemm_hybrid, "mma_1", modes[:2])
     _build.record(TG.tree_gemm_hybrid, "digits2_0", modes[:3])
@@ -270,6 +282,8 @@ def test_gate_reports_what_a_sweep_missed():
             "gemm/s8/direct/direct": fuzz.MIN_PAIRS, "int_dot/s32": 1,
             "gemm+lut/s8/direct/direct": 1}
         assert set(rows["tree_gemm"]["instances"]) == set(fuzz.K2_INSTANCES)
+        assert set(rows["tree_gemm_stream"]["instances"]) == {
+            f"{i}/direct/pitched" for i in fuzz.K2S_INSTANCES}
         assert rows["tree_gemm_hybrid_mma"]["instances"] == {"mma_1": 1}
         assert rows["tree_gemm_hybrid_mma"]["mode_pairs"] == 2
         assert rows["tree_gemm_hybrid_digits"]["instances"] == {

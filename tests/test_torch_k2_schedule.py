@@ -391,6 +391,100 @@ def test_k2s_plans_match_the_kernel_source():
         TT.ROUTES
 
 
+def _cpp_table(src, name, cols):
+    """The rows of the C table ``name[][cols]`` in ``src`` as lists of
+    stripped cells."""
+    body = re.search(rf"{name}\[\]\[{cols}\] = \{{(.*?)\}};", src,
+                     re.S).group(1)
+    return [[x.strip() for x in r.split(",")]
+            for r in re.findall(r"\{([^{}]*)\}", body)]
+
+
+def test_k2s_instances_match_the_kernel_source():
+    """ops.tree_gemm's K2S_TOP, K2S_TOP2, K2S_MAXL and K2S_INSTANCES (stack
+    depth, plan, outputs a thread, blocks an SM) are
+    csrc/tree_gemm_stream.cuh's, each instantiation has its file
+    tree_gemm_stream_<depth>_<plan>.cu, and the entry point picks the
+    depths in k2s_top's order."""
+    csrc = pathlib.Path(TT.__file__).parent.parent / "csrc"
+    src = (csrc / "tree_gemm_stream.cuh").read_text()
+    depth = {n: int(re.search(rf"constexpr int {n} = (\d+);", s_).group(1))
+             for n, s_ in (("K2S_TOP", src), ("K2S_TOP2", src),
+                           ("MAXL", (csrc / "tree_fold.cuh").read_text()))}
+    assert (depth["K2S_TOP"], depth["K2S_TOP2"], depth["MAXL"]) == \
+        (TT.K2S_TOP, TT.K2S_TOP2, TT.K2S_MAXL)
+    rows = tuple((depth[r[0]], *map(int, r[1:]))
+                 for r in _cpp_table(src, "K2S_INSTANCES", 4))
+    assert rows == TT.K2S_INSTANCES
+    for top, plan, _, _ in TT.K2S_INSTANCES:
+        name = {TT.K2S_TOP: "K2S_TOP", TT.K2S_TOP2: "K2S_TOP2",
+                TT.K2S_MAXL: "MAXL"}[top]
+        inst = (csrc / f"tree_gemm_stream_{top}_{plan}.cu").read_text()
+        assert f"QK_K2S_INSTANCE({name}, {plan});" in inst, (top, plan)
+        assert f"extern QK_K2S_INSTANCE({name}, {plan});" in src
+    entry = (csrc / "tree_gemm_stream.cu").read_text()
+    picks = re.findall(r"launch_k2s<qk::(\w+), (\d)>", entry)
+    assert picks == [("K2S_TOP", "1"), ("K2S_TOP", "0"), ("K2S_TOP2", "1"),
+                     ("MAXL", "1"), ("MAXL", "0")]
+    assert "plan && bit_length(k) <= qk::K2S_TOP2" in entry
+
+
+@pytest.mark.parametrize("k,plan,top", [
+    (1, 0, 12), (1, 1, 12), (4095, 0, 12), (4095, 1, 12), (4096, 0, 32),
+    (4096, 1, 14), (8192, 1, 14), (16383, 1, 14), (16383, 0, 32),
+    (16384, 1, 32), (2 ** 20, 1, 32)])
+def test_k2s_top_picks_the_entry_points_depth(k, plan, top):
+    assert TT.k2s_top(k, plan) == top
+
+
+@pytest.mark.parametrize("case,k,device,want", [
+    ("canonical", 1, "cuda", True),
+    ("canonical", 31, "cuda", True),
+    ("canonical", 100, "cuda", True),
+    ("canonical", 1024, "cuda", True),
+    ("canonical", 4095, "cuda", True),
+    ("canonical", 4096, "cuda", True),
+    ("canonical", 8192, "cuda", True),
+    ("canonical", 1024, "cpu", False),
+    ("canonical", 4096, "cpu", False),
+    ("pair", 300, "cuda", False),
+    ("layered", 300, "cuda", False),
+    ("i32", 128, "cuda", False),
+    ("layered", 4096, "cuda", False)])
+def test_qgemul_tree_tier_route(case, k, device, want):
+    """qgemul's order-sensitive tier takes K2′ for CUDA operands on a plan
+    that K2′ has compiled in, at any size, and K2 for the pair route, the
+    plans whose steps K2′ reads at run time and CPU tensors (takes_k2s
+    reads only the device's type: no card needed)."""
+    fmt, layers = {"canonical": (F88Z, ()), "pair": (PAIRF, ()),
+                   "layered": (F88Z, LAYERS), "i32": (I32F, ())}[case]
+    plan = TT.plan_tree(fmt, fmt, qt.mul_merge(fmt, fmt), layers, k, fmt)
+    for _ in range(2):  # the second reads k2s_plan from the plan's cache
+        assert TT.takes_k2s(plan, torch.device(device)) is want
+
+
+@pytest.mark.parametrize("k2s", [False, True])
+def test_qgemul_calls_the_kernel_takes_k2s_names(k2s, monkeypatch):
+    """qgemul's tree tier calls tree_gemm_stream where takes_k2s says so and
+    tree_gemm elsewhere, with the same bits (here on the CPU, the route
+    forced)."""
+    from qublas_tpu_torch.ops import gemm as G
+
+    calls = []
+    for name in ("tree_gemm", "tree_gemm_stream"):
+        fn = getattr(G, name)
+
+        def spy(*args, _fn=fn, _name=name):
+            calls.append(_name)
+            return _fn(*args)
+        monkeypatch.setattr(G, name, spy)
+    monkeypatch.setattr(G, "takes_k2s", lambda *args: k2s)
+    a, b, plan = _case(F88Z, (), 37, seed=2, m=3, n=4)
+    got = qt.qgemul(qt.QTensor(a, F88Z), qt.QTensor(b, F88Z), F88Z)
+    assert calls == ["tree_gemm_stream" if k2s else "tree_gemm"]
+    assert torch.equal(got.data, TT.tree_gemm_plain(a, b, plan, F88Z))
+
+
 def test_canonical_plan_takes_the_compiled_k2s_entry():
     _, _, plan = _case(F88Z, (), 512)
     assert TT.k2s_plan(plan) == 1
