@@ -9,7 +9,7 @@ imported by the package).
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps main OTHER_CHECKOUT
     python3 -m qublas_tpu_torch.experiments.kernel_sweeps k2h OTHER_CHECKOUT
 
-PART is one of k1, k2, k2s, k3, k3v, p1 and k2h; all of them when left out.
+PART is one of k1, k2, k2s, k3, p1 and k2h; all of them when left out.
 
 Run on a machine with a CUDA card.  Each part runs in its own process
 under a time limit, so a kernel that hangs ends that part and not the run:
@@ -43,29 +43,12 @@ under a time limit, so a kernel that hangs ends that part and not the run:
   time per call; given another checkout's root (e.g. the parent commit's
   ``git archive``), the same in both trees in turns (other, this, this,
   other), each tree's own package and kernels;
-* ``k3v``: what bounds K3's warp kernel at config 2: variants of it
-  (``k3_variants.cu``: no requantize, no loads, loads only, lane levels by
-  ``__shfl_down_sync``, 16 leaves a lane) timed at [4096, 1024] and
-  [131072, 1024]; the package's warp and columns kernels with their modes
-  compiled in and read at run time; and the instructions that
-  ``cuobjdump -sass`` lists for
-  K3's main-path instantiations and the variants, by opcode, in the whole
-  kernel and in its longest loop (the SASS itself is written to
-  ``build/qublas_tpu_torch/experiments/k3_sass.txt``);
 * ``p1``: P1 (``chain_probe``) at ``measured_chain_prods``' shapes (the
   canonical plan, G = 2048 programs of [128, 256], T = 128 and 16),
   checked against its plain version, with its device time per call,
   ``measured_chain_prods``, and K2′ at 2048^3 on the same plan with its
   rate over P1's (given another checkout's root, the same in both trees in
-  turns: other, this, this, other); then P1's variants
-  (``p1_variants.cu``: 1, 2, 4 and 8 chains a thread, 128 to 1024 threads
-  a block, y's split recomputed every step, the run-time plan with its
-  invariants left to the compiler, and at 2 and 4 chains) beside the
-  package's
-  compiled and run-time instantiations, each checked against the plain
-  version on the main path's tile and on a ragged one; and the
-  ``cuobjdump -sass`` opcode counts of each one's step loop (the SASS
-  itself into ``build/qublas_tpu_torch/experiments/p1_sass.txt``).
+  turns: other, this, this, other).
 
 * ``k2h``: K2h at ``chip_smoke.py``'s i1 shapes (2048^3 with s = 16;
   k = 2040 and the dl configuration with s = 8): the tensor-core kernel on
@@ -464,12 +447,14 @@ def _k2s_cells(card, small_only=False):
     lib = None if small_only else _k2s_variants_lib()[0]
 
     def qgemul_on(k2s, qa, qb):
-        # qgemul with its tree tier's route forced to K2′ or to K2
-        saved, G.takes_k2s = G.takes_k2s, lambda *args: k2s
+        # qgemul with its tree tier's kernel forced to K2′ or to K2
+        saved = G.tree_kernel
+        G.tree_kernel = lambda plan, _: (
+            ("k2s", TT.k2s_plan(plan)) if k2s else ("k2", TT.k2_modes(plan)))
         try:
             return qt.qgemul(qa, qb, f).data
         finally:
-            G.takes_k2s = saved
+            G.tree_kernel = saved
     shapes = [] if small_only else list(K2S_CELL_SHAPES.items())
     shapes += [(f"{m}x{k}x{n}", (m, k, n)) for m, k, n in K2S_SMALL_SHAPES]
     for label, (m, k, n) in shapes:
@@ -632,15 +617,6 @@ def _k3_against(card, other: str):
                        env=env, cwd=tree, timeout=900, check=True)
 
 
-# k3_variants.cu's variants of the warp kernel, by index; the first, the
-# fifth and the sixth compute K3's function, the others only take its time
-K3_VARIANTS = ("32 leaves a lane, as the package has it",
-               "merges plain adds (no requantize)",
-               "no loads (leaves made in registers)", "loads only (no merges)",
-               "lane levels by __shfl_down_sync",
-               "16 leaves a lane (one 16-byte load), chunks of 512")
-K3_EXACT = (0, 4, 5)
-
 # a SASS line of cuobjdump: /*address*/ [@predicate] OPCODE[.modifiers] ...;
 _SASS_INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                          r"([A-Z][A-Z0-9_]*)([^;]*)")
@@ -716,97 +692,6 @@ def _sass_dump(wanted, libraries, tag, filename):
     print(f"{tag} sass written to {path}", flush=True)
 
 
-def _k3_sass(variants_so):
-    """Instruction counts of K3's main-path instantiations (and the thread
-    kernel they replaced at config 2), and of the warp kernel's variants;
-    their SASS into build/qublas_tpu_torch/experiments/k3_sass.txt."""
-    from qublas_tpu_torch import _build
-
-    wanted = ("qreduce_warp<signed char, 5, 8, 1>",
-              "qreduce_warp<signed char, 5, 8, 0>",
-              "qreduce_cols<4, 16, 2>", "qreduce_cols<4, 16, 0>",
-              "qreduce_rows<4, 16>", "k3_warp<")
-    _sass_dump(wanted, (_build.library_path(), variants_so), "k3v",
-               "k3_sass.txt")
-
-
-def _k3_variants(card):
-    import torch
-
-    import qublas_tpu_torch as qt
-    from qublas_tpu_torch import _build
-    from qublas_tpu_torch.ops import library
-    from qublas_tpu_torch.ops.reduce import (plan_reduce, qreduce_kernel,
-                                             qreduce_plain)
-    from qublas_tpu_torch.timing import device_us, timeit
-
-    lib = _experiment_lib("k3_variants")
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.k3_warp_variant.argtypes = (I, P, P, L, L, I, P)
-    lib.k3_warp_variant.restype = I
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(4)
-    config2 = (qt.qformat(5, 3, round_mode=qt.RoundMode.RND_CONV,
-                          overflow_mode=qt.OverflowMode.SAT_ZERO),
-               qt.qformat(6, 2))
-    plan = plan_reduce(qt.qformat(4, 4), config2, 1024)
-    assert plan.modes == 1
-    params = plan.kernel_params()
-    for rows in (4096, 131072):
-        x = torch.randint(-128, 128, (rows, 1024), generator=gen, device=dev,
-                          dtype=torch.int8)
-        want = qreduce_plain(x, 1, plan)
-        out = torch.empty_like(want)
-        for v, label in enumerate(K3_VARIANTS):
-            def run():
-                _build.check(lib.k3_warp_variant(
-                    v, x.data_ptr(), out.data_ptr(), rows, 1024,
-                    out.element_size(), library.c_ints(params)),
-                    "k3_warp_variant")
-            run()
-            torch.cuda.synchronize()
-            same = torch.equal(out, want)
-            assert same or v not in K3_EXACT, (rows, label)
-            ms = timeit(run)
-            dus = sum(device_us(run).values())
-            print(f"k3v [{rows}, 1024] {label}: event {ms:.4f} ms, device "
-                  f"{dus:.2f} us per call, "
-                  f"{'== plain' if same else 'not K3 function'} [{card}]",
-                  flush=True)
-        dus = sum(device_us(lambda: qreduce_kernel(x, 1, plan)).values())
-        print(f"k3v [{rows}, 1024] the package's qreduce_kernel: device "
-              f"{dus:.2f} us per call [{card}]", flush=True)
-    # the package's kernels with the plans' modes read at run time (entry 0
-    # of K3_MODES) against the compiled ones, at the main paths' shapes
-    f88z = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
-    prod = torch.randint(f88z.raw_min, f88z.raw_max + 1, (512, 512, 512),
-                         generator=gen, device=dev, dtype=torch.int32)
-    for what, x, p in (
-            ("warp [131072, 1024]", x, plan),
-            ("columns [512, 512, 512] axis 1", prod,
-             plan_reduce(qt.mul_merge(f88z, f88z), (), 512))):
-        want = qreduce_plain(x, 1, p)
-        for modes in (p.modes, 0):
-            def run():
-                # the package's K3 op with its instantiation forced
-                return torch.ops.qublas.qreduce(
-                    x, 1, list(p.kernel_params()), p.tails, modes,
-                    want.element_size())
-            out = run()
-            torch.cuda.synchronize()
-            assert torch.equal(out, want), (what, modes)
-            dus = sum(device_us(run).values())
-            print(f"k3v {what}, modes {modes}: device {dus:.2f} us per call, "
-                  f"== plain [{card}]", flush=True)
-    clocks = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    print(f"k3v SM clock after the timings, and its maximum: {clocks} "
-          f"[{card}]", flush=True)
-    _k3_sass(_build.BUILD_DIR / "experiments" / "libk3_variants.so")
-
-
 def _p1_times(card):
     """P1 in this tree (whichever ``qublas_tpu_torch`` is imported) at
     ``measured_chain_prods``' shapes, ``measured_chain_prods`` itself, and
@@ -853,130 +738,6 @@ def _p1_against(card, other: str):
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
                         "p1-times"], env=env, cwd=tree, timeout=900,
                        check=True)
-
-
-# p1_variants.cu's variants, by its P1_VARIANT; 1-8 have the canonical
-# plan compiled in, 9-12 read any plan at run time
-P1_VARIANTS = {1: "compiled, 1 chain a thread, 256 threads a block",
-               2: "compiled, 2 chains, 256 threads",
-               3: "compiled, 4 chains, 256 threads",
-               4: "compiled, 8 chains, 256 threads",
-               5: "compiled, 4 chains, 128 threads",
-               6: "compiled, 4 chains, 512 threads",
-               7: "compiled, 4 chains, 1024 threads",
-               8: "compiled, 4 chains, y's split recomputed every step",
-               9: "run-time plan rolled, invariants left to the "
-                  "compiler (the first design), 1 chain",
-               10: "the same, 4 chains",
-               11: "run-time plan, invariants hoisted by hand (the "
-                   "package's), 2 chains",
-               12: "the same, 4 chains"}
-
-
-def _p1_variants_lib():
-    """Build p1_variants.cu once for each variant, all at once, into
-    build/qublas_tpu_torch/experiments/libp1_variants.so and load it."""
-    from qublas_tpu_torch import _build
-
-    out = _build.BUILD_DIR / "experiments"
-    out.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for v in P1_VARIANTS:
-        obj = out / f"p1_variant_{v}.o"
-        cmd = [_build._nvcc(), *_build.COMPILE_FLAGS, f"-DP1_VARIANT={v}",
-               "-I", str(_build.CSRC), "-c", str(HERE / "p1_variants.cu"),
-               "-o", str(obj)]
-        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True)))
-    for obj, proc in jobs:
-        text, _ = proc.communicate()
-        for line in text.splitlines():
-            if any(k in line for k in ("Compiling entry", "registers",
-                                       "spill", "error")):
-                print("  " + line.strip(), flush=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {obj.name}")
-    so = out / "libp1_variants.so"
-    subprocess.run([_build._nvcc(), *_build.COMPILE_FLAGS[:2], "-shared",
-                    "-o", str(so), *(str(o) for o, _ in jobs)], check=True)
-    lib = ctypes.CDLL(str(so))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    for v in P1_VARIANTS:
-        fn = getattr(lib, f"p1_variant_{v}")
-        fn.argtypes = (P, P, P, I, I, I, P)
-        fn.restype = I
-    return lib, so
-
-
-def _p1_variants(card):
-    import numpy as np
-    import torch
-
-    import qublas_tpu_torch as qt
-    from qublas_tpu_torch import _build
-    from qublas_tpu_torch.ops import library
-    from qublas_tpu_torch.ops import chain_probe as CP
-    from qublas_tpu_torch.ops import tree_gemm as TT
-    from qublas_tpu_torch.timing import device_us, timeit
-
-    lib, so = _p1_variants_lib()
-    dev = torch.device("cuda", 0)
-    f = qt.qformat(8, 8, overflow_mode=qt.OverflowMode.SAT_ZERO)
-    plan = TT.plan_tree(f, f, qt.mul_merge(f, f), (), 2048, f)
-    assert CP.p1_plan(plan) == 1
-    params = TT._kernel_params(plan, plan.final_fmt, 0)
-    x, y = CP.probe_tile(f, dev)
-    want = CP.chain_probe_plain(x, y, plan, CP.T1, CP.G)
-    # a ragged tile whose base is 4 bytes off 16 (the scalar path)
-    rng = np.random.RandomState(8)
-    flat = torch.from_numpy(rng.randint(f.raw_min, f.raw_max + 1, 2 * 92)
-                            .astype(np.int32)).to(dev)
-    xr, yr = flat[1:92].view(13, 7), flat[93:].view(13, 7)
-    want_r = CP.chain_probe_plain(xr, yr, plan, 17, 5)
-    runs = [("the package's instantiation 1 (compiled, "
-             f"{CP.P1_CHAINS[1]} chains, {CP.P1_THREADS[1]} threads)", -1),
-            ("the package's instantiation 0 (run-time plan rolled, "
-             f"invariants hoisted by hand, {CP.P1_CHAINS[0]} chain, "
-             f"{CP.P1_THREADS[0]} threads)", -2)]
-    runs += [(label, v) for v, label in P1_VARIANTS.items()]
-    for label, v in runs:
-        if v < 0:
-            def run(a=x, b=y, steps=CP.T1, programs=CP.G, inst=v + 2):
-                return CP._launch(a, b, plan, steps, programs, inst)
-        else:
-            fn = getattr(lib, f"p1_variant_{v}")
-
-            def run(a=x, b=y, steps=CP.T1, programs=CP.G, fn=fn):
-                out = torch.empty((programs,) + tuple(a.shape),
-                                  dtype=torch.int32, device=dev)
-                _build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                a.numel(), programs, steps,
-                                library.c_ints(params)),
-                             "p1_variant")
-                return out
-        got = run()
-        got_r = run(xr, yr, 17, 5)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want) and torch.equal(got_r, want_r), label
-        ms = timeit(run)
-        dus = sum(device_us(run).values())
-        print(f"p1v T={CP.T1} x {CP.G} programs {label}: event {ms:.4f} ms, "
-              f"device {dus:.2f} us per call, == plain, also on a ragged "
-              f"[13, 7] tile off 16 bytes [{card}]", flush=True)
-    clocks = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    print(f"p1v SM clock after the timings, and its maximum: {clocks} "
-          f"[{card}]", flush=True)
-    _sass_dump(("chain_probe_kernel",), (_build.library_path(), so), "p1v",
-               "p1_sass.txt")
-
-
-def _p1(card):
-    _p1_times(card)
-    _p1_variants(card)
 
 
 # (variant, its operands' lane bytes, what it leaves out or changes); none
@@ -1139,7 +900,7 @@ def main() -> int:
     _build.lib()
     card = card_line()
     parts = {"k1": _k1, "k2": _k2, "k2s": _k2s, "k3": _k3_times,
-             "k3v": _k3_variants, "p1": _p1, "k2h": _k2h}
+             "p1": _p1_times, "k2h": _k2h}
     if len(sys.argv) > 2 and sys.argv[1] == "k3":
         _k3_against(card, sys.argv[2])
         return 0
@@ -1155,7 +916,6 @@ def main() -> int:
         return 0
     if len(sys.argv) > 2 and sys.argv[1] == "p1":
         _p1_against(card, sys.argv[2])
-        _p1_variants(card)
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "p1-times":
         _p1_times(card)

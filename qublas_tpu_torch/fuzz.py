@@ -76,7 +76,7 @@ from .ops.cgemm import cgemul
 from .ops.chain_probe import chain_probe
 from .ops.fused_gemm import fused_int8_gemm
 from .ops.reduce import plan_reduce, qreduce, qreduce_kernel
-from .ops.widths import fmt_interval, torch_dtype_for
+from .ops.widths import fmt_interval, storage_kind, torch_dtype_for
 from .qformat import OverflowMode, QFormat, RoundMode, mul_merge, qformat
 from .qtensor import QTensor, from_raw, scalar
 from .utils.profiling import launch_record
@@ -280,6 +280,34 @@ def sweep_gemm(sw: Sweep, trials):
                     type(e).__name__, str(e)[:150])
 
 
+def limbwide_case(t):
+    """Trial t of :func:`sweep_gemm_limbwide`: the formats, k and raws of a
+    2 x 2 limb-tier plan whose dot outgrows int64, or None."""
+    rng = rng_for("glimb", t)
+    fa = qformat(int(rng.randint(18, 40)), int(rng.randint(4, 32)),
+                 bool(rng.randint(0, 2)))
+    fb = qformat(int(rng.randint(18, 40)), int(rng.randint(4, 32)),
+                 bool(rng.randint(0, 2)))
+    pf = fa.frac_bits + fb.frac_bits
+    k = int(rng.randint(2, 40))
+    mul_to = qformat(fa.int_bits + fb.int_bits + 2, pf)
+    layers = (qformat(fa.int_bits + fb.int_bits + k.bit_length() + 3, pf),)
+    out = rand_fmt(rng, 60)
+    plan = _aim(fa, fb, out, mul_to, layers, k, 2, 2)
+    if plan.tier != "limb" or plan.exact.dot_interval.fits64:
+        return None
+    A = rand_raws(rng, fa, 2 * k).reshape(2, k)
+    B = rand_raws(rng, fb, k * 2).reshape(k, 2)
+    return fa, fb, mul_to, layers, out, k, A, B
+
+
+def _aim(fa, fb, out, mul_to, layers, k, m, n, tiers_off=frozenset()):
+    """The plan of a 2-D CPU call, operands in their formats' storage."""
+    return G.plan_qgemul(fa, fb, storage_kind(fa) or "host",
+                         storage_kind(fb) or "host", out, mul_to, layers,
+                         False, m, k, n, tiers_off=tiers_off)
+
+
 def sweep_gemm_limbwide(sw: Sweep, trials):
     """Proof-lossless configurations whose dot outgrows the 64-bit domain:
     the limb tier (digit dots on K1) against the oracle and against the
@@ -287,26 +315,11 @@ def sweep_gemm_limbwide(sw: Sweep, trials):
     tier's envelope are not counted."""
     done = 0
     for t in range(trials):
-        rng = rng_for("glimb", t)
-        fa = qformat(int(rng.randint(18, 40)), int(rng.randint(4, 32)),
-                     bool(rng.randint(0, 2)))
-        fb = qformat(int(rng.randint(18, 40)), int(rng.randint(4, 32)),
-                     bool(rng.randint(0, 2)))
-        pf = fa.frac_bits + fb.frac_bits
-        k = int(rng.randint(2, 40))
-        mul_to = qformat(fa.int_bits + fb.int_bits + 2, pf)
-        layers = (qformat(fa.int_bits + fb.int_bits + k.bit_length() + 3,
-                          pf),)
-        out = rand_fmt(rng, 60)
-        m, n2 = 2, 2
-        mul_fmt = mul_merge(fa, fb, mul_to, False)
-        plan = G.exact_plan(fa, fb, mul_fmt, layers, k)
-        if plan is None or plan.dot_interval.fits64:
+        case = limbwide_case(t)
+        if case is None:
             continue
-        if G.limb_dot_plan(fa, fb, out, plan, k, m, n2) is None:
-            continue
-        A = rand_raws(rng, fa, m * k).reshape(m, k)
-        B = rand_raws(rng, fb, k * n2).reshape(k, n2)
+        fa, fb, mul_to, layers, out, k, A, B = case
+        m, n2 = A.shape[0], B.shape[1]
         try:
             ta, tb = sw.q(A, fa), sw.q(B, fb)
             dev = G.qgemul(ta, tb, out, mul_to=mul_to, add_formats=layers)
@@ -602,7 +615,7 @@ def sweep_sharded(sw: Sweep, trials, mesh):
     """Auto-routed sharded GEMM against the single-device call; odd trials
     also through the ppermute ring of the regime the plans pick."""
     from .parallel import shard_qgemul
-    from .parallel.sharding import _k_limb_plan, _k_wide_plan
+    from .parallel.sharding import _k_plan
 
     tp = mesh.shape["tp"]
     for t in range(trials):
@@ -638,14 +651,12 @@ def sweep_sharded(sw: Sweep, trials, mesh):
             if got.fmt != ref.fmt or ints(got) != ints(ref):
                 sw.fail("shard", fa, fb, out, mul_to, layers, k)
             if t % 2:
-                if _k_limb_plan(ta, tb, out, mul_to, layers, False,
-                                tp) is not None:
-                    strat = "k_limb_pipelined"
-                elif _k_wide_plan(ta, tb, out, mul_to, layers, False,
-                                  tp) is not None:
-                    strat = "k_wide_pipelined"
-                else:
-                    strat = "k_pipelined"
+                strat = "k_pipelined"
+                for tier in ("limb", "wide"):
+                    if _k_plan(tier, ta, tb, out, mul_to, layers, False,
+                               tp) is not None:
+                        strat = f"k_{tier}_pipelined"
+                        break
                 try:
                     gp = shard_qgemul(ta, tb, out, mesh, mul_to=mul_to,
                                       add_formats=layers, strategy=strat)
@@ -1101,8 +1112,8 @@ K1_ROMS = ("sqrt_func", "rsqrt_func", "reciprocal_func")
 
 
 def k1_case(t):
-    """A lossless K1 configuration: ``exact_plan`` proves it and its
-    epilogue runs on int32 lanes, with any of the 35 output mode pairs.
+    """A lossless configuration that ``plan_qgemul`` sends to K1 (its
+    epilogue on int32 lanes), with any of the 35 output mode pairs.
     Kinds by t % 6: 0-2 the kernel called directly on random views (int8
     lanes, the s32 instantiation at t % 12 == 2, the largest shapes at
     t % 12 == 1), 3 ``qgemul`` with a batch dim and transposes (at
@@ -1140,19 +1151,12 @@ def k1_case(t):
         layers = (qformat(mul_to.int_bits + k.bit_length() + 1,
                           mul_to.frac_bits, True,
                           *MODES[rng.randint(0, len(MODES))]),)
-        plan = G.exact_plan(fa, fb, mul_merge(fa, fb, mul_to, False), layers,
-                            k)
-        if plan is None:
-            continue
-        if kind in ("gemm", "qgemul"):
-            ok = G._device_epilogue_ok(plan, out)
-        elif kind == "wide":
-            ok = not plan.dot_interval.fits32 \
-                and G._wide_epilogue_ok(plan, out)
-        else:
-            ok = not plan.dot_interval.fits64 \
-                and G.limb_dot_plan(fa, fb, out, plan, k, 3, 3) is not None
-        if ok:
+        aim = _aim(fa, fb, out, mul_to, layers, k, 3, 3,
+                   frozenset({"limb"}) if kind == "wide" else frozenset())
+        plan = aim.exact
+        if aim.tier == {"wide": "wide", "limb": "limb"}.get(kind, "k1") \
+                and not (kind == "wide" and plan.dot_interval.fits32
+                         or kind == "limb" and plan.dot_interval.fits64):
             break
     if plan is None:
         raise NoCase("no exact_plan plan in 400 draws")

@@ -8,9 +8,10 @@ pure-Python planners: the machine with the card has no JAX, and
 ``qublas_tpu.ops.gemm`` imports it at module level.  The CPU tests pin the
 copies to the originals.
 
-:func:`qgemul` dispatches in the JAX package's order (by the losslessness
-proof, every tier that admits a configuration gives the same bits; the
-order is about speed):
+:func:`plan_qgemul` chooses a call's tier once, the first in the JAX
+package's order that admits it (by the losslessness proof, every tier that
+admits a configuration gives the same bits; the order is about speed), and
+:func:`qgemul` runs it:
 
 1. **Lossless tier** (``exact_plan`` and ``_device_epilogue_ok``): every
    association order gives the same bits, so the dot is one int8 (or int32)
@@ -34,12 +35,9 @@ order is about speed):
    :func:`~qublas_tpu_torch.ops.tree_gemm.tree_gemm_hybrid` (kernel K2h),
    lane operands only.
 5. **Order-sensitive tier** (``plan_tree``): the reference's balanced tree
-   with per-product and per-layer requantization —
-   :func:`~qublas_tpu_torch.ops.tree_gemm.tree_gemm_stream` (kernel K2′)
-   for CUDA operands on a plan whose steps K2′ has compiled in, else
-   :func:`~qublas_tpu_torch.ops.tree_gemm.tree_gemm` (kernel K2)
-   (:func:`~qublas_tpu_torch.ops.tree_gemm.takes_k2s`), products on the
-   i32, split or 64-bit pair route, lane operands only.
+   with per-product and per-layer requantization on the kernel of
+   :func:`~qublas_tpu_torch.ops.tree_gemm.tree_kernel` (K2′ or K2),
+   products on the i32, split or 64-bit pair route, lane operands only.
 6. **Streaming tier** (:func:`_stream_gemm_wide`): the same tree as a
    binary-carry stream of k-chunks over the elementwise ops and
    :func:`~qublas_tpu_torch.ops.reduce.qreduce`, for configurations outside
@@ -62,7 +60,7 @@ from __future__ import annotations
 import itertools
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -77,13 +75,15 @@ from .fused_gemm import fused_int8_gemm, fused_int8_gemm_grouped, int_dot
 from .reduce import layer_format, qreduce, reduce_format
 from .tree_gemm import (
     ROUTES,
+    HybridPlan,
+    TreePlan,
     drain_ops,
     plan_hybrid,
     plan_tree,
-    takes_k2s,
     tree_gemm,
     tree_gemm_hybrid,
     tree_gemm_stream,
+    tree_kernel,
 )
 from .wideint import mul_wide, requantize_i64
 from .widths import (
@@ -101,7 +101,8 @@ from .widths import (
 
 __all__ = ["qgemul", "qgemul_grouped", "qgemv", "exact_plan", "ExactPlan",
            "host_qgemul", "wide_dot_ok", "pair_dot_2d", "stream_gate",
-           "force_tiers_off", "limb_dot_plan", "gemm_on_device"]
+           "force_tiers_off", "limb_dot_plan", "gemm_on_device",
+           "plan_qgemul", "GemmPlan"]
 
 _TIERS_OFF: frozenset = frozenset()   # subset of {"wide", "limb"}
 _STREAM_GATE_OVERRIDE: Optional[int] = None
@@ -115,7 +116,7 @@ def force_tiers_off(*tiers: str):
     then run the next tier on a configuration both admit."""
     global _TIERS_OFF
     saved = _TIERS_OFF
-    _TIERS_OFF = saved | frozenset(tiers)
+    _TIERS_OFF = saved | (frozenset(tiers) & {"limb", "wide"})
     try:
         yield
     finally:
@@ -242,6 +243,115 @@ def _device_epilogue_ok(plan: ExactPlan, out_fmt: QFormat) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# The planner: a call's tier and kernel, chosen once
+# ---------------------------------------------------------------------------
+
+class GemmPlan(NamedTuple):
+    """How :func:`qgemul` runs a call: the ``tier`` ("host", "k1", "limb",
+    "wide", "hybrid", "tree", "stream", "layered"), the proofs it needs,
+    the tree tier's ``kernel`` ("k2s": K2′, "k2": K2) and instantiation,
+    whether a batch ``fold``s onto ``b``'s one matrix (else a call a
+    matrix) and whether every route stays ``on_device``.  Built on every
+    call: a named tuple builds in a third of a frozen dataclass's time."""
+
+    tier: str
+    mul_fmt: QFormat
+    exact: Optional[ExactPlan] = None
+    limbs: int = 0
+    hybrid: Optional[HybridPlan] = None
+    tree: Optional[TreePlan] = None
+    kernel: str = ""
+    inst: int = 0
+    fold: bool = False
+    on_device: bool = True
+
+
+def plan_qgemul(a_fmt: QFormat, b_fmt: QFormat, a_kind: str, b_kind: str,
+                out_fmt: QFormat, mul_to, add_formats: tuple,
+                mul_full_prec: bool, m: int, k: int, n: int, batch=(),
+                b_shared: bool = True, device_type: str = "cpu",
+                tiers_off: frozenset = frozenset(),
+                stream_min: Optional[int] = None) -> GemmPlan:
+    """The plan of ``a`` [*batch, m, k] @ ``b`` [*, k, n] from hashable
+    inputs: the formats, the storage kinds ("lane", "pair", "limb",
+    "host"), the shapes, whether ``b``'s batch dims are all 1 and the
+    device type.  The first tier in the JAX package's order that admits
+    the call is taken; no later tier's proof runs.  ``tiers_off`` skips
+    "k1", "limb" or "wide"; ``stream_min`` is the streaming gate (None:
+    ``_STREAM_MIN_ELEMS``)."""
+    mul_fmt = mul_merge(a_fmt, b_fmt, mul_to, mul_full_prec)
+    if a_kind == "host" or b_kind == "host":
+        return GemmPlan("host", mul_fmt, on_device=False)
+    plan = exact_plan(a_fmt, b_fmt, mul_fmt, add_formats, k)
+    if plan is not None:
+        if "k1" not in tiers_off and _device_epilogue_ok(plan, out_fmt):
+            return GemmPlan("k1", mul_fmt, plan, fold=b_shared)
+        if "limb" not in tiers_off:
+            # the envelope at a folded call's rows, then at one matrix's
+            fold = bool(batch) and b_shared
+            rows = min(max(_FOLD_MAX_ROWS // max(m, 1), 1),
+                       int(np.prod(batch))) * m if fold else m
+            limbs = limb_dot_plan(a_fmt, b_fmt, out_fmt, plan, k, rows, n)
+            if limbs is None and fold:
+                fold = False
+                limbs = limb_dot_plan(a_fmt, b_fmt, out_fmt, plan, k, m, n)
+            if limbs is not None:
+                return GemmPlan("limb", mul_fmt, plan, limbs, fold=fold)
+        if "wide" not in tiers_off and _wide_epilogue_ok(plan, out_fmt):
+            return GemmPlan("wide", mul_fmt, plan, fold=b_shared)
+    tplan = None
+    if a_kind == b_kind == "lane":   # the tree kernels take lanes
+        # prefix-lossless hybrid: exact block dots, then the lossy tail
+        hplan = plan_hybrid(a_fmt, b_fmt, mul_fmt, add_formats, k, out_fmt)
+        if hplan is not None:
+            return GemmPlan("hybrid", mul_fmt, plan, hybrid=hplan,
+                            fold=b_shared)
+        tplan = plan_tree(a_fmt, b_fmt, mul_fmt, add_formats, k, out_fmt)
+        # K2 and K2′ requantize products on the int32 and 64-bit routes; a
+        # plan whose product needs wider working bits ("limb") takes the
+        # tiers below, whose products run on limbs
+        if tplan is not None and tplan.prod_route in ROUTES:
+            kernel, inst = tree_kernel(tplan, device_type)
+            return GemmPlan("tree", mul_fmt, plan, tree=tplan, kernel=kernel,
+                            inst=inst, fold=b_shared)
+    gate = _STREAM_MIN_ELEMS if stream_min is None else stream_min
+    stream = _stream_chunk(k) and int(np.prod(batch)) * m * k * n >= gate
+    # the layered path's steps; a tree proof keeps each on the device
+    fin = None if route_mul(a_fmt, b_fmt, mul_fmt)[0] == "host" \
+        else reduce_format(mul_fmt, add_formats, k)
+    on_device = tplan is not None or fin is not None and (
+        fin == out_fmt
+        or route_requant(fmt_interval(fin), fin.frac_bits, out_fmt) != "host")
+    return GemmPlan("stream" if stream else "layered", mul_fmt, plan,
+                    on_device=on_device)
+
+
+def _kind(d) -> str:
+    """The storage kind of a QTensor's ``data`` for :func:`plan_qgemul`:
+    ``QTensor.is_host``, ``is_limb`` and ``is_pair`` in one pass."""
+    if isinstance(d, torch.Tensor):
+        return "pair" if d.dtype == torch.int64 else "lane"
+    return "limb" if isinstance(d, L.LimbArray) else "host"
+
+
+def _plan_of(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
+             add_formats=(), mul_full_prec: bool = False, batch=(),
+             tiers_off: Optional[frozenset] = None) -> GemmPlan:
+    """:func:`plan_qgemul` of ``a`` @ ``b`` broadcast to ``batch``, under
+    the switches of :func:`force_tiers_off` (or ``tiers_off``)."""
+    if isinstance(add_formats, QFormat):
+        add_formats = (add_formats,)
+    sa, sb = a.data.shape, b.data.shape
+    return plan_qgemul(
+        a.fmt, b.fmt, _kind(a.data), _kind(b.data), out_fmt, mul_to,
+        tuple(add_formats), mul_full_prec, sa[-2], sa[-1], sb[-1], batch,
+        len(sb) == 2 or set(sb[:-2]) <= {1},
+        "cuda" if getattr(a.data, "is_cuda", False) else "cpu",
+        _TIERS_OFF if tiers_off is None else tiers_off,
+        _STREAM_GATE_OVERRIDE)
+
+
+# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
@@ -284,21 +394,37 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     wide configuration to the streaming or layered tier; by the tiers'
     proofs the bits are the same.
 
-    Under a profiler the call is the span ``qublas.qgemul``, and each proof
-    or planner it runs before a tier's launch a ``qublas.plan`` inside it;
-    a table applied after the GEMM is a ``qublas.rom`` inside it too.
+    Under a profiler the call is the span ``qublas.qgemul``, and its plan
+    (:func:`plan_qgemul`) one ``qublas.plan`` inside it; a table applied
+    after the GEMM is a ``qublas.rom`` inside it too.
     """
     with span("qublas.qgemul"):
         if isinstance(out_fmt, QTensor):
             out_fmt = out_fmt.fmt  # readme-style call shape `Qgemul(C, A, B)`
-        c, looked_up = _qgemul(a, b, out_fmt, mul_to, add_formats,
-                               transpose_a, transpose_b, mul_full_prec,
-                               epilogue_lut, lut_table)
-        if epilogue_lut is None or looked_up:
-            return c
-        if lut_table is None:
-            return epilogue_lut(c)
-        return epilogue_lut(c, lut_table)
+        add_formats = (add_formats,) if isinstance(add_formats, QFormat) \
+            else tuple(add_formats)
+        a = _swap(a) if transpose_a else a
+        b = _swap(b) if transpose_b else b
+        batch = _batch(a, b)
+        if 0 in batch:
+            return _lut_after(zeros(batch + (a.shape[-2], b.shape[-1]),
+                                    out_fmt, a.device), False, epilogue_lut,
+                              lut_table)
+        with span("qublas.plan"):
+            p = _plan_of(a, b, out_fmt, mul_to, add_formats, mul_full_prec,
+                         batch)
+        table = _k1_lut(epilogue_lut, lut_table, a, b, out_fmt) \
+            if p.tier == "k1" else None
+        if p.tier == "host":
+            c = _host_gemm(a, b, out_fmt, mul_to, add_formats, mul_full_prec)
+        elif p.tier in ("stream", "layered"):
+            run = _stream_gemm_wide if p.tier == "stream" else _layered_gemm
+            c = run(_expand(a, batch), _expand(b, batch), out_fmt, mul_to,
+                    add_formats, mul_full_prec)
+        else:
+            c = _over_batch(_matrix_fn(p, out_fmt, table, epilogue_lut), a,
+                            b, batch, p.fold)
+        return _lut_after(c, table is not None, epilogue_lut, lut_table)
 
 
 def qgemul_grouped(a: QTensor, offsets, b: QTensor, out_fmt: QFormat,
@@ -310,32 +436,25 @@ def qgemul_grouped(a: QTensor, offsets, b: QTensor, out_fmt: QFormat,
     result.  ``offsets``: G + 1 host ints from 0 to M, non-decreasing (a
     group may be empty).  ``epilogue_lut`` and ``lut_table`` as there.
 
-    The groups share their formats, K and N, so the exact plan is proved
-    once a call (one ``qublas.plan`` span inside the call's
-    ``qublas.qgemul``); it must hold, on int8 lanes: K1's grouped
+    The groups share their formats, K and N, so the call is planned once
+    (one ``qublas.plan`` span inside the call's ``qublas.qgemul``); its
+    tier must be the lossless one, on int8 lanes: K1's grouped
     instantiation then runs every group with rows in one launch, one row
     included (:func:`~.fused_gemm.fused_int8_gemm_grouped`), the table in
     its epilogue by :func:`_k1_lut`'s rules, else after it."""
     with span("qublas.qgemul"):
-        if isinstance(add_formats, QFormat):
-            add_formats = (add_formats,)
         with span("qublas.plan"):
-            mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, False)
-            plan = None if a.is_host or b.is_host else exact_plan(
-                a.fmt, b.fmt, mul_fmt, tuple(add_formats), a.shape[-1])
-        if (plan is None or not _device_epilogue_ok(plan, out_fmt)
-                or a.data.dtype != torch.int8 or b.data.dtype != torch.int8):
+            p = _plan_of(a, b, out_fmt, mul_to, add_formats)
+        if (p.tier != "k1" or a.data.dtype != torch.int8
+                or b.data.dtype != torch.int8):
             raise ValueError(f"qgemul_grouped runs K1: {a.fmt} x {b.fmt} "
                              f"into {out_fmt} is not a lossless int8 GEMM")
         table = _k1_lut(epilogue_lut, lut_table, a, b, out_fmt)
         fmt = out_fmt if table is None else epilogue_lut.out_fmt
         c = QTensor(fused_int8_gemm_grouped(a.data, b.data, offsets,
-                                            plan.prod_frac, out_fmt, table,
-                                            fmt), fmt)
-        if epilogue_lut is None or table is not None:
-            return c
-        return epilogue_lut(c) if lut_table is None else \
-            epilogue_lut(c, lut_table)
+                                            p.exact.prod_frac, out_fmt,
+                                            table, fmt), fmt)
+        return _lut_after(c, table is not None, epilogue_lut, lut_table)
 
 
 def _k1_lut(lut, entries, a: QTensor, b: QTensor, out_fmt: QFormat):
@@ -365,102 +484,52 @@ def _k1_lut(lut, entries, a: QTensor, b: QTensor, out_fmt: QFormat):
     return table
 
 
-def _qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to, add_formats,
-            transpose_a: bool, transpose_b: bool, mul_full_prec: bool,
-            epilogue_lut=None, lut_table=None):
-    """:func:`qgemul` without its span, and with ``epilogue_lut`` applied
-    only where K1's epilogue takes it: the result and whether it was."""
-    if isinstance(add_formats, QFormat):
-        add_formats = (add_formats,)
-    add_formats = tuple(add_formats)
-    if transpose_a:
-        a = _swap(a)
-    if transpose_b:
-        b = _swap(b)
-    if a.ndim < 2 or b.ndim < 2:
+def _lut_after(c: QTensor, looked_up: bool, lut, entries) -> QTensor:
+    """``c`` through the table ``lut`` (its entries ``entries`` where
+    given), unless there is none or K1's epilogue ``looked_up`` already."""
+    if lut is None or looked_up:
+        return c
+    return lut(c) if entries is None else lut(c, entries)
+
+
+def _batch(a: QTensor, b: QTensor):
+    """The broadcast batch of ``a`` @ ``b``, or ``ValueError``."""
+    sa, sb = a.shape, b.shape
+    if len(sa) < 2 or len(sb) < 2:
         raise ValueError(f"qgemul takes operands of at least 2 dims, got "
-                         f"{a.shape} @ {b.shape}")
-    if a.shape[-1] != b.shape[-2]:
-        raise ValueError(f"inner dims mismatch: {a.shape} @ {b.shape}")
-    batch = a.shape[:-2]
-    if b.shape[:-2] != batch:
-        try:
-            batch = np.broadcast_shapes(batch, b.shape[:-2])
-        except ValueError as e:
-            raise ValueError(f"batch dims do not broadcast: {a.shape} @ "
-                             f"{b.shape}") from e
-    k = a.shape[-1]
-    if 0 in batch:
-        return zeros(batch + (a.shape[-2], b.shape[-1]), out_fmt,
-                     a.device), False
-    with span("qublas.plan"):
-        mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
-        host = a.is_host or b.is_host
-        plan = None if host else exact_plan(a.fmt, b.fmt, mul_fmt,
-                                            add_formats, k)
-        lossless = plan is not None and _device_epilogue_ok(plan, out_fmt)
-    if host:
-        return _host_gemm(a, b, out_fmt, mul_to, add_formats,
-                          mul_full_prec), False
-    if lossless:
-        table = _k1_lut(epilogue_lut, lut_table, a, b, out_fmt)
-        if table is not None:
-            fmt = epilogue_lut.out_fmt
-            return _over_batch(lambda x, y: QTensor(fused_int8_gemm(
-                x.data, y.data, plan.prod_frac, out_fmt, table, fmt), fmt),
-                a, b, batch), True
-        return _over_batch(lambda x, y: QTensor(fused_int8_gemm(
-            x.data, y.data, plan.prod_frac, out_fmt), out_fmt), a, b,
-            batch), False
-    return _qgemul_tiers(a, b, out_fmt, mul_to, add_formats, mul_full_prec,
-                         plan, mul_fmt, batch, k), False
+                         f"{sa} @ {sb}")
+    if sa[-1] != sb[-2]:
+        raise ValueError(f"inner dims mismatch: {sa} @ {sb}")
+    if sb[:-2] == sa[:-2]:
+        return sa[:-2]
+    try:
+        return np.broadcast_shapes(sa[:-2], sb[:-2])
+    except ValueError as e:
+        raise ValueError(f"batch dims do not broadcast: {sa} @ {sb}") from e
 
 
-def _qgemul_tiers(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
-                  add_formats, mul_full_prec: bool, plan, mul_fmt, batch,
-                  k: int) -> QTensor:
-    """:func:`_qgemul` past the lossless tier: the tiers in order."""
-    if plan is not None:
-        # the dot outgrows int32: the digit dot first, then the int64 dot,
-        # in the JAX package's order
-        res = None if "limb" in _TIERS_OFF else _over_batch(
-            lambda x, y: _fast_gemm_limb(x, y, out_fmt, plan), a, b, batch)
-        if res is None and "wide" not in _TIERS_OFF:
-            res = _over_batch(
-                lambda x, y: _fast_gemm_wide(x, y, out_fmt, plan), a, b,
-                batch)
-        if res is not None:
-            return res
+def _matrix_fn(p: GemmPlan, out_fmt: QFormat, table=None, lut=None):
+    """The 2-D call of ``p``'s tier, K1's with ``lut``'s ``table``."""
+    if p.tier == "k1":
+        fmt = out_fmt if table is None else lut.out_fmt
+        return lambda x, y: QTensor(fused_int8_gemm(
+            x.data, y.data, p.exact.prod_frac, out_fmt, table, fmt), fmt)
+    if p.tier == "limb":
+        return lambda x, y: _fast_gemm_limb(x, y, out_fmt, p.exact, p.limbs)
+    if p.tier == "wide":
+        return lambda x, y: _fast_gemm_wide(x, y, out_fmt, p.exact)
+    if p.tier == "hybrid":
+        return lambda x, y: QTensor(tree_gemm_hybrid(
+            x.data, y.data, p.hybrid, out_fmt), out_fmt)
+    kernel = tree_gemm_stream if p.kernel == "k2s" else tree_gemm
+    return lambda x, y: QTensor(kernel(x.data, y.data, p.tree, out_fmt,
+                                       p.inst), out_fmt)
 
-    # the tree kernels take lanes
-    if not (a.is_pair or b.is_pair or a.is_limb or b.is_limb):
-        # prefix-lossless hybrid: exact block dots, then the lossy tail
-        with span("qublas.plan"):
-            hplan = plan_hybrid(a.fmt, b.fmt, mul_fmt, add_formats, k,
-                                out_fmt)
-        if hplan is not None:
-            return _over_batch(lambda x, y: QTensor(tree_gemm_hybrid(
-                x.data, y.data, hplan, out_fmt), out_fmt), a, b, batch)
-        with span("qublas.plan"):
-            tplan = plan_tree(a.fmt, b.fmt, mul_fmt, add_formats, k,
-                              out_fmt)
-        # K2 and K2′ requantize products on the int32 and 64-bit routes; a
-        # plan whose product needs wider working bits ("limb") takes the
-        # tiers below, whose products run on limbs
-        if tplan is not None and tplan.prod_route in ROUTES:
-            def tree(x, y):
-                kernel = tree_gemm_stream if takes_k2s(
-                    tplan, x.data.device) else tree_gemm
-                return QTensor(kernel(x.data, y.data, tplan, out_fmt),
-                               out_fmt)
-            return _over_batch(tree, a, b, batch)
 
-    a, b = _expand(a, batch), _expand(b, batch)
-    res = _stream_gemm_wide(a, b, out_fmt, mul_to, add_formats,
-                            mul_full_prec)
-    if res is not None:
-        return res
-    # layered: materialized quantized products, then the explicit tree
+def _layered_gemm(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
+                  add_formats, mul_full_prec) -> QTensor:
+    """The layered tier: the quantized products, then the explicit tree
+    (``qreduce``), or the host model for products beyond the device."""
     prod = ew.qmul(QTensor(a.data[..., :, :, None], a.fmt),
                    QTensor(b.data[..., None, :, :], b.fmt),
                    to=mul_to, full_prec=mul_full_prec)
@@ -489,37 +558,25 @@ def _expand(t: QTensor, batch) -> QTensor:
     return QTensor(t.data.expand(batch + t.shape[-2:]), t.fmt)
 
 
-def _over_batch(fn, a: QTensor, b: QTensor, batch) -> Optional[QTensor]:
-    """``fn`` (2-D QTensors -> QTensor, or None outside its envelope) over
-    the matrices of ``a`` and ``b`` broadcast to ``batch``.  When every
-    batch dim of ``b`` is 1, ``a``'s rows go in folded against ``b``'s one
-    matrix, as many a call as ``_FOLD_MAX_ROWS`` hold (one call unless the
-    batch is huge); else, or when ``fn`` declines the fold, one call per
-    batch element on expanded views.  None when ``fn`` declines a
-    matrix."""
+def _over_batch(fn, a: QTensor, b: QTensor, batch, fold: bool) -> QTensor:
+    """``fn`` (2-D QTensors -> QTensor) over the matrices of ``a`` and
+    ``b`` broadcast to ``batch``: where ``fold`` (every batch dim of ``b``
+    is 1), ``a``'s rows go in folded against ``b``'s one matrix, as many a
+    call as ``_FOLD_MAX_ROWS`` hold (one call unless the batch is huge);
+    else one call per batch element on expanded views."""
     if not batch:
         return fn(a, b)
     m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
-    parts = None
-    if all(d == 1 for d in b.shape[:-2]):
+    if fold:
         rows = a.data.reshape(-1, k)
         b2 = QTensor(b.data.reshape(k, n), b.fmt)
         step = max(_FOLD_MAX_ROWS // max(m, 1), 1) * m
-        parts = []
-        for s in range(0, rows.shape[0], step):
-            res = fn(QTensor(rows[s:s + step], a.fmt), b2)
-            if res is None:
-                parts = None
-                break
-            parts.append(res)
-    if parts is None:
+        parts = [fn(QTensor(rows[s:s + step], a.fmt), b2)
+                 for s in range(0, rows.shape[0], step)]
+    else:
         a, b = _expand(a, batch), _expand(b, batch)
-        parts = []
-        for idx in itertools.product(*map(range, batch)):
-            res = fn(a[idx], b[idx])
-            if res is None:
-                return None
-            parts.append(res)
+        parts = [fn(a[idx], b[idx])
+                 for idx in itertools.product(*map(range, batch))]
     data = [p.data for p in parts]
     if len(data) > 1:
         data = [L.LimbArray(torch.cat([d.limbs for d in data], dim=1))
@@ -582,22 +639,17 @@ def limb_dot_plan(a_fmt: QFormat, b_fmt: QFormat, out_fmt: QFormat,
 
 
 def _fast_gemm_limb(a: QTensor, b: QTensor, out_fmt: QFormat,
-                    plan: ExactPlan) -> Optional[QTensor]:
+                    plan: ExactPlan, limbs: int) -> QTensor:
     """The lossless limb tier: the exact stacked-limb dot of
     :func:`~qublas_tpu_torch.ops.limbdot.limb_dot_2d` (one K1 launch a
-    k-segment on the card) and ONE limb requantize from the raw products'
+    k-segment on the card) in ``limbs`` working limbs
+    (:func:`limb_dot_plan`) and ONE limb requantize from the raw products'
     scale into any device storage, for 2-D operands.  Bit-exact by the
-    losslessness proof, as the int32 tier is.  None outside
-    :func:`limb_dot_plan`."""
+    losslessness proof, as the int32 tier is."""
     from . import limbdot as D
 
-    with span("qublas.plan"):
-        Kw = limb_dot_plan(a.fmt, b.fmt, out_fmt, plan, a.shape[-1],
-                           a.shape[-2], b.shape[-1])
-    if Kw is None:
-        return None
     acc = D.limb_dot_2d(a.data, b.data, fmt_interval(a.fmt),
-                        fmt_interval(b.fmt), Kw)
+                        fmt_interval(b.fmt), limbs)
     return ew._finish(L.requantize_limb(acc, plan.prod_frac, out_fmt),
                       out_fmt)
 
@@ -662,14 +714,11 @@ def pair_dot_2d(ad: torch.Tensor, bd: torch.Tensor,
 
 
 def _fast_gemm_wide(a: QTensor, b: QTensor, out_fmt: QFormat,
-                    plan: ExactPlan) -> Optional[QTensor]:
+                    plan: ExactPlan) -> QTensor:
     """The lossless wide tier: the exact int64 dot (:func:`pair_dot_2d`)
-    requantized once from the raw products' scale.  Bit-exact by the same
-    argument as the int32 tier; None outside :func:`wide_dot_ok`."""
-    with span("qublas.plan"):
-        ok = wide_dot_ok(a, b, out_fmt, plan)
-    if not ok:
-        return None
+    requantized once from the raw products' scale, for 2-D operands inside
+    :func:`wide_dot_ok`.  Bit-exact by the same argument as the int32
+    tier."""
     dot = pair_dot_2d(a.data, b.data, plan.prod_interval)
     raw = requantize_i64(dot, plan.prod_frac, out_fmt)
     return QTensor(raw.to(storage_dtype(out_fmt)), out_fmt)
@@ -689,42 +738,26 @@ _STREAM_MAX_CHUNKS = 1024
 def gemm_on_device(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
                    add_formats=(), mul_full_prec: bool = False) -> bool:
     """Whether :func:`qgemul` of one row of ``a`` and one column of ``b``
-    (their formats and storage, ``a``'s K) runs on device routes only: the
-    tier dispatch of :func:`qgemul` on formats, nothing computed.  A call
-    of more rows and columns takes the same routes: the streaming tier
-    runs the layered path's multiplies, layer adds and casts."""
+    runs on device routes only, as its plan says (nothing computed); a
+    call of more rows and columns takes the same routes."""
     if isinstance(add_formats, QFormat):
         add_formats = (add_formats,)
-    add_formats = tuple(add_formats)
-    if a.is_host or b.is_host:
-        return False
-    k = a.shape[-1]
-    mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
-    plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats, k)
-    if plan is not None and (
-            _device_epilogue_ok(plan, out_fmt)
-            or ("limb" not in _TIERS_OFF and limb_dot_plan(
-                a.fmt, b.fmt, out_fmt, plan, k, 1, 1) is not None)
-            or ("wide" not in _TIERS_OFF
-                and _wide_epilogue_ok(plan, out_fmt))):
-        return True
-    if not (a.is_pair or b.is_pair or a.is_limb or b.is_limb) and (
-            plan_hybrid(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
-            is not None
-            or plan_tree(a.fmt, b.fmt, mul_fmt, add_formats, k, out_fmt)
-            is not None):
-        return True
-    if route_mul(a.fmt, b.fmt, mul_fmt)[0] == "host":
-        return False
-    fin = reduce_format(mul_fmt, add_formats, k)
-    return fin is not None and (
-        fin == out_fmt
-        or route_requant(fmt_interval(fin), fin.frac_bits, out_fmt)
-        != "host")
+    return plan_qgemul(a.fmt, b.fmt, _kind(a.data), _kind(b.data), out_fmt,
+                       mul_to, tuple(add_formats), mul_full_prec, 1,
+                       a.shape[-1], 1, tiers_off=_TIERS_OFF).on_device
+
+
+def _stream_chunk(k: int) -> int:
+    """The streaming tier's chunk of products, or 0 where k does not stream
+    (fewer than two chunks of 8, or more than ``_STREAM_MAX_CHUNKS``)."""
+    chunk = min(1 << (max(k // 2, 1).bit_length() - 1), _STREAM_CHUNK)
+    if chunk < 8 or k // chunk < 2 or -(-k // chunk) > _STREAM_MAX_CHUNKS:
+        return 0
+    return chunk
 
 
 def _stream_gemm_wide(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
-                      add_formats, mul_full_prec) -> Optional[QTensor]:
+                      add_formats, mul_full_prec) -> QTensor:
     """The order-sensitive tree GEMM as a stream of k-chunks of whole
     QTensors, so the elementwise ops route each step to its storage (lane,
     pair or limb).  The schedule is the tree GEMM's binary counter: each chunk's
@@ -734,20 +767,13 @@ def _stream_gemm_wide(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
     :func:`~qublas_tpu_torch.ops.tree_gemm.drain_ops` says.  A ragged tail
     of ``k % chunk`` products is one subtree of its own, converted at each
     layer up to the chunk level (globally unpaired there), as in the JAX
-    package.  None when streaming does not apply (k < 16) or the products
-    are few enough for the layered path."""
+    package.  For a k that streams (:func:`_stream_chunk`); products that
+    need the host take the host model."""
     k = a.shape[-1]
-    chunk = min(1 << (max(k // 2, 1).bit_length() - 1), _STREAM_CHUNK)
+    chunk = _stream_chunk(k)
     nfull = k // chunk
     r = k % chunk
     nchunks = nfull + (1 if r else 0)
-    m, n = a.shape[-2], b.shape[-1]
-    batch = int(np.prod(np.broadcast_shapes(a.shape[:-2], b.shape[:-2])))
-    gate = _STREAM_MIN_ELEMS if _STREAM_GATE_OVERRIDE is None \
-        else _STREAM_GATE_OVERRIDE
-    if chunk < 8 or nfull < 2 or nchunks > _STREAM_MAX_CHUNKS \
-            or batch * m * k * n < gate:
-        return None
     in_levels = chunk.bit_length() - 1
 
     def at_layer(fmt: QFormat, l: int) -> QFormat:

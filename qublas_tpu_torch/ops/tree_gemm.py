@@ -76,7 +76,7 @@ __all__ = ["TreePlan", "plan_tree", "level_formats", "drain_ops", "ROUTES",
            "tree_gemm_stream_plain", "K2_LOG_BLK", "K2_MODES", "k2_modes",
            "K2S_LOG_S", "K2S_PLANS", "k2s_plan", "k2s_operand", "k2s_route",
            "K2S_TOP", "K2S_TOP2", "K2S_MAXL", "K2S_INSTANCES", "k2s_top",
-           "takes_k2s",
+           "takes_k2s", "tree_kernel",
            "HybridPlan", "plan_hybrid", "tree_gemm_hybrid",
            "tree_gemm_hybrid_plain", "hybrid_digit_dots_plain",
            "digit_lanes", "digit_planes", "k2h_route", "K2H_MODES",
@@ -99,9 +99,9 @@ class TreePlan:
 
     @functools.cached_property
     def _kernel_cache(self) -> dict:
-        """The kernels' host-side arguments for this plan (``_kernel_params``,
-        ``k2s_plan``), built on first use and shared by every launch after
-        it; not a field, so equality and hashing ignore it."""
+        """The kernels' parameters for this plan (``_kernel_params``), built
+        on first use and shared by every launch after it; not a field, so
+        equality and hashing ignore it."""
         return {}
 
 
@@ -496,20 +496,22 @@ def k2s_top(k: int, plan: int) -> int:
     return K2S_MAXL
 
 
+def tree_kernel(plan: TreePlan, device_type: str) -> Tuple[str, int]:
+    """``qgemul``'s order-sensitive kernel for ``plan`` on ``device_type``
+    and its instantiation: ``("k2s", k2s_plan(plan))`` (K2′, a third of
+    K2's device time) for CUDA operands whose plan K2′ has compiled in;
+    else ``("k2", k2_modes(plan))``: the pair route and run-time steps,
+    where K2′ is no faster, and CPU tensors (PERF.md §6)."""
+    if device_type == "cuda":
+        inst = k2s_plan(plan)
+        if inst:
+            return "k2s", inst
+    return "k2", k2_modes(plan)
+
+
 def takes_k2s(plan: TreePlan, device: torch.device) -> bool:
-    """Whether ``qgemul``'s order-sensitive tier runs ``plan`` on K2′
-    (:func:`tree_gemm_stream`) rather than K2 (:func:`tree_gemm`) for
-    operands on ``device``: for CUDA operands whose plan K2′ has compiled
-    in (:func:`k2s_plan` > 0, an int32 product route), where it gives K2's
-    bits in about a third of K2's device time.  K2 keeps the 64-bit "pair"
-    route and the plans whose steps K2′ reads at run time, where K2′ is no
-    faster, and CPU tensors, whose plain K2 folds blocks of products where
-    K2′'s takes one at a time (PERF.md §6)."""
-    if device.type != "cuda":
-        return False
-    if "k2s" not in plan._kernel_cache:
-        plan._kernel_cache["k2s"] = k2s_plan(plan)
-    return plan._kernel_cache["k2s"] > 0
+    """Whether :func:`tree_kernel` names K2′ for ``plan`` on ``device``."""
+    return tree_kernel(plan, device.type)[0] == "k2s"
 
 
 def k2s_route(t32: torch.Tensor) -> str:
@@ -560,43 +562,43 @@ def _check(name: str, a: torch.Tensor, b: torch.Tensor, plan: TreePlan):
 
 
 def tree_gemm(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
-              out_fmt: QFormat) -> torch.Tensor:
+              out_fmt: QFormat, modes: Optional[int] = None) -> torch.Tensor:
     """The tree GEMM ``a`` [M, K] @ ``b`` [K, N] of lane tensors under
     ``plan``, stored in ``torch_dtype_for(out_fmt)``.
 
     One call of the custom op ``qublas::tree_gemm`` (:mod:`.library`): CPU
     tensors take the plain version; CUDA tensors launch K2, the
-    instantiation of :func:`k2_modes`.
+    instantiation ``modes`` (None: :func:`k2_modes` of ``plan``).
     ``tree_gemm.launches`` counts kernel launches, ``tree_gemm.seen``
     (``_build.record``) each launch's instantiation and its steps' modes.
     """
     _check("tree_gemm", a, b, plan)
-    if "k2" not in plan._kernel_cache:
-        plan._kernel_cache["k2"] = k2_modes(plan)
     return torch.ops.qublas.tree_gemm(
         a, b, _kernel_params(plan, out_fmt, K2_LOG_BLK),
-        plan._kernel_cache["k2"], torch_dtype_for(out_fmt).itemsize)
+        k2_modes(plan) if modes is None else modes,
+        torch_dtype_for(out_fmt).itemsize)
 
 
 def tree_gemm_stream(a: torch.Tensor, b: torch.Tensor, plan: TreePlan,
-                     out_fmt: QFormat) -> torch.Tensor:
+                     out_fmt: QFormat,
+                     inst: Optional[int] = None) -> torch.Tensor:
     """The same function as :func:`tree_gemm` on the one-pass schedule of
     ``tree_gemm_pallas``: every product pushed through the slot stack.
 
     One call of the custom op ``qublas::tree_gemm_stream``: CPU tensors
-    take the plain version; CUDA tensors launch K2′, the instantiation of
-    :func:`k2s_plan` at the stack depth of :func:`k2s_top`.
+    take the plain version; CUDA tensors launch K2′, the instantiation
+    ``inst`` (None: :func:`k2s_plan` of ``plan``) at the depth of
+    :func:`k2s_top`.
     ``tree_gemm_stream.launches`` counts kernel launches,
     ``tree_gemm_stream.seen`` each launch's instantiation
     (``stream_<depth>_<plan>``) and operand routes (:func:`k2s_route`) and
     its steps' modes.
     """
     _check("tree_gemm_stream", a, b, plan)
-    if "k2s" not in plan._kernel_cache:
-        plan._kernel_cache["k2s"] = k2s_plan(plan)
     return torch.ops.qublas.tree_gemm_stream(
         a, b, _kernel_params(plan, out_fmt, 0),
-        plan._kernel_cache["k2s"], torch_dtype_for(out_fmt).itemsize)
+        k2s_plan(plan) if inst is None else inst,
+        torch_dtype_for(out_fmt).itemsize)
 
 
 tree_gemm.launches = 0

@@ -67,7 +67,7 @@ import torch.utils._pytree as pytree
 from ..ops import elementwise as ew
 from ..ops import limbint as L
 from ..ops.fused_gemm import int_dot
-from ..ops.gemm import _swap, exact_plan, gemm_on_device, pair_dot_2d, qgemul
+from ..ops.gemm import _plan_of, _swap, gemm_on_device, pair_dot_2d, qgemul
 from ..ops.reduce import layer_format, qreduce, reduce_format
 from ..ops.wideint import requantize_i32, requantize_i64
 from ..ops.widths import Interval, fmt_interval, storage_kind, torch_dtype_for
@@ -316,29 +316,20 @@ def choose_strategy(a: QTensor, b: QTensor, out_fmt: QFormat, mesh_shape,
     ``"k_limb"``, then ``"k_wide"``, for proof-lossless dots beyond int32;
     else ``"mn"``, or ``"k_tree"`` when the tree splits at least 3 levels
     deep and mn cannot shard the output or the shape is K-dominated (and
-    the configuration runs on device routes).  ``mesh_shape`` is a mesh or
-    its ``{"dp": .., "tp": ..}``; nothing is communicated."""
-    from ..ops.gemm import _device_epilogue_ok
-
+    the configuration runs on device routes), the proofs read from the
+    tier of the global call's plan (``ops.gemm.plan_qgemul``, no tier
+    off).  ``mesh_shape`` is a mesh or its ``{"dp": .., "tp": ..}``;
+    nothing is communicated."""
     shape = getattr(mesh_shape, "shape", mesh_shape)
-    if isinstance(add_formats, QFormat):
-        add_formats = (add_formats,)
-    add_formats = tuple(add_formats)
     if a.ndim > 2:
         return "dp"
     tp = shape["tp"]
-    mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
-    plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats, a.shape[-1])
-    if plan is not None and _device_epilogue_ok(plan, out_fmt) \
-            and a.shape[-1] % tp == 0:
-        return "k"
-    if _k_limb_plan(a, b, out_fmt, mul_to, add_formats, mul_full_prec, tp,
-                    plan=plan) is not None:
-        return "k_limb"
-    if _k_wide_plan(a, b, out_fmt, mul_to, add_formats, mul_full_prec, tp,
-                    plan=plan) is not None:
-        return "k_wide"
     m_, n_, k_ = a.shape[0], b.shape[-1], a.shape[-1]
+    tier = _plan_of(a, b, out_fmt, mul_to, add_formats, mul_full_prec,
+                    tiers_off=frozenset()).tier
+    if k_ % tp == 0 and (tier == "k1" or tier in ("limb", "wide")
+                         and b.ndim == 2):
+        return {"k1": "k", "limb": "k_limb", "wide": "k_wide"}[tier]
     mn_ok = m_ % shape["dp"] == 0 and n_ % tp == 0
     s, _q, _E, _nn = _k_tree_split(k_, tp)
     if s >= 3 and (not mn_ok or k_ >= 8 * max(m_, n_)) and _traceable(
@@ -431,8 +422,8 @@ def sharded_qgemul_k(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
     lossless-accumulation proof; raises ``ValueError`` otherwise."""
     k = a.shape[-1]
     tp = mesh.shape["tp"]
-    mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
-    plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats, k)
+    plan = _plan_of(a, b, out_fmt, mul_to, add_formats, mul_full_prec,
+                    tiers_off=frozenset()).exact
     if plan is None:
         raise ValueError(
             "K-sharding needs a lossless accumulation proof; this config's "
@@ -480,8 +471,8 @@ def sharded_qgemul_k_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
     k = a.shape[-1]
     tp = mesh.shape["tp"]
     n = b.shape[-1]
-    mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
-    plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats, k)
+    plan = _plan_of(a, b, out_fmt, mul_to, add_formats, mul_full_prec,
+                    tiers_off=frozenset()).exact
     if plan is None or not plan.dot_interval.fits32:
         raise ValueError(
             "pipelined K-sharding needs a lossless accumulation proof; "
@@ -689,22 +680,19 @@ def _unsqueeze_last(t: QTensor) -> QTensor:
 # Wide K sharding: exact int64 partial dots, one int64 psum
 # ---------------------------------------------------------------------------
 
-def _k_wide_plan(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
-                 add_formats, mul_full_prec, tp: int, plan=None):
-    """Proof gate of the wide K strategy: the global accumulation provably
-    lossless with the user's formats, the int64 dot's admission gate
-    (:func:`~qublas_tpu_torch.ops.gemm.wide_dot_ok`, the single-device
-    tier's) and tp | K.  Returns the ExactPlan or None."""
-    from ..ops.gemm import wide_dot_ok
-
-    if a.shape[-1] % tp:
+def _k_plan(tier: str, a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
+            add_formats, mul_full_prec, tp: int):
+    """Proof gate of the limb and wide K strategies: the global call's
+    plan, the tiers before ``tier`` off, takes the single-device ``tier``
+    (its gate ``limb_dot_plan`` or ``wide_dot_ok``), on 2-D operands with
+    tp | K.  The plan or None; its limbs, from the global k, hold the sum
+    and every partial."""
+    if a.ndim != 2 or b.ndim != 2 or a.shape[-1] % tp:
         return None
-    if plan is None:
-        mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
-        plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats, a.shape[-1])
-    if plan is None or not wide_dot_ok(a, b, out_fmt, plan):
-        return None
-    return plan
+    off = frozenset({"k1"} if tier == "limb" else {"k1", "limb"})
+    plan = _plan_of(a, b, out_fmt, mul_to, add_formats, mul_full_prec,
+                    tiers_off=off)
+    return plan if plan.tier == tier else None
 
 
 # the JAX package sums tp 16-bit columns into int32, exact while tp < 2^15;
@@ -757,13 +745,14 @@ def sharded_qgemul_k_wide(a: QTensor, b: QTensor, out_fmt: QFormat,
     ``ValueError`` otherwise (use strategy='mn')."""
     _check_psum_tp(mesh)
     tp = mesh.shape["tp"]
-    plan = _k_wide_plan(a, b, out_fmt, mul_to, add_formats, mul_full_prec,
-                        tp)
+    plan = _k_plan("wide", a, b, out_fmt, mul_to, add_formats,
+                   mul_full_prec, tp)
     if plan is None:
         raise ValueError(
             "wide K-sharding needs 2-D lane/pair operands, tp | K, a "
             "lossless accumulation proof with the dot in the 64-bit "
             "domain, and a lane/pair-domain epilogue; use strategy='mn'")
+    plan = plan.exact
     _wide_lut_gate(out_fmt, epilogue_lut)
     if reduce_scatter and b.shape[-1] % tp:
         raise ValueError(
@@ -800,14 +789,15 @@ def sharded_qgemul_k_wide_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
     Same gate as :func:`sharded_qgemul_k_wide`."""
     tp = mesh.shape["tp"]
     n = b.shape[-1]
-    plan = _k_wide_plan(a, b, out_fmt, mul_to, add_formats, mul_full_prec,
-                        tp)
+    plan = _k_plan("wide", a, b, out_fmt, mul_to, add_formats,
+                   mul_full_prec, tp)
     if plan is None or n % tp:
         raise ValueError(
             "pipelined wide K-sharding needs 2-D lane/pair operands, "
             "tp | K and tp | N, a lossless accumulation proof with the dot "
             "in the 64-bit domain, and a lane/pair-domain epilogue; use "
             "strategy='mn'")
+    plan = plan.exact
     _wide_lut_gate(out_fmt, epilogue_lut)
     bn = n // tp
     idx = mesh.get_local_rank("tp")
@@ -832,31 +822,6 @@ def sharded_qgemul_k_wide_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
 # ---------------------------------------------------------------------------
 # Limb K sharding: digit-domain partial dots, one limb psum
 # ---------------------------------------------------------------------------
-
-def _k_limb_plan(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
-                 add_formats, mul_full_prec, tp: int, plan=None):
-    """Proof gate of the limb K strategy: the global accumulation provably
-    lossless, the digit dot's admission gate
-    (:func:`~qublas_tpu_torch.ops.gemm.limb_dot_plan`, the single-device
-    tier's) and tp | K.  Returns (plan, working limbs) or None; the limbs
-    come from the global k, so they hold the sum and every partial."""
-    from ..ops.gemm import limb_dot_plan
-
-    if a.ndim != 2 or b.ndim != 2 or a.is_host or b.is_host:
-        return None
-    if a.shape[-1] % tp:
-        return None
-    if plan is None:
-        mul_fmt = mul_merge(a.fmt, b.fmt, mul_to, mul_full_prec)
-        plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats, a.shape[-1])
-    if plan is None:
-        return None
-    Kw = limb_dot_plan(a.fmt, b.fmt, out_fmt, plan, a.shape[-1],
-                       a.shape[-2], b.shape[-1])
-    if Kw is None:
-        return None
-    return plan, Kw
-
 
 def _carry_limbs(s: torch.Tensor) -> torch.Tensor:
     """One carry pass over stacked ``(Kw, ...)`` int64 limb sums (each below
@@ -903,14 +868,14 @@ def sharded_qgemul_k_limb(a: QTensor, b: QTensor, out_fmt: QFormat,
 
     _check_psum_tp(mesh)
     tp = mesh.shape["tp"]
-    got = _k_limb_plan(a, b, out_fmt, mul_to, add_formats, mul_full_prec,
-                       tp)
-    if got is None:
+    plan = _k_plan("limb", a, b, out_fmt, mul_to, add_formats,
+                   mul_full_prec, tp)
+    if plan is None:
         raise ValueError(
             "limb K-sharding needs 2-D device operands, tp | K, a lossless "
             "accumulation proof, and a dot/epilogue inside the limb "
             "working envelope; use strategy='mn'")
-    plan, Kw = got
+    Kw, prod_frac = plan.limbs, plan.exact.prod_frac
     _wide_lut_gate(out_fmt, epilogue_lut)
     if reduce_scatter and b.shape[-1] % tp:
         raise ValueError(
@@ -921,10 +886,10 @@ def sharded_qgemul_k_limb(a: QTensor, b: QTensor, out_fmt: QFormat,
     def block(la, lb):
         acc = limb_dot_2d(la.data, lb.data, iva, ivb, Kw)
         res = _limb_epilogue(_psum_limbs(acc, mesh, reduce_scatter),
-                             plan.prod_frac, out_fmt, epilogue_lut)
+                             prod_frac, out_fmt, epilogue_lut)
         return _whole(res, mesh, (None, "tp")) if reduce_scatter else res
 
-    return _program(("kl", a.fmt, b.fmt, plan.prod_frac, out_fmt, Kw,
+    return _program(("kl", a.fmt, b.fmt, prod_frac, out_fmt, Kw,
                      bool(reduce_scatter), epilogue_lut), mesh, block,
                     _block(a, mesh, (None, "tp")),
                     _block(b, mesh, ("tp", None)))
@@ -942,14 +907,14 @@ def sharded_qgemul_k_limb_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
 
     tp = mesh.shape["tp"]
     n = b.shape[-1]
-    got = _k_limb_plan(a, b, out_fmt, mul_to, add_formats, mul_full_prec,
-                       tp)
-    if got is None or n % tp:
+    plan = _k_plan("limb", a, b, out_fmt, mul_to, add_formats,
+                   mul_full_prec, tp)
+    if plan is None or n % tp:
         raise ValueError(
             "pipelined limb K-sharding needs 2-D device operands, tp | K "
             "and tp | N, a lossless accumulation proof, and a dot/epilogue "
             "inside the limb working envelope; use strategy='mn'")
-    plan, Kw = got
+    Kw, prod_frac = plan.limbs, plan.exact.prod_frac
     _wide_lut_gate(out_fmt, epilogue_lut)
     bn = n // tp
     iva, ivb = fmt_interval(a.fmt), fmt_interval(b.fmt)
@@ -963,10 +928,10 @@ def sharded_qgemul_k_limb_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
             p = limb_dot_2d(la.data, _slice_n(lb, blk * bn, bn).data, iva,
                             ivb, Kw)
             acc = L.ladd(C.ppermute(acc, mesh, "tp", _ring(tp)), p)
-        res = _limb_epilogue(acc, plan.prod_frac, out_fmt, epilogue_lut)
+        res = _limb_epilogue(acc, prod_frac, out_fmt, epilogue_lut)
         return _whole(res, mesh, (None, "tp"))
 
-    return _program(("klp", a.fmt, b.fmt, plan.prod_frac, out_fmt, Kw,
+    return _program(("klp", a.fmt, b.fmt, prod_frac, out_fmt, Kw,
                      epilogue_lut, bn), mesh, block,
                     _block(a, mesh, (None, "tp")),
                     _block(b, mesh, ("tp", None)))

@@ -459,15 +459,15 @@ def test_qgemul_tree_tier_route(case, k, device, want):
     fmt, layers = {"canonical": (F88Z, ()), "pair": (PAIRF, ()),
                    "layered": (F88Z, LAYERS), "i32": (I32F, ())}[case]
     plan = TT.plan_tree(fmt, fmt, qt.mul_merge(fmt, fmt), layers, k, fmt)
-    for _ in range(2):  # the second reads k2s_plan from the plan's cache
+    for _ in range(2):  # the plan keeps no answer: the second is the same
         assert TT.takes_k2s(plan, torch.device(device)) is want
 
 
 @pytest.mark.parametrize("k2s", [False, True])
 def test_qgemul_calls_the_kernel_takes_k2s_names(k2s, monkeypatch):
-    """qgemul's tree tier calls tree_gemm_stream where takes_k2s says so and
-    tree_gemm elsewhere, with the same bits (here on the CPU, the route
-    forced)."""
+    """qgemul's tree tier calls tree_gemm_stream where its plan names K2′
+    (tree_kernel, the rule of takes_k2s) and tree_gemm elsewhere, with the
+    same bits (here on the CPU, the planner's kernel choice forced)."""
     from qublas_tpu_torch.ops import gemm as G
 
     calls = []
@@ -478,7 +478,8 @@ def test_qgemul_calls_the_kernel_takes_k2s_names(k2s, monkeypatch):
             calls.append(_name)
             return _fn(*args)
         monkeypatch.setattr(G, name, spy)
-    monkeypatch.setattr(G, "takes_k2s", lambda *args: k2s)
+    monkeypatch.setattr(G, "tree_kernel", lambda plan, device_type: (
+        ("k2s", TT.k2s_plan(plan)) if k2s else ("k2", TT.k2_modes(plan))))
     a, b, plan = _case(F88Z, (), 37, seed=2, m=3, n=4)
     got = qt.qgemul(qt.QTensor(a, F88Z), qt.QTensor(b, F88Z), F88Z)
     assert calls == ["tree_gemm_stream" if k2s else "tree_gemm"]

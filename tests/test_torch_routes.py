@@ -238,3 +238,149 @@ def test_cmul_formats_match_cmul(case, no_host):
     except HostRoute:
         got = None
     assert got == want, case
+
+
+# ---------------------------------------------------------------------------
+# plan_qgemul: the one choice of tier that qgemul and its readers share
+# ---------------------------------------------------------------------------
+
+# the entry point that runs each tier of a 2-D CPU call
+TIER_ENTRY = {"host": "_host_gemm", "k1": "fused_int8_gemm",
+              "limb": "_fast_gemm_limb", "wide": "_fast_gemm_wide",
+              "hybrid": "tree_gemm_hybrid", "tree": "tree_gemm",
+              "stream": "_stream_gemm_wide", "layered": "_layered_gemm"}
+
+
+@pytest.mark.parametrize("case", GEMM_CASES, ids=[c[0] for c in GEMM_CASES])
+def test_plan_names_the_tier_qgemul_runs(case, monkeypatch):
+    """For each configuration, the tier of plan_qgemul is the one whose
+    entry point qgemul enters first."""
+    a, b, out, mul_to, add, full = _gemm_operands(case)
+    entered = []
+    for name in set(TIER_ENTRY.values()):
+        def spy(*args, _fn=getattr(G, name), _name=name, **kw):
+            entered.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(G, name, spy)
+    plan = G._plan_of(a, b, out, mul_to, add, full)
+    G.qgemul(a, b, out, mul_to, add, mul_full_prec=full)
+    assert entered[:1] == [TIER_ENTRY[plan.tier]], (case, plan.tier, entered)
+
+
+# the limb tier's configuration of test_torch_gemm's broadcast cases:
+# 15-bit products summed 5 at a time, beyond int32 and inside int64
+LIMB_CALL = (QFormat(15, 0), QFormat(40, 0), (QFormat(40, 0),), 5)
+
+
+def _limb_plan(m, n, batch):
+    f, wide, adds, k = LIMB_CALL
+    return G.plan_qgemul(f, f, "lane", "lane", f, wide, adds, False, m, k, n,
+                         batch)
+
+
+def test_plan_takes_the_limb_envelope_at_the_folded_rows():
+    """A batch against a shared b folds while the limb tier's digit
+    dots hold the folded rows, runs a call a matrix past that, and goes on
+    to the int64 tier past one matrix's envelope."""
+    from qublas_tpu_torch.ops import limbdot as D
+
+    f, _, _, k = LIMB_CALL
+    iv = G.fmt_interval(f)
+    digits = D.digits_needed(iv)
+    n = 64
+    row = digits * digits * -(-k // D._seg_len(k, digits)) * n
+    most = G._LIMBDOT_MAX_DOT_ELEMS // row     # rows of one call's envelope
+    folded = _limb_plan(most // 2, n, (2,))
+    assert (folded.tier, folded.fold) == ("limb", True)
+    per_matrix = _limb_plan(most // 2 + 1, n, (2,))
+    assert (per_matrix.tier, per_matrix.fold) == ("limb", False)
+    assert per_matrix.limbs == folded.limbs
+    assert _limb_plan(most, n, ()).tier == "limb"
+    past = _limb_plan(most + 1, n, (2,))
+    assert past.tier == "wide" and past.exact == folded.exact
+
+
+def test_k1_call_proves_no_later_tier(monkeypatch):
+    """A call that K1 takes runs exact_plan only: no envelope of the
+    limb tier, no hybrid or tree planner."""
+    case = next(c for c in GEMM_CASES if c[0] == "k1")
+    a, b, out, mul_to, add, full = _gemm_operands(case)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a later tier's proof ran")
+
+    for name in ("plan_hybrid", "plan_tree", "limb_dot_plan",
+                 "_wide_epilogue_ok"):
+        monkeypatch.setattr(G, name, refuse)
+    assert G._plan_of(a, b, out, mul_to, add, full).tier == "k1"
+    G.qgemul(a, b, out, mul_to, add, mul_full_prec=full)
+
+
+def _fmt_fields(f):
+    return (f.int_bits, f.frac_bits, f.signed, int(f.round_mode),
+            int(f.overflow_mode))
+
+
+def _crc(*vals):
+    import zlib
+    return zlib.crc32(repr(vals).encode())
+
+
+def _k1_draw(t):
+    from qublas_tpu_torch import fuzz as F
+
+    c = F.k1_case(t)
+    lut = c["lut"]
+    return _crc(c["kind"], _fmt_fields(c["fa"]), _fmt_fields(c["fb"]),
+                _fmt_fields(c["mul_to"]), tuple(map(_fmt_fields, c["layers"])),
+                _fmt_fields(c["out"]), c["plan"].prod_frac,
+                c["plan"].dot_interval.lo, c["plan"].dot_interval.hi,
+                c["A"].tolist(), c["B"].tolist(),
+                None if lut is None else (lut[0], _fmt_fields(lut[1])),
+                c["views"], c["batch"], c["trans"])
+
+
+def _limb_draw(t):
+    from qublas_tpu_torch import fuzz as F
+
+    c = F.limbwide_case(t)
+    if c is None:
+        return None
+    fa, fb, mul_to, layers, out, k, A, B = c
+    return _crc(_fmt_fields(fa), _fmt_fields(fb), _fmt_fields(mul_to),
+                tuple(map(_fmt_fields, layers)), _fmt_fields(out), k,
+                A.tolist(), B.tolist())
+
+
+# checksums of the configurations (formats, plan, shapes, raws, views) that
+# the fuzz's K1 generator and its limb trial drew for seeds 0-49 when they
+# aimed with the proofs themselves, before they read plan_qgemul
+K1_DRAWS = [
+    257849857, 3980400488, 3269315983, 1826858391, 1387057846, 4131137912,
+    4090201239, 2672092550, 2043257146, 4151174726, 1380478061, 3262761018,
+    2812557353, 1717554222, 2380725150, 3729610662, 780848549, 3320534964,
+    46672300, 2038275998, 464422277, 1484354829, 1445069898, 1028230371,
+    2790882881, 2117146843, 2800621536, 686005086, 120480715, 466262050,
+    3784622933, 2646760505, 3766604481, 3474979652, 3204025308, 4160207265,
+    446526661, 2119860982, 89630733, 1770988933, 3078727969, 3407513782,
+    3119979788, 2764835697, 1206300670, 2763413128, 335211012, 1656362559,
+    3375121068, 3380108415]
+LIMB_DRAWS = [
+    2701482030, 3134830561, 1665314370, 3408991909, 2317291488, 389680790,
+    1259089605, 3794652071, 2394118752, 1632231138, 2279509399, 71379393,
+    148704400, 1038949559, 2131560893, 1469901850, 2413342707, 2323416879,
+    465547308, 3029032414, 133941468, 3146465203, 1089515659, 2129219960,
+    3766923112, 60648613, 802276046, 3590892443, 2475963320, 3924451061,
+    2848916151, 518926885, 1111672180, 902231565, 621915918, 4023210499,
+    3336002994, 3305426098, 3443606005, 2148923950, 471847485, 735299720,
+    2225883, 750517770, 257717175, 2668260703, 3727927029, 1686535108,
+    3763602242, None]
+
+
+@pytest.mark.parametrize("gen", ["k1", "limb"])
+def test_fuzz_generators_draw_what_they_drew(gen):
+    """The fuzz's K1 generator and limb trial aim with plan_qgemul's
+    tier and draw, seed for seed, the configurations they drew before."""
+    draw, want = {"k1": (_k1_draw, K1_DRAWS),
+                  "limb": (_limb_draw, LIMB_DRAWS)}[gen]
+    assert [draw(t) for t in range(50)] == want
